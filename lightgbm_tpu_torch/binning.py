@@ -1,0 +1,392 @@
+"""Feature discretization: value -> bin mapping (host, numpy).
+
+The port's copy of the JAX package's ``binning.py`` numpy path: the
+greedy equal-count boundary search, the per-feature ``BinMapper``, sampled
+``bin_dataset``, dense and CSC ingestion, and the flat-array mapper
+encoding.  Mappers and bin matrices are byte-for-byte those of the JAX
+package (pinned by tests/test_torch_binning.py).  The JAX package's
+threaded C++ fast path (``native``) and forced bins are not ported yet.
+
+Conventions kept from the JAX package: bins are dense ``uint8``/``uint16``;
+the NaN bin, when present, is the LAST bin of a feature; categorical bins
+are ordered by descending category frequency, with rare/unseen/negative
+categories in the last bin.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from .utils.log import Log
+
+MISSING_NONE = 0
+MISSING_ZERO = 1
+MISSING_NAN = 2
+
+_KZERO_LO, _KZERO_HI = -1e-35, 1e-35  # reference uses kZeroThreshold = 1e-35
+
+
+@dataclasses.dataclass
+class BinMapper:
+    """Per-feature value->bin discretizer (reference ``bin.h:85``)."""
+
+    num_bins: int
+    missing_type: int
+    is_categorical: bool
+    # Numerical: inclusive upper bound of each *value* bin (excludes the NaN bin).
+    upper_bounds: Optional[np.ndarray] = None
+    # Categorical: category integer value per bin index.
+    categories: Optional[np.ndarray] = None
+    is_trivial: bool = False  # single-bin feature; carries no signal
+    default_bin: int = 0      # bin of value 0.0
+
+    @property
+    def has_nan_bin(self) -> bool:
+        return self.missing_type != MISSING_NONE
+
+    @property
+    def nan_bin(self) -> int:
+        return self.num_bins - 1 if self.has_nan_bin else -1
+
+    def value_to_bin(self, values: np.ndarray) -> np.ndarray:
+        """Vectorized ValueToBin (reference ``bin.h:173``)."""
+        v = np.asarray(values, dtype=np.float64)
+        if self.is_categorical:
+            cats = self.categories
+            # Map category value -> bin by table lookup; unseen/negative -> last bin.
+            out = np.full(v.shape, self.num_bins - 1, dtype=np.int32)
+            vi = np.where(np.isfinite(v), v, -1).astype(np.int64)
+            lut_size = int(cats.max()) + 1 if cats.size else 1
+            lut = np.full(lut_size, self.num_bins - 1, dtype=np.int32)
+            lut[cats] = np.arange(len(cats), dtype=np.int32)
+            in_range = (vi >= 0) & (vi < lut_size)
+            out[in_range] = lut[vi[in_range]]
+            return out
+        n_value_bins = self.num_bins - (1 if self.has_nan_bin else 0)
+        if self.missing_type == MISSING_ZERO:
+            v = np.where((v > _KZERO_LO) & (v < _KZERO_HI), np.nan, v)
+        # bin b holds values <= upper_bounds[b]; clip overflow into last value bin.
+        bins = np.searchsorted(self.upper_bounds[: n_value_bins - 1], v,
+                               side="left").astype(np.int32)
+        if self.has_nan_bin:
+            bins = np.where(np.isnan(v), self.nan_bin, bins)
+        else:
+            bins = np.where(np.isnan(v), 0, bins)
+        return bins
+
+
+def _greedy_find_boundaries(
+    distinct: np.ndarray,
+    counts: np.ndarray,
+    max_bins: int,
+    total_cnt: int,
+    min_data_in_bin: int,
+) -> List[float]:
+    """Greedy equal-count boundary search (reference ``bin.cpp`` GreedyFindBin).
+
+    Walks distinct values accumulating counts; closes a bin once it holds at least
+    ``max(mean_size, min_data_in_bin)`` samples, re-estimating the mean from the
+    remainder.  Heavy hitters (count >= mean) always get their own bin.
+    """
+    n = len(distinct)
+    if n == 0:
+        return [np.inf]
+    if n <= max_bins:
+        # Every distinct value gets a bin; boundary = midpoint to next value.
+        bounds = [(distinct[i] + distinct[i + 1]) / 2.0 for i in range(n - 1)]
+        bounds.append(np.inf)
+        return bounds
+    bounds: List[float] = []
+    rest_cnt = total_cnt
+    rest_bins = max_bins
+    cur = 0
+    i = 0
+    while i < n:
+        mean_size = rest_cnt / max(rest_bins, 1)
+        target = max(mean_size, float(min_data_in_bin))
+        cur += counts[i]
+        rest_cnt -= counts[i]
+        # Close the bin if full, or if the remaining values just fit remaining bins.
+        if cur >= target or (n - i - 1) <= (rest_bins - 1 - len(bounds) - 1):
+            if i + 1 < n:
+                bounds.append((distinct[i] + distinct[i + 1]) / 2.0)
+            cur = 0
+            rest_bins -= 1
+            if len(bounds) >= max_bins - 1:
+                break
+        i += 1
+    bounds.append(np.inf)
+    return bounds
+
+
+def find_bin(
+    sample_values: np.ndarray,
+    max_bin: int,
+    min_data_in_bin: int = 3,
+    *,
+    is_categorical: bool = False,
+    use_missing: bool = True,
+    zero_as_missing: bool = False,
+    min_data_per_category: int = 1,
+) -> BinMapper:
+    """Construct a :class:`BinMapper` from sampled values (reference ``FindBin``)."""
+    v = np.asarray(sample_values, dtype=np.float64).ravel()
+    na_mask = np.isnan(v)
+    if zero_as_missing:
+        na_mask = na_mask | ((v > _KZERO_LO) & (v < _KZERO_HI))
+    num_na = int(na_mask.sum())
+    vv = v[~na_mask]
+
+    if is_categorical:
+        cats_f = vv[vv >= 0]
+        cats, counts = np.unique(cats_f.astype(np.int64), return_counts=True)
+        order = np.argsort(-counts, kind="stable")
+        cats, counts = cats[order], counts[order]
+        keep = counts >= min_data_per_category
+        if keep.any():
+            cats, counts = cats[keep], counts[keep]
+        cats = cats[: max_bin - 1] if len(cats) >= max_bin else cats
+        num_bins = len(cats) + 1  # final bin: rare/unseen/missing
+        if num_bins < 2:
+            return BinMapper(num_bins=1, missing_type=MISSING_NONE,
+                             is_categorical=True, categories=cats.astype(np.int64),
+                             is_trivial=True)
+        return BinMapper(
+            num_bins=num_bins,
+            missing_type=MISSING_NAN if (use_missing and num_na > 0) else MISSING_NONE,
+            is_categorical=True,
+            categories=cats.astype(np.int64),
+        )
+
+    missing_type = MISSING_NONE
+    if use_missing and zero_as_missing and num_na > 0:
+        missing_type = MISSING_ZERO
+    elif use_missing and num_na > 0:
+        missing_type = MISSING_NAN
+
+    has_nan_bin = missing_type != MISSING_NONE
+    max_value_bins = max_bin - (1 if has_nan_bin else 0)
+    distinct, counts = np.unique(vv, return_counts=True)
+    bounds = _greedy_find_boundaries(distinct, counts, max_value_bins,
+                                     len(vv), min_data_in_bin)
+    num_bins = len(bounds) + (1 if has_nan_bin else 0)
+    trivial = num_bins <= 1 or (len(distinct) <= 1 and not has_nan_bin)
+    ub = np.asarray(bounds, dtype=np.float64)
+    default_bin = int(np.searchsorted(ub[:-1], 0.0, side="left")) if len(ub) else 0
+    return BinMapper(
+        num_bins=max(num_bins, 1),
+        missing_type=missing_type,
+        is_categorical=False,
+        upper_bounds=ub,
+        is_trivial=trivial,
+        default_bin=default_bin,
+    )
+
+
+def _is_sparse(X) -> bool:
+    return hasattr(X, "tocsc") and hasattr(X, "tocsr")
+
+
+def bin_dataset(
+    X: np.ndarray,
+    max_bin: int = 255,
+    min_data_in_bin: int = 3,
+    categorical_features: Sequence[int] = (),
+    *,
+    use_missing: bool = True,
+    zero_as_missing: bool = False,
+    sample_cnt: int = 200000,
+    random_state: int = 1,
+) -> "BinnedData":
+    """Bin a full feature matrix: bin boundaries come from a row subsample
+    (reference ``DatasetLoader::SampleTextDataFromFile``), then the full
+    matrix is discretized.  scipy sparse inputs are binned column-wise
+    straight from CSC, never densified."""
+    sparse = _is_sparse(X)
+    if not sparse:
+        X = np.asarray(X)
+    n, f = X.shape
+    if n > sample_cnt:
+        rng = np.random.RandomState(random_state)
+        idx = rng.choice(n, size=sample_cnt, replace=False)
+        sample = X[idx] if not sparse else X.tocsr()[np.sort(idx)]
+    else:
+        sample = X
+    if sparse:
+        sample = sample.tocsc()
+    cat_set = set(int(c) for c in categorical_features)
+    mappers: List[BinMapper] = []
+    s = sample.shape[0]
+    all_nan_cols: List[int] = []
+    for j in range(f):
+        if sparse:
+            nz = np.asarray(sample.data[sample.indptr[j]:
+                                        sample.indptr[j + 1]], np.float64)
+            col = np.zeros(s, np.float64)
+            col[: len(nz)] = nz       # find_bin is order-invariant
+        else:
+            col = sample[:, j]
+        if (j not in cat_set and s
+                and bool(np.isnan(np.asarray(col, np.float64)).all())):
+            all_nan_cols.append(j)
+        mappers.append(find_bin(
+            col, max_bin, min_data_in_bin, is_categorical=(j in cat_set),
+            use_missing=use_missing, zero_as_missing=zero_as_missing))
+    const_cols = [j for j, m in enumerate(mappers)
+                  if m.is_trivial and j not in all_nan_cols]
+    if all_nan_cols:
+        Log.warning(
+            f"{len(all_nan_cols)} feature column(s) are entirely NaN "
+            f"in the binning sample (e.g. {all_nan_cols[:8]}); they "
+            "can never split")
+    if const_cols:
+        Log.warning(
+            f"{len(const_cols)} feature column(s) are constant "
+            f"(e.g. {const_cols[:8]}); they can never split")
+    return BinnedData.from_mappers(X, mappers)
+
+
+def _bin_sparse_matrix(X, mappers: List[BinMapper], dtype) -> np.ndarray:
+    """Bin a scipy sparse matrix column-wise without densifying: every
+    column starts at its zero-value bin, then only the nonzeros are
+    discretized and scattered.  Peak extra memory is O(nnz)."""
+    csc = X.tocsc()
+    n, f = csc.shape
+    out = np.empty((n, f), dtype=dtype)
+    zero = np.zeros(1, np.float64)
+    for j, m in enumerate(mappers):
+        out[:, j] = m.value_to_bin(zero)[0]
+        lo, hi = csc.indptr[j], csc.indptr[j + 1]
+        if hi > lo:
+            out[csc.indices[lo:hi], j] = m.value_to_bin(
+                np.asarray(csc.data[lo:hi], np.float64)).astype(dtype)
+    return out
+
+
+def _bin_full_matrix(X, mappers: List[BinMapper], dtype) -> np.ndarray:
+    """Bin every column with its mapper (dense or CSC input)."""
+    if _is_sparse(X):
+        return _bin_sparse_matrix(X, mappers, dtype)
+    X = np.asarray(X)
+    n, f = X.shape
+    out = np.empty((n, f), dtype=dtype)
+    for j, m in enumerate(mappers):
+        out[:, j] = m.value_to_bin(X[:, j]).astype(dtype)
+    return out
+
+
+@dataclasses.dataclass
+class BinnedData:
+    """Dense binned matrix + per-feature metadata."""
+
+    bins: np.ndarray                 # (N, F) uint8/uint16
+    mappers: List[BinMapper]
+    max_num_bins: int                # B: padded bin axis
+    upper_bounds_padded: np.ndarray  # (F, B) f32: threshold per (feature, bin)
+    nan_bins: np.ndarray             # (F,) int32: NaN bin index or B (none)
+    num_bins_per_feature: np.ndarray  # (F,) int32
+    is_categorical: np.ndarray       # (F,) bool
+
+    @classmethod
+    def from_mappers(cls, X: np.ndarray, mappers: List[BinMapper]) -> "BinnedData":
+        return cls.from_prebinned(
+            _bin_full_matrix(X, mappers, bins_dtype(mappers)), mappers)
+
+    @classmethod
+    def from_prebinned(cls, bins: np.ndarray,
+                       mappers: List[BinMapper]) -> "BinnedData":
+        """Wrap an already-binned matrix (or an empty (0, F) one, as a
+        model carried across without its training rows does)."""
+        f = len(mappers)
+        max_b = max(max(m.num_bins for m in mappers), 2)
+        ub = np.full((f, max_b), np.inf, dtype=np.float32)
+        nan_bins = np.full(f, max_b, dtype=np.int32)
+        nbpf = np.empty(f, dtype=np.int32)
+        is_cat = np.zeros(f, dtype=bool)
+        for j, m in enumerate(mappers):
+            nbpf[j] = m.num_bins
+            is_cat[j] = m.is_categorical
+            if m.is_categorical:
+                ub[j, : m.num_bins] = np.arange(m.num_bins, dtype=np.float32)
+            elif m.upper_bounds is not None:
+                k = len(m.upper_bounds)
+                ub[j, :k] = m.upper_bounds.astype(np.float32)
+            if m.has_nan_bin:
+                nan_bins[j] = m.nan_bin
+        return cls(
+            bins=bins, mappers=mappers, max_num_bins=max_b,
+            upper_bounds_padded=ub, nan_bins=nan_bins,
+            num_bins_per_feature=nbpf, is_categorical=is_cat,
+        )
+
+    @property
+    def num_features(self) -> int:
+        return self.bins.shape[1]
+
+    def apply(self, X) -> np.ndarray:
+        """Bin new data with these mappers (dense arrays or scipy sparse,
+        the latter straight from CSC)."""
+        if _is_sparse(X):
+            return _bin_sparse_matrix(X, self.mappers, self.bins.dtype)
+        return _bin_full_matrix(np.asarray(X), self.mappers, self.bins.dtype)
+
+
+def bins_dtype(mappers: List[BinMapper]):
+    """Storage dtype of a bin matrix for these mappers."""
+    max_b = max(max(m.num_bins for m in mappers), 2)
+    return np.uint8 if max_b <= 256 else np.uint16
+
+
+def mappers_to_arrays(mappers: List[BinMapper]) -> dict:
+    """Flatten per-feature mappers into fixed arrays (the JAX package's
+    binary-cache encoding; also the form a model is carried across in)."""
+    f = len(mappers)
+    num_bins = np.array([m.num_bins for m in mappers], np.int32)
+    missing = np.array([m.missing_type for m in mappers], np.int32)
+    is_cat = np.array([m.is_categorical for m in mappers], bool)
+    trivial = np.array([m.is_trivial for m in mappers], bool)
+    default_bin = np.array([m.default_bin for m in mappers], np.int32)
+    ub_flat, ub_off = [], [0]
+    cat_flat, cat_off = [], [0]
+    for m in mappers:
+        ub = m.upper_bounds if m.upper_bounds is not None else np.zeros(0)
+        ub_flat.append(np.asarray(ub, np.float64))
+        ub_off.append(ub_off[-1] + len(ub))
+        cats = m.categories if m.categories is not None else np.zeros(0, np.int64)
+        cat_flat.append(np.asarray(cats, np.int64))
+        cat_off.append(cat_off[-1] + len(cats))
+    return {
+        "mapper_num_bins": num_bins, "mapper_missing": missing,
+        "mapper_is_cat": is_cat, "mapper_trivial": trivial,
+        "mapper_default_bin": default_bin,
+        "mapper_ub": np.concatenate(ub_flat) if f else np.zeros(0),
+        "mapper_ub_off": np.array(ub_off, np.int64),
+        "mapper_cats": np.concatenate(cat_flat) if f else np.zeros(0, np.int64),
+        "mapper_cat_off": np.array(cat_off, np.int64),
+    }
+
+
+def mappers_from_arrays(d: dict) -> List[BinMapper]:
+    d = {k: np.asarray(d[k]) for k in (
+        "mapper_num_bins", "mapper_missing", "mapper_is_cat",
+        "mapper_trivial", "mapper_default_bin", "mapper_ub",
+        "mapper_ub_off", "mapper_cats", "mapper_cat_off")}
+    f = len(d["mapper_num_bins"])
+    out: List[BinMapper] = []
+    for j in range(f):
+        is_cat = bool(d["mapper_is_cat"][j])
+        lo, hi = int(d["mapper_ub_off"][j]), int(d["mapper_ub_off"][j + 1])
+        clo, chi = int(d["mapper_cat_off"][j]), int(d["mapper_cat_off"][j + 1])
+        out.append(BinMapper(
+            num_bins=int(d["mapper_num_bins"][j]),
+            missing_type=int(d["mapper_missing"][j]),
+            is_categorical=is_cat,
+            upper_bounds=None if is_cat else d["mapper_ub"][lo:hi],
+            categories=d["mapper_cats"][clo:chi] if is_cat else None,
+            is_trivial=bool(d["mapper_trivial"][j]),
+            default_bin=int(d["mapper_default_bin"][j]),
+        ))
+    return out

@@ -1,0 +1,205 @@
+"""Host tree model, the quantized serving pack, and the plain PyTorch walk.
+
+The port's copy of the serving half of the JAX package's
+``models/tree.py``: the host ``Tree`` fields serving reads, the quantized
+pack (``quantize_stack_trees``: int16 node arrays, bit-packed categorical
+masks, int16/int8 leaf quanta with one per-class scale), and the plain
+version of the traversal kernel (``_tree_walk_q`` / ``_ensemble_sum_q``).
+On a CUDA tensor ``forest_scores_quantized`` goes through the hand-written
+kernel (``ops/traverse.py``); on a CPU tensor through the plain walk here.
+
+Only leaf VALUES quantize; routing decisions stay exact (bins and split
+thresholds are integers in bin space).  Leaf quanta accumulate in int32,
+which is associative, so every traversal order over the same pack gives
+the same integers — the kernel, this walk and the JAX package agree bit
+for bit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class Tree:
+    """One fitted decision tree (the host fields serving reads)."""
+
+    split_feature: np.ndarray    # (M,) i32
+    split_bin: np.ndarray        # (M,) i32
+    default_left: np.ndarray     # (M,) bool
+    is_cat: np.ndarray           # (M,) bool
+    cat_mask: np.ndarray         # (M, B) bool — bins routed left
+    left_child: np.ndarray       # (M,) i32 (negative = ~leaf)
+    right_child: np.ndarray      # (M,) i32
+    leaf_value: np.ndarray       # (L,) f64
+    num_leaves: int
+
+    def num_splits(self) -> int:
+        return max(self.num_leaves - 1, 0)
+
+
+#: quantize mode -> (leaf dtype, max quantum)
+QUANT_BITS = {"int16": (np.int16, 32767), "int8": (np.int8, 127)}
+
+#: node-array width: every index (feature, bin, child, leaf) must fit i16
+QUANT_INDEX_MAX = 32767
+
+_QPACK_ARRAYS = ("split_feature", "split_bin", "default_left", "is_cat",
+                 "cat_bits", "left_child", "right_child", "leaf_q")
+
+
+def tree_max_depth(left_child: np.ndarray, right_child: np.ndarray) -> int:
+    """Longest root->leaf hop count of one tree's child arrays."""
+    if len(left_child) == 0:
+        return 1
+    depth = 1
+    stack = [(0, 1)]
+    while stack:
+        node, d = stack.pop()
+        depth = max(depth, d)
+        for nxt in (int(left_child[node]), int(right_child[node])):
+            if nxt >= 0:
+                stack.append((nxt, d + 1))
+    return depth
+
+
+def quantize_stack_trees(trees: List[Tree], max_leaves: int, num_bins: int,
+                         mode: str, device="cpu"):
+    """Stack per-tree arrays into the quantized serving pack, as tensors on
+    ``device``: i16 node arrays, bit-packed categorical masks, int8/int16
+    leaf quanta with ONE scale.  Returns None when the shape exceeds the
+    narrow encodings.
+
+    Degenerate trees (num_leaves <= 1) are encoded with sentinel children
+    ``-1`` at split row 0, routing every row to leaf 0."""
+    leaf_dt, qmax = QUANT_BITS[mode]
+    if (max_leaves > QUANT_INDEX_MAX or num_bins > QUANT_INDEX_MAX
+            or any(int(tr.split_feature.max(initial=0)) > QUANT_INDEX_MAX
+                   for tr in trees)):
+        return None
+    t = len(trees)
+    m = max(max_leaves - 1, 1)
+    bb = -(-num_bins // 8)                  # bit-packed cat-mask bytes
+    max_abs = max((float(np.abs(tr.leaf_value).max(initial=0.0))
+                   for tr in trees), default=0.0)
+    scale = (max_abs / qmax) if max_abs > 0 else 1.0
+    out = {
+        "split_feature": np.zeros((t, m), np.int16),
+        "split_bin": np.zeros((t, m), np.int16),
+        "default_left": np.zeros((t, m), bool),
+        "is_cat": np.zeros((t, m), bool),
+        "cat_bits": np.zeros((t, m, bb), np.uint8),
+        "left_child": np.zeros((t, m), np.int16),
+        "right_child": np.zeros((t, m), np.int16),
+        "leaf_q": np.zeros((t, max_leaves), leaf_dt),
+    }
+    depth = 1
+    for i, tr in enumerate(trees):
+        k = tr.num_splits()
+        if k == 0:
+            out["left_child"][i, 0] = -1     # sentinel: everything -> leaf 0
+            out["right_child"][i, 0] = -1
+        else:
+            out["split_feature"][i, :k] = tr.split_feature
+            out["split_bin"][i, :k] = tr.split_bin
+            out["default_left"][i, :k] = tr.default_left
+            out["is_cat"][i, :k] = tr.is_cat
+            packed = np.packbits(tr.cat_mask, axis=1, bitorder="little")
+            out["cat_bits"][i, :k, : packed.shape[1]] = packed
+            out["left_child"][i, :k] = tr.left_child
+            out["right_child"][i, :k] = tr.right_child
+            depth = max(depth,
+                        tree_max_depth(tr.left_child, tr.right_child))
+        if tr.num_leaves:
+            q = np.clip(np.rint(tr.leaf_value[: tr.num_leaves] / scale),
+                        -qmax, qmax)
+            out["leaf_q"][i, : tr.num_leaves] = q.astype(leaf_dt)
+    pack = {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+    # host metadata, never device operands
+    pack["scale"] = float(scale)
+    pack["bits"] = 8 if mode == "int8" else 16
+    pack["depth"] = int(depth)
+    pack["num_bins"] = int(num_bins)
+    return pack
+
+
+def quantize_error_bound(pack) -> float:
+    """Worst-case |quantized - fp32| raw-score gap for one class: each
+    tree's leaf rounds by at most scale/2."""
+    t = int(pack["leaf_q"].shape[0])
+    return t * pack["scale"] * 0.5
+
+
+def pack_nbytes(pack) -> int:
+    """Device bytes of one pack's arrays."""
+    return sum(pack[k].numel() * pack[k].element_size() for k in _QPACK_ARRAYS)
+
+
+def _tree_walk_q(tree: dict, bins: torch.Tensor,
+                 nan_bins: torch.Tensor) -> torch.Tensor:
+    """Single-tree traversal over one quantized pack slice -> (N,) int32
+    leaf quanta (the plain version of the CUDA kernel's walk).  Decision
+    logic, op for op as in the JAX package:
+
+    - a categorical node goes left iff bit ``col & 7`` of
+      ``cat_bits[node, min(col >> 3, bb - 1)]`` is set;
+    - otherwise the NaN bin follows ``default_left``;
+    - otherwise the row goes left iff ``col <= split_bin``;
+    - a child < 0 is leaf ``~child``."""
+    n = bins.shape[0]
+    bb = tree["cat_bits"].shape[1]
+    rows = torch.arange(n, device=bins.device)
+    node = torch.zeros(n, dtype=torch.int32, device=bins.device)
+    done = torch.zeros(n, dtype=torch.bool, device=bins.device)
+    while not bool(done.all()):
+        cur = torch.where(done, 0, node).long()     # finished rows idle at 0
+        f = tree["split_feature"][cur].long()
+        col = bins[rows, f].to(torch.int32)
+        isnan = col == nan_bins[f]
+        iscat = tree["is_cat"][cur]
+        byte = tree["cat_bits"][cur, torch.clamp(col >> 3, max=bb - 1).long()]
+        catbit = ((byte.to(torch.int32) >> (col & 7)) & 1) > 0
+        gl = torch.where(iscat, catbit,
+                         col <= tree["split_bin"][cur].to(torch.int32))
+        gl = torch.where(isnan & ~iscat, tree["default_left"][cur], gl)
+        nxt = torch.where(gl, tree["left_child"][cur],
+                          tree["right_child"][cur]).to(torch.int32)
+        is_leaf = nxt < 0
+        node = torch.where(is_leaf | done, node, nxt)
+        node = torch.where(is_leaf & ~done, nxt, node)
+        done = done | is_leaf
+    leaf_idx = torch.where(node < 0, ~node, 0).long()
+    return tree["leaf_q"][leaf_idx].to(torch.int32)
+
+
+def _ensemble_sum_q(pack: dict, bins: torch.Tensor,
+                    nan_bins: torch.Tensor) -> torch.Tensor:
+    """(N,) int32 sum of leaf quanta across the stacked pack, tree by tree
+    (int32 addition is associative: any order gives these integers)."""
+    acc = torch.zeros(bins.shape[0], dtype=torch.int32, device=bins.device)
+    for t in range(int(pack["leaf_q"].shape[0])):
+        acc += _tree_walk_q({k: pack[k][t] for k in _QPACK_ARRAYS},
+                            bins, nan_bins)
+    return acc
+
+
+def forest_scores_quantized(packs_by_class, bins: torch.Tensor,
+                            nan_bins: torch.Tensor) -> torch.Tensor:
+    """(N, K) f32 per-class scores from quantized packs: int32 quanta sums
+    (the CUDA traversal kernel on the card, the plain walk on the host)
+    followed by ONE dequantizing multiply per class, in float32."""
+    from ..ops.traverse import fused_class_sums
+    cols = []
+    for pack in packs_by_class:
+        if pack is None:
+            cols.append(torch.zeros(bins.shape[0], dtype=torch.float32,
+                                    device=bins.device))
+            continue
+        acc = fused_class_sums(pack, bins, nan_bins)
+        scale = torch.tensor(np.float32(pack["scale"]), device=bins.device)
+        cols.append(acc.to(torch.float32) * scale)
+    return torch.stack(cols, dim=1)

@@ -1,0 +1,108 @@
+"""Port parity: host binning (lightgbm_tpu_torch/binning.py) against the JAX
+package's binning.py — mappers byte for byte (in the flat-array encoding a
+model is carried across in) and bin matrices equal, dtype included.
+
+The JAX package is imported inside the tests, never at module level, so the
+file also collects on the card, where only the port is installed."""
+
+import numpy as np
+import pytest
+
+from torch_port_util import higgs_like, messy_data
+
+from lightgbm_tpu_torch import binning as tb
+
+
+def _datasets():
+    rng = np.random.RandomState(3)
+    zeros = rng.randn(900, 4)
+    zeros[rng.rand(900, 4) < 0.3] = 0.0
+    zeros[rng.rand(900, 4) < 0.05] = np.nan
+    const = np.column_stack([np.ones(300), rng.randn(300),
+                             np.full(300, np.nan)])
+    heavy = np.round(rng.randn(2000, 3) * 3)          # heavy hitters
+    return {
+        "messy": (messy_data()[0], {"categorical_features": [4]}),
+        "higgs": (higgs_like(3000, 8)[0], {}),
+        "higgs_sampled": (higgs_like(3000, 5, seed=1)[0],
+                          {"sample_cnt": 700, "random_state": 7}),
+        "zero_as_missing": (zeros, {"zero_as_missing": True}),
+        "no_missing": (zeros, {"use_missing": False}),
+        "constant_and_all_nan": (const, {}),
+        "heavy_hitters_small_max_bin": (heavy, {"max_bin": 15,
+                                                "min_data_in_bin": 20}),
+    }
+
+
+_DATA = _datasets()
+
+
+def _jax_binning():
+    return pytest.importorskip("lightgbm_tpu.binning")
+
+
+def _assert_same_mappers(jmappers, tmappers, jb):
+    ja, ta = jb.mappers_to_arrays(jmappers), tb.mappers_to_arrays(tmappers)
+    assert sorted(ja) == sorted(ta)
+    for k in ja:
+        assert ja[k].dtype == ta[k].dtype, k
+        assert ja[k].shape == ta[k].shape, k
+        assert ja[k].tobytes() == ta[k].tobytes(), k
+
+
+@pytest.mark.parametrize("name", sorted(_DATA))
+def test_bin_dataset_matches_jax(name):
+    jb = _jax_binning()
+    X, kw = _DATA[name]
+    kw = {"max_bin": 255, **kw}
+    j = jb.bin_dataset(X, **kw)
+    t = tb.bin_dataset(X, **kw)
+    _assert_same_mappers(j.mappers, t.mappers, jb)
+    assert j.bins.dtype == t.bins.dtype
+    np.testing.assert_array_equal(j.bins, t.bins)
+    np.testing.assert_array_equal(j.nan_bins, t.nan_bins)
+    assert j.max_num_bins == t.max_num_bins
+    np.testing.assert_array_equal(j.upper_bounds_padded,
+                                  t.upper_bounds_padded)
+
+
+def test_sparse_ingestion_matches_jax():
+    sp = pytest.importorskip("scipy.sparse")
+    jb = _jax_binning()
+    rng = np.random.RandomState(5)
+    X = rng.randn(800, 6) * (rng.rand(800, 6) < 0.3)
+    j = jb.bin_dataset(sp.csr_matrix(X), 63)
+    t = tb.bin_dataset(sp.csr_matrix(X), 63)
+    _assert_same_mappers(j.mappers, t.mappers, jb)
+    np.testing.assert_array_equal(j.bins, t.bins)
+    # applying the mappers to new sparse rows: the CSC path
+    Xn = sp.csr_matrix(rng.randn(50, 6) * (rng.rand(50, 6) < 0.5))
+    np.testing.assert_array_equal(j.apply(Xn), t.apply(Xn))
+
+
+def test_apply_edge_values_matches_jax():
+    """New rows with NaN, +-0.0, bound values, +-inf and out-of-vocabulary
+    categories bin identically (JAX's native fast path vs the port's numpy
+    path)."""
+    jb = _jax_binning()
+    X, kw = _DATA["messy"]
+    j = jb.bin_dataset(X, 255, **kw)
+    t = tb.bin_dataset(X, 255, **kw)
+    ub = t.mappers[0].upper_bounds
+    rows = np.zeros((12, X.shape[1]))
+    rows[:, 0] = [np.nan, 0.0, -0.0, ub[0], ub[3], ub[-2], np.inf, -np.inf,
+                  1e300, -1e300, ub[5] + 1e-12, ub[5] - 1e-12]
+    rows[:, 4] = [np.nan, 3.7, -0.5, -3.0, 777.0, 2.0 ** 31 + 5, 1e300,
+                  np.inf, 8.0, 0.0, -0.0, 2.0]
+    with np.errstate(invalid="ignore"):
+        np.testing.assert_array_equal(j.apply(rows), t.apply(rows))
+
+
+def test_mapper_arrays_round_trip():
+    """The flat encoding decodes into the same mappers in both packages."""
+    jb = _jax_binning()
+    X, kw = _DATA["messy"]
+    arrays = jb.mappers_to_arrays(jb.bin_dataset(X, 255, **kw).mappers)
+    back = tb.mappers_to_arrays(tb.mappers_from_arrays(arrays))
+    for k in arrays:
+        assert arrays[k].tobytes() == back[k].tobytes(), k

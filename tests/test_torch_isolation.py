@@ -1,0 +1,101 @@
+"""The port stands alone: ``lightgbm_tpu_torch`` and ``chip_smoke.py``
+import torch and never jax or anything of the JAX package (lightgbm_tpu),
+and chip_smoke.py refuses to run without a CUDA device."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "lightgbm_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "lightgbm_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    return env
+
+
+def test_importing_every_port_module_loads_no_jax():
+    code = (
+        "import pkgutil, sys\n"
+        "import lightgbm_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    __import__(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('BAD', bad)\n"
+        "print('N', sum(m.startswith('lightgbm_tpu_torch') "
+        "for m in sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    n = int(out.stdout.split("N ")[1].split()[0])
+    assert n >= 15
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_import_statement(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(_forbidden(n) for n in names), (path, names)
+
+
+def test_chip_smoke_help_and_refusal_without_cuda(tmp_path):
+    """--help works anywhere; without a card the script exits non-zero and
+    prints no ok line, also from a directory holding only the script."""
+    script = ROOT / "chip_smoke.py"
+    helped = subprocess.run([sys.executable, str(script), "--help"],
+                            env=_env(), capture_output=True, text=True,
+                            timeout=120)
+    assert helped.returncode == 0 and "--seed" in helped.stdout
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text(script.read_text())
+    for cwd, path in ((ROOT, script), (tmp_path, alone)):
+        env = _env()
+        if cwd == tmp_path:
+            env.pop("PYTHONPATH")
+        run = subprocess.run([sys.executable, str(path)], cwd=str(cwd),
+                             env=env, capture_output=True, text=True,
+                             timeout=120)
+        assert run.returncode != 0
+        assert '"ok"' not in run.stdout
+
+
+def test_chip_smoke_helpers_import_without_cuda():
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.remove(str(ROOT))
+    import numpy as np
+    X, y = cs.make_higgs_like(100, 4, 0)
+    assert X.shape == (100, 4) and X.dtype == np.float32
+    tree = cs.random_tree(np.random.RandomState(0), 9, np.full(4, 10),
+                          {1}, 16)
+    assert (tree["left_child"] < 0).sum() + (tree["right_child"] < 0).sum() \
+        == 9
