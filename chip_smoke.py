@@ -3,25 +3,53 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's main path — quantized serving through the hand-written
-CUDA traversal kernel — at the full width of the bench's headline ensemble
-(binary, 28 features, max_bin 255, 500 trees of 255 leaves; weights random
-from the seed), and holds every result against an independent reference:
+Drives the port's two main paths at full width and holds every kernel
+against its plain PyTorch version and every result against an
+independent reference.
+
+Serving (slice 1) — quantized serving through the hand-written CUDA
+traversal kernel at the width of the bench's headline ensemble (binary,
+28 features, max_bin 255, 500 trees of 255 leaves; weights random from
+the seed):
 
 1. device: the card, its power limit and the CUDA version;
-2. build: the kernels, built with nvcc from ops/csrc (seconds, and the
-   ptxas register / shared-memory report);
+2. build: the kernels, built with nvcc from ops/csrc, one nvcc per source
+   in parallel (seconds, and the ptxas register / shared-memory report);
 3. model: a higgs-like matrix binned by the port, 500 random trees, int16
    and int8 packs; and a small categorical model;
-4. kernel vs its plain PyTorch version on the card, bitwise, for both
-   models and both packs at N in {1, 33, 4096, 65536};
+4. traversal kernel vs its plain version, bitwise, for both models and
+   both packs at N in {1, 33, 4096, 65536};
 5. device binning vs the port's host binning, bitwise, on 65,536 rows with
    NaN, zero-as-missing and categorical edge values;
 6. serving: Predictor requests of 1, 7, 256, 4096 and 65,536 rows, each
    equal bit for bit to a vectorized numpy walk of the same pack, one
    transformed request within 1e-6 of the float32 sigmoid, and exactly one
    kernel launch per request;
-7. timing: kernel and plain-version times with CUDA events, and the bound.
+7. timing: traversal kernel and plain-version times with CUDA events.
+
+Training (slice 2) — binary GBDT through the hand-written CUDA histogram
+and fused-wave kernels:
+
+8. histogram kernel vs its plain version: bitwise on exact-sum values
+   (+-0.5, 0.25, 1) at N in {1, 1,000, 200,000} x 28 features x 255 bins
+   with NaN bins; run-to-run bitwise and within 1e-5 relative on random
+   values;
+9. wave kernel vs its plain version at W in {1, 16} with inactive slots
+   and smaller siblings of 1 to 100,000 rows: child histograms and split
+   payloads bitwise on exact-sum values, run-to-run bitwise on random
+   values;
+10. training: tests/fixtures/bench_auc.json's config (255 leaves, 100
+    iterations) plus tpu_leaf_batch 16 on make_higgs_like(250,000, 28,
+    seed 0) through ``lightgbm_tpu_torch.train``; holdout AUC within 1e-3
+    of genuine LightGBM's, seconds per iteration (binning and boosting)
+    and each kernel's launches per iteration;
+11. determinism: two 10-iteration runs give equal model text;
+12. serving the trained model: ``Booster.serving_predictor(quantize=
+    "int16")`` on 65,536 holdout rows within the pack's error bound of
+    ``Booster.predict(raw_score=True)``;
+13. timing: histogram kernel at N = 200,000 and 10,500,000, wave kernel
+    at a wave of 16 smaller siblings of 12,500 rows, plain versions, the
+    index_add_ yardstick, and each bound.
 
 Each phase prints one JSON line; any mismatch raises, so the process exits
 non-zero without the final ``{"ok": true, ...}`` line.  Exits non-zero when
@@ -44,6 +72,18 @@ SCALAR_OPS_PER_S = 67e12      # H100 SXM non-tensor 32-bit rate (data sheet)
 TRAVERSE_REPLACES = ("lightgbm_tpu/ops/pallas_traverse.py:179 "
                      "(fused_traverse_call)")
 TRAVERSE_SOURCE = "lightgbm_tpu_torch/ops/csrc/traverse.cu"
+HIST_REPLACES = "lightgbm_tpu/ops/pallas_histogram.py:166 (histogram_flat)"
+HIST_SOURCE = "lightgbm_tpu_torch/ops/csrc/histogram.cu"
+WAVE_REPLACES = "lightgbm_tpu/ops/pallas_wave.py:331 (fused_wave_call)"
+WAVE_SOURCE = "lightgbm_tpu_torch/ops/csrc/wave.cu"
+BENCH_FIXTURE = os.path.join("tests", "fixtures", "bench_auc.json")
+#: scan work per candidate (two child gains, validity, the compare): an
+#: estimate of the float32 operations the wave kernel's scan stage needs
+SCAN_OPS_PER_CANDIDATE = 40
+#: timing shapes: the bench's training rows and the Higgs row count; a
+#: wave of 16 smaller siblings of 12,500 rows
+HIST_TIMING_ROWS = (200_000, 10_500_000)
+WAVE_TIMING_SIZES = (12_500,) * 16
 
 
 # --------------------------------------------------------------- data, model
@@ -241,6 +281,339 @@ def request_breakdown(pred, X, rng, n=65_536, repeats=5):
     return {"rows": n, **{k: float(np.median(v)) for k, v in steps.items()}}
 
 
+# ------------------------------------------------------- training kernels
+def device_bins(gen, n, f, b, dev, nan_frac=0.05):
+    """(n, f) uint8 bins on the card; every other feature has a NaN bin
+    (b - 1) that ``nan_frac`` of its rows fall in."""
+    import torch
+    bins = torch.randint(0, b - 1, (n, f), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    nan = (torch.rand(n, f, generator=gen, device=dev) < nan_frac)
+    nan[:, 1::2] = False
+    return torch.where(nan, torch.full_like(bins, b - 1), bins)
+
+
+def device_vals(gen, n, dev, exact):
+    """(n, 3) float32 [grad, hess, 1]: exact sums (+-0.5, 0.25) or random."""
+    import torch
+    if exact:
+        g = torch.randint(0, 2, (n,), generator=gen, device=dev).float() - 0.5
+        h = torch.full((n,), 0.25, device=dev)
+    else:
+        g = torch.randn(n, generator=gen, device=dev)
+        h = torch.rand(n, generator=gen, device=dev) + 0.05
+    return torch.stack([g, h, torch.ones(n, device=dev)], dim=1).contiguous()
+
+
+def hist_bound_ms(n, f, b):
+    """Histogram bound: bins and values read once, the (F, B, 3) result
+    written once, over the memory rate; the one-hot contraction's N*F*B
+    compares over the scalar rate.  Returns (bytes_ms, ops_ms)."""
+    nbytes = n * f + n * 12 + f * b * 12
+    return nbytes / HBM_BYTES_PER_S * 1e3, n * f * b / SCALAR_OPS_PER_S * 1e3
+
+
+def wave_case(gen, dev, sizes, exact, f=28, b=255, inactive=()):
+    """One wave over a random permutation on the card: slot w's parent is
+    the next 2 * sizes[w] perm positions, its smaller sibling the first
+    (even w) or last (odd w) sizes[w] of them.  Feature 3 is a one-hot
+    categorical of 4 bins; the last feature is masked out."""
+    import torch
+    from lightgbm_tpu_torch.ops import wave as WV
+    from lightgbm_tpu_torch.ops.histogram import histogram_segment
+    n = sum(2 * s for s in sizes)
+    bins = device_bins(gen, n, f, b, dev)
+    bins[:, 3] = bins[:, 3] % 4
+    vals = device_vals(gen, n, dev, exact)
+    perm = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+    starts, cnts, parents, stats = [], [], [], []
+    pos = 0
+    for j, s in enumerate(sizes):
+        rows = perm[pos:pos + 2 * s].long()
+        parents.append(histogram_segment(bins[rows], vals[rows], num_bins=b))
+        small_left = j % 2 == 0
+        starts.append(pos if small_left else pos + s)
+        cnts.append(s)
+        left = vals[perm[pos:pos + s].long()].sum(dim=0)
+        right = vals[rows].sum(dim=0) - left
+        act = 0.0 if j in inactive else 1.0
+        stats.append(torch.stack([torch.stack([
+            c[0], c[1], c[2], -c[0] / (c[1] + 1e-15),
+            torch.tensor(float(small_left), device=dev),
+            torch.tensor(act, device=dev), torch.zeros((), device=dev),
+            torch.zeros((), device=dev)]) for c in (left, right)]))
+        pos += 2 * s
+    nbpf = torch.full((f,), b, dtype=torch.int32, device=dev)
+    nbpf[3] = 4
+    nanb = torch.full((f,), b, dtype=torch.int32, device=dev)
+    nanb[0::2] = b - 1
+    nanb[3] = b
+    is_cat = torch.zeros(f, dtype=torch.bool, device=dev)
+    is_cat[3] = True
+    fmask = torch.ones(f, dtype=torch.bool, device=dev)
+    fmask[-1] = False
+    return dict(bins=bins, vals=vals, perm=perm, small_start=starts,
+                small_cnt=cnts, parent=torch.stack(parents),
+                stats=torch.stack(stats).contiguous(),
+                meta=WV.wave_meta(nbpf, nanb, is_cat, fmask), num_bins=b)
+
+
+def wave_bound_ms(sizes, f, b):
+    """Wave bound: each smaller sibling's rows (bins, values, perm index)
+    and W parent histograms read once, 2W child histograms and payloads
+    written once, over the memory rate; the rows' one-hot compares plus
+    the scan's candidates over the scalar rate.  Returns (bytes, ops)."""
+    r, w = sum(sizes), len(sizes)
+    hist = f * b * 12
+    nbytes = r * (f + 12 + 4) + 3 * w * hist + 2 * w * (16 + b) * 4
+    ops = r * f * b + 2 * w * f * b * 2 * SCAN_OPS_PER_CANDIDATE
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / SCALAR_OPS_PER_S * 1e3
+
+
+def load_bench_fixture(root):
+    with open(os.path.join(root, BENCH_FIXTURE)) as fh:
+        return json.load(fh)
+
+
+def histogram_phase(gen, dev):
+    """8. The histogram kernel against its plain version."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram_flat as HF
+    from lightgbm_tpu_torch.ops.histogram import histogram_segment
+    cases, err_200k = [], None
+    for n in (1, 1000, 200_000):
+        bins = device_bins(gen, n, 28, 255, dev)
+        ve = device_vals(gen, n, dev, exact=True)
+        got = HF.histogram_flat(bins, ve, num_bins=255)
+        want = histogram_segment(bins, ve, num_bins=255)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want),
+                f"histogram kernel != plain version on exact sums, N={n}")
+        vr = device_vals(gen, n, dev, exact=False)
+        a = HF.histogram_flat(bins, vr, num_bins=255)
+        b = HF.histogram_flat(bins, vr, num_bins=255)
+        plain = histogram_segment(bins, vr, num_bins=255)
+        torch.cuda.synchronize()
+        require(torch.equal(a, b), f"histogram kernel not run-to-run "
+                f"bitwise, N={n}")
+        err = float((a - plain).abs().max())
+        scale = float(plain.abs().max())
+        require(err <= 1e-5 * scale, f"histogram kernel off by {err} "
+                f"(scale {scale}) at N={n}")
+        cases.append({"rows": n, "exact_bitwise": True,
+                      "run_to_run_bitwise": True, "max_abs_err": err,
+                      "rel_err": err / scale})
+        if n == 200_000:
+            err_200k = err
+    emit({"phase": "histogram_vs_plain", "features": 28, "bins": 255,
+          "cases": cases})
+    return err_200k
+
+
+def wave_phase(gen, dev):
+    """9. The wave kernel against its plain version."""
+    import torch
+    from lightgbm_tpu_torch.ops import wave as WV
+    from lightgbm_tpu_torch.ops.split import SplitConfig
+    cfg = SplitConfig(min_data_in_leaf=0, min_sum_hessian_in_leaf=1.0,
+                      lambda_l2=0.5, max_cat_to_onehot=4)
+    waves = {"W1": ([100_000], ()),
+             "W16": ([1, 2, 7, 100, 1000, 2047, 2048, 4096, 12_500, 30_000,
+                      100_000, 3, 50, 500, 5000, 20_000], (5, 11))}
+    out = {}
+    for name, (sizes, inactive) in waves.items():
+        for exact in (True, False):
+            inp = wave_case(gen, dev, sizes, exact, inactive=inactive)
+            h1, p1 = WV.fused_wave_call(cfg=cfg, **inp)
+            h2, p2 = WV.fused_wave_call(cfg=cfg, **inp)
+            hp, pp = WV.wave_plain(cfg=cfg, **inp)
+            torch.cuda.synchronize()
+            require(torch.equal(h1, h2) and torch.equal(p1, p2),
+                    f"wave kernel not run-to-run bitwise ({name})")
+            gains = p1[:, :, 0]
+            for j in inactive:
+                require(bool(torch.isinf(gains[j]).all()),
+                        f"inactive slot {j} has a finite gain")
+            if exact:
+                require(torch.equal(h1, hp),
+                        f"wave child histograms != plain version ({name})")
+                require(torch.equal(p1, pp),
+                        f"wave payload != plain version ({name})")
+            out[f"{name}/{'exact' if exact else 'random'}"] = {
+                "slots": len(sizes), "rows": sum(sizes),
+                "hist_max_abs_err": float((h1 - hp).abs().max()),
+                "payload_equal": bool(torch.equal(p1, pp)),
+                "finite_gains": int(torch.isfinite(gains).sum())}
+    emit({"phase": "wave_vs_plain", "features": 28, "bins": 255,
+          "cases": out})
+
+
+def train_phase(seed, dev, fix):
+    """10. Training at full width through the entry points; returns the
+    booster, the holdout rows and the phase record."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.metrics import auc
+    from lightgbm_tpu_torch.ops import histogram_flat as HF
+    from lightgbm_tpu_torch.ops import wave as WV
+    d = fix["data"]
+    X, y = make_higgs_like(d["n_train"] + d["n_valid"], d["n_features"],
+                           seed=d["seed"])
+    nt = d["n_train"]
+    params = dict(fix["params"])
+    iters = params.pop("num_iterations")
+    params["tpu_leaf_batch"] = 16
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(X[:nt], label=y[:nt])
+    ds.construct(params)
+    binning_s = time.perf_counter() - t0
+    HF.launches = 0
+    WV.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    bst = lgt.train(params, ds, iters, device=dev)
+    torch.cuda.synchronize()
+    boost_s = time.perf_counter() - t1
+    hist_launches, wave_launches = HF.launches, WV.launches
+    require(hist_launches > 0 and wave_launches > 0,
+            f"training launched histogram {hist_launches} and wave "
+            f"{wave_launches} times")
+    require(bst.num_trees() == iters, f"{bst.num_trees()} trees")
+    Xv, yv = X[nt:], y[nt:]
+    t2 = time.perf_counter()
+    raw = bst.predict(Xv, raw_score=True)
+    predict_s = time.perf_counter() - t2
+    require(raw.shape == (len(yv),) and np.isfinite(raw).all(),
+            "holdout raw scores not finite")
+    holdout_auc = auc(yv, raw)
+    require(abs(holdout_auc - fix["ref_auc"]) < 1e-3,
+            f"holdout AUC {holdout_auc} not within 1e-3 of genuine "
+            f"LightGBM's {fix['ref_auc']}")
+    rec = {"phase": "train", "rows": nt, "holdout_rows": len(yv),
+           "features": d["n_features"], "params": params,
+           "iterations": iters, "binning_s": binning_s,
+           "boosting_s": boost_s, "s_per_iteration": boost_s / iters,
+           "predict_holdout_s": predict_s,
+           "histogram_launches": hist_launches,
+           "wave_launches": wave_launches,
+           "histogram_launches_per_iteration": hist_launches / iters,
+           "wave_launches_per_iteration": wave_launches / iters,
+           "leaves_per_tree": float(np.mean(
+               [t.num_leaves for t in bst._gbdt.models[0]])),
+           "holdout_auc": holdout_auc, "ref_auc": fix["ref_auc"],
+           "auc_gap": holdout_auc - fix["ref_auc"]}
+    emit(rec)
+    return bst, ds, params, Xv, rec
+
+
+def training_phases(seed, dev, smi):
+    """Phases 8-13; returns the histogram and wave entries of the kernels
+    line."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.models.tree import quantize_error_bound
+    from lightgbm_tpu_torch.ops import histogram_flat as HF
+    from lightgbm_tpu_torch.ops import traverse
+    from lightgbm_tpu_torch.ops import wave as WV
+    from lightgbm_tpu_torch.ops.histogram import histogram_segment
+    from lightgbm_tpu_torch.ops.split import SplitConfig
+    root = os.path.dirname(os.path.abspath(__file__))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    hist_err = histogram_phase(gen, dev)
+    wave_phase(gen, dev)
+    fix = load_bench_fixture(root)
+    bst, ds, params, Xv, rec = train_phase(seed, dev, fix)
+
+    # 11. determinism
+    t0 = time.perf_counter()
+    m1 = lgt.train(params, ds, 10, device=dev).model_to_string()
+    m2 = lgt.train(params, ds, 10, device=dev).model_to_string()
+    require(m1 == m2, "two 10-iteration runs gave different model text")
+    emit({"phase": "determinism", "iterations": 10, "equal": True,
+          "model_bytes": len(m1), "seconds": time.perf_counter() - t0})
+
+    # 12. serving the trained model
+    rng = np.random.RandomState(seed)
+    rows = Xv[rng.randint(0, Xv.shape[0], 65_536)]
+    pred = bst.serving_predictor(quantize="int16", raw_score=True)
+    traverse.launches = 0
+    served = pred.predict(rows)
+    torch.cuda.synchronize()
+    launches = traverse.launches
+    want = bst.predict(rows, raw_score=True)
+    bound = quantize_error_bound(pred.plan._packs[0])
+    # the fp32 pack sums T leaf values in float32: allow its rounding too
+    slack = bst.num_trees() * 2.0 ** -23 * float(np.abs(want).max())
+    err = float(np.abs(served - want).max())
+    require(launches == 1, f"{launches} traversal launches for 1 request")
+    require(err <= bound + slack, f"served int16 scores off by {err} "
+            f"(bound {bound} + {slack})")
+    emit({"phase": "serve_trained", "rows": 65_536, "launches": launches,
+          "max_abs_err": err, "quantize_error_bound": bound,
+          "f32_slack": slack})
+
+    # 13. timing
+    timing = {}
+    for n in HIST_TIMING_ROWS:
+        bins = torch.randint(0, 255, (n, 28), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        vals = device_vals(gen, n, dev, exact=False)
+        small = n <= 200_000
+        entry = {"kernel_ms": cuda_time_ms(
+            lambda: HF.histogram_flat(bins, vals, num_bins=255),
+            iters=20 if small else 5)}
+        flat = (bins.long() + torch.arange(28, device=dev)[None, :]
+                * 255).reshape(-1)
+        src = vals[:, None, :].expand(n, 28, 3).reshape(-1, 3)
+        acc = torch.zeros(28 * 255, 3, device=dev)
+        entry["library_ms"] = cuda_time_ms(
+            lambda: acc.index_add_(0, flat, src), iters=20 if small else 5)
+        del flat, src
+        if small:
+            entry["plain_ms"] = cuda_time_ms(
+                lambda: histogram_segment(bins, vals, num_bins=255), iters=20)
+        entry["bytes_ms"], entry["ops_ms"] = hist_bound_ms(n, 28, 255)
+        timing[f"histogram/{n}"] = entry
+        del bins, vals
+    torch.cuda.empty_cache()
+    sizes = list(WAVE_TIMING_SIZES)
+    inp = wave_case(gen, dev, sizes, exact=False)
+    cfg = SplitConfig(min_data_in_leaf=0, min_sum_hessian_in_leaf=100.0,
+                      max_cat_to_onehot=4)
+    w_entry = {
+        "kernel_ms": cuda_time_ms(lambda: WV.fused_wave_call(cfg=cfg, **inp),
+                                  iters=20),
+        "plain_ms": cuda_time_ms(lambda: WV.wave_plain(cfg=cfg, **inp),
+                                 iters=3, warmup=1)}
+    h1, _p1 = WV.fused_wave_call(cfg=cfg, **inp)
+    hp, _pp = WV.wave_plain(cfg=cfg, **inp)
+    w_entry["max_abs_err"] = float((h1 - hp).abs().max())
+    w_entry["bytes_ms"], w_entry["ops_ms"] = wave_bound_ms(sizes, 28, 255)
+    timing[f"wave/{len(sizes)}x{sizes[0]}"] = w_entry
+    emit({"phase": "training_timing", "nvidia_smi": smi, "shapes": timing})
+
+    h = timing[f"histogram/{HIST_TIMING_ROWS[0]}"]
+    entries = []
+    for name, src_, rep, t, launches_, err_, lib in (
+            ("histogram", HIST_SOURCE, HIST_REPLACES, h,
+             rec["histogram_launches"], hist_err, h["library_ms"]),
+            ("wave", WAVE_SOURCE, WAVE_REPLACES, w_entry,
+             rec["wave_launches"], w_entry["max_abs_err"], None)):
+        entries.append({
+            "name": name, "route": "cuda", "source": src_, "replaces": rep,
+            "matches_plain": True, "launches": launches_,
+            "max_abs_err": err_, "ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": max(t["bytes_ms"], t["ops_ms"]),
+            "bound_by": ("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                         else "operations"),
+            "library_ms": lib})
+    entries[0]["rows"] = HIST_TIMING_ROWS[0]
+    entries[1]["rows"] = sum(sizes)
+    return entries
+
+
 # -------------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -416,16 +789,17 @@ def main(argv=None) -> int:
           "request_breakdown_ms": request_breakdown(pred, X, rng)})
 
     t65 = timing["65536"]
-    bound_ms = max(t65["bytes_ms"], t65["ops_ms"])
-    emit({"kernels": [{
+    kernels = [{
         "name": "traverse", "route": "cuda", "source": TRAVERSE_SOURCE,
         "replaces": TRAVERSE_REPLACES, "matches_plain": True,
         "launches": serve_launches, "max_abs_err": t65["max_abs_err"],
         "ms": t65["kernel_ms"], "plain_ms": t65["plain_ms"],
-        "bound_ms": bound_ms,
+        "bound_ms": max(t65["bytes_ms"], t65["ops_ms"]),
         "bound_by": ("bytes" if t65["bytes_ms"] >= t65["ops_ms"]
                      else "operations"),
-        "library_ms": None, "rows": 65_536}]})
+        "library_ms": None, "rows": 65_536}]
+    kernels += training_phases(args.seed, dev, smi)
+    emit({"kernels": kernels})
     print(f"wall_s={time.perf_counter() - t_start:.1f}", flush=True)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

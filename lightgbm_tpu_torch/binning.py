@@ -323,6 +323,10 @@ class BinnedData:
         )
 
     @property
+    def num_data(self) -> int:
+        return self.bins.shape[0]
+
+    @property
     def num_features(self) -> int:
         return self.bins.shape[1]
 
@@ -367,6 +371,73 @@ def mappers_to_arrays(mappers: List[BinMapper]) -> dict:
         "mapper_cats": np.concatenate(cat_flat) if f else np.zeros(0, np.int64),
         "mapper_cat_off": np.array(cat_off, np.int64),
     }
+
+
+def build_bundles(binned: BinnedData, *, max_conflict_rate: float = 0.0,
+                  sample_cnt: int = 20000, max_bundle_bins: int = 4096,
+                  min_gain_cols: float = 0.75,
+                  random_state: int = 3) -> Optional[List[List[int]]]:
+    """The JAX package's EFB decision (its ``build_bundles``, the greedy
+    conflict-bounded bundling of reference ``FindGroups``), without the
+    bundled matrix: the multi-feature bundles it would form, or None when
+    it would not bundle.  The port trains unbundled, so a dataset this
+    returns bundles for is refused (ROADMAP A8.6)."""
+    bins = binned.bins
+    n, f = bins.shape
+    if f < 8:
+        return None
+    eligible = np.array(
+        [(not m.is_categorical) and m.default_bin == 0 and m.num_bins >= 2
+         and m.num_bins - 1 <= max_bundle_bins - 1
+         for m in binned.mappers])
+    if n > sample_cnt:
+        rng = np.random.RandomState(random_state)
+        sample = bins[rng.choice(n, size=sample_cnt, replace=False)]
+    else:
+        sample = bins
+    s = sample.shape[0]
+    nz = sample != 0                                   # (S, F)
+    budget = int(max_conflict_rate * s)
+    nbpf = binned.num_bins_per_feature
+    # greedy, sparsest first
+    order = [int(j) for j in np.argsort(nz.sum(axis=0)) if eligible[j]]
+    bundles: List[List[int]] = []
+    bundle_nz: List[np.ndarray] = []
+    bundle_bins: List[int] = []
+    for j in order:
+        extra = int(nbpf[j]) - 1
+        placed = False
+        for bi in range(len(bundles)):
+            if bundle_bins[bi] + extra > max_bundle_bins:
+                continue
+            if int(np.count_nonzero(bundle_nz[bi] & nz[:, j])) <= budget:
+                bundles[bi].append(j)
+                bundle_nz[bi] |= nz[:, j]
+                bundle_bins[bi] += extra
+                placed = True
+                break
+        if not placed:
+            bundles.append([j])
+            bundle_nz.append(nz[:, j].copy())
+            bundle_bins.append(1 + extra)
+    # re-check each multi-member bundle on the full matrix (the sample only
+    # bounded the conflicts in-sample) and evict the worst offender
+    full_budget = int(max_conflict_rate * n)
+    if n > s:
+        for bi in range(len(bundles)):
+            members = bundles[bi]
+            while len(members) > 1:
+                nz_cols = bins[:, members] != 0
+                row_nnz = nz_cols.sum(axis=1)
+                conflicts = int(np.maximum(row_nnz - 1, 0).sum())
+                if conflicts <= (len(members) - 1) * full_budget:
+                    break
+                overlap = ((row_nnz > 1)[:, None] & nz_cols).sum(axis=0)
+                bundles.append([members.pop(int(np.argmax(overlap)))])
+    n_single = f - sum(len(b) for b in bundles)
+    if len(bundles) + n_single > min_gain_cols * f:
+        return None
+    return [b for b in bundles if len(b) > 1]
 
 
 def mappers_from_arrays(d: dict) -> List[BinMapper]:

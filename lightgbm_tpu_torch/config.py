@@ -1,28 +1,121 @@
 """Typed configuration with LightGBM-compatible parameter names and aliases.
 
-The serving slice of the JAX package's ``config.py``: only the keys the
-port reads today, with the JAX package's names, defaults, aliases and
-bounds.  Later slices add their keys to ``_PARAMS``.  Alias resolution
-follows ``ParameterAlias::KeyAliasTransform`` semantics (first write wins,
-aliases mapped onto the canonical name); unknown keys are kept in
-``raw_params``, as the JAX package keeps them.
+The port's slice of the JAX package's ``config.py``: the keys the serving
+and binary-training slices read, with the JAX package's names, defaults,
+aliases and bounds, plus the keys whose non-default values the port
+refuses (``models/gbdt.py::check_supported``).  Alias resolution follows
+``ParameterAlias::KeyAliasTransform`` semantics (first write wins, aliases
+mapped onto the canonical name); unknown keys are kept in ``raw_params``,
+as the JAX package keeps them (the model text prints ``raw_params``), and
+training refuses them rather than ignore a JAX key it does not know.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, List, Optional, Tuple
 
 # (name, type, default, aliases, check)
+#   type is one of: bool, int, float, str, "list_int", "list_float", "list_str"
 #   check is an optional (lo, hi) inclusive bound for numeric params.
 _PARAMS: List[Tuple[str, Any, Any, Tuple[str, ...], Optional[Tuple[Any, Any]]]] = [
+    # ---- core
     ("objective", str, "regression",
      ("objective_type", "app", "application", "loss"), None),
+    ("boosting", str, "gbdt", ("boosting_type", "boost"), None),
+    ("data_sample_strategy", str, "bagging", (), None),
+    ("num_iterations", int, 100,
+     ("num_iteration", "n_iter", "num_tree", "num_trees", "num_round",
+      "num_rounds", "nrounds", "num_boost_round", "n_estimators",
+      "max_iter"), (0, None)),
+    ("learning_rate", float, 0.1, ("shrinkage_rate", "eta"), (0.0, None)),
     ("num_leaves", int, 31,
      ("num_leaf", "max_leaves", "max_leaf", "max_leaf_nodes"), (2, 131072)),
+    ("tree_learner", str, "serial",
+     ("tree", "tree_type", "tree_learner_type"), None),
+    ("seed", int, 0, ("random_seed", "random_state"), None),
+    # ---- learning control
+    ("max_depth", int, -1, (), None),
+    ("min_data_in_leaf", int, 20,
+     ("min_data_per_leaf", "min_data", "min_child_samples",
+      "min_samples_leaf"), (0, None)),
+    ("min_sum_hessian_in_leaf", float, 1e-3,
+     ("min_sum_hessian_per_leaf", "min_sum_hessian", "min_hessian",
+      "min_child_weight"), (0.0, None)),
+    ("bagging_fraction", float, 1.0,
+     ("sub_row", "subsample", "bagging"), (0.0, 1.0)),
+    ("pos_bagging_fraction", float, 1.0,
+     ("pos_sub_row", "pos_subsample", "pos_bagging"), (0.0, 1.0)),
+    ("neg_bagging_fraction", float, 1.0,
+     ("neg_sub_row", "neg_subsample", "neg_bagging"), (0.0, 1.0)),
+    ("bagging_freq", int, 0, ("subsample_freq",), None),
+    ("feature_fraction", float, 1.0,
+     ("sub_feature", "colsample_bytree"), (0.0, 1.0)),
+    ("feature_fraction_bynode", float, 1.0,
+     ("sub_feature_bynode", "colsample_bynode"), (0.0, 1.0)),
+    ("extra_trees", bool, False, ("extra_tree",), None),
+    ("early_stopping_round", int, 0,
+     ("early_stopping_rounds", "early_stopping", "n_iter_no_change"), None),
+    ("max_delta_step", float, 0.0,
+     ("max_tree_output", "max_leaf_output"), None),
+    ("lambda_l1", float, 0.0, ("reg_alpha", "l1_regularization"),
+     (0.0, None)),
+    ("lambda_l2", float, 0.0,
+     ("reg_lambda", "lambda", "l2_regularization"), (0.0, None)),
+    ("min_gain_to_split", float, 0.0, ("min_split_gain",), (0.0, None)),
+    ("max_cat_to_onehot", int, 4, (), (1, None)),
+    ("monotone_constraints", "list_int", None,
+     ("mc", "monotone_constraint", "monotonic_cst"), None),
+    ("feature_contri", "list_float", None,
+     ("feature_contrib", "fc", "fp", "feature_penalty"), None),
+    ("forcedsplits_filename", str, "",
+     ("fs", "forced_splits_filename", "forced_splits_file",
+      "forced_splits"), None),
+    ("cegb_tradeoff", float, 1.0, (), (0.0, None)),
+    ("cegb_penalty_split", float, 0.0, (), (0.0, None)),
+    ("cegb_penalty_feature_lazy", "list_float", None, (), None),
+    ("cegb_penalty_feature_coupled", "list_float", None, (), None),
+    ("path_smooth", float, 0.0, (), (0.0, None)),
+    ("interaction_constraints", "list_str", None, (), None),
+    ("verbosity", int, 1, ("verbose",), None),
+    ("use_quantized_grad", bool, False, (), None),
+    ("input_model", str, "", ("model_input", "model_in"), None),
+    # ---- dataset
+    ("linear_tree", bool, False, ("linear_trees",), None),
+    ("max_bin", int, 255, ("max_bins",), (2, None)),
+    ("max_bin_by_feature", "list_int", None, (), None),
+    ("min_data_in_bin", int, 3, (), (1, None)),
+    ("bin_construct_sample_cnt", int, 200000, ("subsample_for_bin",),
+     (1, None)),
+    ("data_random_seed", int, 1, ("data_seed",), None),
+    ("enable_bundle", bool, True, ("is_enable_bundle", "bundle"), None),
+    ("max_conflict_rate", float, 0.0, (), (0.0, 1.0)),
+    ("use_missing", bool, True, (), None),
+    ("zero_as_missing", bool, False, (), None),
+    ("categorical_feature", str, "",
+     ("cat_feature", "categorical_column", "cat_column",
+      "categorical_features"), None),
+    ("forcedbins_filename", str, "", (), None),
+    # ---- objective
     ("num_class", int, 1, ("num_classes",), (1, None)),
+    ("is_unbalance", bool, False, ("unbalance", "unbalanced_sets"), None),
+    ("scale_pos_weight", float, 1.0, (), (0.0, None)),
     ("sigmoid", float, 1.0, (), (0.0, None)),
-    # Quantized serving packs: off|int16|int8.  The port serves the
-    # quantized packs only; off (the fp32 pack) is still to be ported.
+    ("boost_from_average", bool, True, (), None),
+    # ---- metric
+    ("metric", "list_str", None, ("metrics", "metric_types"), None),
+    ("num_machines", int, 1, ("num_machine",), (1, None)),
+    # ---- the JAX package's device knobs
+    ("tpu_histogram_impl", str, "auto", (), None),
+    ("tpu_rows_block", int, 16384, (), (256, None)),
+    ("tpu_4bit_bins", bool, True, (), None),
+    ("tpu_leaf_batch", int, 1, (), (1, 128)),
+    # Fused wave kernel: auto|fused|unfused.  On a CUDA device auto means
+    # the hand-written wave kernel (ops/csrc/wave.cu), as it means the
+    # Pallas kernel on a TPU; on the CPU auto keeps the unfused step.
+    ("tpu_wave_kernel", str, "auto", (), None),
+    ("tpu_iter_pack", int, 0, (), (0, 4096)),
+    # Quantized serving packs: off|int16|int8 (off = the fp32 pack).
     ("tpu_serve_quantize", str, "off", (), None),
     # Traversal kernel: auto|fused|unfused.  In the port auto and fused
     # both mean the hand-written CUDA traversal kernel.
@@ -57,10 +150,16 @@ _OBJECTIVE_ALIASES = {
     "custom": "custom", "none": "custom", "null": "custom", "na": "custom",
 }
 
-_LOWERCASED = ("objective", "tpu_serve_quantize", "tpu_traverse_kernel")
+_LOWERCASED = ("objective", "boosting", "tree_learner",
+               "data_sample_strategy", "tpu_histogram_impl",
+               "tpu_wave_kernel", "tpu_serve_quantize", "tpu_traverse_kernel")
 
 
 def _coerce(name: str, typ: Any, value: Any) -> Any:
+    if typ is bool:
+        if isinstance(value, str):
+            return value.strip().lower() in ("true", "1", "yes", "+")
+        return bool(value)
     if typ is int:
         return int(value)
     if typ is float:
@@ -68,6 +167,24 @@ def _coerce(name: str, typ: Any, value: Any) -> Any:
     if typ is str:
         return (str(value).strip().lower() if name in _LOWERCASED
                 else str(value))
+    if typ in ("list_int", "list_float", "list_str"):
+        if value is None:
+            return None
+        if isinstance(value, str):
+            if "[" in value:
+                parts = re.findall(r"\[([^\]]*)\]", value)
+            else:
+                parts = [p for p in value.replace(";", ",").split(",")
+                         if p != ""]
+        elif isinstance(value, (list, tuple)):
+            parts = list(value)
+        else:
+            parts = [value]
+        if typ == "list_int":
+            return [int(p) for p in parts]
+        if typ == "list_float":
+            return [float(p) for p in parts]
+        return [str(p) for p in parts]
     raise TypeError(f"unknown param type for {name}")
 
 
@@ -99,7 +216,8 @@ class Config:
                 continue
             _, typ, _, check = _CANONICAL[key]
             coerced = _coerce(key, typ, value)
-            if check is not None:
+            if (check is not None and coerced is not None
+                    and not isinstance(coerced, list)):
                 lo, hi = check
                 if lo is not None and coerced < lo:
                     raise ValueError(f"{key}={coerced} < minimum {lo}")
@@ -113,5 +231,15 @@ class Config:
         obj = self.objective
         if obj in _OBJECTIVE_ALIASES:
             object.__setattr__(self, "objective", _OBJECTIVE_ALIASES[obj])
+        if self.boosting in ("gbrt", "gbdt"):
+            object.__setattr__(self, "boosting", "gbdt")
+        elif self.boosting in ("rf", "random_forest"):
+            object.__setattr__(self, "boosting", "rf")
+        if self.data_sample_strategy == "goss" or self.boosting == "goss":
+            object.__setattr__(self, "data_sample_strategy", "goss")
+            if self.boosting == "goss":
+                object.__setattr__(self, "boosting", "gbdt")
         if self.objective in ("multiclass", "multiclassova") and self.num_class <= 1:
             raise ValueError("num_class must be >1 for multiclass objectives")
+        if self.is_unbalance and self.scale_pos_weight != 1.0:
+            raise ValueError("is_unbalance and scale_pos_weight cannot both be set")

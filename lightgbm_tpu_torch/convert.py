@@ -84,4 +84,5 @@ def model_from_arrays(state: dict) -> GBDT:
         np.zeros((0, len(mappers)), bins_dtype(mappers)), mappers)
     models = [[_tree(d, len(mappers), binned.max_num_bins, cfg.num_leaves)
                for d in cls] for cls in state["trees"]]
-    return GBDT(cfg, binned, models, np.asarray(state["init_scores"]))
+    return GBDT.from_trees(cfg, binned, models,
+                           np.asarray(state["init_scores"]))

@@ -1,12 +1,15 @@
-"""Host tree model, the quantized serving pack, and the plain PyTorch walk.
+"""Host tree model, the serving packs, and the plain PyTorch walks.
 
-The port's copy of the serving half of the JAX package's
-``models/tree.py``: the host ``Tree`` fields serving reads, the quantized
-pack (``quantize_stack_trees``: int16 node arrays, bit-packed categorical
-masks, int16/int8 leaf quanta with one per-class scale), and the plain
-version of the traversal kernel (``_tree_walk_q`` / ``_ensemble_sum_q``).
-On a CUDA tensor ``forest_scores_quantized`` goes through the hand-written
-kernel (``ops/traverse.py``); on a CPU tensor through the plain walk here.
+The port of the JAX package's ``models/tree.py``: the host ``Tree``
+(``Tree.from_arrays`` turns a grown ``TreeArrays`` into one), the fp32
+pack (``stack_trees``) with its torch walk (``_tree_walk``,
+``forest_scores``: XLA glue in the JAX package, torch ops here on every
+device), the quantized pack (``quantize_stack_trees``: int16 node arrays,
+bit-packed categorical masks, int16/int8 leaf quanta with one per-class
+scale), and the plain version of the traversal kernel (``_tree_walk_q`` /
+``_ensemble_sum_q``).  On a CUDA tensor ``forest_scores_quantized`` goes
+through the hand-written kernel (``ops/traverse.py``); on a CPU tensor
+through the plain walk here.
 
 Only leaf VALUES quantize; routing decisions stay exact (bins and split
 thresholds are integers in bin space).  Leaf quanta accumulate in int32,
@@ -18,7 +21,7 @@ for bit.
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -26,7 +29,8 @@ import torch
 
 @dataclasses.dataclass
 class Tree:
-    """One fitted decision tree (the host fields serving reads)."""
+    """One fitted decision tree: the fields serving reads, and the fields
+    the model text prints (None on a tree carried across without them)."""
 
     split_feature: np.ndarray    # (M,) i32
     split_bin: np.ndarray        # (M,) i32
@@ -37,11 +41,150 @@ class Tree:
     right_child: np.ndarray      # (M,) i32
     leaf_value: np.ndarray       # (L,) f64
     num_leaves: int
+    threshold: Optional[np.ndarray] = None       # (M,) f64 real-valued
+    split_gain: Optional[np.ndarray] = None      # (M,) f32
+    internal_value: Optional[np.ndarray] = None  # (M,) f32
+    internal_count: Optional[np.ndarray] = None  # (M,) f32
+    leaf_count: Optional[np.ndarray] = None      # (L,) f32
+    leaf_weight: Optional[np.ndarray] = None     # (L,) f32
+    shrinkage: float = 1.0
+
+    @classmethod
+    def from_arrays(cls, arrays, upper_bounds_padded: np.ndarray) -> "Tree":
+        """Host tree from a grown ``TreeArrays`` (the JAX package's
+        ``Tree.from_arrays``): the first ``num_leaves - 1`` nodes, and the
+        real-valued threshold of each split bin."""
+        a = {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+             for k, v in arrays._asdict().items()}
+        nl = int(a["num_leaves"])
+        m = max(nl - 1, 0)
+        sf = np.asarray(a["split_feature"][:m], np.int32)
+        sb = np.asarray(a["split_bin"][:m], np.int32)
+        thr = (upper_bounds_padded[sf, sb].astype(np.float64) if m
+               else sb.astype(np.float64))
+        b = a["cat_mask"].shape[1]
+        return cls(
+            split_feature=sf, split_bin=sb, threshold=thr,
+            default_left=np.asarray(a["default_left"][:m], bool),
+            is_cat=np.asarray(a["is_cat"][:m], bool),
+            cat_mask=np.asarray(a["cat_mask"][:m], bool).reshape(m, b),
+            left_child=np.asarray(a["left_child"][:m], np.int32),
+            right_child=np.asarray(a["right_child"][:m], np.int32),
+            split_gain=np.asarray(a["split_gain"][:m], np.float32),
+            internal_value=np.asarray(a["internal_value"][:m], np.float32),
+            internal_count=np.asarray(a["internal_count"][:m], np.float32),
+            leaf_value=np.asarray(a["leaf_value"][:nl], np.float64),
+            leaf_count=np.asarray(a["leaf_count"][:nl], np.float32),
+            leaf_weight=np.asarray(a["leaf_weight"][:nl], np.float32),
+            num_leaves=nl)
 
     def num_splits(self) -> int:
         return max(self.num_leaves - 1, 0)
 
 
+# ------------------------------------------------------------ fp32 pack
+_PACK_ARRAYS = ("split_feature", "split_bin", "default_left", "is_cat",
+                "cat_mask", "left_child", "right_child", "leaf_value")
+
+
+def stack_trees(trees: List[Tree], max_leaves: int, num_bins: int,
+                device="cpu"):
+    """Stack per-tree arrays into the fp32 pack (the JAX package's
+    ``stack_trees``) as (T, ...) tensors on ``device``, plus host lists of
+    each tree's leaf count and depth (the walk's trip count)."""
+    t = len(trees)
+    m = max(max_leaves - 1, 1)
+    out = {
+        "split_feature": np.zeros((t, m), np.int32),
+        "split_bin": np.zeros((t, m), np.int32),
+        "default_left": np.zeros((t, m), bool),
+        "is_cat": np.zeros((t, m), bool),
+        "cat_mask": np.zeros((t, m, num_bins), bool),
+        "left_child": np.zeros((t, m), np.int32),
+        "right_child": np.zeros((t, m), np.int32),
+        "leaf_value": np.zeros((t, max_leaves), np.float32),
+    }
+    depth = []
+    for i, tr in enumerate(trees):
+        k = tr.num_splits()
+        out["split_feature"][i, :k] = tr.split_feature
+        out["split_bin"][i, :k] = tr.split_bin
+        out["default_left"][i, :k] = tr.default_left
+        out["is_cat"][i, :k] = tr.is_cat
+        out["cat_mask"][i, :k, : tr.cat_mask.shape[1]] = tr.cat_mask
+        out["left_child"][i, :k] = tr.left_child
+        out["right_child"][i, :k] = tr.right_child
+        out["leaf_value"][i, : tr.num_leaves] = tr.leaf_value
+        depth.append(tree_max_depth(tr.left_child, tr.right_child)
+                     if k else 0)
+    pack = {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+    pack["num_leaves"] = [int(tr.num_leaves) for tr in trees]
+    pack["depth"] = depth
+    return pack
+
+
+def _tree_walk(tree: dict, bins: torch.Tensor, nan_bins: torch.Tensor,
+               num_leaves: int, depth: int) -> torch.Tensor:
+    """Single-tree traversal over one fp32 pack slice -> (N,) f32 leaf
+    values (the JAX package's ``_tree_walk``, op for op): a categorical
+    node goes left iff its ``cat_mask`` holds the bin, a numerical node
+    sends the NaN bin by ``default_left`` and otherwise ``bin <=
+    split_bin`` left.  ``depth`` hops reach every leaf, so the walk runs a
+    fixed trip count with no host sync; a finished row parks at its leaf."""
+    n = bins.shape[0]
+    if num_leaves <= 1:
+        return tree["leaf_value"][0].expand(n).clone()
+    rows = torch.arange(n, device=bins.device)
+    bmax = tree["cat_mask"].shape[1] - 1
+    node = torch.zeros(n, dtype=torch.int32, device=bins.device)
+    done = torch.zeros(n, dtype=torch.bool, device=bins.device)
+    for _ in range(depth):
+        cur = torch.where(done, 0, node).long()
+        f = tree["split_feature"][cur].long()
+        col = bins[rows, f].to(torch.int32)
+        isnan = col == nan_bins[f]
+        iscat = tree["is_cat"][cur]
+        gl = torch.where(
+            iscat, tree["cat_mask"][cur, torch.clamp(col, max=bmax).long()],
+            col <= tree["split_bin"][cur])
+        gl = torch.where(isnan & ~iscat, tree["default_left"][cur], gl)
+        nxt = torch.where(gl, tree["left_child"][cur],
+                          tree["right_child"][cur])
+        is_leaf = nxt < 0
+        node = torch.where(is_leaf | done, node, nxt)
+        node = torch.where(is_leaf & ~done, nxt, node)
+        done = done | is_leaf
+    leaf_idx = torch.where(node < 0, ~node, 0).long()
+    return tree["leaf_value"][leaf_idx]
+
+
+def _ensemble_sum(pack: dict, bins: torch.Tensor,
+                  nan_bins: torch.Tensor) -> torch.Tensor:
+    """(N,) f32 sum of the pack's trees, added tree by tree in order (the
+    JAX package's sequential f32 scan, so the sums round alike)."""
+    acc = torch.zeros(bins.shape[0], dtype=torch.float32, device=bins.device)
+    for t, (nl, depth) in enumerate(zip(pack["num_leaves"], pack["depth"])):
+        acc = acc + _tree_walk({k: pack[k][t] for k in _PACK_ARRAYS}, bins,
+                               nan_bins, nl, depth)
+    return acc
+
+
+def forest_scores(packs_by_class, bins: torch.Tensor,
+                  nan_bins: torch.Tensor) -> torch.Tensor:
+    """(N, K) f32 per-class sums of fp32 packs (None: a class with no
+    trees)."""
+    cols = [torch.zeros(bins.shape[0], dtype=torch.float32,
+                        device=bins.device) if p is None
+            else _ensemble_sum(p, bins, nan_bins) for p in packs_by_class]
+    return torch.stack(cols, dim=1)
+
+
+def fp32_pack_nbytes(pack) -> int:
+    """Device bytes of one fp32 pack's arrays."""
+    return sum(pack[k].numel() * pack[k].element_size() for k in _PACK_ARRAYS)
+
+
+# ------------------------------------------------------- quantized pack
 #: quantize mode -> (leaf dtype, max quantum)
 QUANT_BITS = {"int16": (np.int16, 32767), "int8": (np.int8, 127)}
 

@@ -28,7 +28,10 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "torch_kernels")
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# --fmad=false: no a*b+c contraction into FMA, so the wave kernel's scan
+# rounds every product and sum as the plain version's separate torch ops do
+CFLAGS = ["-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
+          "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -93,11 +96,20 @@ def _compile(srcs, out_dir: str, lib_path: str) -> str:
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    p, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                        ctypes.c_float)
     fn = lib.lgbt_traverse_sums
     fn.restype = i32
     fn.argtypes = [p, p, p, p, p, p, p, p, p, p, i32, p,
                    i64, i32, i32, i32, i32, i32, i32, i32, i32, p]
+    fn = lib.lgbt_histogram
+    fn.restype = i32
+    fn.argtypes = [p, p, i64, i32, i32, i32, i32, p, p, p]
+    fn = lib.lgbt_wave
+    fn.restype = i32
+    fn.argtypes = [p, p, p, i32, i32, p, i32, i32, i32, p, p, p,
+                   f32, f32, f32, f32, f32, f32, f32, i32, i32, i32,
+                   p, p, p, p]
 
 
 def load_library() -> ctypes.CDLL:

@@ -1,9 +1,12 @@
 """PredictPlan: a model slice frozen into device-resident serving state.
 
-The port of the JAX package's ``serve/plan.py`` for quantized packs.  A
-plan holds, on its device:
+The port of the JAX package's ``serve/plan.py``.  A plan holds, on its
+device:
 
-- the per-class quantized tree packs (built once from the host trees),
+- the per-class tree packs, built once from the host trees: the fp32 pack
+  (``quantize="off"``, walked by torch ops, ``models/tree.py::
+  forest_scores``) or a quantized pack (int16/int8, through the CUDA
+  traversal kernel),
 - the binning tables (bound sort keys, categorical vocabularies, NaN /
   zero-as-missing routing — serve/device_binning.py),
 - the NaN routing of the traversal,
@@ -15,9 +18,9 @@ added on the host in f64 after the fetch.
 
 Plans are cached per (model identity, iteration slice, model state,
 ladder, pack mode, traversal, device); the cache keeps hit / miss / build
-/ eviction counters.  Not ported yet: the fp32 pack (``quantize="off"``)
-and the persistent compile cache (``serve/compile_cache.py``), which has
-no counterpart while the port's kernels are built once per process.
+/ eviction counters.  Not ported: the persistent compile cache
+(``serve/compile_cache.py``), which has no counterpart while the port's
+kernels are built once per process.
 """
 
 from __future__ import annotations
@@ -30,18 +33,14 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..models.tree import (forest_scores_quantized, pack_nbytes,
-                           quantize_stack_trees)
+from ..models.tree import (forest_scores, forest_scores_quantized,
+                           fp32_pack_nbytes, pack_nbytes,
+                           quantize_stack_trees, stack_trees)
 from ..utils.device import resolve_device
 from ..utils.log import Log
 from .bucketing import BucketLadder
 from .device_binning import (bin_rows_device, build_bin_tables, float_bits,
                              tables_nbytes)
-
-_FP32_PACK_TODO = ("the fp32 serving pack (quantize='off') is not ported yet "
-                   "(ROADMAP queue A, item A7b); serve with quantize='int16' "
-                   "or 'int8'")
-
 
 class PredictPlan:
     """Frozen, device-resident predict state for one model slice."""
@@ -61,8 +60,6 @@ class PredictPlan:
         self.init_scores = np.asarray(model.init_scores, np.float64).copy()
         self.ladder = ladder or BucketLadder()
         self.quantize_mode = _resolve_quantize(model, quantize, warn=True)
-        if self.quantize_mode == "off":
-            raise NotImplementedError(_FP32_PACK_TODO)
         self.traverse_mode = _resolve_traverse(model, traverse)
         tables = build_bin_tables(binned.mappers, self.device)
         if tables is None:
@@ -73,19 +70,27 @@ class PredictPlan:
         self.num_trees = sum(len(t) for t in trees_by_class)
         self._nan_bins = torch.as_tensor(binned.nan_bins, dtype=torch.int32,
                                          device=self.device)
-        packs = [quantize_stack_trees(trees, model.cfg.num_leaves,
-                                      binned.max_num_bins, self.quantize_mode,
-                                      self.device)
-                 if trees else None for trees in trees_by_class]
-        if any(p is None and trees
-               for p, trees in zip(packs, trees_by_class)):
-            raise NotImplementedError(
-                f"tpu_serve_quantize={self.quantize_mode} needs "
-                "num_leaves/bins/features <= 32767; " + _FP32_PACK_TODO)
+        if self.quantize_mode == "off":
+            packs = [stack_trees(trees, model.cfg.num_leaves,
+                                 binned.max_num_bins, self.device)
+                     if trees else None for trees in trees_by_class]
+            nbytes = fp32_pack_nbytes
+        else:
+            packs = [quantize_stack_trees(trees, model.cfg.num_leaves,
+                                          binned.max_num_bins,
+                                          self.quantize_mode, self.device)
+                     if trees else None for trees in trees_by_class]
+            nbytes = pack_nbytes
+            if any(p is None and trees
+                   for p, trees in zip(packs, trees_by_class)):
+                raise ValueError(
+                    f"tpu_serve_quantize={self.quantize_mode} needs "
+                    "num_leaves/bins/features <= 32767; serve this model "
+                    "with quantize='off'")
         self._packs = packs
         # resident device bytes: the tree packs alone, and with the bin
         # tables and NaN routing
-        self.pack_bytes = sum(pack_nbytes(p) for p in packs if p is not None)
+        self.pack_bytes = sum(nbytes(p) for p in packs if p is not None)
         self.plan_bytes = (self.pack_bytes + tables_nbytes(tables)
                            + self._nan_bins.numel() * 4)
         self.built_state = (int(model.iter_), int(model.num_trees))
@@ -105,6 +110,11 @@ class PredictPlan:
         out += self.init_scores[None, :]
         return out
 
+    def _scores(self, bins: torch.Tensor) -> torch.Tensor:
+        if self.quantize_mode == "off":
+            return forest_scores(self._packs, bins, self._nan_bins)
+        return forest_scores_quantized(self._packs, bins, self._nan_bins)
+
     def raw_scores(self, X, metrics=None) -> np.ndarray:
         """(N, K) f64 raw scores (init scores included) for dense rows:
         the host takes a bit view and pads to the ladder rung; binning,
@@ -120,7 +130,7 @@ class PredictPlan:
         bits, padded = self._pad(float_bits(X), n)
         bits = torch.from_numpy(bits).to(self.device)
         bins = bin_rows_device(self._tables, bits)
-        scores = forest_scores_quantized(self._packs, bins, self._nan_bins)
+        scores = self._scores(bins)
         if metrics is not None:
             metrics.observe_batch(n, padded)
         return self._finish(scores, n)
@@ -135,7 +145,7 @@ class PredictPlan:
                 + self.init_scores[None, :]
         bins, padded = self._pad(bins, n)
         bins = torch.from_numpy(bins.astype(np.int32)).to(self.device)
-        scores = forest_scores_quantized(self._packs, bins, self._nan_bins)
+        scores = self._scores(bins)
         if metrics is not None:
             metrics.observe_batch(n, padded)
         return self._finish(scores, n)

@@ -1,0 +1,125 @@
+"""Grower parity: the port's leaf-wise grower (CPU, plain versions of the
+kernels) against the JAX package's ``make_grower``, on exact-sum
+gradients (+-0.5, hessian 0.25: every histogram sum is exact in any
+order), so trees and ``row_leaf`` are held bit for bit:
+
+- the wave layout at leaf_batch 1, 4 and 16, the port's fused step
+  (``ops/wave.py``, the plain version of the CUDA wave kernel) and its
+  unfused step both against JAX ``wave_kernel="fused"`` (its Pallas
+  kernel in interpret mode), and the unfused step against JAX
+  ``"unfused"``;
+- the mask layout (<= 2048 rows);
+- a <= 16-bin dataset, which the JAX package stores as 4-bit nibble
+  pairs (its default ``tpu_4bit_bins``) and the port unpacked;
+- one-hot categorical splits, ``cat_mask`` routing included.
+
+On the card (``cuda`` marker) the grower driven through both CUDA kernels
+gives the CPU plain version's trees bit for bit."""
+
+import numpy as np
+import pytest
+import torch
+
+from torch_port_util import (assert_same_tree, cuda_device,  # noqa: F401
+                             exact_grads, grown_data, jax_grow, port_grow)
+
+from lightgbm_tpu_torch.models import grower as PG
+from lightgbm_tpu_torch.ops import histogram_flat as HF
+from lightgbm_tpu_torch.ops import wave as WV
+
+P = {"objective": "binary", "num_leaves": 31}
+
+
+@pytest.fixture(scope="module")
+def grown():
+    X, y = grown_data()
+    g, h = exact_grads(len(y))
+    return X, y, g, h
+
+
+@pytest.mark.parametrize("leaf_batch", [1, 4, 16])
+def test_wave_bitwise_vs_jax_fused(grown, leaf_batch):
+    X, y, g, h = grown
+    want, rl = jax_grow(X, y, P, g, h, leaf_batch=leaf_batch,
+                        wave_kernel="fused")
+    assert want["num_leaves"] == 31
+    for kernel in ("fused", "unfused"):
+        got, prl = port_grow(X, y, P, g, h, leaf_batch=leaf_batch,
+                             wave_kernel=kernel)
+        assert_same_tree(want, got, rl, prl)
+
+
+def test_unfused_bitwise_vs_jax_unfused(grown):
+    X, y, g, h = grown
+    want, rl = jax_grow(X, y, P, g, h, leaf_batch=16, wave_kernel="unfused")
+    got, prl = port_grow(X, y, P, g, h, leaf_batch=16, wave_kernel="unfused")
+    assert_same_tree(want, got, rl, prl)
+
+
+def test_mask_layout_bitwise_vs_jax(grown):
+    X, y, _, _ = grown
+    n = 2000
+    g, h = exact_grads(n, seed=4)
+    params = dict(P, min_data_in_leaf=5)
+    want, rl = jax_grow(X[:n], y[:n], params, g, h)
+    got, prl = port_grow(X[:n], y[:n], params, g, h, leaf_batch=4)
+    assert want["num_leaves"] > 8
+    assert_same_tree(want, got, rl, prl)
+
+
+def test_16_bin_data_bitwise_vs_jax_packed4():
+    rng = np.random.RandomState(11)
+    n, f = 3 * 2560, 9
+    X = np.round(rng.randn(n, f) * 2)           # few values -> <= 16 bins
+    y = (X[:, 0] + X[:, 1] > 0).astype(np.float64)
+    g, h = exact_grads(n)
+    params = dict(P, max_bin=15)
+    want, rl = jax_grow(X, y, params, g, h, leaf_batch=4, packed4=True)
+    got, prl = port_grow(X, y, params, g, h, leaf_batch=4,
+                         wave_kernel="fused")
+    assert want["num_leaves"] > 8
+    assert_same_tree(want, got, rl, prl)
+
+
+def test_onehot_categorical_bitwise_vs_jax():
+    rng = np.random.RandomState(13)
+    n = 3 * 2560
+    cat = rng.randint(0, 6, n).astype(np.float64)
+    X = np.column_stack([cat, rng.randn(n, 3)])
+    y = (((cat == 2.0) | (cat == 5.0)) ^ (X[:, 1] > 1.0)).astype(np.float64)
+    g, h = exact_grads(n)
+    params = dict(P, max_cat_to_onehot=16)
+    want, rl = jax_grow(X, y, params, g, h, categorical=[0], leaf_batch=4,
+                        wave_kernel="fused")
+    got, prl = port_grow(X, y, params, g, h, categorical=[0], leaf_batch=4,
+                         wave_kernel="fused")
+    assert want["is_cat"][: want["num_leaves"] - 1].any()
+    assert_same_tree(want, got, rl, prl)
+
+
+def test_wave_fused_gate():
+    cfg = PG.GrowerConfig(leaf_batch=4)
+    rep = lambda **kw: PG.GrowerConfig(**{**cfg.__dict__, **kw})
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    assert not PG.wave_fused_for(cfg, cpu)        # auto: unfused on the CPU
+    assert PG.wave_fused_for(cfg, cuda)           # ... the kernel on CUDA
+    assert PG.wave_fused_for(rep(wave_kernel="fused"), cpu)
+    assert not PG.wave_fused_for(rep(wave_kernel="unfused"), cuda)
+    assert not PG.wave_fused_for(rep(histogram_impl="segment"), cuda)
+    with pytest.raises(ValueError, match="wave_kernel"):
+        PG.wave_fused_for(rep(wave_kernel="bogus"), cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf_batch", [1, 16])
+def test_kernel_path_matches_plain(grown, cuda_device, leaf_batch):
+    """The grower on the card (histogram kernel for the root, wave kernel
+    for every wave) gives the CPU plain version's trees bit for bit."""
+    X, y, g, h = grown
+    want, rl = port_grow(X, y, P, g, h, leaf_batch=leaf_batch,
+                         wave_kernel="fused")
+    h0, w0 = HF.launches, WV.launches
+    got, prl = port_grow(X, y, P, g, h, leaf_batch=leaf_batch,
+                         device=cuda_device)
+    assert HF.launches == h0 + 1 and WV.launches > w0
+    assert_same_tree(want, got, rl, prl)

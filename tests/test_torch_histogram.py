@@ -1,0 +1,156 @@
+"""Histogram parity: the port's plain histogram (``histogram_segment``,
+the plain version of the CUDA kernel ``ops/csrc/histogram.cu``) against
+the JAX package's ``histogram_flat`` (its Pallas kernel, in interpret
+mode) and ``histogram_segment``.
+
+- Bitwise on exact-sum values (+-0.5, 0.25, 1): every sum is exact in any
+  order.
+- Within 1e-5 relative on random float32 values (the JAX kernel's matmul
+  and the scatter-add sum in different orders).
+
+On the card (``cuda`` marker) the kernel equals its plain version bitwise
+on exact-sum values at the bench shape, is run-to-run bitwise on random
+values, and stays within 1e-5 relative of the plain version there."""
+
+import numpy as np
+import pytest
+import torch
+
+from torch_port_util import cuda_device  # noqa: F401
+
+from lightgbm_tpu_torch.ops import histogram_flat as HF
+from lightgbm_tpu_torch.ops.histogram import (histogram_from_vals,
+                                              histogram_segment, pack_values,
+                                              subtract_histogram)
+
+# (rows, features, bins): N not a multiple of any block, N = 1, F = 1
+SHAPES = [(1, 28, 255), (1, 1, 4), (777, 3, 17), (3001, 5, 64),
+          (2049, 1, 255)]
+
+
+def _data(n, f, b, seed, exact):
+    rng = np.random.RandomState(seed)
+    bins = rng.randint(0, b, (n, f)).astype(np.uint8)
+    bins[rng.rand(n, f) < 0.1] = b - 1            # the NaN bin, often
+    if exact:
+        g = rng.choice([-0.5, 0.5], n).astype(np.float32)
+        h = np.full(n, 0.25, np.float32)
+    else:
+        g = rng.randn(n).astype(np.float32)
+        h = rng.rand(n).astype(np.float32)
+    vals = np.stack([g, h, np.ones(n, np.float32)], axis=1)
+    return bins, vals
+
+
+def _jax_flat(bins, vals, b):
+    import jax.numpy as jnp
+
+    from lightgbm_tpu.ops.pallas_histogram import histogram_flat
+    return np.asarray(histogram_flat(jnp.asarray(bins), jnp.asarray(vals),
+                                     num_bins=b, interpret=True))
+
+
+def _jax_segment(bins, vals, b):
+    import jax.numpy as jnp
+
+    from lightgbm_tpu.ops.histogram import histogram_segment as js
+    return np.asarray(js(jnp.asarray(bins), jnp.asarray(vals), num_bins=b))
+
+
+def _port(bins, vals, b):
+    return histogram_flat_cpu(torch.from_numpy(bins), torch.from_numpy(vals),
+                              b).numpy()
+
+
+def histogram_flat_cpu(bins, vals, b):
+    out = HF.histogram_flat(bins, vals, num_bins=b)
+    assert out.shape == (bins.shape[1], b, 3) and out.dtype == torch.float32
+    return out
+
+
+@pytest.mark.parametrize("n,f,b", SHAPES)
+def test_plain_bitwise_vs_jax_on_exact_sums(n, f, b):
+    bins, vals = _data(n, f, b, seed=n + f, exact=True)
+    got = _port(bins, vals, b)
+    np.testing.assert_array_equal(got, _jax_flat(bins, vals, b))
+    np.testing.assert_array_equal(got, _jax_segment(bins, vals, b))
+
+
+@pytest.mark.parametrize("n,f,b", SHAPES[2:])
+def test_plain_within_1e5_vs_jax_on_random_f32(n, f, b):
+    bins, vals = _data(n, f, b, seed=7 * n + f, exact=False)
+    got = _port(bins, vals, b)
+    for want in (_jax_flat(bins, vals, b), _jax_segment(bins, vals, b)):
+        np.testing.assert_allclose(got, want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max())
+
+
+def test_dispatch_on_cpu_and_bf16_refusal():
+    bins, vals = _data(500, 4, 32, seed=1, exact=True)
+    tb, tv = torch.from_numpy(bins), torch.from_numpy(vals)
+    want = histogram_segment(tb, tv, num_bins=32)
+    for impl in ("auto", "pallas", "flat", "segment", "onehot"):
+        got = histogram_from_vals(tb, tv, num_bins=32, impl=impl,
+                                  rows_block=128)
+        assert torch.equal(got, want), impl
+    with pytest.raises(NotImplementedError, match="B1b"):
+        histogram_from_vals(tb, tv, num_bins=32, impl="flat_bf16")
+    with pytest.raises(ValueError, match="unknown"):
+        histogram_from_vals(tb, tv, num_bins=32, impl="bogus")
+
+
+def test_pack_values_and_subtract_vs_jax():
+    import jax.numpy as jnp
+
+    from lightgbm_tpu.ops import histogram as jh
+    rng = np.random.RandomState(2)
+    g = rng.randn(64).astype(np.float32)
+    h = rng.rand(64).astype(np.float32)
+    m = (rng.rand(64) > 0.3).astype(np.float32)
+    got = pack_values(torch.from_numpy(g), torch.from_numpy(h),
+                      torch.from_numpy(m)).numpy()
+    want = np.asarray(jh.pack_values(jnp.asarray(g), jnp.asarray(h),
+                                     jnp.asarray(m)))
+    np.testing.assert_array_equal(got, want)
+    a, b = rng.randn(2, 3, 8, 3).astype(np.float32)
+    np.testing.assert_array_equal(
+        subtract_histogram(torch.from_numpy(a), torch.from_numpy(b)).numpy(),
+        np.asarray(jh.subtract_histogram(jnp.asarray(a), jnp.asarray(b))))
+
+
+def test_wrapper_input_checks_and_chunking():
+    bins, vals = _data(10, 2, 8, seed=0, exact=True)
+    tb, tv = torch.from_numpy(bins), torch.from_numpy(vals)
+    with pytest.raises(ValueError, match="float32"):
+        HF.histogram_flat(tb, tv.double(), num_bins=8)
+    with pytest.raises(ValueError, match="vals"):
+        HF.histogram_flat(tb, tv[:, :2], num_bins=8)
+    with pytest.raises(ValueError, match="num_bins"):
+        HF.histogram_flat(tb, tv, num_bins=257)
+    # the chunking is a function of N alone: sums keep one order per N
+    assert HF.chunking(1) == (HF.MIN_CHUNK_ROWS, 1)
+    rows, chunks = HF.chunking(10_500_000)
+    assert chunks <= HF.MAX_CHUNKS and rows * chunks >= 10_500_000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1000, 200_000])
+def test_kernel_matches_plain_bench_shape(cuda_device, n):
+    """Bitwise on exact sums; run-to-run bitwise and within 1e-5 relative
+    of the plain version on random values (F = 28, B = 255, NaN bins)."""
+    for exact in (True, False):
+        bins, vals = _data(n, 28, 255, seed=n, exact=exact)
+        tb = torch.from_numpy(bins).to(cuda_device)
+        tv = torch.from_numpy(vals).to(cuda_device)
+        launches = HF.launches
+        got = HF.histogram_flat(tb, tv, num_bins=255)
+        again = HF.histogram_flat(tb, tv, num_bins=255)
+        want = histogram_segment(tb, tv, num_bins=255)
+        torch.cuda.synchronize()
+        assert HF.launches == launches + 2
+        assert torch.equal(got, again)
+        if exact:
+            assert torch.equal(got, want)
+        else:
+            scale = float(want.abs().max())
+            assert float((got - want).abs().max()) <= 1e-5 * scale

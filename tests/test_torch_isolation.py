@@ -20,7 +20,8 @@ def _forbidden(name: str) -> bool:
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "tools" / "port_train_profile.py"]
 
 
 def _env():
@@ -48,7 +49,29 @@ def test_importing_every_port_module_loads_no_jax():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     n = int(out.stdout.split("N ")[1].split()[0])
-    assert n >= 15
+    assert n >= 27
+
+
+#: the training slice's modules, each importable without JAX (above)
+TRAINING_MODULES = ("basic", "dataset", "engine", "metrics", "serialization",
+                    "models/grower", "ops/histogram", "ops/histogram_flat",
+                    "ops/split", "ops/wave")
+
+
+def test_training_slice_modules_present():
+    for mod in TRAINING_MODULES:
+        assert (PORT / f"{mod}.py").is_file(), mod
+
+
+def test_kernel_sources_use_no_atomics():
+    """The histogram and wave kernels reduce in a fixed order (chunk
+    partials, then a combine in chunk order): no atomics at all, so a
+    repeated run gives the same bits."""
+    csrc = PORT / "ops" / "csrc"
+    for name in ("histogram.cu", "wave.cu", "hist_common.cuh"):
+        text = (csrc / name).read_text()
+        assert "atomic" not in text.lower().replace("no float atomics", ""), \
+            name
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -138,11 +138,19 @@ def test_sparse_batch_equals_dense(binary, messy):
                                   port.predict(Xd))
 
 
-def test_quantize_off_and_unfused_raise(binary):
-    with pytest.raises(NotImplementedError, match="A7b"):
-        Predictor(binary[1], quantize="off", device="cpu")
-    with pytest.raises(NotImplementedError, match="A7b"):
-        Predictor(binary[1], device="cpu")       # the default is off
+def test_quantize_off_and_unfused_raise(binary, messy):
+    """quantize="off" (the default) serves the fp32 pack: raw scores bit
+    for bit those of the JAX package's fp32 serve plan.  The unfused
+    traversal has no counterpart and raises."""
+    from lightgbm_tpu import serve
+    X, _ = messy
+    want = serve.Predictor(binary[0], raw_score=True,
+                           quantize="off").predict(X[:100])
+    for kw in ({"quantize": "off"}, {}):
+        got = Predictor(binary[1], raw_score=True, device="cpu",
+                        **kw).predict(X[:100])
+        assert got.dtype == want.dtype == np.float64
+        np.testing.assert_array_equal(got, want)
     with pytest.raises(NotImplementedError, match="unfused"):
         Predictor(binary[1], quantize="int16", traverse="unfused",
                   device="cpu")

@@ -56,6 +56,104 @@ def state_from_booster(bst):
     }
 
 
+#: TreeArrays fields compared bit for bit between the packages
+TREE_FIELDS = ("split_feature", "split_bin", "default_left", "is_cat",
+               "cat_mask", "left_child", "right_child", "split_gain",
+               "internal_value", "internal_count", "leaf_value",
+               "leaf_count", "leaf_weight")
+
+
+def grown_data(n=3 * 2560, f=12, seed=7):
+    """tests/test_wave_fused.py::grown's data: > 2048 rows, NaNs in one
+    column, one low-cardinality integer column kept numerical."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, f)
+    X[rng.rand(n) < 0.05, 3] = np.nan
+    X[:, 5] = rng.randint(0, 6, n)
+    y = (X[:, 0] + 0.7 * X[:, 1] * X[:, 2] + 0.3 * rng.randn(n) > 0)
+    return X, y.astype(np.float64)
+
+
+def exact_grads(n, seed=3):
+    """test_wave_fused.py::_exact_grow_args' gradients: +-0.5 and 0.25, so
+    every histogram sum is exact in any order."""
+    rng = np.random.RandomState(seed)
+    sign = (rng.rand(n) > 0.5).astype(np.float32)
+    return sign - np.float32(0.5), np.full(n, 0.25, np.float32)
+
+
+def jax_grow(X, y, params, grad, hess, categorical=(), **grower_kw):
+    """The JAX package's ``make_grower`` on the binned ``X`` -> (tree
+    fields as numpy, row_leaf)."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    import lightgbm_tpu.models.grower as G
+    from lightgbm_tpu.config import Config
+    from lightgbm_tpu.dataset import TrainData
+    from lightgbm_tpu.models.gbdt import _split_config
+    cfg = Config(dict(params, verbosity=-1))
+    td = TrainData.build(X, y, cfg, categorical_features=list(categorical))
+    base = G.GrowerConfig(num_leaves=cfg.num_leaves,
+                          num_bins=td.binned.max_num_bins,
+                          split=_split_config(cfg, td))
+    grow = G.make_grower(dataclasses.replace(base, **grower_kw))
+    meta = td.feature_meta_device()
+    n, f = td.binned.bins.shape
+    bins = jnp.asarray(td.binned.bins)
+    if grower_kw.get("packed4"):
+        from lightgbm_tpu.ops.histogram import pack_bins4
+        bins = pack_bins4(bins)
+    tree, row_leaf = grow(
+        bins, jnp.asarray(grad), jnp.asarray(hess),
+        jnp.ones(n, jnp.float32), jnp.ones(f, bool),
+        meta["num_bins_per_feature"], meta["nan_bins"],
+        meta["is_categorical"], meta["monotone"])
+    fields = {k: np.asarray(getattr(tree, k)) for k in TREE_FIELDS}
+    fields["num_leaves"] = int(tree.num_leaves)
+    return fields, np.asarray(row_leaf)
+
+
+def port_grow(X, y, params, grad, hess, categorical=(), device="cpu",
+              **grower_kw):
+    """The port's grower on the same rows -> (tree fields as numpy,
+    row_leaf)."""
+    import dataclasses
+
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.dataset import TrainData
+    from lightgbm_tpu_torch.models.gbdt import _split_config
+    from lightgbm_tpu_torch.models.grower import GrowerConfig, make_grower
+    cfg = Config(dict(params, verbosity=-1))
+    td = TrainData.build(X, y, cfg, categorical_features=list(categorical))
+    base = GrowerConfig(num_leaves=cfg.num_leaves,
+                        num_bins=td.binned.max_num_bins,
+                        split=_split_config(cfg, td))
+    grow = make_grower(dataclasses.replace(base, **grower_kw))
+    dev = torch.device(device)
+    meta = td.feature_meta_device(dev)
+    n, f = td.binned.bins.shape
+    tree, row_leaf = grow(
+        td.bins_device(dev), torch.from_numpy(grad).to(dev),
+        torch.from_numpy(hess).to(dev), torch.ones(n, device=dev),
+        torch.ones(f, dtype=torch.bool, device=dev),
+        meta["num_bins_per_feature"], meta["nan_bins"],
+        meta["is_categorical"])
+    fields = {k: getattr(tree, k).cpu().numpy() for k in TREE_FIELDS}
+    fields["num_leaves"] = int(tree.num_leaves)
+    return fields, row_leaf.cpu().numpy()
+
+
+def assert_same_tree(want, got, rl_want=None, rl_got=None):
+    """Every TreeArrays field and row_leaf bit for bit."""
+    assert got["num_leaves"] == want["num_leaves"]
+    for k in TREE_FIELDS:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    if rl_want is not None:
+        np.testing.assert_array_equal(rl_got, rl_want, err_msg="row_leaf")
+
+
 @pytest.fixture
 def cuda_device():
     """The card, for tests marked ``cuda``; skips where there is none."""
