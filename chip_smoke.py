@@ -36,8 +36,10 @@ and fused-wave kernels:
    values;
 9. wave kernel vs its plain version at W in {1, 16} with inactive slots
    and smaller siblings of 1 to 100,000 rows: child histograms and split
-   payloads bitwise on exact-sum values, run-to-run bitwise on random
-   values;
+   payloads bitwise on exact-sum values; on random values run-to-run
+   bitwise, and held to the plain version (``wave_agreement``): child
+   histograms and winner sums within 1e-5 relative, counts equal, gains
+   within float32's rounding bound of the split scan;
 10. training: tests/fixtures/bench_auc.json's config (255 leaves, 100
     iterations) plus tpu_leaf_batch 16 on make_higgs_like(250,000, 28,
     seed 0) through ``lightgbm_tpu_torch.train``; holdout AUC within 1e-3
@@ -47,7 +49,11 @@ and fused-wave kernels:
 12. serving the trained model: ``Booster.serving_predictor(quantize=
     "int16")`` on 65,536 holdout rows within the pack's error bound of
     ``Booster.predict(raw_score=True)``;
-13. timing: histogram kernel at N = 200,000 and 10,500,000, wave kernel
+13. profile: a fresh booster warmed up 3 iterations, then 5 under
+    ``torch.profiler``: host milliseconds per iteration in each of the
+    port's ``record_function`` ranges (``gbdt/*``, ``grower/*``), the
+    device's busy and idle share of the window, the top kernels;
+14. timing: histogram kernel at N = 200,000 and 10,500,000, wave kernel
     at a wave of 16 smaller siblings of 12,500 rows, plain versions, the
     index_add_ yardstick, and each bound.
 
@@ -77,9 +83,12 @@ HIST_SOURCE = "lightgbm_tpu_torch/ops/csrc/histogram.cu"
 WAVE_REPLACES = "lightgbm_tpu/ops/pallas_wave.py:331 (fused_wave_call)"
 WAVE_SOURCE = "lightgbm_tpu_torch/ops/csrc/wave.cu"
 BENCH_FIXTURE = os.path.join("tests", "fixtures", "bench_auc.json")
-#: scan work per candidate (two child gains, validity, the compare): an
-#: estimate of the float32 operations the wave kernel's scan stage needs
-SCAN_OPS_PER_CANDIDATE = 40
+#: float32 operations of the split scan: per (child, feature, bin), three
+#: cumulative-sum adds and three NaN-bin adds; per NaN direction of it,
+#: three right-child subtractions, two child gains (multiply, add, divide
+#: each), two adds less the parent's gain and five validity compares
+SCAN_OPS_PER_BIN = 6
+SCAN_OPS_PER_DIRECTION = 16
 #: timing shapes: the bench's training rows and the Higgs row count; a
 #: wave of 16 smaller siblings of 12,500 rows
 HIST_TIMING_ROWS = (200_000, 10_500_000)
@@ -307,10 +316,12 @@ def device_vals(gen, n, dev, exact):
 
 def hist_bound_ms(n, f, b):
     """Histogram bound: bins and values read once, the (F, B, 3) result
-    written once, over the memory rate; the one-hot contraction's N*F*B
-    compares over the scalar rate.  Returns (bytes_ms, ops_ms)."""
+    written once, over the memory rate; the N*F*3 adds a histogram needs
+    over the scalar rate (the kernel's own one-hot design spends N*F*B
+    compares on top: that is its cost, not the function's).  Returns
+    (bytes_ms, ops_ms)."""
     nbytes = n * f + n * 12 + f * b * 12
-    return nbytes / HBM_BYTES_PER_S * 1e3, n * f * b / SCALAR_OPS_PER_S * 1e3
+    return nbytes / HBM_BYTES_PER_S * 1e3, n * f * 3 / SCALAR_OPS_PER_S * 1e3
 
 
 def wave_case(gen, dev, sizes, exact, f=28, b=255, inactive=()):
@@ -358,16 +369,169 @@ def wave_case(gen, dev, sizes, exact, f=28, b=255, inactive=()):
                 meta=WV.wave_meta(nbpf, nanb, is_cat, fmask), num_bins=b)
 
 
-def wave_bound_ms(sizes, f, b):
-    """Wave bound: each smaller sibling's rows (bins, values, perm index)
-    and W parent histograms read once, 2W child histograms and payloads
-    written once, over the memory rate; the rows' one-hot compares plus
-    the scan's candidates over the scalar rate.  Returns (bytes, ops)."""
-    r, w = sum(sizes), len(sizes)
+def wave_bound_ms(inp):
+    """Wave bound for the inputs of one wave (``wave_case``): each smaller
+    sibling's rows (bins, values, perm index) and the W parent histograms
+    read once, 2W child histograms and payloads written once, over the
+    memory rate; over the scalar rate, the operations the function needs
+    on this run's data: the siblings' R*F*3 adds, the W*F*B*3 subtractions,
+    and per active child the scan of every in-feature bin of every live
+    feature (SCAN_OPS_PER_BIN) in each of its NaN directions
+    (SCAN_OPS_PER_DIRECTION).  Returns (bytes_ms, ops_ms)."""
+    from lightgbm_tpu_torch.ops.wave import PAYLOAD_SCALARS
+    meta = inp["meta"].cpu().long()
+    b = inp["num_bins"]
+    f = meta.shape[0]
+    r, w = sum(inp["small_cnt"]), len(inp["small_cnt"])
     hist = f * b * 12
-    nbytes = r * (f + 12 + 4) + 3 * w * hist + 2 * w * (16 + b) * 4
-    ops = r * f * b + 2 * w * f * b * 2 * SCAN_OPS_PER_CANDIDATE
+    nbytes = (r * (f + 12 + 4) + 3 * w * hist
+              + 2 * w * (PAYLOAD_SCALARS + b) * 4)
+    live = meta[:, 3] > 0
+    dirs = 1 + ((meta[:, 2] == 0) & (meta[:, 1] < b)).long()
+    cells = int(meta[live, 0].sum())
+    cands = int((meta[:, 0] * dirs)[live].sum())
+    children = 2 * int((inp["stats"][:, 0, 5] > 0.5).sum())
+    ops = (r * f * 3 + w * f * b * 3
+           + children * (cells * SCAN_OPS_PER_BIN
+                         + cands * SCAN_OPS_PER_DIRECTION))
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / SCALAR_OPS_PER_S * 1e3
+
+
+def wave_gain_bound(pay, hist, rtol=1e-5):
+    """Per child of a wave, how far float32 rounding may move the winner's
+    gain between the kernel and its plain version: ``rtol`` of the gain,
+    plus the scans' share.  Each child sum is a scan over B bins (the
+    kernel's sequential, the plain version's parallel), within B * 2^-24
+    of the absolute sum it runs over (the winning feature's |G| bins, the
+    parent's hessian) for each of the two; a side's gain moves by
+    2|G|/H per unit of G and (G/H)^2 per unit of H.  ``pay`` (2W, P),
+    ``hist`` (2W, F, B, 3)."""
+    import torch
+    b = hist.shape[-2]
+    feat = pay[:, 1].round().long().clamp(0, hist.shape[1] - 1)
+    abs_g = hist[torch.arange(pay.shape[0]), feat, :, 0].abs().sum(-1)
+    tot_h = pay[:, 6] + pay[:, 9]
+    c = 2 * b * 2.0 ** -24
+    bound = rtol * pay[:, 0].abs()
+    for gi, hi in ((5, 6), (8, 9)):
+        g, hh = pay[:, gi], pay[:, hi].abs().clamp_min(1e-30)
+        bound = bound + c * (2 * g.abs() / hh * abs_g + (g / hh) ** 2 * tot_h)
+    return bound
+
+
+def wave_agreement(h, p, hp, pp, rtol=1e-5):
+    """Hold the wave kernel's ``(h, p)`` to its plain version's
+    ``(hp, pp)`` where the two may round differently (random values).
+    Child histograms: gradient and hessian channels within ``rtol`` of the
+    channel's largest plain value, counts equal.  Per child: gains -inf in
+    the same children, and within ``wave_gain_bound`` of each other; with
+    the same winner (feature, bin, NaN direction, kind), equal counts and
+    categorical lanes and sums within ``rtol`` of the wave's largest plain
+    sum.  Raises on a breach; returns the measured errors."""
+    import torch
+    from lightgbm_tpu_torch.ops.wave import PAYLOAD_SCALARS
+    hist_err = []
+    for c in (0, 1):
+        scale = float(hp[..., c].abs().max())
+        err = float((h[..., c] - hp[..., c]).abs().max())
+        require(err <= rtol * scale, f"wave child histogram channel {c} off "
+                f"by {err} (scale {scale})")
+        hist_err.append(err / max(scale, 1e-30))
+    require(torch.equal(h[..., 2], hp[..., 2]),
+            "wave child histogram counts != plain version")
+    k, q = p.reshape(-1, p.shape[-1]), pp.reshape(-1, pp.shape[-1])
+    kids = hp.reshape(-1, *hp.shape[-3:])
+    fin = torch.isfinite(q[:, 0])
+    require(torch.equal(fin, torch.isfinite(k[:, 0])),
+            "wave kernel and plain version disagree on which children split")
+    bound = torch.maximum(wave_gain_bound(k, kids, rtol),
+                          wave_gain_bound(q, kids, rtol))[fin]
+    gain_err = (k[fin, 0] - q[fin, 0]).abs()
+    worst = int(torch.argmax(gain_err / bound)) if bool(fin.any()) else 0
+    require(bool((gain_err <= bound).all()), "wave gains off by "
+            f"{float(gain_err[worst])} (bound {float(bound[worst])})")
+    same = fin & (k[:, 1:5] == q[:, 1:5]).all(dim=1)
+    require(torch.equal(k[same][:, [7, 10]], q[same][:, [7, 10]]),
+            "wave winner counts != plain version")
+    require(torch.equal(k[same][:, PAYLOAD_SCALARS:],
+                        q[same][:, PAYLOAD_SCALARS:]),
+            "wave winner categorical lanes != plain version")
+    sums = [5, 6, 8, 9]
+    sum_scale = float(q[fin][:, sums].abs().max()) if bool(fin.any()) else 0.0
+    sum_err = float((k[same][:, sums] - q[same][:, sums]).abs().max()) if bool(
+        same.any()) else 0.0
+    require(sum_err <= rtol * sum_scale, f"wave winner sums off by {sum_err} "
+            f"(scale {sum_scale})")
+    some = bool(fin.any())
+    return {"hist_rel_err": max(hist_err),
+            "gain_abs_err": float(gain_err.max()) if some else 0.0,
+            "gain_rel_err": float((gain_err / q[fin, 0].abs()).max())
+            if some else 0.0,
+            "gain_err_over_bound": float((gain_err / bound).max())
+            if some else 0.0,
+            "sum_rel_err": sum_err / max(sum_scale, 1e-30),
+            "splitting_children": int(fin.sum()),
+            "other_winner": int((fin & ~same).sum())}
+
+
+def profile_phase(params, ds, dev, warmup=3, iters=5):
+    """13. Train ``warmup`` iterations of a fresh booster, then ``iters``
+    more under ``torch.profiler``.  Host time per iteration in each of the
+    port's ranges (``grower/*`` nest inside ``gbdt/grow``; the rest of it
+    is the grower's host bookkeeping), and the device's busy time: the
+    union of its kernel and copy intervals over the window from the first
+    one's start to the last one's end."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from torch.profiler import ProfilerActivity, profile
+    bst = lgt.Booster(params, ds, device=dev)
+    for _ in range(warmup):
+        bst.update()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            bst.update()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ranges, spans, kernels = {}, [], {}
+    for ev in prof.events():
+        start, end = ev.time_range.start, ev.time_range.end
+        is_range = ev.name.startswith(("gbdt/", "grower/"))
+        if "cuda" in str(getattr(ev, "device_type", "")).lower():
+            if not is_range:       # the ranges' own device-side copies
+                spans.append((start, end))
+                kernels[ev.name] = kernels.get(ev.name, 0.0) + end - start
+        elif is_range:
+            ranges[ev.name] = ranges.get(ev.name, 0.0) + end - start
+    per_iter = {k: v / 1e3 / iters for k, v in sorted(ranges.items())}
+    if "gbdt/grow" in per_iter:
+        per_iter["grower bookkeeping (rest of gbdt/grow)"] = (
+            per_iter["gbdt/grow"] - sum(v for k, v in per_iter.items()
+                                        if k.startswith("grower/")))
+    busy = window = 0.0
+    if spans:
+        spans.sort()
+        cur_s, cur_e = spans[0]
+        for s, e in spans[1:]:
+            if s > cur_e:
+                busy += cur_e - cur_s
+                cur_s, cur_e = s, e
+            else:
+                cur_e = max(cur_e, e)
+        busy += cur_e - cur_s
+        window = spans[-1][1] - spans[0][0]
+    require(busy > 0, "the profiler saw no device time in training")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    return {"phase": "train_profile", "warmup_iterations": warmup,
+            "iterations": iters, "wall_ms_per_iteration": wall * 1e3 / iters,
+            "range_host_ms_per_iteration": per_iter,
+            "device_busy_ms_per_iteration": busy / 1e3 / iters,
+            "device_busy_share": busy / window,
+            "device_idle_share": 1.0 - busy / window,
+            "top_kernels_ms_per_iteration": [
+                {"kernel": k[:100], "ms": v / 1e3 / iters} for k, v in top]}
 
 
 def load_bench_fixture(root):
@@ -443,7 +607,7 @@ def wave_phase(gen, dev):
                 "slots": len(sizes), "rows": sum(sizes),
                 "hist_max_abs_err": float((h1 - hp).abs().max()),
                 "payload_equal": bool(torch.equal(p1, pp)),
-                "finite_gains": int(torch.isfinite(gains).sum())}
+                **wave_agreement(h1, p1, hp, pp)}
     emit({"phase": "wave_vs_plain", "features": 28, "bins": 255,
           "cases": out})
 
@@ -507,7 +671,7 @@ def train_phase(seed, dev, fix):
 
 
 def training_phases(seed, dev, smi):
-    """Phases 8-13; returns the histogram and wave entries of the kernels
+    """Phases 8-14; returns the histogram and wave entries of the kernels
     line."""
     import torch
     import lightgbm_tpu_torch as lgt
@@ -553,7 +717,10 @@ def training_phases(seed, dev, smi):
           "max_abs_err": err, "quantize_error_bound": bound,
           "f32_slack": slack})
 
-    # 13. timing
+    # 13. where a training iteration's time goes
+    emit(profile_phase(params, ds, dev))
+
+    # 14. timing
     timing = {}
     for n in HIST_TIMING_ROWS:
         bins = torch.randint(0, 255, (n, 28), generator=gen, device=dev,
@@ -586,10 +753,11 @@ def training_phases(seed, dev, smi):
                                   iters=20),
         "plain_ms": cuda_time_ms(lambda: WV.wave_plain(cfg=cfg, **inp),
                                  iters=3, warmup=1)}
-    h1, _p1 = WV.fused_wave_call(cfg=cfg, **inp)
-    hp, _pp = WV.wave_plain(cfg=cfg, **inp)
+    h1, p1 = WV.fused_wave_call(cfg=cfg, **inp)
+    hp, pp = WV.wave_plain(cfg=cfg, **inp)
     w_entry["max_abs_err"] = float((h1 - hp).abs().max())
-    w_entry["bytes_ms"], w_entry["ops_ms"] = wave_bound_ms(sizes, 28, 255)
+    w_entry["agreement"] = wave_agreement(h1, p1, hp, pp)
+    w_entry["bytes_ms"], w_entry["ops_ms"] = wave_bound_ms(inp)
     timing[f"wave/{len(sizes)}x{sizes[0]}"] = w_entry
     emit({"phase": "training_timing", "nvidia_smi": smi, "shapes": timing})
 

@@ -6,7 +6,9 @@ average, then per iteration binary gradients -> leaf-wise growth
 (``models/grower.py``) -> shrinkage -> the score update, with the JAX
 package's rounding rule (the shrunk leaf values are materialized, then
 one add per row).  Scores, bins and gradients live on the device; each
-grown tree becomes a host ``Tree`` at once.  ``predict_raw`` walks the
+grown tree becomes a host ``Tree`` at once.  ``torch.profiler`` ranges
+(``gbdt/gradients``, ``gbdt/grow``, ``gbdt/score_update``,
+``gbdt/host_tree``) mark an iteration's steps.  ``predict_raw`` walks the
 fp32 pack (``models/tree.py::forest_scores``) through the serving plan.
 
 A config the slice does not train raises ``NotImplementedError`` naming
@@ -21,6 +23,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..binning import BinnedData, build_bundles
 from ..config import Config, _CANONICAL
@@ -198,33 +201,37 @@ class GBDT:
         """``grow_apply``: grow one tree, shrink it, and add its leaf
         values to the scores."""
         meta = self.meta_dev
-        arrays, row_leaf = self.grow(
-            self.bins_dev, grad, hess, self._full_mask, self._fmask,
-            meta["num_bins_per_feature"], meta["nan_bins"],
-            meta["is_categorical"])
-        s = torch.tensor(np.float32(shrink))
-        lv = (arrays.leaf_value * s if arrays.num_leaves > 1
-              else torch.zeros_like(arrays.leaf_value))
-        arrays = arrays._replace(leaf_value=lv,
-                                 internal_value=arrays.internal_value * s)
-        lv_dev = lv.to(self.device)
-        self.scores = self.scores + lv_dev[row_leaf.long()]
+        with record_function("gbdt/grow"):
+            arrays, row_leaf = self.grow(
+                self.bins_dev, grad, hess, self._full_mask, self._fmask,
+                meta["num_bins_per_feature"], meta["nan_bins"],
+                meta["is_categorical"])
+        with record_function("gbdt/score_update"):
+            s = torch.tensor(np.float32(shrink))
+            lv = (arrays.leaf_value * s if arrays.num_leaves > 1
+                  else torch.zeros_like(arrays.leaf_value))
+            arrays = arrays._replace(leaf_value=lv,
+                                     internal_value=arrays.internal_value * s)
+            lv_dev = lv.to(self.device)
+            self.scores = self.scores + lv_dev[row_leaf.long()]
         return arrays
 
     def train_one_iter(self, grad=None, hess=None) -> bool:
         """One boosting iteration; ``grad``/``hess`` (N,) override the
         objective's.  Returns True when the tree could not split (the
         caller stops)."""
-        if grad is None:
-            grad, hess = self.objective.get_gradients(self.scores)
-        else:
-            grad = torch.as_tensor(np.asarray(grad, np.float32),
-                                   device=self.device).reshape(-1)
-            hess = torch.as_tensor(np.asarray(hess, np.float32),
-                                   device=self.device).reshape(-1)
+        with record_function("gbdt/gradients"):
+            if grad is None:
+                grad, hess = self.objective.get_gradients(self.scores)
+            else:
+                grad = torch.as_tensor(np.asarray(grad, np.float32),
+                                       device=self.device).reshape(-1)
+                hess = torch.as_tensor(np.asarray(hess, np.float32),
+                                       device=self.device).reshape(-1)
         arrays = self._grow_apply(grad, hess, self.cfg.learning_rate)
-        self.models[0].append(Tree.from_arrays(
-            arrays, self.train_data.binned.upper_bounds_padded))
+        with record_function("gbdt/host_tree"):
+            self.models[0].append(Tree.from_arrays(
+                arrays, self.train_data.binned.upper_bounds_padded))
         return arrays.num_leaves <= 1
 
     # ---------------------------------------------------- model surface

@@ -7,8 +7,8 @@
   wave: a stable partition of each chosen leaf's segment, then either the
   fused wave kernel (``ops/wave.py``: smaller-sibling histograms, sibling
   subtraction, split scan and selection in one launch) or the unfused
-  step (one histogram per smaller sibling, the subtraction and a torch
-  split search per child).
+  step (the kernel's plain version ``wave_plain``, each smaller sibling
+  through the configured histogram impl).
 - **Mask layout** (up to ``_MIN_BUCKET`` rows): a ``row_leaf`` vector;
   one full-row masked histogram per split.
 
@@ -18,7 +18,9 @@ float32 CPU tensors, and the growth loop reads two small host copies per
 wave (the partition counts, the split payload).  Every float op on the
 decision state runs in float32 in the JAX package's order, so with
 exactly representable histogram sums the trees are the JAX package's bit
-for bit.
+for bit.  ``torch.profiler`` ranges (``grower/root``,
+``grower/partition``, ``grower/wave``, ``grower/payload_read``,
+``grower/row_leaf``) mark the steps of wave growth.
 
 Not ported here: the histogram pool, EFB, monotone constraints, CEGB,
 forced splits, interaction constraints, voting and device meshes (ROADMAP
@@ -28,16 +30,18 @@ A8.5-A8.7, A10).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..ops.histogram import histogram_from_vals, resolve_impl
 from ..ops.split import (BestSplit, SplitConfig, best_split, best_split_batch,
                          first_argmax, leaf_output, smoothed_output)
 from ..ops.wave import (fused_wave_call, payload_to_best, split_payload,
-                        wave_meta, wave_stats)
+                        wave_meta, wave_plain, wave_stats)
 
 _NEG_INF = float("-inf")
 _MIN_BUCKET = 2048
@@ -199,6 +203,12 @@ class Grower:
         return self._grow_mask()
 
     # ------------------------------------------------------------ shared
+    def _hist(self, bins, vals) -> torch.Tensor:
+        """RAW (F, B, 3) histogram through the configured impl."""
+        return histogram_from_vals(bins, vals, num_bins=self.cfg.num_bins,
+                                   impl=self.cfg.histogram_impl,
+                                   rows_block=self.cfg.rows_block)
+
     def _best(self, hist, pg, ph, pc, pout) -> BestSplit:
         nbpf, nanb, iscat, fmask = self.meta_dev
         d = lambda t: t.to(self.dev)
@@ -221,9 +231,7 @@ class Grower:
         cfg = self.cfg
         L, B = cfg.num_leaves, cfg.num_bins
         f = self.bins.shape[1]
-        root_hist = histogram_from_vals(self.bins, self.vals, num_bins=B,
-                                        impl=cfg.histogram_impl,
-                                        rows_block=cfg.rows_block)
+        root_hist = self._hist(self.bins, self.vals)
         root_tot = root_hist[0].sum(dim=0).cpu()
         st = _State(L, B, f)
         st.leaf_rows[0] = n
@@ -290,11 +298,12 @@ class Grower:
         n, f = self.bins.shape
         W = min(cfg.leaf_batch, max(L - 1, 1))
         dev = self.dev
-        use_fused = wave_fused_for(cfg, dev)
-        if use_fused:
-            meta_w = wave_meta(*self.meta_dev)
+        meta_w = wave_meta(*self.meta_dev)
+        wave = (fused_wave_call if wave_fused_for(cfg, dev)
+                else functools.partial(wave_plain, histogram=self._hist))
         perm = torch.arange(n, dtype=torch.int32, device=dev)
-        st = self._root(n)
+        with record_function("grower/root"):
+            st = self._root(n)
         while st.num_leaves < L and float(st.best_gain.max()) > _NEG_INF:
             budget = L - st.num_leaves
             order = torch.sort(st.best_gain, descending=True, stable=True)
@@ -313,11 +322,12 @@ class Grower:
             dlefts = st.best_default_left[top_l]
             scats = st.best_is_cat[top_l]
             cmasks = st.best_cat_mask[top_l]
-            nl = self._partition(perm, starts, cnts,
-                                 feats.numpy().astype(np.int64),
-                                 sbins.numpy().astype(np.int64),
-                                 dlefts.numpy(), scats.numpy(),
-                                 cmasks.numpy())
+            with record_function("grower/partition"):
+                nl = self._partition(perm, starts, cnts,
+                                     feats.numpy().astype(np.int64),
+                                     sbins.numpy().astype(np.int64),
+                                     dlefts.numpy(), scats.numpy(),
+                                     cmasks.numpy())
             small_left = nl <= cnts - nl
             small_start = np.where(small_left, starts, starts + nl)
             small_cnt = np.where(small_left, nl, cnts - nl)
@@ -330,31 +340,18 @@ class Grower:
             pout = st.leaf_out[top_l]
             out_l = smoothed_output(gl, hl, cl, pout, cfg.split)
             out_r = smoothed_output(gr, hr, cr, pout, cfg.split)
-            top_dev = top_l.to(dev)
-            parent_hist = self.leaf_hist[top_dev]
-            if use_fused:
-                stats = wave_stats(
-                    torch.stack([gl, gr], 1), torch.stack([hl, hr], 1),
-                    torch.stack([cl, cr], 1), torch.stack([out_l, out_r], 1),
-                    torch.from_numpy(small_left), torch.ones(k, dtype=torch.bool))
-                hists, payload = fused_wave_call(
+            stats = wave_stats(
+                torch.stack([gl, gr], 1), torch.stack([hl, hr], 1),
+                torch.stack([cl, cr], 1), torch.stack([out_l, out_r], 1),
+                torch.from_numpy(small_left), torch.ones(k, dtype=torch.bool))
+            with record_function("grower/wave"):
+                hists, payload = wave(
                     self.bins, self.vals, perm, small_start.tolist(),
-                    small_cnt.tolist(), parent_hist, stats.to(dev), meta_w,
-                    cfg.split, B)
-                hist_left, hist_right = hists[:, 0], hists[:, 1]
+                    small_cnt.tolist(), self.leaf_hist[top_l.to(dev)],
+                    stats.to(dev), meta_w, cfg.split, B)
+            with record_function("grower/payload_read"):
                 bs = payload_to_best(split_payload(payload).cpu())
-            else:
-                hist_small = torch.stack([
-                    self._hist_rows(perm[int(s0):int(s0) + int(c)])
-                    for s0, c in zip(small_start, small_cnt)])
-                hist_big = parent_hist - hist_small
-                sl = torch.from_numpy(small_left).to(dev)[:, None, None, None]
-                hist_left = torch.where(sl, hist_small, hist_big)
-                hist_right = torch.where(sl, hist_big, hist_small)
-                bs = self._best_batch(
-                    torch.cat([hist_left, hist_right]), torch.cat([gl, gr]),
-                    torch.cat([hl, hr]), torch.cat([cl, cr]),
-                    torch.cat([out_l, out_r]))
+            hist_left, hist_right = hists[:, 0], hists[:, 1]
 
             # ---- tree updates (W nodes)
             parent = st.leaf_parent[top_l]
@@ -394,15 +391,9 @@ class Grower:
             st.leaf_out[idx2] = torch.cat([out_l, out_r])
             st.num_leaves += k
             st.store_best(idx2, bs, self._depth_ok(torch.cat([depth, depth])))
-        return st.finish(L), self._row_leaf_from_perm(st, perm, n)
-
-    def _hist_rows(self, rows: torch.Tensor) -> torch.Tensor:
-        """RAW histogram of a perm range (the smaller sibling, unfused)."""
-        r = rows.long()
-        return histogram_from_vals(self.bins[r], self.vals[r],
-                                   num_bins=self.cfg.num_bins,
-                                   impl=self.cfg.histogram_impl,
-                                   rows_block=self.cfg.rows_block)
+        with record_function("grower/row_leaf"):
+            row_leaf = self._row_leaf_from_perm(st, perm, n)
+        return st.finish(L), row_leaf
 
     def _row_leaf_from_perm(self, st: _State, perm, n: int):
         """row -> leaf from the final grouped permutation (zero-row leaves
@@ -453,9 +444,7 @@ class Grower:
             target = leaf if small_is_left else new_leaf
             masked = torch.where((row_leaf == target)[:, None], self.vals,
                                  torch.zeros((), device=dev))
-            hist_small = histogram_from_vals(self.bins, masked, num_bins=B,
-                                             impl=cfg.histogram_impl,
-                                             rows_block=cfg.rows_block)
+            hist_small = self._hist(self.bins, masked)
             hist_big = self.leaf_hist[leaf] - hist_small
             hist_left, hist_right = ((hist_small, hist_big) if small_is_left
                                      else (hist_big, hist_small))

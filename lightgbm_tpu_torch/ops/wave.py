@@ -7,9 +7,10 @@ its rows of the permutation, the larger sibling by subtraction from the
 parent, the pair ordered (left, right), both children scanned and the
 winner selected.  On a CUDA tensor ``fused_wave_call`` launches the kernel
 on PyTorch's current stream, or raises; on a CPU tensor it runs the plain
-version, ``wave_plain`` — exactly the unfused step: the plain histogram of
-each smaller sibling, the subtraction, the (left, right) order, then
-``scan_tables`` + ``select_payload``.
+version, ``wave_plain`` — exactly the unfused step, which the grower's
+unfused branch runs too: the plain histogram of each smaller sibling, the
+subtraction, the (left, right) order, then ``scan_tables`` +
+``select_payload``.
 
 The TPU kernel's VMEM layout (``wave_layout``), lane padding and the
 gathered ``(W, S, ct)`` row copy have no counterpart: the kernel reads the
@@ -94,14 +95,18 @@ def _child_payload(hist, st, meta, cfg: SplitConfig, num_bins: int):
 
 def wave_plain(bins, vals, perm, small_start: Sequence[int],
                small_cnt: Sequence[int], parent, stats, meta,
-               cfg: SplitConfig, num_bins: int):
+               cfg: SplitConfig, num_bins: int, histogram=None):
     """The plain version: returns ``(child_hists (W, 2, F, B, 3),
-    payload (W, 2, PAYLOAD_SCALARS + B))``."""
+    payload (W, 2, PAYLOAD_SCALARS + B))``.  ``histogram(bins, vals)``
+    builds each smaller sibling (default: the plain ``histogram_segment``;
+    the grower's unfused step passes its histogram impl)."""
+    if histogram is None:
+        histogram = lambda b, v: histogram_segment(b, v, num_bins=num_bins)
     hists, pays = [], []
     for w in range(parent.shape[0]):
         s0, cnt = int(small_start[w]), int(small_cnt[w])
         rows = perm[s0:s0 + cnt].long()
-        small = histogram_segment(bins[rows], vals[rows], num_bins=num_bins)
+        small = histogram(bins[rows], vals[rows])
         big = parent[w] - small
         sl = bool(stats[w, 0, 4] > 0.5)
         left, right = (small, big) if sl else (big, small)

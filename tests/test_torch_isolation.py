@@ -20,8 +20,7 @@ def _forbidden(name: str) -> bool:
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "tools" / "port_train_profile.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _env():

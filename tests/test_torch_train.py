@@ -93,6 +93,27 @@ def test_one_iteration_model_text_byte_equal(lgb, grown, data):
                                   jb.feature_importance())
 
 
+@pytest.mark.parametrize("wave_kernel", ["fused", "unfused"])
+def test_profiler_ranges_mark_an_iteration(grown, wave_kernel):
+    """One iteration under ``torch.profiler`` shows every range that
+    chip_smoke.py's profile phase reads: the boosting steps once, the
+    grower's wave steps once per wave."""
+    from torch.profiler import ProfilerActivity, profile
+    X, y = grown
+    bst = lgt.Booster(dict(EXACT, tpu_wave_kernel=wave_kernel),
+                      lgt.Dataset(X, label=y), device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        bst.update()
+    names = [ev.name for ev in prof.events()]
+    for once in ("gbdt/gradients", "gbdt/grow", "gbdt/score_update",
+                 "gbdt/host_tree", "grower/root", "grower/row_leaf"):
+        assert names.count(once) == 1, once
+    waves = names.count("grower/wave")
+    assert waves >= 30 // EXACT["tpu_leaf_batch"]
+    assert names.count("grower/partition") == waves
+    assert names.count("grower/payload_read") == waves
+
+
 def test_weighted_iteration_and_sparse_input(lgb, grown):
     """Sample weights of 1 and 2 keep the first gradients exact: model
     text byte-equal to JAX's; scipy sparse rows train the dense model."""

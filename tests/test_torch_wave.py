@@ -7,8 +7,12 @@ bit for bit on exact-sum values, with inactive slots (gain -inf).
 
 On the card (``cuda`` marker): the kernel against its plain version at
 W in {1, 16}, sibling sizes from 1 row to 100k rows, child histograms and
-payloads bitwise on exact-sum values and run-to-run bitwise on random
-values."""
+payloads bitwise on exact-sum values; on random values run-to-run bitwise
+and within 1e-5 relative of the plain version (``chip_smoke.py``'s
+``wave_agreement``, whose own checks are pinned here on the CPU)."""
+
+import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -134,6 +138,88 @@ def test_shape_and_device_checks():
     assert chunk_rows >= WV.MIN_CHUNK_ROWS
 
 
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    return chip_smoke
+
+
+def _fault(cs, h, p, kind):
+    """A copy of a wave's ``(hists, payload)`` with one planted fault."""
+    bound = cs.wave_gain_bound(p.reshape(-1, p.shape[-1]),
+                               h.reshape(-1, *h.shape[-3:]))
+    h, p = h.clone(), p.clone()
+    k = int(torch.isfinite(p[:, :, 0]).reshape(-1).nonzero()[0])
+    pk = p.reshape(-1, p.shape[-1])
+    if kind == "hist_grad":
+        h[0, 1, 0, 3, 0] += 1e-3 * h[..., 0].abs().max()
+    elif kind == "hist_count":
+        h[0, 0, 1, 2, 2] += 1.0
+    elif kind == "gain":
+        pk[k, 0] += 2 * bound[k]
+    elif kind == "winner_count":
+        pk[k, 7] += 1.0
+    elif kind == "winner_sum":
+        pk[k, 5] += 1e-3 * pk[:, [5, 6, 8, 9]].abs().max()
+    elif kind == "split_set":
+        pk[k, 0] = float("-inf")
+    elif kind == "other_winner_same_gain":
+        pk[k, 2] += 1.0
+        pk[k, 5:11] += 1.0                 # another winner's sums may differ
+    return h, p
+
+
+@pytest.mark.parametrize("kind", ["none", "other_winner_same_gain",
+                                  "hist_grad", "hist_count", "gain",
+                                  "winner_count", "winner_sum", "split_set"])
+def test_wave_agreement_catches_faults(kind):
+    """The tolerance check of the kernel on random values passes a wave
+    that equals its plain version, and one whose winner differs at an
+    equal gain; it raises on each other planted fault (a gain off by twice
+    its rounding bound among them)."""
+    cs = _chip_smoke()
+    inp, _ = wave_inputs(9000, 5, 40, [700, 33, 2048, 5], seed=4,
+                         exact=False)
+    h, p = WV.wave_plain(cfg=CFG, **inp)
+    hf, pf = _fault(cs, h, p, kind)
+    if kind in ("none", "other_winner_same_gain"):
+        got = cs.wave_agreement(hf, pf, h, p)
+        assert got["other_winner"] == (kind != "none")
+        assert got["gain_err_over_bound"] == 0.0
+        assert 0 < got["splitting_children"] <= 6  # slot 2 is inactive
+    else:
+        with pytest.raises(AssertionError):
+            cs.wave_agreement(hf, pf, h, p)
+
+
+def test_bounds_count_what_the_function_needs():
+    """Histogram: N*F*3 adds, so bytes bound it at the bench shape.  Wave:
+    the siblings' adds, the subtraction and the scan of this run's live
+    features, bins and NaN directions."""
+    cs = _chip_smoke()
+    nbytes, ops = cs.hist_bound_ms(200_000, 28, 255)
+    assert nbytes == pytest.approx((200_000 * 40 + 28 * 255 * 12)
+                                   / cs.HBM_BYTES_PER_S * 1e3)
+    assert ops == pytest.approx(200_000 * 28 * 3 / cs.SCALAR_OPS_PER_S * 1e3)
+    assert nbytes > ops
+    gen = torch.Generator().manual_seed(0)
+    inp = cs.wave_case(gen, torch.device("cpu"), [30, 7], exact=False, f=6,
+                       b=10, inactive=(1,))
+    _, ops = cs.wave_bound_ms(inp)
+    # features 0-5: 3 is one-hot categorical (4 bins, one direction), 5 is
+    # masked out; 0, 2, 4 have a NaN bin (two directions)
+    cells, cands = 10 * 4 + 4, 10 * 2 * 3 + 10 + 4
+    want = (37 * 6 * 3 + 2 * 6 * 10 * 3 + 2 * (
+        cells * cs.SCAN_OPS_PER_BIN + cands * cs.SCAN_OPS_PER_DIRECTION))
+    assert ops == pytest.approx(want / cs.SCALAR_OPS_PER_S * 1e3)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("sizes", [[100_000], [1, 5, 0, 2047, 2048, 12_500,
                                                40_000, 3, 900, 1, 77, 4096,
@@ -151,6 +237,8 @@ def test_kernel_matches_plain(cuda_device, sizes):
         torch.cuda.synchronize()
         assert WV.launches == launches + 2
         assert torch.equal(h1, h2) and torch.equal(p1, p2)
+        hp, pp = WV.wave_plain(cfg=CFG, **inp)
         if exact:
-            hp, pp = WV.wave_plain(cfg=CFG, **inp)
             assert torch.equal(h1, hp) and torch.equal(p1, pp)
+        else:
+            _chip_smoke().wave_agreement(h1, p1, hp, pp)
