@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's two main paths at full width and holds every kernel
-against its plain PyTorch version and every result against an
-independent reference.
+Drives the port's main paths (serving, training, quantized training) at
+full width and holds every kernel against its plain PyTorch version and
+every result against an independent reference.
 
 Serving (slice 1) — quantized serving through the hand-written CUDA
 traversal kernel at the width of the bench's headline ensemble (binary,
@@ -57,6 +57,24 @@ and fused-wave kernels:
     at a wave of 16 smaller siblings of 12,500 rows, plain versions, the
     index_add_ yardstick, and each bound.
 
+Quantized training (slice 3) — ``use_quantized_grad`` through the int8
+modes of the histogram and fused-wave kernels:
+
+15. int8 histogram kernel vs its plain version (int32 sums), bitwise, at
+    N in {1, 1,000, 200,000} x 28 features x 255 bins with NaN bins;
+16. int8 wave kernel vs its plain version at W in {1, 16}: child
+    histograms (int32) and counts bitwise on any levels, payloads bitwise
+    on power-of-two scales and held by ``wave_agreement`` on ordinary
+    ones;
+17. quantized training: phase 10's config and binned rows plus
+    ``use_quantized_grad``; holdout AUC within 3e-3 of genuine LightGBM's
+    quantized run, seconds per iteration, the int8 kernels' launches (and
+    no f32 launch); two 10-iteration runs give equal model text; the
+    ``torch.profiler`` split of phase 13;
+18. timing: int8 histogram kernel at N = 200,000 and 10,500,000 (the
+    int32 ``index_add_`` yardstick), int8 wave kernel at 16 x 12,500, plain
+    versions and bounds.
+
 Each phase prints one JSON line; any mismatch raises, so the process exits
 non-zero without the final ``{"ok": true, ...}`` line.  Exits non-zero when
 no CUDA device is visible, or when the port's package is not beside it.
@@ -82,6 +100,8 @@ HIST_REPLACES = "lightgbm_tpu/ops/pallas_histogram.py:166 (histogram_flat)"
 HIST_SOURCE = "lightgbm_tpu_torch/ops/csrc/histogram.cu"
 WAVE_REPLACES = "lightgbm_tpu/ops/pallas_wave.py:331 (fused_wave_call)"
 WAVE_SOURCE = "lightgbm_tpu_torch/ops/csrc/wave.cu"
+#: int8 mode channel scales: powers of two (every scaled sum exact)
+POW2_SCALES = (2.0 ** -6, 2.0 ** -9, 1.0)
 BENCH_FIXTURE = os.path.join("tests", "fixtures", "bench_auc.json")
 #: float32 operations of the split scan: per (child, feature, bin), three
 #: cumulative-sum adds and three NaN-bin adds; per NaN direction of it,
@@ -314,28 +334,48 @@ def device_vals(gen, n, dev, exact):
     return torch.stack([g, h, torch.ones(n, device=dev)], dim=1).contiguous()
 
 
-def hist_bound_ms(n, f, b):
-    """Histogram bound: bins and values read once, the (F, B, 3) result
-    written once, over the memory rate; the N*F*3 adds a histogram needs
-    over the scalar rate (the kernel's own one-hot design spends N*F*B
-    compares on top: that is its cost, not the function's).  Returns
-    (bytes_ms, ops_ms)."""
-    nbytes = n * f + n * 12 + f * b * 12
+def device_levels(gen, n, dev):
+    """(n, 3) int8 levels as quantized training makes them: grad in +-127
+    (a fifth of them zero), hess in 0..127, in-bag 0/1 (nine in ten)."""
+    import torch
+    g = torch.randint(-127, 128, (n,), generator=gen, device=dev)
+    g = torch.where(torch.rand(n, generator=gen, device=dev) < 0.2, 0, g)
+    h = torch.randint(0, 128, (n,), generator=gen, device=dev)
+    c = (torch.rand(n, generator=gen, device=dev) < 0.9).long()
+    return torch.stack([g, h, c], dim=1).to(torch.int8).contiguous()
+
+
+def hist_bound_ms(n, f, b, val_bytes=12):
+    """Histogram bound: bins and values (``val_bytes`` a row: 12 for f32,
+    3 for int8 levels) read once, the (F, B, 3) result written once, over
+    the memory rate; the N*F*3 adds a histogram needs over the scalar rate
+    (the f32 kernel's one-hot design spends N*F*B compares on top: that is
+    its cost, not the function's).  Returns (bytes_ms, ops_ms)."""
+    nbytes = n * f + n * val_bytes + f * b * 12
     return nbytes / HBM_BYTES_PER_S * 1e3, n * f * 3 / SCALAR_OPS_PER_S * 1e3
 
 
-def wave_case(gen, dev, sizes, exact, f=28, b=255, inactive=()):
+def wave_case(gen, dev, sizes, exact, f=28, b=255, inactive=(),
+              scales=None):
     """One wave over a random permutation on the card: slot w's parent is
     the next 2 * sizes[w] perm positions, its smaller sibling the first
     (even w) or last (odd w) sizes[w] of them.  Feature 3 is a one-hot
-    categorical of 4 bins; the last feature is masked out."""
+    categorical of 4 bins; the last feature is masked out.  With
+    ``scales`` (3 channel scales) the wave is in int8 mode: int8 levels,
+    int32 parents, stats from the scaled sums."""
     import torch
     from lightgbm_tpu_torch.ops import wave as WV
     from lightgbm_tpu_torch.ops.histogram import histogram_segment
     n = sum(2 * s for s in sizes)
     bins = device_bins(gen, n, f, b, dev)
     bins[:, 3] = bins[:, 3] % 4
-    vals = device_vals(gen, n, dev, exact)
+    if scales is None:
+        vals = device_vals(gen, n, dev, exact)
+        sums = lambda v: v.sum(dim=0)
+    else:
+        vals = device_levels(gen, n, dev)
+        scale3 = torch.tensor(scales, dtype=torch.float32, device=dev)
+        sums = lambda v: v.long().sum(dim=0).float() * scale3
     perm = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
     starts, cnts, parents, stats = [], [], [], []
     pos = 0
@@ -345,8 +385,8 @@ def wave_case(gen, dev, sizes, exact, f=28, b=255, inactive=()):
         small_left = j % 2 == 0
         starts.append(pos if small_left else pos + s)
         cnts.append(s)
-        left = vals[perm[pos:pos + s].long()].sum(dim=0)
-        right = vals[rows].sum(dim=0) - left
+        left = sums(vals[perm[pos:pos + s].long()])
+        right = sums(vals[rows]) - left
         act = 0.0 if j in inactive else 1.0
         stats.append(torch.stack([torch.stack([
             c[0], c[1], c[2], -c[0] / (c[1] + 1e-15),
@@ -363,10 +403,13 @@ def wave_case(gen, dev, sizes, exact, f=28, b=255, inactive=()):
     is_cat[3] = True
     fmask = torch.ones(f, dtype=torch.bool, device=dev)
     fmask[-1] = False
-    return dict(bins=bins, vals=vals, perm=perm, small_start=starts,
-                small_cnt=cnts, parent=torch.stack(parents),
-                stats=torch.stack(stats).contiguous(),
-                meta=WV.wave_meta(nbpf, nanb, is_cat, fmask), num_bins=b)
+    inp = dict(bins=bins, vals=vals, perm=perm, small_start=starts,
+               small_cnt=cnts, parent=torch.stack(parents),
+               stats=torch.stack(stats).contiguous(),
+               meta=WV.wave_meta(nbpf, nanb, is_cat, fmask), num_bins=b)
+    if scales is not None:
+        inp["scale3"] = scale3
+    return inp
 
 
 def wave_bound_ms(inp):
@@ -377,23 +420,25 @@ def wave_bound_ms(inp):
     on this run's data: the siblings' R*F*3 adds, the W*F*B*3 subtractions,
     and per active child the scan of every in-feature bin of every live
     feature (SCAN_OPS_PER_BIN) in each of its NaN directions
-    (SCAN_OPS_PER_DIRECTION).  Returns (bytes_ms, ops_ms)."""
+    (SCAN_OPS_PER_DIRECTION), plus in int8 mode the rescaling multiply of
+    every scanned cell.  Returns (bytes_ms, ops_ms)."""
     from lightgbm_tpu_torch.ops.wave import PAYLOAD_SCALARS
     meta = inp["meta"].cpu().long()
     b = inp["num_bins"]
     f = meta.shape[0]
     r, w = sum(inp["small_cnt"]), len(inp["small_cnt"])
     hist = f * b * 12
-    nbytes = (r * (f + 12 + 4) + 3 * w * hist
+    val_bytes = 3 * inp["vals"].element_size()
+    nbytes = (r * (f + val_bytes + 4) + 3 * w * hist
               + 2 * w * (PAYLOAD_SCALARS + b) * 4)
     live = meta[:, 3] > 0
     dirs = 1 + ((meta[:, 2] == 0) & (meta[:, 1] < b)).long()
     cells = int(meta[live, 0].sum())
     cands = int((meta[:, 0] * dirs)[live].sum())
     children = 2 * int((inp["stats"][:, 0, 5] > 0.5).sum())
+    per_bin = SCAN_OPS_PER_BIN + (3 if "scale3" in inp else 0)
     ops = (r * f * 3 + w * f * b * 3
-           + children * (cells * SCAN_OPS_PER_BIN
-                         + cands * SCAN_OPS_PER_DIRECTION))
+           + children * (cells * per_bin + cands * SCAN_OPS_PER_DIRECTION))
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / SCALAR_OPS_PER_S * 1e3
 
 
@@ -612,14 +657,94 @@ def wave_phase(gen, dev):
           "cases": out})
 
 
-def train_phase(seed, dev, fix):
-    """10. Training at full width through the entry points; returns the
-    booster, the holdout rows and the phase record."""
+def histogram_int8_phase(gen, dev):
+    """15. The int8 histogram kernel against its plain version (int32 sums
+    are exact in any order: bitwise)."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram_flat as HF
+    from lightgbm_tpu_torch.ops.histogram import histogram_segment
+    cases = []
+    for n in (1, 1000, 200_000):
+        bins = device_bins(gen, n, 28, 255, dev)
+        levels = device_levels(gen, n, dev)
+        got = HF.histogram_flat(bins, levels, num_bins=255)
+        again = HF.histogram_flat(bins, levels, num_bins=255)
+        want = histogram_segment(bins, levels, num_bins=255)
+        torch.cuda.synchronize()
+        require(got.dtype == torch.int32 and torch.equal(got, want)
+                and torch.equal(got, again),
+                f"int8 histogram kernel != plain version, N={n}")
+        cases.append({"rows": n, "bitwise": True,
+                      "max_abs_err": int((got - want).abs().max())})
+    emit({"phase": "histogram_int8_vs_plain", "features": 28, "bins": 255,
+          "cases": cases})
+    return cases[-1]["max_abs_err"]
+
+
+def wave_int8_phase(gen, dev):
+    """16. The int8 wave kernel against its plain version."""
+    import torch
+    from lightgbm_tpu_torch.ops import wave as WV
+    from lightgbm_tpu_torch.ops.split import SplitConfig
+    cfg = SplitConfig(min_data_in_leaf=0, min_sum_hessian_in_leaf=1.0,
+                      lambda_l2=0.5, max_cat_to_onehot=4)
+    waves = {"W1": ([100_000], ()),
+             "W16": ([1, 2, 7, 100, 1000, 2047, 2048, 4096, 12_500, 30_000,
+                      100_000, 3, 50, 500, 5000, 20_000], (5, 11))}
+    rand = torch.rand(2, generator=gen, device=dev) * 0.02 + 1e-3
+    random_scales = (float(rand[0]), float(rand[1]), 1.0)
+    out = {}
+    for name, (sizes, inactive) in waves.items():
+        for kind, scales in (("pow2", POW2_SCALES),
+                             ("random", random_scales)):
+            inp = wave_case(gen, dev, sizes, True, inactive=inactive,
+                            scales=scales)
+            h1, p1 = WV.fused_wave_call(cfg=cfg, **inp)
+            h2, p2 = WV.fused_wave_call(cfg=cfg, **inp)
+            hp, pp = WV.wave_plain(cfg=cfg, **inp)
+            torch.cuda.synchronize()
+            require(torch.equal(h1, h2) and torch.equal(p1, p2),
+                    f"int8 wave kernel not run-to-run bitwise ({name})")
+            require(h1.dtype == torch.int32 and torch.equal(h1, hp),
+                    f"int8 wave child histograms != plain version ({name})")
+            for j in inactive:
+                require(bool(torch.isinf(p1[j, :, 0]).all()),
+                        f"inactive slot {j} has a finite gain")
+            if kind == "pow2":
+                require(torch.equal(p1, pp),
+                        f"int8 wave payload != plain version ({name})")
+            sh = WV.scale_hist(h1, inp["scale3"])
+            out[f"{name}/{kind}"] = {
+                "slots": len(sizes), "rows": sum(sizes), "scales": scales,
+                "hist_bitwise": True,
+                "payload_equal": bool(torch.equal(p1, pp)),
+                **wave_agreement(sh, p1, sh, pp)}
+    emit({"phase": "wave_int8_vs_plain", "features": 28, "bins": 255,
+          "cases": out})
+
+
+def _zero_launches():
+    from lightgbm_tpu_torch.ops import histogram_flat as HF
+    from lightgbm_tpu_torch.ops import wave as WV
+    HF.launches = HF.launches_int8 = 0
+    WV.launches = WV.launches_int8 = 0
+
+
+def _read_launches():
+    from lightgbm_tpu_torch.ops import histogram_flat as HF
+    from lightgbm_tpu_torch.ops import wave as WV
+    return {"histogram": HF.launches, "histogram_int8": HF.launches_int8,
+            "wave": WV.launches, "wave_int8": WV.launches_int8}
+
+
+def train_phase(seed, dev, fix, quantized=False, ds=None):
+    """10 (f32) and 17 (``quantized``). Training at full width through the
+    entry points; returns the booster, the dataset, the params, the
+    holdout rows and the phase record.  The quantized run reuses the f32
+    run's binned ``ds``."""
     import torch
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.metrics import auc
-    from lightgbm_tpu_torch.ops import histogram_flat as HF
-    from lightgbm_tpu_torch.ops import wave as WV
     d = fix["data"]
     X, y = make_higgs_like(d["n_train"] + d["n_valid"], d["n_features"],
                            seed=d["seed"])
@@ -627,21 +752,30 @@ def train_phase(seed, dev, fix):
     params = dict(fix["params"])
     iters = params.pop("num_iterations")
     params["tpu_leaf_batch"] = 16
+    if quantized:
+        params["use_quantized_grad"] = True
+    ref_auc, tol = ((fix["ref_auc_quantized"], 3e-3) if quantized
+                    else (fix["ref_auc"], 1e-3))
     t0 = time.perf_counter()
-    ds = lgt.Dataset(X[:nt], label=y[:nt])
-    ds.construct(params)
+    if ds is None:
+        ds = lgt.Dataset(X[:nt], label=y[:nt])
+        ds.construct(params)
     binning_s = time.perf_counter() - t0
-    HF.launches = 0
-    WV.launches = 0
+    _zero_launches()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     bst = lgt.train(params, ds, iters, device=dev)
     torch.cuda.synchronize()
     boost_s = time.perf_counter() - t1
-    hist_launches, wave_launches = HF.launches, WV.launches
-    require(hist_launches > 0 and wave_launches > 0,
-            f"training launched histogram {hist_launches} and wave "
-            f"{wave_launches} times")
+    launches = _read_launches()
+    live, idle = (("histogram_int8", "wave_int8"), ("histogram", "wave"))
+    if not quantized:
+        live, idle = idle, live
+    require(all(launches[k] > 0 for k in live)
+            and not any(launches[k] for k in idle),
+            f"{'quantized' if quantized else 'f32'} training launched "
+            f"{launches}")
+    hist_launches, wave_launches = (launches[k] for k in live)
     require(bst.num_trees() == iters, f"{bst.num_trees()} trees")
     Xv, yv = X[nt:], y[nt:]
     t2 = time.perf_counter()
@@ -650,10 +784,11 @@ def train_phase(seed, dev, fix):
     require(raw.shape == (len(yv),) and np.isfinite(raw).all(),
             "holdout raw scores not finite")
     holdout_auc = auc(yv, raw)
-    require(abs(holdout_auc - fix["ref_auc"]) < 1e-3,
-            f"holdout AUC {holdout_auc} not within 1e-3 of genuine "
-            f"LightGBM's {fix['ref_auc']}")
-    rec = {"phase": "train", "rows": nt, "holdout_rows": len(yv),
+    require(abs(holdout_auc - ref_auc) < tol,
+            f"holdout AUC {holdout_auc} not within {tol} of genuine "
+            f"LightGBM's {ref_auc}")
+    rec = {"phase": "train_quantized" if quantized else "train",
+           "rows": nt, "holdout_rows": len(yv),
            "features": d["n_features"], "params": params,
            "iterations": iters, "binning_s": binning_s,
            "boosting_s": boost_s, "s_per_iteration": boost_s / iters,
@@ -664,15 +799,15 @@ def train_phase(seed, dev, fix):
            "wave_launches_per_iteration": wave_launches / iters,
            "leaves_per_tree": float(np.mean(
                [t.num_leaves for t in bst._gbdt.models[0]])),
-           "holdout_auc": holdout_auc, "ref_auc": fix["ref_auc"],
-           "auc_gap": holdout_auc - fix["ref_auc"]}
+           "holdout_auc": holdout_auc, "ref_auc": ref_auc,
+           "auc_gap": holdout_auc - ref_auc, "auc_tolerance": tol}
     emit(rec)
     return bst, ds, params, Xv, rec
 
 
 def training_phases(seed, dev, smi):
-    """Phases 8-14; returns the histogram and wave entries of the kernels
-    line."""
+    """Phases 8-18; returns the histogram and wave entries of the kernels
+    line, f32 and int8 modes."""
     import torch
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.models.tree import quantize_error_bound
@@ -686,16 +821,23 @@ def training_phases(seed, dev, smi):
     gen.manual_seed(seed)
     hist_err = histogram_phase(gen, dev)
     wave_phase(gen, dev)
+    hist8_err = histogram_int8_phase(gen, dev)
+    wave_int8_phase(gen, dev)
     fix = load_bench_fixture(root)
     bst, ds, params, Xv, rec = train_phase(seed, dev, fix)
+    _qbst, _, qparams, _, qrec = train_phase(seed, dev, fix, quantized=True,
+                                             ds=ds)
 
-    # 11. determinism
-    t0 = time.perf_counter()
-    m1 = lgt.train(params, ds, 10, device=dev).model_to_string()
-    m2 = lgt.train(params, ds, 10, device=dev).model_to_string()
-    require(m1 == m2, "two 10-iteration runs gave different model text")
-    emit({"phase": "determinism", "iterations": 10, "equal": True,
-          "model_bytes": len(m1), "seconds": time.perf_counter() - t0})
+    # 11. determinism (f32 and quantized)
+    for name, prm in (("f32", params), ("quantized", qparams)):
+        t0 = time.perf_counter()
+        m1 = lgt.train(prm, ds, 10, device=dev).model_to_string()
+        m2 = lgt.train(prm, ds, 10, device=dev).model_to_string()
+        require(m1 == m2, f"two 10-iteration {name} runs gave different "
+                "model text")
+        emit({"phase": "determinism", "training": name, "iterations": 10,
+              "equal": True, "model_bytes": len(m1),
+              "seconds": time.perf_counter() - t0})
 
     # 12. serving the trained model
     rng = np.random.RandomState(seed)
@@ -717,8 +859,9 @@ def training_phases(seed, dev, smi):
           "max_abs_err": err, "quantize_error_bound": bound,
           "f32_slack": slack})
 
-    # 13. where a training iteration's time goes
+    # 13. where a training iteration's time goes (f32, then quantized)
     emit(profile_phase(params, ds, dev))
+    emit({**profile_phase(qparams, ds, dev), "training": "quantized"})
 
     # 14. timing
     timing = {}
@@ -760,14 +903,24 @@ def training_phases(seed, dev, smi):
     w_entry["bytes_ms"], w_entry["ops_ms"] = wave_bound_ms(inp)
     timing[f"wave/{len(sizes)}x{sizes[0]}"] = w_entry
     emit({"phase": "training_timing", "nvidia_smi": smi, "shapes": timing})
+    del inp, h1, p1, hp, pp
+    timing8 = int8_timing(gen, dev, smi)
 
     h = timing[f"histogram/{HIST_TIMING_ROWS[0]}"]
+    h8 = timing8[f"histogram_int8/{HIST_TIMING_ROWS[0]}"]
+    w8 = timing8[f"wave_int8/{len(sizes)}x{sizes[0]}"]
     entries = []
-    for name, src_, rep, t, launches_, err_, lib in (
+    for name, src_, rep, t, launches_, err_, lib, rows in (
             ("histogram", HIST_SOURCE, HIST_REPLACES, h,
-             rec["histogram_launches"], hist_err, h["library_ms"]),
+             rec["histogram_launches"], hist_err, h["library_ms"],
+             HIST_TIMING_ROWS[0]),
+            ("histogram_int8", HIST_SOURCE, HIST_REPLACES, h8,
+             qrec["histogram_launches"], hist8_err, h8["library_ms"],
+             HIST_TIMING_ROWS[0]),
             ("wave", WAVE_SOURCE, WAVE_REPLACES, w_entry,
-             rec["wave_launches"], w_entry["max_abs_err"], None)):
+             rec["wave_launches"], w_entry["max_abs_err"], None, sum(sizes)),
+            ("wave_int8", WAVE_SOURCE, WAVE_REPLACES, w8,
+             qrec["wave_launches"], w8["max_abs_err"], None, sum(sizes))):
         entries.append({
             "name": name, "route": "cuda", "source": src_, "replaces": rep,
             "matches_plain": True, "launches": launches_,
@@ -776,10 +929,67 @@ def training_phases(seed, dev, smi):
             "bound_ms": max(t["bytes_ms"], t["ops_ms"]),
             "bound_by": ("bytes" if t["bytes_ms"] >= t["ops_ms"]
                          else "operations"),
-            "library_ms": lib})
-    entries[0]["rows"] = HIST_TIMING_ROWS[0]
-    entries[1]["rows"] = sum(sizes)
+            "library_ms": lib, "rows": rows})
     return entries
+
+
+def int8_timing(gen, dev, smi):
+    """18. The int8 modes' times at the timing shapes, their plain
+    versions, the int32 ``index_add_`` yardstick and the bounds."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram_flat as HF
+    from lightgbm_tpu_torch.ops import wave as WV
+    from lightgbm_tpu_torch.ops.histogram import histogram_segment
+    from lightgbm_tpu_torch.ops.split import SplitConfig
+    timing = {}
+    for n in HIST_TIMING_ROWS:
+        bins = torch.randint(0, 255, (n, 28), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        levels = device_levels(gen, n, dev)
+        small = n <= 200_000
+        iters = 20 if small else 5
+        entry = {"kernel_ms": cuda_time_ms(
+            lambda: HF.histogram_flat(bins, levels, num_bins=255),
+            iters=iters)}
+        flat = (bins.long() + torch.arange(28, device=dev)[None, :]
+                * 255).reshape(-1)
+        src = levels.int()[:, None, :].expand(n, 28, 3).reshape(-1, 3)
+        acc = torch.zeros(28 * 255, 3, dtype=torch.int32, device=dev)
+        entry["library_ms"] = cuda_time_ms(
+            lambda: acc.index_add_(0, flat, src), iters=iters)
+        del flat, src
+        if small:
+            entry["plain_ms"] = cuda_time_ms(
+                lambda: histogram_segment(bins, levels, num_bins=255),
+                iters=20)
+        entry["bytes_ms"], entry["ops_ms"] = hist_bound_ms(n, 28, 255,
+                                                           val_bytes=3)
+        timing[f"histogram_int8/{n}"] = entry
+        del bins, levels
+    torch.cuda.empty_cache()
+    sizes = list(WAVE_TIMING_SIZES)
+    rand = torch.rand(2, generator=gen, device=dev) * 0.02 + 1e-3
+    inp = wave_case(gen, dev, sizes, True,
+                    scales=(float(rand[0]), float(rand[1]), 1.0))
+    cfg = SplitConfig(min_data_in_leaf=0, min_sum_hessian_in_leaf=100.0,
+                      max_cat_to_onehot=4)
+    w_entry = {
+        "kernel_ms": cuda_time_ms(lambda: WV.fused_wave_call(cfg=cfg, **inp),
+                                  iters=20),
+        "plain_ms": cuda_time_ms(lambda: WV.wave_plain(cfg=cfg, **inp),
+                                 iters=3, warmup=1)}
+    h1, p1 = WV.fused_wave_call(cfg=cfg, **inp)
+    hp, pp = WV.wave_plain(cfg=cfg, **inp)
+    require(torch.equal(h1, hp), "int8 timing wave histograms != plain")
+    sh = WV.scale_hist(hp, inp["scale3"])
+    w_entry["max_abs_err"] = float((WV.scale_hist(h1, inp["scale3"])
+                                    - sh).abs().max())
+    w_entry["agreement"] = wave_agreement(sh, p1, sh, pp)
+    w_entry["bytes_ms"], w_entry["ops_ms"] = wave_bound_ms(inp)
+    timing[f"wave_int8/{len(sizes)}x{sizes[0]}"] = w_entry
+    emit({"phase": "training_timing_int8", "nvidia_smi": smi,
+          "shapes": timing})
+    return timing
 
 
 # -------------------------------------------------------------------- main

@@ -79,6 +79,10 @@ _PARAMS: List[Tuple[str, Any, Any, Tuple[str, ...], Optional[Tuple[Any, Any]]]] 
     ("interaction_constraints", "list_str", None, (), None),
     ("verbosity", int, 1, ("verbose",), None),
     ("use_quantized_grad", bool, False, (), None),
+    # Bounded so hessian levels fit int8 (ops/quantize.py).
+    ("num_grad_quant_bins", int, 4, (), (2, 128)),
+    ("quant_train_renew_leaf", bool, False, (), None),
+    ("stochastic_rounding", bool, True, (), None),
     ("input_model", str, "", ("model_input", "model_in"), None),
     # ---- dataset
     ("linear_tree", bool, False, ("linear_trees",), None),

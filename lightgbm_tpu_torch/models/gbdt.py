@@ -5,8 +5,11 @@ The port of the single-device training half of the JAX package's
 average, then per iteration binary gradients -> leaf-wise growth
 (``models/grower.py``) -> shrinkage -> the score update, with the JAX
 package's rounding rule (the shrunk leaf values are materialized, then
-one add per row).  Scores, bins and gradients live on the device; each
-grown tree becomes a host ``Tree`` at once.  ``torch.profiler`` ranges
+one add per row).  Under ``use_quantized_grad`` each iteration's
+stochastic rounding draws from its own ``torch.Generator`` seeded from
+``(seed, iteration)`` (``ops/quantize.py::quant_generator``).  Scores,
+bins and gradients live on the device; each grown tree becomes a host
+``Tree`` at once.  ``torch.profiler`` ranges
 (``gbdt/gradients``, ``gbdt/grow``, ``gbdt/score_update``,
 ``gbdt/host_tree``) mark an iteration's steps.  ``predict_raw`` walks the
 fp32 pack (``models/tree.py::forest_scores``) through the serving plan.
@@ -29,6 +32,7 @@ from ..binning import BinnedData, build_bundles
 from ..config import Config, _CANONICAL
 from ..dataset import TrainData
 from ..objectives import create_objective
+from ..ops.quantize import quant_generator
 from ..ops.split import SplitConfig
 from ..utils.device import resolve_device
 from .grower import GrowerConfig, make_grower
@@ -80,8 +84,6 @@ def check_supported(cfg: Config, train: Optional[TrainData] = None) -> None:
         raise _todo("linear trees", "A8.8")
     if cfg.input_model:
         raise _todo("continued training (input_model)", "A8.9")
-    if cfg.use_quantized_grad:
-        raise _todo("quantized training (use_quantized_grad)", "A6")
     if cfg.tree_learner != "serial" or cfg.num_machines > 1:
         raise _todo(f"tree_learner={cfg.tree_learner} / num_machines",
                     "A10")
@@ -153,7 +155,11 @@ class GBDT:
             split=_split_config(cfg, train),
             histogram_impl=cfg.tpu_histogram_impl,
             rows_block=cfg.tpu_rows_block, leaf_batch=cfg.tpu_leaf_batch,
-            wave_kernel=cfg.tpu_wave_kernel)
+            wave_kernel=cfg.tpu_wave_kernel,
+            quantized=cfg.use_quantized_grad,
+            num_grad_quant_bins=cfg.num_grad_quant_bins,
+            stochastic_rounding=cfg.stochastic_rounding,
+            quant_renew_leaf=cfg.quant_train_renew_leaf)
         self.grow = make_grower(self.grower_cfg)
         self.bins_dev = train.bins_device(self.device)
         self.meta_dev = train.feature_meta_device(self.device)
@@ -201,11 +207,13 @@ class GBDT:
         """``grow_apply``: grow one tree, shrink it, and add its leaf
         values to the scores."""
         meta = self.meta_dev
+        qgen = (quant_generator(self.cfg.seed, self.iter_, self.device)
+                if self.cfg.use_quantized_grad else None)
         with record_function("gbdt/grow"):
             arrays, row_leaf = self.grow(
                 self.bins_dev, grad, hess, self._full_mask, self._fmask,
                 meta["num_bins_per_feature"], meta["nan_bins"],
-                meta["is_categorical"])
+                meta["is_categorical"], quant_generator=qgen)
         with record_function("gbdt/score_update"):
             s = torch.tensor(np.float32(shrink))
             lv = (arrays.leaf_value * s if arrays.num_leaves > 1

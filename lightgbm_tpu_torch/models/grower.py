@@ -12,6 +12,13 @@
 - **Mask layout** (up to ``_MIN_BUCKET`` rows): a ``row_leaf`` vector;
   one full-row masked histogram per split.
 
+Under quantized training (``quantized``, the JAX package's
+``use_quantized_grad`` path) the gradients become int8 levels under
+per-tree scales (``ops/quantize.py``), every histogram is int32 (the
+kernels' int8 modes) and each scan reads it rescaled to f32
+(``ops/wave.py::scale_hist``); ``quant_renew_leaf`` recomputes the leaf
+outputs from the true f32 gradients.
+
 The big arrays (bins, values, the permutation, the per-leaf histograms)
 live on the device; the O(num_leaves) decision state lives on the host in
 float32 CPU tensors, and the growth loop reads two small host copies per
@@ -38,10 +45,11 @@ import torch
 from torch.profiler import record_function
 
 from ..ops.histogram import histogram_from_vals, resolve_impl
+from ..ops.quantize import discretize_gradients, gradient_scales
 from ..ops.split import (BestSplit, SplitConfig, best_split, best_split_batch,
                          first_argmax, leaf_output, smoothed_output)
-from ..ops.wave import (fused_wave_call, payload_to_best, split_payload,
-                        wave_meta, wave_plain, wave_stats)
+from ..ops.wave import (fused_wave_call, payload_to_best, scale_hist,
+                        split_payload, wave_meta, wave_plain, wave_stats)
 
 _NEG_INF = float("-inf")
 _MIN_BUCKET = 2048
@@ -60,6 +68,12 @@ class GrowerConfig:
     leaf_batch: int = 1
     # Fused wave kernel: auto|fused|unfused (see wave_fused_for).
     wave_kernel: str = "auto"
+    # Quantized training (reference GradientDiscretizer): int8 levels,
+    # int32 histograms, per-tree scales; see ops/quantize.py.
+    quantized: bool = False
+    num_grad_quant_bins: int = 4
+    stochastic_rounding: bool = True
+    quant_renew_leaf: bool = False
 
 
 class TreeArrays(NamedTuple):
@@ -174,8 +188,10 @@ def _to_host(bs: BestSplit) -> BestSplit:
 
 class Grower:
     """``grow(bins, grad, hess, sample_mask, feature_mask, nbpf, nan_bins,
-    is_cat)`` -> ``(TreeArrays, row_leaf)``; the JAX ``make_grower``'s
-    callable.  ``row_leaf`` stays on the rows' device."""
+    is_cat, quant_generator=None)`` -> ``(TreeArrays, row_leaf)``; the JAX
+    ``make_grower``'s callable (``quant_generator``, a ``torch.Generator``
+    on the rows' device, takes the place of its ``quant_key``).
+    ``row_leaf`` stays on the rows' device."""
 
     def __init__(self, cfg: GrowerConfig):
         if cfg.num_bins > 256:
@@ -183,13 +199,27 @@ class Grower:
         self.cfg = cfg
 
     def __call__(self, bins, grad, hess, sample_mask, feature_mask,
-                 num_bins_per_feature, nan_bins, is_categorical):
+                 num_bins_per_feature, nan_bins, is_categorical,
+                 quant_generator=None):
         cfg = self.cfg
         dev = bins.device
         g = grad * sample_mask
         h = hess * sample_mask
-        in_bag = (sample_mask > 0.0).to(torch.float32)
-        vals = torch.stack([g, h, in_bag], dim=-1)
+        in_bag = sample_mask > 0.0
+        self.scale3 = None
+        if cfg.quantized:
+            if quant_generator is None:
+                quant_generator = torch.Generator(device=dev)
+                quant_generator.manual_seed(0)
+            g_scale, h_scale = gradient_scales(g, h, cfg.num_grad_quant_bins)
+            gq, hq = discretize_gradients(g, h, g_scale, h_scale,
+                                          quant_generator,
+                                          cfg.stochastic_rounding)
+            vals = torch.stack([gq, hq, in_bag.to(torch.int8)], dim=-1)
+            self.scale3 = torch.stack([g_scale, h_scale,
+                                       torch.ones((), device=dev)])
+        else:
+            vals = torch.stack([g, h, in_bag.to(torch.float32)], dim=-1)
         self.bins = bins
         self.vals = vals
         self.dev = dev
@@ -199,8 +229,27 @@ class Grower:
                          feature_mask.to(dev, torch.bool))
         self.nan_bins_host = nan_bins.cpu().numpy().astype(np.int64)
         if bins.shape[0] > _MIN_BUCKET:
-            return self._grow_wave()
-        return self._grow_mask()
+            tree, row_leaf = self._grow_wave()
+        else:
+            tree, row_leaf = self._grow_mask()
+        if cfg.quantized and cfg.quant_renew_leaf:
+            tree = self._renew_leaves(tree, row_leaf, g, h)
+        return tree, row_leaf
+
+    def _renew_leaves(self, tree: TreeArrays, row_leaf, g, h) -> TreeArrays:
+        """``quant_train_renew_leaf``: leaf outputs from the true f32
+        gradients (reference ``RenewIntGradTreeOutput``).  The per-leaf
+        sums run on the host in row order, the JAX package's
+        ``segment_sum`` order, so they repeat bit for bit on any device."""
+        L = self.cfg.num_leaves
+        rl = row_leaf.cpu().long()
+        g_leaf = torch.zeros(L).index_add_(0, rl, g.cpu())
+        h_leaf = torch.zeros(L).index_add_(0, rl, h.cpu())
+        renewed = leaf_output(g_leaf, h_leaf, self.cfg.split)
+        active = torch.arange(L) < tree.num_leaves
+        return tree._replace(
+            leaf_value=torch.where(active, renewed, 0.0),
+            leaf_weight=torch.where(active, h_leaf, 0.0))
 
     # ------------------------------------------------------------ shared
     def _hist(self, bins, vals) -> torch.Tensor:
@@ -232,7 +281,9 @@ class Grower:
         L, B = cfg.num_leaves, cfg.num_bins
         f = self.bins.shape[1]
         root_hist = self._hist(self.bins, self.vals)
-        root_tot = root_hist[0].sum(dim=0).cpu()
+        # the JAX package's form: scale the first feature, then sum its bins
+        root_tot = scale_hist(root_hist[0:1], self.scale3)[0].sum(dim=0)
+        root_tot = root_tot.cpu()
         st = _State(L, B, f)
         st.leaf_rows[0] = n
         st.leaf_sum_grad[0] = root_tot[0]
@@ -240,10 +291,10 @@ class Grower:
         st.leaf_count[0] = root_tot[2]
         st.leaf_out[0] = leaf_output(root_tot[0], root_tot[1], cfg.split)
         self.leaf_hist = torch.zeros((L,) + tuple(root_hist.shape),
-                                     dtype=torch.float32, device=self.dev)
+                                     dtype=root_hist.dtype, device=self.dev)
         self.leaf_hist[0] = root_hist
-        bs = self._best(root_hist, root_tot[0], root_tot[1], root_tot[2],
-                        st.leaf_out[0])
+        bs = self._best(scale_hist(root_hist, self.scale3), root_tot[0],
+                        root_tot[1], root_tot[2], st.leaf_out[0])
         st.store_best(0, bs, torch.tensor(True))
         return st
 
@@ -299,8 +350,10 @@ class Grower:
         W = min(cfg.leaf_batch, max(L - 1, 1))
         dev = self.dev
         meta_w = wave_meta(*self.meta_dev)
-        wave = (fused_wave_call if wave_fused_for(cfg, dev)
-                else functools.partial(wave_plain, histogram=self._hist))
+        wave = (functools.partial(fused_wave_call, scale3=self.scale3)
+                if wave_fused_for(cfg, dev)
+                else functools.partial(wave_plain, histogram=self._hist,
+                                       scale3=self.scale3))
         perm = torch.arange(n, dtype=torch.int32, device=dev)
         with record_function("grower/root"):
             st = self._root(n)
@@ -443,7 +496,8 @@ class Grower:
             small_is_left = bool(cl <= cr)
             target = leaf if small_is_left else new_leaf
             masked = torch.where((row_leaf == target)[:, None], self.vals,
-                                 torch.zeros((), device=dev))
+                                 torch.zeros((), dtype=self.vals.dtype,
+                                             device=dev))
             hist_small = self._hist(self.bins, masked)
             hist_big = self.leaf_hist[leaf] - hist_small
             hist_left, hist_right = ((hist_small, hist_big) if small_is_left
@@ -482,7 +536,8 @@ class Grower:
             st.leaf_is_left[pair] = torch.tensor([True, False])
             st.leaf_out[pair] = torch.stack([out_l, out_r])
             bs2 = self._best_batch(
-                torch.stack([hist_left, hist_right]), torch.stack([gl, gr]),
+                scale_hist(torch.stack([hist_left, hist_right]), self.scale3),
+                torch.stack([gl, gr]),
                 torch.stack([hl, hr]), torch.stack([cl, cr]),
                 torch.stack([out_l, out_r]))
             st.store_best(pair, bs2, self._depth_ok(depth.expand(2)))

@@ -105,9 +105,17 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.lgbt_histogram
     fn.restype = i32
     fn.argtypes = [p, p, i64, i32, i32, i32, i32, p, p, p]
+    fn = lib.lgbt_histogram_i8
+    fn.restype = i32
+    fn.argtypes = [p, p, i64, i32, i32, i32, i32, p, p]
     fn = lib.lgbt_wave
     fn.restype = i32
     fn.argtypes = [p, p, p, i32, i32, p, i32, i32, i32, p, p, p,
+                   f32, f32, f32, f32, f32, f32, f32, i32, i32, i32,
+                   p, p, p, p]
+    fn = lib.lgbt_wave_i8
+    fn.restype = i32
+    fn.argtypes = [p, p, p, i32, i32, p, i32, i32, i32, p, p, p, p,
                    f32, f32, f32, f32, f32, f32, f32, i32, i32, i32,
                    p, p, p, p]
 

@@ -1,14 +1,19 @@
 // Shared device code of the histogram kernel (histogram.cu) and the wave
-// kernel (wave.cu): the row-chunk accumulation and the fixed-order combine.
+// kernel (wave.cu): the row-chunk accumulation and the combine.
 //
 //   out[f, b, c] = sum_n vals[n, c] * [bins[n, f] == b]
 //
-// No float atomics.  Rows are cut into chunks of `chunk_rows`; each block
-// owns one chunk and kFeatPerBlock features and writes that chunk's
-// partial histogram to global scratch.  A second kernel sums the partials
-// of each cell in chunk order.  Every sum is therefore taken in the same
-// order on every run: within a chunk in row order, across chunks in chunk
-// order.
+// f32 mode: no float atomics.  Rows are cut into chunks of `chunk_rows`;
+// each block owns one chunk and kFeatPerBlock features and writes that
+// chunk's partial histogram to global scratch.  A second kernel sums the
+// partials of each cell in chunk order.  Every sum is therefore taken in
+// the same order on every run: within a chunk in row order, across chunks
+// in chunk order.
+//
+// int8 mode (quantized training): int8 values, int32 sums.  Integer sums
+// do not depend on their order, so each block accumulates its chunk into
+// a block-private int32 histogram in shared memory with atomicAdd and
+// flushes it with one global atomicAdd per nonzero cell.
 #pragma once
 
 #include <cstdint>
@@ -25,6 +30,20 @@ constexpr int kThreads = 256;
 constexpr int kFeatPerBlock = 8;
 // Rows staged in shared memory per step (one loader thread per row).
 constexpr int kTileRows = kThreads;
+
+// The segment of a chunk in a multi-segment launch: the last segment whose
+// first chunk is <= `chunk` (empty segments share their first chunk with
+// the next one, which then wins).
+__device__ __forceinline__ int segment_of(const int32_t* seg, int w_count,
+                                          int chunk) {
+  const int32_t* off = seg + 2 * w_count;
+  int lo = 0, hi = w_count - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (off[mid] <= chunk) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
 
 // Segment table of a multi-segment launch (device int32, 3W + 1 entries):
 //   seg[w]          first perm position of segment w
@@ -47,17 +66,10 @@ hist_accumulate_kernel(const uint8_t* __restrict__ bins, int f,
   int64_t cnt = single_cnt;
   int local = chunk;
   if (seg != nullptr) {
-    // last segment whose first chunk is <= this chunk (empty segments
-    // share their first chunk with the next one, which then wins)
-    const int32_t* off = seg + 2 * w_count;
-    int lo = 0, hi = w_count - 1;
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      if (off[mid] <= chunk) lo = mid; else hi = mid - 1;
-    }
+    const int lo = segment_of(seg, w_count, chunk);
     start = seg[lo];
     cnt = seg[w_count + lo];
-    local = chunk - off[lo];
+    local = chunk - seg[2 * w_count + lo];
   }
   const int64_t r0 = (int64_t)local * chunk_rows;
   const int64_t r1 = min(cnt, r0 + (int64_t)chunk_rows);
@@ -103,6 +115,80 @@ hist_accumulate_kernel(const uint8_t* __restrict__ bins, int f,
       cell[0] = acc[j][0]; cell[1] = acc[j][1]; cell[2] = acc[j][2];
     }
   }
+}
+
+// int8 mode, threads per block.
+constexpr int kI8Threads = 512;
+
+// int8 mode accumulation.  Grid (chunks, feature groups of
+// `feat_per_block`); dynamic shared memory of feat_per_block * nbins * 3
+// int32.  `vals` is (N, 3) int8; `out` is (segments, f, nbins, 3) int32,
+// zeroed by the caller.  A bin >= nbins is dropped.
+template <bool kPerm>
+__global__ void __launch_bounds__(kI8Threads)
+hist_accumulate_i8_kernel(const uint8_t* __restrict__ bins, int f,
+                          const int8_t* __restrict__ vals,
+                          const int32_t* __restrict__ perm,
+                          const int32_t* __restrict__ seg, int w_count,
+                          int64_t single_cnt, int chunk_rows, int nbins,
+                          int feat_per_block, int32_t* __restrict__ out) {
+  extern __shared__ int32_t s_hist[];
+  const int chunk = blockIdx.x;
+  int64_t start = 0;
+  int64_t cnt = single_cnt;
+  int local = chunk;
+  int w = 0;
+  if (seg != nullptr) {
+    w = segment_of(seg, w_count, chunk);
+    start = seg[w];
+    cnt = seg[w_count + w];
+    local = chunk - seg[2 * w_count + w];
+  }
+  const int64_t r0 = (int64_t)local * chunk_rows;
+  const int64_t r1 = min(cnt, r0 + (int64_t)chunk_rows);
+  const int f0 = blockIdx.y * feat_per_block;
+  const int nf = min(feat_per_block, f - f0);
+  const int cells = nf * nbins * 3;
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) s_hist[i] = 0;
+  __syncthreads();
+  for (int64_t i = r0 + threadIdx.x; i < r1; i += blockDim.x) {
+    const int64_t pos = start + i;
+    const int64_t row = kPerm ? (int64_t)perm[pos] : pos;
+    const int8_t* v = vals + row * 3;
+    const int g = v[0], h = v[1], c = v[2];
+    if ((g | h | c) == 0) continue;
+    const uint8_t* src = bins + row * f + f0;
+    for (int j = 0; j < nf; ++j) {
+      const int b = src[j];
+      if (b >= nbins) continue;
+      int32_t* cell = s_hist + (j * nbins + b) * 3;
+      if (g != 0) atomicAdd(cell + 0, g);
+      if (h != 0) atomicAdd(cell + 1, h);
+      if (c != 0) atomicAdd(cell + 2, c);
+    }
+  }
+  __syncthreads();
+  int32_t* dst = out + ((int64_t)w * f + f0) * nbins * 3;
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+    const int32_t v = s_hist[i];
+    if (v != 0) atomicAdd(dst + i, v);
+  }
+}
+
+// int8 mode: features per block whose int32 histogram fits the shared
+// memory budget (above 48 KB a block must opt in), and that opt-in.
+constexpr int kI8SmemBudget = 96 * 1024;
+
+inline int i8_feat_per_block(int f, int nbins) {
+  const int fit = kI8SmemBudget / (nbins * 3 * (int)sizeof(int32_t));
+  return fit < 1 ? 1 : (fit < f ? fit : f);
+}
+
+template <typename Kernel>
+inline int i8_smem_opt_in(Kernel kernel, int smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 // Sums the chunk partials of every cell in chunk order.  With `parent`

@@ -43,6 +43,17 @@
 // Later work: keep the child histograms in shared memory between the
 // stages (one child is 86 KB at the bench shape, within the 227 KB a block
 // may opt into), a warp-parallel prefix scan, fusing the partition.
+//
+// int8 mode (quantized training; the TPU kernel with dtype="int8" and its
+// scale3 operand), the same three launches: stage 1 accumulates each
+// smaller sibling's int8 levels into an int32 histogram (the histogram
+// kernel's privatized shared-memory design, flushed with integer atomics:
+// exact in any order); the combine computes parent - smaller in int32 and
+// orders the pair; the child histograms come out int32, as the grower
+// stores them; the scan reads each cell as float(h) * scale[c] (one
+// multiply, as the JAX package's _scale_hist and _wave_kernel do), then
+// runs the f32 scan unchanged.  The scales stay on the device (a pointer),
+// so quantized growth adds no device-to-host copy.
 
 #include <math_constants.h>
 
@@ -127,10 +138,22 @@ __device__ __forceinline__ Cand eval_dir(float gl, float hl, float cl,
   return r;
 }
 
+// A histogram cell as the scan sees it: f32 as stored; int32 (int8 mode)
+// rescaled by its channel's scale.
+__device__ __forceinline__ float cell(const float* h, int i, float) {
+  return h[i];
+}
+__device__ __forceinline__ float cell(const int32_t* h, int i, float scale) {
+  return (float)h[i] * scale;
+}
+
 // One block per (slot, child); thread t scans features t, t + blockDim, ...
-// hist: (W, 2, F, B, 3); stats: (W, 2, 8) [pg, ph, pc, pout, small_left,
+// hist: (W, 2, F, B, 3) f32 or int32; scale3: 3 f32 channel scales (int8
+// mode; nullptr for f32); stats: (W, 2, 8) [pg, ph, pc, pout, small_left,
 // active, 0, 0]; meta: (F, 4) int32 [num_bins, nan_bin, is_cat, fmask].
-__global__ void wave_scan_kernel(const float* __restrict__ hist,
+template <typename T>
+__global__ void wave_scan_kernel(const T* __restrict__ hist,
+                                 const float* __restrict__ scale3,
                                  const float* __restrict__ stats,
                                  const int32_t* __restrict__ meta, int f,
                                  int nbins, ScanCfg c,
@@ -138,13 +161,16 @@ __global__ void wave_scan_kernel(const float* __restrict__ hist,
   __shared__ float s_gain[1024];
   __shared__ int s_key[1024];
   __shared__ int s_win[3];  // key, bin, is_cat
+  const float sg = scale3 != nullptr ? scale3[0] : 1.f;
+  const float sh = scale3 != nullptr ? scale3[1] : 1.f;
+  const float sc = scale3 != nullptr ? scale3[2] : 1.f;
   const int child = blockIdx.x;         // w * 2 + ci
   const float* st = stats + (int64_t)child * kStatLanes;
   const float pg = st[0], ph = st[1], pc = st[2], pout = st[3];
   const bool active = st[5] > 0.5f;
   const float pgain = c.path_smooth > 0.f ? gain_given_output(pg, ph, pout, c)
                                           : leaf_gain(pg, ph, c);
-  const float* h0 = hist + (int64_t)child * f * nbins * 3;
+  const T* h0 = hist + (int64_t)child * f * nbins * 3;
 
   float best_gain = -CUDART_INF_F;
   int best_key = 0x7fffffff;
@@ -156,14 +182,17 @@ __global__ void wave_scan_kernel(const float* __restrict__ hist,
     const bool iscat = c.has_cat && meta[feat * 4 + 2] != 0;
     const bool fm = meta[feat * 4 + 3] != 0;
     const bool sorted_el = iscat && nb > c.max_cat_onehot;
-    const float* hf = h0 + (int64_t)feat * nbins * 3;
+    const T* hf = h0 + (int64_t)feat * nbins * 3;
     float gn = 0.f, hn = 0.f, cn = 0.f;
     if (nanb < nbins) {
-      gn = hf[nanb * 3 + 0]; hn = hf[nanb * 3 + 1]; cn = hf[nanb * 3 + 2];
+      gn = cell(hf, nanb * 3 + 0, sg);
+      hn = cell(hf, nanb * 3 + 1, sh);
+      cn = cell(hf, nanb * 3 + 2, sc);
     }
     float cg = 0.f, ch = 0.f, cc = 0.f;
     for (int b = 0; b < nbins; ++b) {
-      const float g = hf[b * 3 + 0], h = hf[b * 3 + 1], cnt = hf[b * 3 + 2];
+      const float g = cell(hf, b * 3 + 0, sg), h = cell(hf, b * 3 + 1, sh),
+                  cnt = cell(hf, b * 3 + 2, sc);
       const bool in_f = b < nb;
       const bool vm = in_f && b != nanb;
       cg = cg + (vm ? g : 0.f);
@@ -235,6 +264,35 @@ __global__ void wave_scan_kernel(const float* __restrict__ hist,
     pay[kPayloadScalars + b] = (s_win[2] && b == s_win[1]) ? 1.f : 0.f;
 }
 
+// int8 mode combine: larger sibling = parent - smaller in int32, the pair
+// written as (left, right) by the small_left lane (4) of `stats`.
+// small: (W, cells) int32; parent: (W, cells); out: (W, 2, cells).
+__global__ void hist_combine_i8_kernel(const int32_t* __restrict__ small,
+                                       int64_t cells,
+                                       const int32_t* __restrict__ parent,
+                                       const float* __restrict__ stats,
+                                       int32_t* __restrict__ out) {
+  const int w = blockIdx.y;
+  const int64_t cell_i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (cell_i >= cells) return;
+  const int32_t s = small[(int64_t)w * cells + cell_i];
+  const int32_t big = parent[(int64_t)w * cells + cell_i] - s;
+  const bool small_left = stats[(int64_t)w * 16 + 4] > 0.5f;
+  out[((int64_t)w * 2 + 0) * cells + cell_i] = small_left ? s : big;
+  out[((int64_t)w * 2 + 1) * cells + cell_i] = small_left ? big : s;
+}
+
+template <typename T>
+int launch_scan(const T* hist, const float* scale3, const float* stats,
+                const int32_t* meta, int f, int nbins, int w, ScanCfg c,
+                float* payload, cudaStream_t s) {
+  int threads = 32;
+  while (threads < f && threads < 1024) threads *= 2;
+  wave_scan_kernel<T><<<(unsigned)(2 * w), threads, 0, s>>>(
+      hist, scale3, stats, meta, f, nbins, c, payload);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  Three launches on `stream`
@@ -272,12 +330,58 @@ extern "C" int lgbt_wave(const void* bins, const void* vals, const void* perm,
       (const float*)parent, (const float*)stats, (float*)out_hist);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  int threads = 32;
-  while (threads < f && threads < 1024) threads *= 2;
-  ScanCfg c{l1, l2, min_count, min_hess, gain_thr, max_delta, path_smooth,
-            has_nan, has_cat, max_cat_onehot};
-  wave_scan_kernel<<<(unsigned)(2 * w), threads, 0, s>>>(
-      (const float*)out_hist, (const float*)stats, (const int32_t*)meta, f,
-      nbins, c, (float*)payload);
-  return (int)cudaGetLastError();
+  const ScanCfg c{l1, l2, min_count, min_hess, gain_thr, max_delta,
+                  path_smooth, has_nan, has_cat, max_cat_onehot};
+  return launch_scan((const float*)out_hist, nullptr, (const float*)stats,
+                     (const int32_t*)meta, f, nbins, w, c, (float*)payload,
+                     s);
+}
+
+// int8 mode: `vals` (N, 3) int8, `parent` (W, F, B, 3) int32, `scale3` 3
+// device f32 channel scales, `small` scratch of W * F * B * 3 int32 (zeroed
+// here), `out_hist` (W, 2, F, B, 3) int32.  Three launches on `stream`
+// (accumulate, combine, scan); does not synchronise; returns the first
+// CUDA error.
+extern "C" int lgbt_wave_i8(const void* bins, const void* vals,
+                            const void* perm, int f, int nbins,
+                            const void* seg, int w, int total_chunks,
+                            int chunk_rows, const void* parent,
+                            const void* stats, const void* meta,
+                            const void* scale3, float l1, float l2,
+                            float min_count, float min_hess, float gain_thr,
+                            float max_delta, float path_smooth, int has_nan,
+                            int has_cat, int max_cat_onehot, void* small,
+                            void* out_hist, void* payload, void* stream) {
+  if (nbins < 1 || nbins > lgbt::kThreads || f < 1 || w < 1 ||
+      total_chunks < 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t cells = (int64_t)f * nbins * 3;
+  int err = (int)cudaMemsetAsync(small, 0, (size_t)w * cells * 4, s);
+  if (err != 0) return err;
+  if (total_chunks > 0) {
+    const int fpb = lgbt::i8_feat_per_block(f, nbins);
+    const int smem = fpb * nbins * 3 * (int)sizeof(int32_t);
+    err = lgbt::i8_smem_opt_in(lgbt::hist_accumulate_i8_kernel<true>, smem);
+    if (err != 0) return err;
+    const dim3 grid((unsigned)total_chunks, (unsigned)((f + fpb - 1) / fpb));
+    lgbt::hist_accumulate_i8_kernel<true>
+        <<<grid, lgbt::kI8Threads, smem, s>>>(
+            (const uint8_t*)bins, f, (const int8_t*)vals,
+            (const int32_t*)perm, (const int32_t*)seg, w, 0, chunk_rows,
+            nbins, fpb, (int32_t*)small);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
+  const dim3 cgrid((unsigned)((cells + 255) / 256), (unsigned)w);
+  hist_combine_i8_kernel<<<cgrid, 256, 0, s>>>(
+      (const int32_t*)small, cells, (const int32_t*)parent,
+      (const float*)stats, (int32_t*)out_hist);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const ScanCfg c{l1, l2, min_count, min_hess, gain_thr, max_delta,
+                  path_smooth, has_nan, has_cat, max_cat_onehot};
+  return launch_scan((const int32_t*)out_hist, (const float*)scale3,
+                     (const float*)stats, (const int32_t*)meta, f, nbins, w,
+                     c, (float*)payload, s);
 }

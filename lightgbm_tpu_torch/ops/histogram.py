@@ -6,11 +6,14 @@ The port of the JAX package's ``ops/histogram.py``:
 
 ``histogram_segment`` is the scatter-add form (``index_add_`` over flat
 ``feature * B + bin`` ids) and the plain version of the hand-written CUDA
-histogram kernel (``ops/histogram_flat.py``).  ``histogram_from_vals``
+histogram kernel (``ops/histogram_flat.py``): f32 values sum in f32, int8
+values (quantized training) in int32.  ``histogram_from_vals``
 dispatches: on a CUDA tensor ``auto``/``pallas``/``flat`` launch the
-kernel; on a CPU tensor they run the plain version.  ``segment`` and
+kernel (its int8 mode for integer values, as the JAX package routes
+them); on a CPU tensor they run the plain version.  ``segment`` and
 ``onehot`` are torch ops everywhere, as they are XLA ops in the JAX
-package.  ``flat_bf16`` (the kernel's bf16 mode) is not ported yet.
+package.  ``flat_bf16`` (the kernel's bf16 mode) is not ported yet; with
+integer values it means the int8 mode, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -32,15 +35,21 @@ def pack_values(grad: torch.Tensor, hess: torch.Tensor,
     return vals
 
 
+def acc_dtype(vals: torch.Tensor) -> torch.dtype:
+    """int32 sums for integer (quantized) values, else the values' type."""
+    return vals.dtype if vals.dtype.is_floating_point else torch.int32
+
+
 def histogram_segment(bins: torch.Tensor, vals: torch.Tensor, *,
                       num_bins: int) -> torch.Tensor:
-    """Scatter-add histogram: (N, F) integer bins, (N, 3) f32 values ->
-    (F, num_bins, 3) f32."""
+    """Scatter-add histogram: (N, F) integer bins, (N, 3) f32 or int8
+    values -> (F, num_bins, 3) f32 or int32."""
     n, f = bins.shape
     flat = (bins.long() + torch.arange(f, device=bins.device)[None, :]
             * num_bins).reshape(-1)
-    hist = torch.zeros(f * num_bins, 3, dtype=vals.dtype, device=vals.device)
-    src = vals[:, None, :].expand(n, f, 3).reshape(-1, 3)
+    acc = acc_dtype(vals)
+    hist = torch.zeros(f * num_bins, 3, dtype=acc, device=vals.device)
+    src = vals.to(acc)[:, None, :].expand(n, f, 3).reshape(-1, 3)
     hist.index_add_(0, flat, src)
     return hist.reshape(f, num_bins, 3)
 
@@ -48,15 +57,19 @@ def histogram_segment(bins: torch.Tensor, vals: torch.Tensor, *,
 def histogram_onehot(bins: torch.Tensor, vals: torch.Tensor, *,
                      num_bins: int, rows_block: int = 16384) -> torch.Tensor:
     """One-hot contraction, blockwise over rows (the JAX package's
-    ``histogram_onehot``)."""
+    ``histogram_onehot``).  Integer values contract in float64, exact for
+    any int32 sum, and come back as int32."""
     n, f = bins.shape
+    acc = acc_dtype(vals)
+    work = torch.float64 if acc == torch.int32 else acc
     iota = torch.arange(num_bins, device=bins.device)
-    hist = torch.zeros(f, num_bins, 3, dtype=vals.dtype, device=vals.device)
+    hist = torch.zeros(f, num_bins, 3, dtype=work, device=vals.device)
     for s in range(0, n, rows_block):
         b = bins[s:s + rows_block].long()
-        oh = (b[:, :, None] == iota[None, None, :]).to(vals.dtype)
-        hist += torch.einsum("nfb,nc->fbc", oh, vals[s:s + rows_block])
-    return hist
+        oh = (b[:, :, None] == iota[None, None, :]).to(work)
+        hist += torch.einsum("nfb,nc->fbc", oh,
+                             vals[s:s + rows_block].to(work))
+    return hist.to(acc)
 
 
 def resolve_impl(impl: str, device: torch.device) -> str:
@@ -72,9 +85,9 @@ def histogram_from_vals(bins: torch.Tensor, vals: torch.Tensor, *,
                         num_bins: int, impl: str = "auto",
                         rows_block: int = 16384) -> torch.Tensor:
     """Histogram from pre-packed (N, 3) channel values."""
-    if impl == "flat_bf16":
+    if impl == "flat_bf16" and vals.dtype.is_floating_point:
         raise NotImplementedError(_BF16_TODO)
-    if impl in ("auto", "pallas", "flat"):
+    if impl in ("auto", "pallas", "flat", "flat_bf16"):
         from .histogram_flat import histogram_flat
         return histogram_flat(bins, vals, num_bins=num_bins)
     if impl == "onehot":

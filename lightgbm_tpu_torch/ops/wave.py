@@ -1,6 +1,6 @@
 """Fused wave step: the wrapper of the hand-written CUDA kernel
 ``ops/csrc/wave.cu`` (the port of the JAX package's
-``ops/pallas_wave.py::fused_wave_call``, f32 mode).
+``ops/pallas_wave.py::fused_wave_call``, f32 and int8 modes).
 
 For each of the W leaves of a wave: the smaller sibling's histogram over
 its rows of the permutation, the larger sibling by subtraction from the
@@ -11,6 +11,11 @@ version, ``wave_plain`` — exactly the unfused step, which the grower's
 unfused branch runs too: the plain histogram of each smaller sibling, the
 subtraction, the (left, right) order, then ``scan_tables`` +
 ``select_payload``.
+
+int8 mode (quantized training): int8 values, int32 parent and child
+histograms, and ``scale3``, the (3,) f32 device tensor of channel scales
+[grad, hess, 1]; the scan sees each cell as ``float(h) * scale[c]`` (the
+JAX package's ``_scale_hist``).
 
 The TPU kernel's VMEM layout (``wave_layout``), lane padding and the
 gathered ``(W, S, ct)`` row copy have no counterpart: the kernel reads the
@@ -26,7 +31,8 @@ import numpy as np
 import torch
 
 from .histogram import histogram_segment
-from .histogram_flat import MAX_BINS, MIN_CHUNK_ROWS
+from .histogram_flat import (MAX_BINS, MIN_CHUNK_ROWS, MIN_CHUNK_ROWS_INT8,
+                             check_int8_rows)
 from .split import BestSplit, SplitConfig, _EPS, scan_tables, select_payload
 
 #: scalar lanes ahead of the cat one-hot in the per-child payload:
@@ -35,8 +41,10 @@ PAYLOAD_SCALARS = 16
 #: per-child stat lanes: [pg, ph, pc, parent_out, small_left, active, 0, 0]
 STAT_LANES = 8
 
-#: kernel launches made by ``fused_wave_call`` (one per wave; a plain int)
+#: kernel launches made by ``fused_wave_call`` (one per wave; plain
+#: ints), f32 mode and int8 mode
 launches = 0
+launches_int8 = 0
 
 #: chunk-partial scratch a wave may use (bytes) and chunks it may cut
 SCRATCH_BYTES = 256 << 20
@@ -93,13 +101,25 @@ def _child_payload(hist, st, meta, cfg: SplitConfig, num_bins: int):
     return torch.cat([scalars, pad, cat])
 
 
+def scale_hist(hist: torch.Tensor, scale3) -> torch.Tensor:
+    """A raw histogram as the split scan sees it: int32 (quantized) cells
+    times their channel's scale in f32 (the JAX package's
+    ``_scale_hist``); f32 as it is when ``scale3`` is None."""
+    if scale3 is None:
+        return hist
+    return hist.to(torch.float32) * scale3
+
+
 def wave_plain(bins, vals, perm, small_start: Sequence[int],
                small_cnt: Sequence[int], parent, stats, meta,
-               cfg: SplitConfig, num_bins: int, histogram=None):
+               cfg: SplitConfig, num_bins: int, histogram=None,
+               scale3=None):
     """The plain version: returns ``(child_hists (W, 2, F, B, 3),
     payload (W, 2, PAYLOAD_SCALARS + B))``.  ``histogram(bins, vals)``
     builds each smaller sibling (default: the plain ``histogram_segment``;
-    the grower's unfused step passes its histogram impl)."""
+    the grower's unfused step passes its histogram impl).  With int8
+    ``vals`` the histograms are int32 and the scan sees them through
+    ``scale3``."""
     if histogram is None:
         histogram = lambda b, v: histogram_segment(b, v, num_bins=num_bins)
     hists, pays = [], []
@@ -112,18 +132,27 @@ def wave_plain(bins, vals, perm, small_start: Sequence[int],
         left, right = (small, big) if sl else (big, small)
         hists.append(torch.stack([left, right]))
         pays.append(torch.stack([
-            _child_payload(left, stats[w, 0], meta, cfg, num_bins),
-            _child_payload(right, stats[w, 1], meta, cfg, num_bins)]))
+            _child_payload(scale_hist(left, scale3), stats[w, 0], meta, cfg,
+                           num_bins),
+            _child_payload(scale_hist(right, scale3), stats[w, 1], meta, cfg,
+                           num_bins)]))
     return torch.stack(hists), torch.stack(pays)
 
 
-def segment_table(small_cnt: Sequence[int], f: int, num_bins: int):
+def segment_table(small_cnt: Sequence[int], f: int, num_bins: int,
+                  int8: bool = False):
     """(chunk_rows, chunk offsets (W + 1,)) for one wave: chunks of at
-    least MIN_CHUNK_ROWS rows, no more than MAX_CHUNKS of them nor more
-    than the scratch budget holds."""
+    least MIN_CHUNK_ROWS rows (MIN_CHUNK_ROWS_INT8 in int8 mode, whose
+    blocks each flush a whole shared histogram), no more than MAX_CHUNKS
+    of them nor, in f32 mode, more than the partials' scratch budget
+    holds."""
     total = int(sum(small_cnt))
-    cap = max(1, min(MAX_CHUNKS, SCRATCH_BYTES // (f * num_bins * 12)))
-    chunk_rows = max(MIN_CHUNK_ROWS, -(-total // cap))
+    if int8:
+        cap, min_rows = MAX_CHUNKS, MIN_CHUNK_ROWS_INT8
+    else:
+        cap = max(1, min(MAX_CHUNKS, SCRATCH_BYTES // (f * num_bins * 12)))
+        min_rows = MIN_CHUNK_ROWS
+    chunk_rows = max(min_rows, -(-total // cap))
     per = [-(-int(c) // chunk_rows) for c in small_cnt]
     return chunk_rows, np.concatenate([[0], np.cumsum(per)]).astype(np.int64)
 
@@ -132,76 +161,99 @@ def fused_wave_call(bins: torch.Tensor, vals: torch.Tensor,
                     perm: torch.Tensor, small_start: Sequence[int],
                     small_cnt: Sequence[int], parent: torch.Tensor,
                     stats: torch.Tensor, meta: torch.Tensor,
-                    cfg: SplitConfig, num_bins: int):
+                    cfg: SplitConfig, num_bins: int, scale3=None):
     """One wave of W leaves -> ``(child_hists, payload)``.
 
-    ``bins`` (N, F) uint8, ``vals`` (N, 3) f32, ``perm`` (>= N,) int32
-    rows grouped by leaf; ``small_start``/``small_cnt`` host ints of each
-    smaller sibling's perm range; ``parent`` (W, F, B, 3) f32; ``stats``
-    (W, 2, STAT_LANES) f32; ``meta`` (F, 4) int32 (``wave_meta``)."""
+    ``bins`` (N, F) uint8, ``vals`` (N, 3) f32 (or int8 with ``scale3``),
+    ``perm`` (>= N,) int32 rows grouped by leaf;
+    ``small_start``/``small_cnt`` host ints of each smaller sibling's perm
+    range; ``parent`` (W, F, B, 3) f32 (int32 in int8 mode); ``stats``
+    (W, 2, STAT_LANES) f32; ``meta`` (F, 4) int32 (``wave_meta``);
+    ``scale3`` (3,) f32 channel scales, int8 mode only."""
     w = parent.shape[0]
     n, f = bins.shape
     if (parent.shape != (w, f, num_bins, 3) or stats.shape != (w, 2, STAT_LANES)
             or meta.shape != (f, 4) or len(small_start) != w
-            or len(small_cnt) != w):
+            or len(small_cnt) != w
+            or (scale3 is not None and scale3.shape != (3,))):
         raise ValueError(
             f"wave shapes: parent {tuple(parent.shape)}, stats "
             f"{tuple(stats.shape)}, meta {tuple(meta.shape)}, {w} slots, "
             f"{f} features, {num_bins} bins")
-    for t in (vals, perm, parent, stats, meta):
+    int8 = vals.dtype == torch.int8
+    if int8 != (scale3 is not None):
+        raise ValueError("int8 values go with scale3, f32 values without")
+    for t in (vals, perm, parent, stats, meta) + ((scale3,) if int8 else ()):
         if t.device != bins.device:
             raise ValueError("wave operands must share one device")
+    if int8:
+        check_int8_rows(n)
     if bins.device.type == "cpu":
         return wave_plain(bins, vals, perm, small_start, small_cnt, parent,
-                          stats, meta, cfg, num_bins)
+                          stats, meta, cfg, num_bins, scale3=scale3)
     if bins.device.type != "cuda":
         raise ValueError(f"unsupported device {bins.device}")
     return _launch(bins, vals, perm, small_start, small_cnt, parent, stats,
-                   meta, cfg, num_bins)
+                   meta, cfg, num_bins, scale3)
 
 
 def _launch(bins, vals, perm, small_start, small_cnt, parent, stats, meta,
-            cfg: SplitConfig, num_bins: int):
-    global launches
+            cfg: SplitConfig, num_bins: int, scale3):
+    global launches, launches_int8
     from ._build import load_library
-    if bins.dtype != torch.uint8 or vals.dtype != torch.float32 \
-            or perm.dtype != torch.int32 or parent.dtype != torch.float32 \
-            or stats.dtype != torch.float32 or meta.dtype != torch.int32:
-        raise ValueError("wave kernel dtypes: uint8 bins, f32 vals/parent/"
-                         "stats, int32 perm/meta")
+    int8 = scale3 is not None
+    val_t, hist_t = ((torch.int8, torch.int32) if int8
+                     else (torch.float32, torch.float32))
+    if bins.dtype != torch.uint8 or vals.dtype != val_t \
+            or perm.dtype != torch.int32 or parent.dtype != hist_t \
+            or stats.dtype != torch.float32 or meta.dtype != torch.int32 \
+            or (int8 and scale3.dtype != torch.float32):
+        raise ValueError("wave kernel dtypes: uint8 bins, f32 vals/parent "
+                         "(int8 vals, int32 parent and f32 scale3 in int8 "
+                         "mode), f32 stats, int32 perm/meta")
     if not 1 <= num_bins <= MAX_BINS:
         raise ValueError(f"num_bins={num_bins}: the kernel takes 1..{MAX_BINS}")
     lib = load_library()
     w = parent.shape[0]
     n, f = bins.shape
     dev = bins.device
-    chunk_rows, offs = segment_table(small_cnt, f, num_bins)
+    chunk_rows, offs = segment_table(small_cnt, f, num_bins, int8)
     total_chunks = int(offs[-1])
     seg = torch.from_numpy(np.concatenate([
         np.asarray(small_start, np.int64), np.asarray(small_cnt, np.int64),
         offs]).astype(np.int32)).to(dev)
-    partial = torch.empty(max(total_chunks, 1), f, num_bins, 3,
-                          dtype=torch.float32, device=dev)
-    out_hist = torch.empty(w, 2, f, num_bins, 3, dtype=torch.float32,
-                           device=dev)
+    # f32: chunk partials; int8: the W smaller siblings' int32 histograms
+    scratch = torch.empty((w if int8 else max(total_chunks, 1)), f, num_bins,
+                          3, dtype=hist_t, device=dev)
+    out_hist = torch.empty(w, 2, f, num_bins, 3, dtype=hist_t, device=dev)
     payload = torch.empty(w, 2, PAYLOAD_SCALARS + num_bins,
                           dtype=torch.float32, device=dev)
     tensors = [t.contiguous() for t in (bins, vals, perm, parent, stats, meta)]
     bins, vals, perm, parent, stats, meta = tensors
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.lgbt_wave(
-            bins.data_ptr(), vals.data_ptr(), perm.data_ptr(), f, num_bins,
-            seg.data_ptr(), w, total_chunks, chunk_rows, parent.data_ptr(),
-            stats.data_ptr(), meta.data_ptr(), cfg.lambda_l1, cfg.lambda_l2,
+    scan = (cfg.lambda_l1, cfg.lambda_l2,
             float(max(cfg.min_data_in_leaf, 1)), cfg.min_sum_hessian_in_leaf,
             cfg.min_gain_to_split + _EPS, cfg.max_delta_step,
             cfg.path_smooth, int(cfg.has_nan), int(cfg.has_categorical),
-            int(cfg.max_cat_to_onehot), partial.data_ptr(),
-            out_hist.data_ptr(), payload.data_ptr(), stream)
+            int(cfg.max_cat_to_onehot))
+    head = (bins.data_ptr(), vals.data_ptr(), perm.data_ptr(), f, num_bins,
+            seg.data_ptr(), w, total_chunks, chunk_rows, parent.data_ptr(),
+            stats.data_ptr(), meta.data_ptr())
+    tail = (scratch.data_ptr(), out_hist.data_ptr(), payload.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        if int8:
+            scale3 = scale3.contiguous()
+            err = lib.lgbt_wave_i8(*head, scale3.data_ptr(), *scan, *tail)
+        else:
+            err = lib.lgbt_wave(*head, *scan, *tail)
     if err != 0:
-        raise RuntimeError(f"wave kernel launch failed: CUDA error {err}")
-    launches += 1
+        mode = "int8" if int8 else "f32"
+        raise RuntimeError(f"wave kernel launch failed ({mode} mode): CUDA "
+                           f"error {err}")
+    if int8:
+        launches_int8 += 1
+    else:
+        launches += 1
     return out_hist, payload
 
 

@@ -13,15 +13,25 @@ order), so trees and ``row_leaf`` are held bit for bit:
   pairs (its default ``tpu_4bit_bins``) and the port unpacked;
 - one-hot categorical splits, ``cat_mask`` routing included.
 
+Quantized training (``quantized=True, stochastic_rounding=False``) on
+gradients whose scales are powers of two (``pow2_scale_grads``): the
+int8 levels round, and every scaled int32 sum is exact, so trees and
+``row_leaf`` are held bit for bit against JAX ``quantized=True`` at
+leaf_batch 1 and 16 (fused and unfused against its fused kernel in
+interpret mode) and on the mask layout; ``quant_renew_leaf`` leaf values
+within 1e-6 relative (f32 per-leaf sums; bitwise in practice, both sum
+in row order).
+
 On the card (``cuda`` marker) the grower driven through both CUDA kernels
-gives the CPU plain version's trees bit for bit."""
+gives the CPU plain version's trees bit for bit, f32 and quantized."""
 
 import numpy as np
 import pytest
 import torch
 
-from torch_port_util import (assert_same_tree, cuda_device,  # noqa: F401
-                             exact_grads, grown_data, jax_grow, port_grow)
+from torch_port_util import (TREE_FIELDS, assert_same_tree,  # noqa: F401
+                             cuda_device, exact_grads, grown_data, jax_grow,
+                             port_grow, pow2_scale_grads)
 
 from lightgbm_tpu_torch.models import grower as PG
 from lightgbm_tpu_torch.ops import histogram_flat as HF
@@ -97,6 +107,56 @@ def test_onehot_categorical_bitwise_vs_jax():
     assert_same_tree(want, got, rl, prl)
 
 
+Q = dict(quantized=True, stochastic_rounding=False)
+
+
+@pytest.fixture(scope="module")
+def quant_data():
+    """A smaller wave-layout dataset (interpret-mode JAX growth is slow)."""
+    X, y = grown_data(n=3200, f=8, seed=17)
+    g, h = pow2_scale_grads(len(y))
+    return X, y, g, h
+
+
+@pytest.mark.parametrize("leaf_batch", [1, 16])
+def test_quantized_bitwise_vs_jax_fused(quant_data, leaf_batch):
+    X, y, g, h = quant_data
+    want, rl = jax_grow(X, y, P, g, h, leaf_batch=leaf_batch,
+                        wave_kernel="fused", **Q)
+    assert want["num_leaves"] == 31
+    for kernel in ("fused", "unfused"):
+        got, prl = port_grow(X, y, P, g, h, leaf_batch=leaf_batch,
+                             wave_kernel=kernel, **Q)
+        assert_same_tree(want, got, rl, prl)
+
+
+def test_quantized_mask_layout_bitwise_vs_jax(quant_data):
+    X, y, g, h = quant_data
+    n = 2000
+    params = dict(P, min_data_in_leaf=5)
+    want, rl = jax_grow(X[:n], y[:n], params, g[:n], h[:n], **Q)
+    got, prl = port_grow(X[:n], y[:n], params, g[:n], h[:n], leaf_batch=4,
+                         **Q)
+    assert want["num_leaves"] > 8
+    assert_same_tree(want, got, rl, prl)
+
+
+def test_quant_renew_leaf_vs_jax(quant_data):
+    X, y, g, h = quant_data
+    kw = dict(Q, quant_renew_leaf=True)
+    want, rl = jax_grow(X, y, P, g, h, leaf_batch=4, **kw)
+    got, prl = port_grow(X, y, P, g, h, leaf_batch=4, **kw)
+    plain, _ = port_grow(X, y, P, g, h, leaf_batch=4, **Q)
+    np.testing.assert_array_equal(prl, rl)
+    for k in TREE_FIELDS:
+        if k in ("leaf_value", "leaf_weight"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=0)
+        else:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    # renewal changes the outputs: quantized sums are not the true sums
+    assert not np.array_equal(got["leaf_value"], plain["leaf_value"])
+
+
 def test_wave_fused_gate():
     cfg = PG.GrowerConfig(leaf_batch=4)
     rep = lambda **kw: PG.GrowerConfig(**{**cfg.__dict__, **kw})
@@ -122,4 +182,21 @@ def test_kernel_path_matches_plain(grown, cuda_device, leaf_batch):
     got, prl = port_grow(X, y, P, g, h, leaf_batch=leaf_batch,
                          device=cuda_device)
     assert HF.launches == h0 + 1 and WV.launches > w0
+    assert_same_tree(want, got, rl, prl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf_batch", [1, 16])
+def test_quantized_kernel_path_matches_plain(quant_data, cuda_device,
+                                             leaf_batch):
+    """Quantized growth on the card (the int8 modes of both kernels, no
+    f32 launch) gives the CPU plain version's trees bit for bit."""
+    X, y, g, h = quant_data
+    want, rl = port_grow(X, y, P, g, h, leaf_batch=leaf_batch,
+                         wave_kernel="fused", **Q)
+    before = (HF.launches, WV.launches, HF.launches_int8, WV.launches_int8)
+    got, prl = port_grow(X, y, P, g, h, leaf_batch=leaf_batch,
+                         device=cuda_device, **Q)
+    assert (HF.launches, WV.launches) == before[:2]
+    assert HF.launches_int8 == before[2] + 1 and WV.launches_int8 > before[3]
     assert_same_tree(want, got, rl, prl)

@@ -7,10 +7,15 @@ mode) and ``histogram_segment``.
   order.
 - Within 1e-5 relative on random float32 values (the JAX kernel's matmul
   and the scatter-add sum in different orders).
+- int8 values (quantized training): the int32 histogram bitwise equal to
+  JAX ``histogram_flat(dtype="int8")`` and ``histogram_segment`` (integer
+  sums are exact in any order), the dispatch of integer values to the
+  int8 mode, and the int32 overflow guard.
 
 On the card (``cuda`` marker) the kernel equals its plain version bitwise
 on exact-sum values at the bench shape, is run-to-run bitwise on random
-values, and stays within 1e-5 relative of the plain version there."""
+values, and stays within 1e-5 relative of the plain version there; its
+int8 mode equals its plain version bitwise at N in {1, 1,000, 200,000}."""
 
 import numpy as np
 import pytest
@@ -42,12 +47,24 @@ def _data(n, f, b, seed, exact):
     return bins, vals
 
 
+def _int8_vals(n, seed):
+    """int8 levels as quantized training makes them: grad in +-127 (zero
+    often), hess in 0..127, in-bag 0/1."""
+    rng = np.random.RandomState(seed)
+    g = rng.randint(-127, 128, n)
+    g[rng.rand(n) < 0.2] = 0
+    h = rng.randint(0, 128, n)
+    c = (rng.rand(n) < 0.9).astype(np.int64)
+    return np.stack([g, h, c], axis=1).astype(np.int8)
+
+
 def _jax_flat(bins, vals, b):
     import jax.numpy as jnp
 
     from lightgbm_tpu.ops.pallas_histogram import histogram_flat
+    dtype = "int8" if vals.dtype == np.int8 else "f32"
     return np.asarray(histogram_flat(jnp.asarray(bins), jnp.asarray(vals),
-                                     num_bins=b, interpret=True))
+                                     num_bins=b, dtype=dtype, interpret=True))
 
 
 def _jax_segment(bins, vals, b):
@@ -83,6 +100,43 @@ def test_plain_within_1e5_vs_jax_on_random_f32(n, f, b):
     for want in (_jax_flat(bins, vals, b), _jax_segment(bins, vals, b)):
         np.testing.assert_allclose(got, want, rtol=1e-5,
                                    atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("n,f,b", SHAPES)
+def test_int8_plain_bitwise_vs_jax(n, f, b):
+    bins, _ = _data(n, f, b, seed=3 * n + f, exact=True)
+    vals = _int8_vals(n, seed=n + 2 * f)
+    got = HF.histogram_flat(torch.from_numpy(bins), torch.from_numpy(vals),
+                            num_bins=b)
+    assert got.shape == (f, b, 3) and got.dtype == torch.int32
+    got = got.numpy()
+    np.testing.assert_array_equal(got, _jax_flat(bins, vals, b))
+    np.testing.assert_array_equal(got, _jax_segment(bins, vals, b))
+
+
+def test_int8_dispatch_and_overflow_guard():
+    """Every impl gives the int32 histogram of integer values (flat_bf16
+    means the int8 mode then, as in the JAX package); N * 127 must fit
+    int32."""
+    bins, _ = _data(700, 4, 32, seed=2, exact=True)
+    tb = torch.from_numpy(bins)
+    tv = torch.from_numpy(_int8_vals(700, seed=2))
+    want = histogram_segment(tb, tv, num_bins=32)
+    assert want.dtype == torch.int32
+    for impl in ("auto", "pallas", "flat", "flat_bf16", "segment", "onehot"):
+        got = histogram_from_vals(tb, tv, num_bins=32, impl=impl,
+                                  rows_block=128)
+        assert got.dtype == torch.int32 and torch.equal(got, want), impl
+    assert HF.MAX_ROWS_INT8 == 16_909_320
+    HF.check_int8_rows(HF.MAX_ROWS_INT8)
+    huge = HF.MAX_ROWS_INT8 + 1
+    with pytest.raises(ValueError, match="overflow"):
+        HF.histogram_flat(torch.zeros(1, 1, dtype=torch.uint8).expand(huge, 1),
+                          torch.zeros(1, 3, dtype=torch.int8).expand(huge, 3),
+                          num_bins=4)
+    # f32 values may have any row count
+    HF.check_inputs(torch.zeros(1, 1, dtype=torch.uint8).expand(huge, 1),
+                    torch.zeros(1, 3).expand(huge, 3), 4)
 
 
 def test_dispatch_on_cpu_and_bf16_refusal():
@@ -121,7 +175,7 @@ def test_pack_values_and_subtract_vs_jax():
 def test_wrapper_input_checks_and_chunking():
     bins, vals = _data(10, 2, 8, seed=0, exact=True)
     tb, tv = torch.from_numpy(bins), torch.from_numpy(vals)
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(ValueError, match="float32 or int8"):
         HF.histogram_flat(tb, tv.double(), num_bins=8)
     with pytest.raises(ValueError, match="vals"):
         HF.histogram_flat(tb, tv[:, :2], num_bins=8)
@@ -154,3 +208,19 @@ def test_kernel_matches_plain_bench_shape(cuda_device, n):
         else:
             scale = float(want.abs().max())
             assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1000, 200_000])
+def test_int8_kernel_matches_plain_bench_shape(cuda_device, n):
+    """int8 mode: bitwise equal to the plain int32 histogram (F = 28,
+    B = 255, NaN bins)."""
+    bins, _ = _data(n, 28, 255, seed=n, exact=True)
+    tb = torch.from_numpy(bins).to(cuda_device)
+    tv = torch.from_numpy(_int8_vals(n, seed=n)).to(cuda_device)
+    launches = HF.launches_int8
+    got = HF.histogram_flat(tb, tv, num_bins=255)
+    want = histogram_segment(tb, tv, num_bins=255)
+    torch.cuda.synchronize()
+    assert HF.launches_int8 == launches + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)

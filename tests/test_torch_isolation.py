@@ -5,6 +5,7 @@ and chip_smoke.py refuses to run without a CUDA device."""
 import ast
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -54,7 +55,7 @@ def test_importing_every_port_module_loads_no_jax():
 #: the training slice's modules, each importable without JAX (above)
 TRAINING_MODULES = ("basic", "dataset", "engine", "metrics", "serialization",
                     "models/grower", "ops/histogram", "ops/histogram_flat",
-                    "ops/split", "ops/wave")
+                    "ops/quantize", "ops/split", "ops/wave")
 
 
 def test_training_slice_modules_present():
@@ -62,15 +63,30 @@ def test_training_slice_modules_present():
         assert (PORT / f"{mod}.py").is_file(), mod
 
 
+def _code(text: str) -> str:
+    """CUDA source without its // comments."""
+    return "\n".join(line.split("//")[0] for line in text.splitlines())
+
+
 def test_kernel_sources_use_no_atomics():
-    """The histogram and wave kernels reduce in a fixed order (chunk
-    partials, then a combine in chunk order): no atomics at all, so a
-    repeated run gives the same bits."""
+    """The histogram and wave kernels' f32 modes reduce in a fixed order
+    (chunk partials, then a combine in chunk order): no atomics at all, so
+    a repeated run gives the same bits.  Their int8 modes sum int32, which
+    is exact in any order: the only atomics in the sources are the integer
+    atomicAdds of the int8 accumulation kernel, into int32 cells."""
     csrc = PORT / "ops" / "csrc"
-    for name in ("histogram.cu", "wave.cu", "hist_common.cuh"):
-        text = (csrc / name).read_text()
-        assert "atomic" not in text.lower().replace("no float atomics", ""), \
-            name
+    for name in ("histogram.cu", "wave.cu"):
+        assert "atomic" not in _code((csrc / name).read_text()).lower(), name
+    common = _code((csrc / "hist_common.cuh").read_text())
+    start = common.index("hist_accumulate_i8_kernel(")
+    end = common.index("\n}\n", start)
+    body = common[start:end]
+    assert "atomic" not in (common[:start] + common[end:]).lower()
+    targets = re.findall(r"atomicAdd\(([^,]+),", body)
+    assert sorted(set(targets)) == ["cell + 0", "cell + 1", "cell + 2",
+                                    "dst + i"]
+    assert "int32_t* cell =" in body and "int32_t* dst =" in body
+    assert "float" not in body
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -10,6 +10,14 @@
 - Ten iterations of higgs-like rows at 31 leaves and leaf_batch 4: train
   AUC within 1e-3 of JAX's and raw predictions within 1e-4 (the gradients
   go through ``exp``, whose last bit differs between the libraries).
+- Quantized training (``use_quantized_grad``): one iteration with
+  deterministic rounding gives JAX's model text byte for byte (the first
+  gradients' scales are powers of two), with and without
+  ``quant_train_renew_leaf``; with stochastic rounding two runs of one
+  seed give one model text, and since the port's stream is a
+  ``torch.Generator``'s and not ``jax.random``'s, its trees differ from
+  JAX's while the train AUC stays within 5e-3 of JAX's after ten
+  iterations.
 - The port's model text loads in ``lightgbm_tpu.Booster(model_str=...)``
   and predicts the port's raw scores within 1e-6 (the JAX loader walks
   real-valued thresholds and sums in float64; the port sums the fp32
@@ -24,7 +32,7 @@
   on a machine with no card, ``train`` raises.
 
 On the card (``cuda`` marker), one exact-sum iteration gives the CPU
-model text byte for byte."""
+model text byte for byte, f32 and quantized (deterministic rounding)."""
 
 import numpy as np
 import pytest
@@ -202,6 +210,43 @@ def test_carried_jax_model_fp32_forest_scores(higgs):
                                rtol=0, atol=1e-6)
 
 
+QUANT = dict(EXACT, use_quantized_grad=True, stochastic_rounding=False)
+
+
+@pytest.mark.parametrize("renew", [False, True])
+def test_quantized_iteration_model_text_byte_equal(lgb, grown, renew):
+    X, y = grown
+    params = dict(QUANT, quant_train_renew_leaf=renew)
+    jb = lgb.train(params, lgb.Dataset(X, label=y), 1)
+    pb = lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu")
+    assert pb.model_to_string() == jb.model_to_string()
+    np.testing.assert_array_equal(pb._gbdt.scores.numpy(),
+                                  np.asarray(jb._gbdt.scores))
+    # the quantized tree is not the f32 one
+    f32 = lgt.train(EXACT, lgt.Dataset(X, label=y), 1, device="cpu")
+    assert f32.model_to_string() != pb.model_to_string()
+
+
+def test_stochastic_rounding_repeats_and_tracks_jax_auc(lgb):
+    """Stochastic rounding: one seed, one model text; another seed,
+    another model.  The port draws from ``torch.Generator`` streams (one
+    per iteration, ``ops/quantize.py::quant_generator``), not from
+    ``jax.random`` keys, so its trees are not JAX's, but its train AUC
+    after ten iterations stays within 5e-3 of JAX's."""
+    X, y = higgs_like(4000, 10, seed=3)
+    params = {"objective": "binary", "num_leaves": 15, "verbosity": -1,
+              "tpu_leaf_batch": 4, "use_quantized_grad": True}
+    runs = [lgt.train(dict(params, seed=s), lgt.Dataset(X, label=y), 10,
+                      device="cpu") for s in (0, 0, 1)]
+    texts = [b.model_to_string() for b in runs]
+    assert texts[0] == texts[1] and texts[0] != texts[2]
+    jb = lgb.train(params, lgb.Dataset(X, label=y), 10)
+    assert jb.model_to_string() != texts[0]
+    a_port = auc(y, runs[0].predict(X, raw_score=True))
+    a_jax = auc(y, jb.predict(X, raw_score=True))
+    assert abs(a_port - a_jax) <= 5e-3, (a_port, a_jax)
+
+
 def test_config_table_matches_jax():
     """Every key of the port's param table has the JAX package's type,
     default, aliases and bounds, and both resolve the same params alike."""
@@ -214,7 +259,9 @@ def test_config_table_matches_jax():
     params = {"n_estimators": 7, "eta": 0.3, "min_child_samples": 3,
               "reg_lambda": 2.0, "max_bins": 63, "verbose": -1,
               "objective": "xentropy", "boosting_type": "GBRT",
-              "tpu_wave_kernel": "FUSED"}
+              "tpu_wave_kernel": "FUSED", "use_quantized_grad": "true",
+              "num_grad_quant_bins": 8, "stochastic_rounding": "false",
+              "quant_train_renew_leaf": 1}
     jc, pc = JC.Config(params), PC.Config(params)
     for name in PC._CANONICAL:
         assert getattr(pc, name) == getattr(jc, name), name
@@ -236,7 +283,6 @@ UNSUPPORTED = [
     {"interaction_constraints": "[0,1],[2,3]"},
     {"feature_contri": [1.0, 0.5, 1.0, 1.0]},
     {"linear_tree": True},
-    {"use_quantized_grad": True},
     {"tree_learner": "data"},
     {"early_stopping_round": 5},
     {"tpu_iter_pack": 4},
@@ -306,5 +352,14 @@ def test_card_iteration_matches_cpu_model_text(grown, cuda_device):
     X, y = grown
     want = lgt.train(EXACT, lgt.Dataset(X, label=y), 1, device="cpu")
     got = lgt.train(EXACT, lgt.Dataset(X, label=y), 1, device=cuda_device)
+    assert got.model_to_string() == want.model_to_string()
+    assert torch.equal(got._gbdt.scores.cpu(), want._gbdt.scores)
+
+
+@pytest.mark.cuda
+def test_card_quantized_iteration_matches_cpu_model_text(grown, cuda_device):
+    X, y = grown
+    want = lgt.train(QUANT, lgt.Dataset(X, label=y), 1, device="cpu")
+    got = lgt.train(QUANT, lgt.Dataset(X, label=y), 1, device=cuda_device)
     assert got.model_to_string() == want.model_to_string()
     assert torch.equal(got._gbdt.scores.cpu(), want._gbdt.scores)

@@ -3,13 +3,18 @@ tensor (the plain version of the CUDA wave kernel ``ops/csrc/wave.cu``)
 against the same step assembled from the JAX package's ops — its
 ``histogram_segment`` for each smaller sibling, parent subtraction, the
 (left, right) order, then ``scan_tables`` + ``select_payload`` per child —
-bit for bit on exact-sum values, with inactive slots (gain -inf).
+bit for bit on exact-sum values, with inactive slots (gain -inf); and
+its int8 mode (int8 levels, int32 histograms, the scan reading each cell
+times its channel's scale) against the same JAX ops on power-of-two
+scales, where every scaled sum is exact.
 
 On the card (``cuda`` marker): the kernel against its plain version at
 W in {1, 16}, sibling sizes from 1 row to 100k rows, child histograms and
 payloads bitwise on exact-sum values; on random values run-to-run bitwise
 and within 1e-5 relative of the plain version (``chip_smoke.py``'s
-``wave_agreement``, whose own checks are pinned here on the CPU)."""
+``wave_agreement``, whose own checks are pinned here on the CPU).  int8
+mode: child histograms bitwise on any levels, payloads bitwise on
+power-of-two scales and within ``wave_agreement`` on random scales."""
 
 import pathlib
 import sys
@@ -25,22 +30,34 @@ from lightgbm_tpu_torch.ops.histogram import histogram_segment
 from lightgbm_tpu_torch.ops.split import SplitConfig
 
 
-def wave_inputs(n, f, b, sizes, seed, exact, device="cpu"):
+#: int8 mode channel scales: powers of two (every scaled sum exact), and
+#: ordinary ones
+POW2_SCALES = np.array([2.0 ** -6, 2.0 ** -9, 1.0], np.float32)
+RANDOM_SCALES = np.array([0.0123, 0.00391, 1.0], np.float32)
+
+
+def wave_inputs(n, f, b, sizes, seed, exact, device="cpu", scales=None):
     """A wave over a random permutation: slot w's parent is the perm range
     [start_w, start_w + 2 * size_w) (clipped to n), its smaller sibling the
     first ``size_w`` positions (or the last, for odd w); slot 2 is
-    inactive."""
+    inactive.  With ``scales`` (int8 mode) the values are int8 levels, the
+    parents int32 and the stats the scaled sums."""
     rng = np.random.RandomState(seed)
     bins = rng.randint(0, b, (n, f)).astype(np.uint8)
     nan_feats = rng.rand(f) < 0.5
     bins[(rng.rand(n, f) < 0.05) & nan_feats[None, :]] = b - 1
-    if exact:
-        g = rng.choice([-0.5, 0.5], n).astype(np.float32)
-        h = np.full(n, 0.25, np.float32)
+    if scales is not None:
+        g = rng.randint(-127, 128, n)
+        h = rng.randint(0, 128, n)
+        vals = np.stack([g, h, np.ones(n, np.int64)], axis=1).astype(np.int8)
     else:
-        g = rng.randn(n).astype(np.float32)
-        h = (rng.rand(n) + 0.05).astype(np.float32)
-    vals = np.stack([g, h, np.ones(n, np.float32)], axis=1)
+        if exact:
+            g = rng.choice([-0.5, 0.5], n).astype(np.float32)
+            h = np.full(n, 0.25, np.float32)
+        else:
+            g = rng.randn(n).astype(np.float32)
+            h = (rng.rand(n) + 0.05).astype(np.float32)
+        vals = np.stack([g, h, np.ones(n, np.float32)], axis=1)
     perm = rng.permutation(n).astype(np.int32)
     w = len(sizes)
     starts, small_start, small_cnt, parents, stats = [], [], [], [], []
@@ -56,6 +73,9 @@ def wave_inputs(n, f, b, sizes, seed, exact, device="cpu"):
         lrows = perm[pos:pos + s] if small_left else perm[pos:pos + cnt - s]
         left = vals[lrows].sum(axis=0, dtype=np.float64).astype(np.float32)
         tot = parent[0].sum(dim=0).numpy()
+        if scales is not None:
+            left = left * scales
+            tot = tot.astype(np.float32) * scales
         right = tot - left
         out_l = -left[0] / (left[1] + np.float32(1e-15))
         out_r = -right[0] / (right[1] + np.float32(1e-15))
@@ -74,26 +94,33 @@ def wave_inputs(n, f, b, sizes, seed, exact, device="cpu"):
     fmask[-1] = False
     t = lambda a: torch.as_tensor(a, device=device)
     meta = WV.wave_meta(t(nbpf), t(nanb), t(is_cat), t(fmask))
-    return dict(bins=t(bins), vals=t(vals), perm=t(perm),
-                small_start=small_start, small_cnt=small_cnt,
-                parent=torch.stack(parents).to(device),
-                stats=t(np.asarray(stats, np.float32)), meta=meta,
-                num_bins=b), (nbpf, nanb, is_cat, fmask, bins, vals, perm)
+    inp = dict(bins=t(bins), vals=t(vals), perm=t(perm),
+               small_start=small_start, small_cnt=small_cnt,
+               parent=torch.stack(parents).to(device),
+               stats=t(np.asarray(stats, np.float32)), meta=meta,
+               num_bins=b)
+    if scales is not None:
+        inp["scale3"] = t(scales)
+    return inp, (nbpf, nanb, is_cat, fmask, bins, vals, perm)
 
 
 CFG = SplitConfig(min_data_in_leaf=1, min_sum_hessian_in_leaf=0.5,
                   lambda_l2=0.25, has_categorical=False)
 
 
-def test_plain_wave_bitwise_vs_jax_ops():
+@pytest.mark.parametrize("mode", ["f32", "int8"])
+def test_plain_wave_bitwise_vs_jax_ops(mode):
     import jax.numpy as jnp
 
     from lightgbm_tpu.ops import split as JS
     from lightgbm_tpu.ops.histogram import histogram_segment as jseg
     sizes = [700, 1, 33, 2048, 5]
+    scales = POW2_SCALES if mode == "int8" else None
     inp, (nbpf, nanb, is_cat, fmask, bins, vals, perm) = wave_inputs(
-        9000, 5, 40, sizes, seed=1, exact=True)
+        9000, 5, 40, sizes, seed=1, exact=True, scales=scales)
     hist, pay = WV.fused_wave_call(cfg=CFG, **inp)
+    assert hist.dtype == (torch.int32 if scales is not None
+                          else torch.float32)
     jcfg = JS.SplitConfig(min_data_in_leaf=1, min_sum_hessian_in_leaf=0.5,
                           lambda_l2=0.25, has_categorical=False,
                           use_sorted_categorical=False, has_monotone=False)
@@ -108,8 +135,11 @@ def test_plain_wave_bitwise_vs_jax_ops():
         np.testing.assert_array_equal(hist[j, 1].numpy(), pair[1])
         for c in range(2):
             st = stats[j, c]
+            child = pair[c] if scales is None else (
+                np.asarray(jnp.asarray(pair[c]).astype(jnp.float32)
+                           * jnp.asarray(scales)))
             t = JS.scan_tables(
-                *(jnp.asarray(pair[c][..., k]) for k in range(3)),
+                *(jnp.asarray(child[..., k]) for k in range(3)),
                 *(jnp.asarray(v) for v in st[:3]),
                 num_bins_per_feature=jnp.asarray(nbpf),
                 nan_bins=jnp.asarray(nanb),
@@ -133,6 +163,16 @@ def test_shape_and_device_checks():
     bad = dict(inp, small_cnt=[10])
     with pytest.raises(ValueError, match="wave shapes"):
         WV.fused_wave_call(cfg=CFG, **bad)
+    with pytest.raises(ValueError, match="scale3"):
+        WV.fused_wave_call(cfg=CFG, **inp, scale3=torch.ones(3))
+    q, _ = wave_inputs(3000, 3, 16, [10, 20], seed=2, exact=True,
+                       scales=POW2_SCALES)
+    with pytest.raises(ValueError, match="scale3"):
+        WV.fused_wave_call(cfg=CFG, **dict(q, scale3=None))
+    with pytest.raises(ValueError, match="wave shapes"):
+        WV.fused_wave_call(cfg=CFG, **dict(q, scale3=torch.ones(4)))
+    rows, offs = WV.segment_table([1, 0, 100_000], 28, 255, int8=True)
+    assert rows >= WV.MIN_CHUNK_ROWS_INT8 and offs[-1] <= WV.MAX_CHUNKS
     chunk_rows, offs = WV.segment_table([1, 0, 100_000], 28, 255)
     assert offs[0] == 0 and offs[2] == offs[1] + 0 and offs[-1] >= 1
     assert chunk_rows >= WV.MIN_CHUNK_ROWS
@@ -173,6 +213,23 @@ def _fault(cs, h, p, kind):
         pk[k, 2] += 1.0
         pk[k, 5:11] += 1.0                 # another winner's sums may differ
     return h, p
+
+
+def test_int8_wave_agrees_with_f32_wave_on_the_scaled_values():
+    """On ordinary scales the int8 wave (int32 sums, then one multiply per
+    cell) and the f32 wave on the values times the scales (f32 sums) round
+    differently; ``wave_agreement`` holds them together: scaled histograms
+    within 1e-5, counts equal, gains within the scan's rounding bound."""
+    q, _ = wave_inputs(9000, 5, 40, [700, 33, 2048, 5], seed=6, exact=True,
+                       scales=RANDOM_SCALES)
+    h8, p8 = WV.wave_plain(cfg=CFG, **q)
+    f = dict(q, vals=q["vals"].float() * q["scale3"],
+             parent=WV.scale_hist(q["parent"], q["scale3"]))
+    del f["scale3"]
+    h32, p32 = WV.wave_plain(cfg=CFG, **f)
+    got = _chip_smoke().wave_agreement(WV.scale_hist(h8, q["scale3"]), p8,
+                                       h32, p32)
+    assert got["splitting_children"] > 0
 
 
 @pytest.mark.parametrize("kind", ["none", "other_winner_same_gain",
@@ -242,3 +299,31 @@ def test_kernel_matches_plain(cuda_device, sizes):
             assert torch.equal(h1, hp) and torch.equal(p1, pp)
         else:
             _chip_smoke().wave_agreement(h1, p1, hp, pp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes", [[100_000], [1, 5, 0, 2047, 2048, 12_500,
+                                               40_000, 3, 900, 1, 77, 4096,
+                                               100_000, 10, 250, 6]],
+                         ids=["W1", "W16"])
+def test_int8_kernel_matches_plain(cuda_device, sizes):
+    """int8 mode: child histograms bitwise always; payloads bitwise on
+    power-of-two scales, within ``wave_agreement`` on ordinary ones."""
+    sizes = [max(s, 1) for s in sizes]
+    for scales in (POW2_SCALES, RANDOM_SCALES):
+        inp, _ = wave_inputs(sum(2 * s for s in sizes), 28, 255, sizes,
+                             seed=len(sizes), exact=True, device=cuda_device,
+                             scales=scales)
+        launches = WV.launches_int8
+        h1, p1 = WV.fused_wave_call(cfg=CFG, **inp)
+        h2, p2 = WV.fused_wave_call(cfg=CFG, **inp)
+        torch.cuda.synchronize()
+        assert WV.launches_int8 == launches + 2
+        assert torch.equal(h1, h2) and torch.equal(p1, p2)
+        hp, pp = WV.wave_plain(cfg=CFG, **inp)
+        assert h1.dtype == torch.int32 and torch.equal(h1, hp)
+        if scales is POW2_SCALES:
+            assert torch.equal(p1, pp)
+        else:
+            scaled = WV.scale_hist(hp, inp["scale3"])
+            _chip_smoke().wave_agreement(scaled, p1, scaled, pp)

@@ -82,6 +82,19 @@ def exact_grads(n, seed=3):
     return sign - np.float32(0.5), np.full(n, 0.25, np.float32)
 
 
+def pow2_scale_grads(n, seed=3):
+    """Gradients in [-1, 1] with one row at exactly -1 and hessians in
+    (0, 1] with one row at exactly 1: quantized training's scales are then
+    powers of two (0.5 and 0.25 at num_grad_quant_bins 4), so deterministic
+    rounding still rounds, and every scaled histogram sum is exact."""
+    rng = np.random.RandomState(seed)
+    g = rng.uniform(-1, 1, n).astype(np.float32)
+    h = rng.uniform(0.01, 1, n).astype(np.float32)
+    g[0] = -1.0
+    h[1] = 1.0
+    return g, h
+
+
 def jax_grow(X, y, params, grad, hess, categorical=(), **grower_kw):
     """The JAX package's ``make_grower`` on the binned ``X`` -> (tree
     fields as numpy, row_leaf)."""
