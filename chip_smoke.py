@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's main paths (serving, training, quantized training) at
-full width and holds every kernel against its plain PyTorch version and
+Drives the port's main paths (serving, training, quantized training,
+bf16 and 4-bit-bin training) at full width and holds every kernel against its plain PyTorch version and
 every result against an independent reference.
 
 Serving (slice 1) — quantized serving through the hand-written CUDA
@@ -43,8 +43,8 @@ and fused-wave kernels:
 10. training: tests/fixtures/bench_auc.json's config (255 leaves, 100
     iterations) plus tpu_leaf_batch 16 on make_higgs_like(250,000, 28,
     seed 0) through ``lightgbm_tpu_torch.train``; holdout AUC within 1e-3
-    of genuine LightGBM's, seconds per iteration (binning and boosting)
-    and each kernel's launches per iteration;
+    of genuine LightGBM's, seconds per iteration (binning, once, and
+    boosting) and each kernel's launches per iteration;
 11. determinism: two 10-iteration runs give equal model text;
 12. serving the trained model: ``Booster.serving_predictor(quantize=
     "int16")`` on 65,536 holdout rows within the pack's error bound of
@@ -74,6 +74,36 @@ modes of the histogram and fused-wave kernels:
 18. timing: int8 histogram kernel at N = 200,000 and 10,500,000 (the
     int32 ``index_add_`` yardstick), int8 wave kernel at 16 x 12,500, plain
     versions and bounds.
+
+bf16 values and 4-bit bins (slice 4) — the last modes of the two
+training kernels: bf16 (``tpu_histogram_impl=flat_bf16``), and packed4
+(``max_bin`` <= 15: two 4-bit bins a byte) with f32, bf16 and int8
+values:
+
+19. histogram kernel, each new mode vs its plain version at F = 28 and
+    27 (B = 255 for bf16, 16 packed) and N in {1, 1,000, 200,000}:
+    bitwise on exact sums, within 1e-5 relative on random values
+    (bitwise on int8 levels), run-to-run bitwise, and bitwise equal to
+    the kernel's own f32 launch on the bf16-rounded values / unpacked
+    launch on the same rows;
+20. wave kernel, the same modes at W = 1 and W = 16 with inactive slots:
+    bitwise on exact sums (int8: histograms always, payloads on
+    power-of-two scales), ``wave_agreement`` otherwise, and bitwise equal
+    to its own f32 / unpacked launch;
+21. packed4 training: the bench rows binned once at max_bin 15, 100
+    iterations f32, quantized and bf16 (fused); the device bins are
+    (200,000, 14) uint8, only the packed4 modes launch, and the model text
+    equals the same run's with tpu_4bit_bins=false but for the parameter
+    line recording that option; holdout AUC, s/iteration and resident
+    bin bytes, packed and unpacked;
+22. bf16 training at the bench config: fused, 100 iterations, holdout AUC
+    within 3e-3 of genuine LightGBM's; unfused (``auto``), 20 iterations,
+    one bf16 histogram launch per root and per smaller sibling (= the
+    trees' leaves); two 10-iteration fused runs give equal model text;
+23. timing of each new mode: histogram at N = 200,000 and 10,500,000, wave
+    at 16 x 12,500, plain versions, bounds, and the ``index_add_``
+    yardstick over the bf16-rounded values for bf16 (no single PyTorch
+    call unpacks the nibbles: none for packed4).
 
 Each phase prints one JSON line; any mismatch raises, so the process exits
 non-zero without the final ``{"ok": true, ...}`` line.  Exits non-zero when
@@ -113,6 +143,19 @@ SCAN_OPS_PER_DIRECTION = 16
 #: wave of 16 smaller siblings of 12,500 rows
 HIST_TIMING_ROWS = (200_000, 10_500_000)
 WAVE_TIMING_SIZES = (12_500,) * 16
+#: the slice-4 modes of both training kernels (ops/histogram_flat.py::MODES)
+NEW_MODES = ("bf16", "f32_packed4", "bf16_packed4", "int8_packed4")
+#: histogram kernel vs plain version on random f32 / bf16 values, as in
+#: phase 8: f32 sums in two orders (row chunks in chunk order vs
+#: index_add_'s atomics), relative to the largest cell; at B = 16 a cell
+#: sums 16x the rows it sums at B = 255, and the rounding grows with it
+HIST_RTOL = 1e-5
+#: slice 4's kernel-vs-plain shapes: histogram rows, and waves of smaller
+#: siblings (W = 1; W = 16 with slots 5 and 11 inactive)
+CHECK_ROWS = (1, 1000, 200_000)
+CHECK_WAVES = {"W1": ([100_000], ()),
+               "W16": ([1, 2, 7, 100, 1000, 2047, 2048, 4096, 12_500, 30_000,
+                        100_000, 3, 50, 500, 5000, 20_000], (5, 11))}
 
 
 # --------------------------------------------------------------- data, model
@@ -345,33 +388,39 @@ def device_levels(gen, n, dev):
     return torch.stack([g, h, c], dim=1).to(torch.int8).contiguous()
 
 
-def hist_bound_ms(n, f, b, val_bytes=12):
-    """Histogram bound: bins and values (``val_bytes`` a row: 12 for f32,
-    3 for int8 levels) read once, the (F, B, 3) result written once, over
-    the memory rate; the N*F*3 adds a histogram needs over the scalar rate
-    (the f32 kernel's one-hot design spends N*F*B compares on top: that is
-    its cost, not the function's).  Returns (bytes_ms, ops_ms)."""
-    nbytes = n * f + n * val_bytes + f * b * 12
+def hist_bound_ms(n, f, b, val_bytes=12, bin_bytes=None):
+    """Histogram bound: bins (``bin_bytes`` a row: F, or ceil(F/2) packed)
+    and values (``val_bytes`` a row: 12 for f32, 6 for bf16, 3 for int8
+    levels) read once, the (F, B, 3) result written once, over the memory
+    rate; the N*F*3 adds a histogram needs over the scalar rate (the f32
+    kernel's one-hot design spends N*F*B compares on top: that is its
+    cost, not the function's).  Returns (bytes_ms, ops_ms)."""
+    bin_bytes = f if bin_bytes is None else bin_bytes
+    nbytes = n * bin_bytes + n * val_bytes + f * b * 12
     return nbytes / HBM_BYTES_PER_S * 1e3, n * f * 3 / SCALAR_OPS_PER_S * 1e3
 
 
 def wave_case(gen, dev, sizes, exact, f=28, b=255, inactive=(),
-              scales=None):
+              scales=None, mode="f32"):
     """One wave over a random permutation on the card: slot w's parent is
     the next 2 * sizes[w] perm positions, its smaller sibling the first
     (even w) or last (odd w) sizes[w] of them.  Feature 3 is a one-hot
     categorical of 4 bins; the last feature is masked out.  With
     ``scales`` (3 channel scales) the wave is in int8 mode: int8 levels,
-    int32 parents, stats from the scaled sums."""
+    int32 parents, stats from the scaled sums.  A ``mode`` starting with
+    bf16 passes the values rounded to bf16 (parents and stats from the
+    rounded values); one ending in packed4 packs the bins (b <= 16)."""
     import torch
     from lightgbm_tpu_torch.ops import wave as WV
-    from lightgbm_tpu_torch.ops.histogram import histogram_segment
+    from lightgbm_tpu_torch.ops.histogram import histogram_segment, pack_bins4
     n = sum(2 * s for s in sizes)
     bins = device_bins(gen, n, f, b, dev)
     bins[:, 3] = bins[:, 3] % 4
     if scales is None:
         vals = device_vals(gen, n, dev, exact)
-        sums = lambda v: v.sum(dim=0)
+        if mode.startswith("bf16"):
+            vals = vals.to(torch.bfloat16)
+        sums = lambda v: v.float().sum(dim=0)
     else:
         vals = device_levels(gen, n, dev)
         scale3 = torch.tensor(scales, dtype=torch.float32, device=dev)
@@ -403,10 +452,13 @@ def wave_case(gen, dev, sizes, exact, f=28, b=255, inactive=(),
     is_cat[3] = True
     fmask = torch.ones(f, dtype=torch.bool, device=dev)
     fmask[-1] = False
-    inp = dict(bins=bins, vals=vals, perm=perm, small_start=starts,
-               small_cnt=cnts, parent=torch.stack(parents),
+    packed4 = mode.endswith("packed4")
+    inp = dict(bins=pack_bins4(bins) if packed4 else bins, vals=vals,
+               perm=perm, small_start=starts, small_cnt=cnts,
+               parent=torch.stack(parents),
                stats=torch.stack(stats).contiguous(),
-               meta=WV.wave_meta(nbpf, nanb, is_cat, fmask), num_bins=b)
+               meta=WV.wave_meta(nbpf, nanb, is_cat, fmask), num_bins=b,
+               packed4=packed4)
     if scales is not None:
         inp["scale3"] = scale3
     return inp
@@ -414,7 +466,8 @@ def wave_case(gen, dev, sizes, exact, f=28, b=255, inactive=(),
 
 def wave_bound_ms(inp):
     """Wave bound for the inputs of one wave (``wave_case``): each smaller
-    sibling's rows (bins, values, perm index) and the W parent histograms
+    sibling's rows (bin bytes as stored: F, or ceil(F/2) packed; values:
+    12 bytes f32, 6 bf16, 3 int8; the perm index) and the W parent histograms
     read once, 2W child histograms and payloads written once, over the
     memory rate; over the scalar rate, the operations the function needs
     on this run's data: the siblings' R*F*3 adds, the W*F*B*3 subtractions,
@@ -429,7 +482,8 @@ def wave_bound_ms(inp):
     r, w = sum(inp["small_cnt"]), len(inp["small_cnt"])
     hist = f * b * 12
     val_bytes = 3 * inp["vals"].element_size()
-    nbytes = (r * (f + val_bytes + 4) + 3 * w * hist
+    bin_bytes = inp["bins"].shape[1]
+    nbytes = (r * (bin_bytes + val_bytes + 4) + 3 * w * hist
               + 2 * w * (PAYLOAD_SCALARS + b) * 4)
     live = meta[:, 3] > 0
     dirs = 1 + ((meta[:, 2] == 0) & (meta[:, 1] < b)).long()
@@ -492,9 +546,10 @@ def wave_agreement(h, p, hp, pp, rtol=1e-5):
     bound = torch.maximum(wave_gain_bound(k, kids, rtol),
                           wave_gain_bound(q, kids, rtol))[fin]
     gain_err = (k[fin, 0] - q[fin, 0]).abs()
-    worst = int(torch.argmax(gain_err / bound)) if bool(fin.any()) else 0
-    require(bool((gain_err <= bound).all()), "wave gains off by "
-            f"{float(gain_err[worst])} (bound {float(bound[worst])})")
+    if not bool((gain_err <= bound).all()):
+        worst = int(torch.argmax(gain_err / bound))
+        raise AssertionError(f"wave gains off by {float(gain_err[worst])} "
+                             f"(bound {float(bound[worst])})")
     same = fin & (k[:, 1:5] == q[:, 1:5]).all(dim=1)
     require(torch.equal(k[same][:, [7, 10]], q[same][:, [7, 10]]),
             "wave winner counts != plain version")
@@ -726,41 +781,64 @@ def wave_int8_phase(gen, dev):
 def _zero_launches():
     from lightgbm_tpu_torch.ops import histogram_flat as HF
     from lightgbm_tpu_torch.ops import wave as WV
-    HF.launches = HF.launches_int8 = 0
-    WV.launches = WV.launches_int8 = 0
+    for counts in (HF.launches, WV.launches):
+        for mode in counts:
+            counts[mode] = 0
 
 
 def _read_launches():
     from lightgbm_tpu_torch.ops import histogram_flat as HF
     from lightgbm_tpu_torch.ops import wave as WV
-    return {"histogram": HF.launches, "histogram_int8": HF.launches_int8,
-            "wave": WV.launches, "wave_int8": WV.launches_int8}
+    return {"histogram": dict(HF.launches), "wave": dict(WV.launches)}
 
 
-def train_phase(seed, dev, fix, quantized=False, ds=None):
-    """10 (f32) and 17 (``quantized``). Training at full width through the
-    entry points; returns the booster, the dataset, the params, the
-    holdout rows and the phase record.  The quantized run reuses the f32
-    run's binned ``ds``."""
+def bench_rows(fix):
+    """The fixture's rows: make_higgs_like(n_train + n_valid, F, seed)."""
+    d = fix["data"]
+    return make_higgs_like(d["n_train"] + d["n_valid"], d["n_features"],
+                           seed=d["seed"])
+
+
+def bench_dataset(fix, rows, max_bin):
+    """The training rows binned once at ``max_bin``; (Dataset, seconds)."""
+    import lightgbm_tpu_torch as lgt
+    X, y = rows
+    nt = fix["data"]["n_train"]
+    params = dict(fix["params"], max_bin=max_bin)
+    params.pop("num_iterations")
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(X[:nt], label=y[:nt])
+    ds.construct(params)
+    return ds, time.perf_counter() - t0
+
+
+def drop_param(text, line):
+    """Model text without one ``[key: value]`` parameter line: the line
+    that records the one option two compared runs differ in."""
+    require(text.count(f"\n{line}\n") == 1, f"no {line} line in model text")
+    return text.replace(f"\n{line}\n", "\n")
+
+
+def train_phase(dev, fix, rows, name, extra, ds, hist_mode, wave_mode,
+                iters=None, ref=None):
+    """Training at full width through the entry points: the fixture's
+    params plus tpu_leaf_batch 16 and ``extra``, on the binned ``ds``
+    (the first n_train of ``rows`` train, the rest are held out), for
+    ``iters`` iterations (default the fixture's).  The launch counts are
+    zeroed just before and read just after: the histogram kernel must have
+    run in ``hist_mode`` only and the wave kernel in ``wave_mode`` only
+    (None: not at all).  With ``ref`` = (auc, tol) the holdout AUC must be
+    within tol of auc.  Returns (booster, params, record)."""
     import torch
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.metrics import auc
-    d = fix["data"]
-    X, y = make_higgs_like(d["n_train"] + d["n_valid"], d["n_features"],
-                           seed=d["seed"])
-    nt = d["n_train"]
+    X, y = rows
+    nt = fix["data"]["n_train"]
     params = dict(fix["params"])
-    iters = params.pop("num_iterations")
+    fix_iters = params.pop("num_iterations")
+    iters = fix_iters if iters is None else iters
     params["tpu_leaf_batch"] = 16
-    if quantized:
-        params["use_quantized_grad"] = True
-    ref_auc, tol = ((fix["ref_auc_quantized"], 3e-3) if quantized
-                    else (fix["ref_auc"], 1e-3))
-    t0 = time.perf_counter()
-    if ds is None:
-        ds = lgt.Dataset(X[:nt], label=y[:nt])
-        ds.construct(params)
-    binning_s = time.perf_counter() - t0
+    params.update(extra)
     _zero_launches()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -768,14 +846,13 @@ def train_phase(seed, dev, fix, quantized=False, ds=None):
     torch.cuda.synchronize()
     boost_s = time.perf_counter() - t1
     launches = _read_launches()
-    live, idle = (("histogram_int8", "wave_int8"), ("histogram", "wave"))
-    if not quantized:
-        live, idle = idle, live
-    require(all(launches[k] > 0 for k in live)
-            and not any(launches[k] for k in idle),
-            f"{'quantized' if quantized else 'f32'} training launched "
-            f"{launches}")
-    hist_launches, wave_launches = (launches[k] for k in live)
+    for kernel, mode in (("histogram", hist_mode), ("wave", wave_mode)):
+        ran = {k for k, v in launches[kernel].items() if v}
+        require(ran == ({mode} if mode else set()),
+                f"{name}: {kernel} kernel launched {launches[kernel]}, "
+                f"expected mode {mode} only")
+    hist_launches = launches["histogram"][hist_mode]
+    wave_launches = launches["wave"][wave_mode] if wave_mode else 0
     require(bst.num_trees() == iters, f"{bst.num_trees()} trees")
     Xv, yv = X[nt:], y[nt:]
     t2 = time.perf_counter()
@@ -784,30 +861,34 @@ def train_phase(seed, dev, fix, quantized=False, ds=None):
     require(raw.shape == (len(yv),) and np.isfinite(raw).all(),
             "holdout raw scores not finite")
     holdout_auc = auc(yv, raw)
-    require(abs(holdout_auc - ref_auc) < tol,
-            f"holdout AUC {holdout_auc} not within {tol} of genuine "
-            f"LightGBM's {ref_auc}")
-    rec = {"phase": "train_quantized" if quantized else "train",
-           "rows": nt, "holdout_rows": len(yv),
-           "features": d["n_features"], "params": params,
-           "iterations": iters, "binning_s": binning_s,
+    rec = {"phase": name, "rows": nt, "holdout_rows": len(yv),
+           "features": X.shape[1], "params": params, "iterations": iters,
            "boosting_s": boost_s, "s_per_iteration": boost_s / iters,
            "predict_holdout_s": predict_s,
+           "histogram_mode": hist_mode, "wave_mode": wave_mode,
            "histogram_launches": hist_launches,
            "wave_launches": wave_launches,
            "histogram_launches_per_iteration": hist_launches / iters,
            "wave_launches_per_iteration": wave_launches / iters,
            "leaves_per_tree": float(np.mean(
                [t.num_leaves for t in bst._gbdt.models[0]])),
-           "holdout_auc": holdout_auc, "ref_auc": ref_auc,
-           "auc_gap": holdout_auc - ref_auc, "auc_tolerance": tol}
+           "packed4": bool(bst._gbdt.grower_cfg.packed4),
+           "bins_device_shape": list(bst._gbdt.bins_dev.shape),
+           "holdout_auc": holdout_auc}
+    if ref is not None:
+        ref_auc, tol = ref
+        require(abs(holdout_auc - ref_auc) < tol,
+                f"{name}: holdout AUC {holdout_auc} not within {tol} of "
+                f"genuine LightGBM's {ref_auc}")
+        rec.update(ref_auc=ref_auc, auc_gap=holdout_auc - ref_auc,
+                   auc_tolerance=tol)
     emit(rec)
-    return bst, ds, params, Xv, rec
+    return bst, params, rec
 
 
 def training_phases(seed, dev, smi):
-    """Phases 8-18; returns the histogram and wave entries of the kernels
-    line, f32 and int8 modes."""
+    """Phases 8-24; returns the histogram and wave entries of the kernels
+    line, every mode."""
     import torch
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.models.tree import quantize_error_bound
@@ -823,10 +904,19 @@ def training_phases(seed, dev, smi):
     wave_phase(gen, dev)
     hist8_err = histogram_int8_phase(gen, dev)
     wave_int8_phase(gen, dev)
+    new_hist_err = new_mode_histogram_phase(gen, dev)
+    new_mode_wave_phase(gen, dev)
     fix = load_bench_fixture(root)
-    bst, ds, params, Xv, rec = train_phase(seed, dev, fix)
-    _qbst, _, qparams, _, qrec = train_phase(seed, dev, fix, quantized=True,
-                                             ds=ds)
+    rows = bench_rows(fix)
+    Xv = rows[0][fix["data"]["n_train"]:]
+    ds, binning_s = bench_dataset(fix, rows, fix["params"]["max_bin"])
+    emit({"phase": "binning", "max_bin": fix["params"]["max_bin"],
+          "rows": fix["data"]["n_train"], "seconds": binning_s})
+    bst, params, rec = train_phase(dev, fix, rows, "train", {}, ds, "f32",
+                                   "f32", ref=(fix["ref_auc"], 1e-3))
+    _qbst, qparams, qrec = train_phase(
+        dev, fix, rows, "train_quantized", {"use_quantized_grad": True}, ds,
+        "int8", "int8", ref=(fix["ref_auc_quantized"], 3e-3))
 
     # 11. determinism (f32 and quantized)
     for name, prm in (("f32", params), ("quantized", qparams)):
@@ -841,13 +931,13 @@ def training_phases(seed, dev, smi):
 
     # 12. serving the trained model
     rng = np.random.RandomState(seed)
-    rows = Xv[rng.randint(0, Xv.shape[0], 65_536)]
+    rows_s = Xv[rng.randint(0, Xv.shape[0], 65_536)]
     pred = bst.serving_predictor(quantize="int16", raw_score=True)
     traverse.launches = 0
-    served = pred.predict(rows)
+    served = pred.predict(rows_s)
     torch.cuda.synchronize()
     launches = traverse.launches
-    want = bst.predict(rows, raw_score=True)
+    want = bst.predict(rows_s, raw_score=True)
     bound = quantize_error_bound(pred.plan._packs[0])
     # the fp32 pack sums T leaf values in float32: allow its rounding too
     slack = bst.num_trees() * 2.0 ** -23 * float(np.abs(want).max())
@@ -906,21 +996,33 @@ def training_phases(seed, dev, smi):
     del inp, h1, p1, hp, pp
     timing8 = int8_timing(gen, dev, smi)
 
+    # 21-22. packed4 and bf16 training; 23. their kernel times
+    runs4 = slice4_training(dev, fix, rows, ds)
+    timing4 = new_mode_timing(gen, dev, smi)
+
     h = timing[f"histogram/{HIST_TIMING_ROWS[0]}"]
     h8 = timing8[f"histogram_int8/{HIST_TIMING_ROWS[0]}"]
-    w8 = timing8[f"wave_int8/{len(sizes)}x{sizes[0]}"]
+    wave_key = f"{len(sizes)}x{sizes[0]}"
+    w8 = timing8[f"wave_int8/{wave_key}"]
+    rows0 = HIST_TIMING_ROWS[0]
+    table = [("histogram", HIST_SOURCE, HIST_REPLACES, h,
+              rec["histogram_launches"], hist_err, rows0),
+             ("histogram_int8", HIST_SOURCE, HIST_REPLACES, h8,
+              qrec["histogram_launches"], hist8_err, rows0),
+             ("wave", WAVE_SOURCE, WAVE_REPLACES, w_entry,
+              rec["wave_launches"], w_entry["max_abs_err"], sum(sizes)),
+             ("wave_int8", WAVE_SOURCE, WAVE_REPLACES, w8,
+              qrec["wave_launches"], w8["max_abs_err"], sum(sizes))]
+    for mode in NEW_MODES:
+        th = timing4[f"histogram_{mode}/{rows0}"]
+        tw = timing4[f"wave_{mode}/{wave_key}"]
+        table += [(f"histogram_{mode}", HIST_SOURCE, HIST_REPLACES, th,
+                   runs4["histogram"][mode], new_hist_err[mode], rows0),
+                  (f"wave_{mode}", WAVE_SOURCE, WAVE_REPLACES, tw,
+                   runs4["wave"][mode], tw["max_abs_err"], sum(sizes))]
     entries = []
-    for name, src_, rep, t, launches_, err_, lib, rows in (
-            ("histogram", HIST_SOURCE, HIST_REPLACES, h,
-             rec["histogram_launches"], hist_err, h["library_ms"],
-             HIST_TIMING_ROWS[0]),
-            ("histogram_int8", HIST_SOURCE, HIST_REPLACES, h8,
-             qrec["histogram_launches"], hist8_err, h8["library_ms"],
-             HIST_TIMING_ROWS[0]),
-            ("wave", WAVE_SOURCE, WAVE_REPLACES, w_entry,
-             rec["wave_launches"], w_entry["max_abs_err"], None, sum(sizes)),
-            ("wave_int8", WAVE_SOURCE, WAVE_REPLACES, w8,
-             qrec["wave_launches"], w8["max_abs_err"], None, sum(sizes))):
+    for name, src_, rep, t, launches_, err_, nrows in table:
+        require(launches_ > 0, f"{name}: no launch on its training path")
         entries.append({
             "name": name, "route": "cuda", "source": src_, "replaces": rep,
             "matches_plain": True, "launches": launches_,
@@ -929,7 +1031,7 @@ def training_phases(seed, dev, smi):
             "bound_ms": max(t["bytes_ms"], t["ops_ms"]),
             "bound_by": ("bytes" if t["bytes_ms"] >= t["ops_ms"]
                          else "operations"),
-            "library_ms": lib, "rows": rows})
+            "library_ms": t.get("library_ms"), "rows": nrows})
     return entries
 
 
@@ -988,6 +1090,321 @@ def int8_timing(gen, dev, smi):
     w_entry["bytes_ms"], w_entry["ops_ms"] = wave_bound_ms(inp)
     timing[f"wave_int8/{len(sizes)}x{sizes[0]}"] = w_entry
     emit({"phase": "training_timing_int8", "nvidia_smi": smi,
+          "shapes": timing})
+    return timing
+
+
+# ------------------------------------------ slice 4: bf16 and 4-bit bins
+def mode_bins(gen, n, f, mode, dev):
+    """Bins for a mode's kernel-vs-plain check: 255 bins (16, packed into
+    nibble pairs, for a packed4 mode) with NaN bins; (bins, num_bins)."""
+    from lightgbm_tpu_torch.ops.histogram import pack_bins4
+    packed4 = mode.endswith("packed4")
+    b = 16 if packed4 else 255
+    bins = device_bins(gen, n, f, b, dev)
+    return (pack_bins4(bins) if packed4 else bins), b
+
+
+def mode_vals(gen, n, mode, dev, exact):
+    """Values for a mode: int8 levels, or f32 (exact sums or random),
+    rounded to bf16 for a bf16 mode."""
+    import torch
+    if mode.startswith("int8"):
+        return device_levels(gen, n, dev)
+    vals = device_vals(gen, n, dev, exact)
+    return vals.to(torch.bfloat16) if mode.startswith("bf16") else vals
+
+
+def base_launch_inputs(bins, vals, f, mode):
+    """The kernel's unpacked / f32 counterpart inputs of a mode's launch:
+    unpacked bins, and the bf16 values widened to f32 (exact)."""
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import unpack_bins4
+    if mode.endswith("packed4"):
+        bins = unpack_bins4(bins, f).contiguous()
+    if vals.dtype == torch.bfloat16:
+        vals = vals.float()
+    return bins, vals
+
+
+def new_mode_histogram_phase(gen, dev):
+    """19. The histogram kernel's bf16 and packed4 modes against their
+    plain versions at F = 28 and 27: bitwise on exact sums, within
+    HIST_RTOL relative on random values (bitwise for int8 levels),
+    run-to-run bitwise, and bitwise equal to the kernel's own unpacked /
+    f32 launch on the same rows and the bf16-rounded values.  Returns
+    each mode's largest error at the most random rows, F = 28."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram_flat as HF
+    from lightgbm_tpu_torch.ops.histogram import histogram_segment
+    out, err_200k = {}, {}
+    for mode in NEW_MODES:
+        packed4 = mode.endswith("packed4")
+        for f in (28, 27):
+            for n in CHECK_ROWS:
+                for exact in (True, False):
+                    bins, b = mode_bins(gen, n, f, mode, dev)
+                    vals = mode_vals(gen, n, mode, dev, exact)
+                    kw = dict(num_bins=b, packed4=packed4,
+                              features=f if packed4 else 0)
+                    got = HF.histogram_flat(bins, vals, **kw)
+                    again = HF.histogram_flat(bins, vals, **kw)
+                    bb, bv = base_launch_inputs(bins, vals, f, mode)
+                    base = HF.histogram_flat(bb, bv, num_bins=b)
+                    plain = histogram_segment(bins, vals, **kw)
+                    torch.cuda.synchronize()
+                    tag = f"{mode} F={f} N={n} {'exact' if exact else 'random'}"
+                    require(torch.equal(got, again),
+                            f"histogram {tag}: not run-to-run bitwise")
+                    require(torch.equal(got, base), f"histogram {tag} != "
+                            "the kernel's unpacked / f32 launch")
+                    err = float((got - plain).abs().max())
+                    scale = float(plain.abs().max())
+                    if exact or mode.startswith("int8"):
+                        require(torch.equal(got, plain),
+                                f"histogram {tag} != plain version")
+                    else:
+                        require(err <= HIST_RTOL * scale,
+                                f"histogram {tag} off by {err} (scale "
+                                f"{scale})")
+                    out[tag] = {"max_abs_err": err,
+                                "rel_err": err / max(scale, 1e-30)}
+                    if f == 28 and n == CHECK_ROWS[-1] and not exact:
+                        err_200k[mode] = err
+    emit({"phase": "histogram_new_modes_vs_plain", "rtol": HIST_RTOL,
+          "bitwise_vs_base_launch": True, "cases": out})
+    return err_200k
+
+
+def new_mode_wave_phase(gen, dev):
+    """20. The wave kernel's bf16 and packed4 modes against their plain
+    versions at F = 28 and 27, W = 1 and W = 16 with inactive slots:
+    bitwise on exact sums (int8: histograms always, payloads on
+    power-of-two scales), ``wave_agreement`` on random values,
+    run-to-run bitwise, and bitwise equal to the kernel's own unpacked /
+    f32 launch."""
+    import torch
+    from lightgbm_tpu_torch.ops import wave as WV
+    from lightgbm_tpu_torch.ops.split import SplitConfig
+    cfg = SplitConfig(min_data_in_leaf=0, min_sum_hessian_in_leaf=1.0,
+                      lambda_l2=0.5, max_cat_to_onehot=4)
+    rand = torch.rand(2, generator=gen, device=dev) * 0.02 + 1e-3
+    random_scales = (float(rand[0]), float(rand[1]), 1.0)
+    out = {}
+    for mode in NEW_MODES:
+        packed4 = mode.endswith("packed4")
+        int8 = mode.startswith("int8")
+        kinds = ((("pow2", True, POW2_SCALES),
+                  ("random_scales", True, random_scales)) if int8
+                 else (("exact", True, None), ("random", False, None)))
+        for f in (28, 27):
+            for name, (sizes, inactive) in CHECK_WAVES.items():
+                for kind, exact, scales in kinds:
+                    inp = wave_case(gen, dev, sizes, exact, f=f,
+                                    b=16 if packed4 else 255,
+                                    inactive=inactive, scales=scales,
+                                    mode=mode)
+                    h1, p1 = WV.fused_wave_call(cfg=cfg, **inp)
+                    h2, p2 = WV.fused_wave_call(cfg=cfg, **inp)
+                    bb, bv = base_launch_inputs(inp["bins"], inp["vals"], f,
+                                                mode)
+                    hb, pb = WV.fused_wave_call(
+                        cfg=cfg, **dict(inp, bins=bb, vals=bv,
+                                        packed4=False))
+                    hp, pp = WV.wave_plain(cfg=cfg, **inp)
+                    torch.cuda.synchronize()
+                    tag = f"{mode} F={f} {name} {kind}"
+                    require(torch.equal(h1, h2) and torch.equal(p1, p2),
+                            f"wave {tag}: not run-to-run bitwise")
+                    require(torch.equal(h1, hb) and torch.equal(p1, pb),
+                            f"wave {tag} != the kernel's unpacked / f32 "
+                            "launch")
+                    for j in inactive:
+                        require(bool(torch.isinf(p1[j, :, 0]).all()),
+                                f"wave {tag}: inactive slot {j} has a "
+                                "finite gain")
+                    if exact:
+                        require(torch.equal(h1, hp),
+                                f"wave {tag}: histograms != plain version")
+                    if exact and kind != "random_scales":
+                        require(torch.equal(p1, pp),
+                                f"wave {tag}: payload != plain version")
+                    if int8:
+                        sh = WV.scale_hist(hp, inp["scale3"])
+                        agree = wave_agreement(sh, p1, sh, pp)
+                    else:
+                        agree = wave_agreement(h1, p1, hp, pp)
+                    out[tag] = {"slots": len(sizes), "rows": sum(sizes),
+                                "payload_equal": bool(torch.equal(p1, pp)),
+                                **agree}
+    emit({"phase": "wave_new_modes_vs_plain", "bitwise_vs_base_launch": True,
+          "cases": out})
+
+
+def resident_bins(bst):
+    b = bst._gbdt.bins_dev
+    return {"shape": list(b.shape), "dtype": str(b.dtype),
+            "bytes": b.numel() * b.element_size()}
+
+
+def slice4_training(dev, fix, rows, ds):
+    """21. packed4 training at max_bin 15 (f32, quantized, bf16), each
+    with model text equal to the same run with tpu_4bit_bins=false but for
+    the parameter line that records it; 22. bf16 training at the bench
+    config, fused (AUC gate) and unfused (every smaller sibling through
+    the bf16 histogram), and its determinism.  Returns the launches of
+    each new mode on its training path."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    main = {"histogram": {}, "wave": {}}
+
+    # 21. packed4 at max_bin 15: the rows binned once
+    ds15, binning_s = bench_dataset(fix, rows, 15)
+    b15 = ds15.construct()
+    emit({"phase": "binning", "max_bin": 15, "rows": fix["data"]["n_train"],
+          "max_num_bins": int(b15.binned.max_num_bins), "seconds": binning_s})
+    nt, f = fix["data"]["n_train"], fix["data"]["n_features"]
+    for name, extra, mode, base in (
+            ("f32", {}, "f32_packed4", "f32"),
+            ("quantized", {"use_quantized_grad": True}, "int8_packed4",
+             "int8"),
+            ("bf16", {"tpu_histogram_impl": "flat_bf16",
+                      "tpu_wave_kernel": "fused"}, "bf16_packed4", "bf16")):
+        extra = dict(extra, max_bin=15)
+        bst, _, rec = train_phase(dev, fix, rows, f"train_packed4_{name}",
+                                  extra, ds15, mode, mode)
+        require(bst._gbdt.grower_cfg.packed4, "max_bin 15 did not pack")
+        dbins = bst._gbdt.bins_dev
+        require(tuple(dbins.shape) == (nt, (f + 1) // 2)
+                and dbins.dtype == torch.uint8,
+                f"packed device bins {tuple(dbins.shape)} {dbins.dtype}")
+        packed = resident_bins(bst)
+        text = bst.model_to_string()
+        main["histogram"][mode] = rec["histogram_launches"]
+        main["wave"][mode] = rec["wave_launches"]
+        del bst
+        off, _, rec_off = train_phase(
+            dev, fix, rows, f"train_unpacked_{name}",
+            dict(extra, tpu_4bit_bins=False), ds15, base, base)
+        require(not off._gbdt.grower_cfg.packed4, "tpu_4bit_bins=false packed")
+        same = drop_param(off.model_to_string(),
+                          "[tpu_4bit_bins: False]") == text
+        require(same, f"packed4 {name} model text != unpacked run's")
+        emit({"phase": "packed4_equals_unpacked", "training": name,
+              "iterations": rec["iterations"], "model_text_equal": True,
+              "model_bytes": len(text),
+              "resident_bins_packed": packed,
+              "resident_bins_unpacked": resident_bins(off),
+              "s_per_iteration_packed": rec["s_per_iteration"],
+              "s_per_iteration_unpacked": rec_off["s_per_iteration"],
+              "holdout_auc": rec["holdout_auc"]})
+        del off
+    del ds15, b15
+    torch.cuda.empty_cache()
+
+    # 22. bf16 at the bench config
+    bf16 = {"tpu_histogram_impl": "flat_bf16"}
+    fused = dict(bf16, tpu_wave_kernel="fused")
+    _b, params_f, rec_f = train_phase(
+        dev, fix, rows, "train_bf16_fused", fused, ds, "bf16", "bf16",
+        ref=(fix["ref_auc"], 3e-3))
+    del _b
+    unf, _, rec_u = train_phase(dev, fix, rows, "train_bf16_unfused", bf16,
+                                ds, "bf16", None, iters=20)
+    leaves = sum(t.num_leaves for t in unf._gbdt.models[0])
+    require(rec_u["histogram_launches"] == leaves,
+            f"unfused bf16: {rec_u['histogram_launches']} histogram "
+            f"launches for {leaves} leaves (one per root and per smaller "
+            "sibling)")
+    main["histogram"]["bf16"] = (rec_f["histogram_launches"]
+                                 + rec_u["histogram_launches"])
+    main["wave"]["bf16"] = rec_f["wave_launches"]
+    del unf
+    t0 = time.perf_counter()
+    m1 = lgt.train(params_f, ds, 10, device=dev).model_to_string()
+    m2 = lgt.train(params_f, ds, 10, device=dev).model_to_string()
+    require(m1 == m2, "two 10-iteration bf16 runs gave different model text")
+    emit({"phase": "determinism", "training": "bf16_fused", "iterations": 10,
+          "equal": True, "model_bytes": len(m1),
+          "seconds": time.perf_counter() - t0,
+          "unfused_histogram_launches": rec_u["histogram_launches"],
+          "unfused_leaves": leaves})
+    return main
+
+
+def new_mode_timing(gen, dev, smi):
+    """23. The bf16 and packed4 modes' times at the timing shapes (B = 255
+    for bf16, 16 for packed4), their plain versions, the bounds, and the
+    library yardstick where one PyTorch call computes the function: for
+    bf16, ``index_add_`` over the bf16-rounded values in f32 (the rounding
+    not timed); for packed4, no single call unpacks the nibbles."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram_flat as HF
+    from lightgbm_tpu_torch.ops import wave as WV
+    from lightgbm_tpu_torch.ops.histogram import histogram_segment
+    from lightgbm_tpu_torch.ops.split import SplitConfig
+    timing = {}
+    f = 28
+    for mode in NEW_MODES:
+        packed4 = mode.endswith("packed4")
+        val_bytes = {"bf16": 6, "int8": 3}.get(mode.split("_")[0], 12)
+        for n in HIST_TIMING_ROWS:
+            bins, b = mode_bins(gen, n, f, mode, dev)
+            vals = mode_vals(gen, n, mode, dev, exact=False)
+            kw = dict(num_bins=b, packed4=packed4,
+                      features=f if packed4 else 0)
+            small = n <= 200_000
+            iters = 20 if small else 5
+            entry = {"kernel_ms": cuda_time_ms(
+                lambda: HF.histogram_flat(bins, vals, **kw), iters=iters),
+                     "resident_bin_bytes": bins.numel()}
+            if mode == "bf16":
+                flat = (bins.long() + torch.arange(f, device=dev)[None, :]
+                        * b).reshape(-1)
+                src = vals.float()[:, None, :].expand(n, f, 3).reshape(-1, 3)
+                acc = torch.zeros(f * b, 3, device=dev)
+                entry["library_ms"] = cuda_time_ms(
+                    lambda: acc.index_add_(0, flat, src), iters=iters)
+                del flat, src
+            else:
+                entry["library_ms"] = None
+            if small:
+                entry["plain_ms"] = cuda_time_ms(
+                    lambda: histogram_segment(bins, vals, **kw), iters=20)
+            entry["bytes_ms"], entry["ops_ms"] = hist_bound_ms(
+                n, f, b, val_bytes=val_bytes, bin_bytes=bins.shape[1])
+            timing[f"histogram_{mode}/{n}"] = entry
+            del bins, vals
+        torch.cuda.empty_cache()
+        sizes = list(WAVE_TIMING_SIZES)
+        scales = None
+        if mode.startswith("int8"):
+            rand = torch.rand(2, generator=gen, device=dev) * 0.02 + 1e-3
+            scales = (float(rand[0]), float(rand[1]), 1.0)
+        inp = wave_case(gen, dev, sizes, exact=scales is not None,
+                        b=16 if packed4 else 255, scales=scales, mode=mode)
+        cfg = SplitConfig(min_data_in_leaf=0, min_sum_hessian_in_leaf=100.0,
+                          max_cat_to_onehot=4)
+        w_entry = {
+            "kernel_ms": cuda_time_ms(
+                lambda: WV.fused_wave_call(cfg=cfg, **inp), iters=20),
+            "plain_ms": cuda_time_ms(lambda: WV.wave_plain(cfg=cfg, **inp),
+                                     iters=3, warmup=1),
+            "library_ms": None}
+        h1, p1 = WV.fused_wave_call(cfg=cfg, **inp)
+        hp, pp = WV.wave_plain(cfg=cfg, **inp)
+        if scales is not None:
+            require(torch.equal(h1, hp), f"{mode} timing wave histograms "
+                    "!= plain")
+            h1 = WV.scale_hist(h1, inp["scale3"])
+            hp = WV.scale_hist(hp, inp["scale3"])
+        w_entry["max_abs_err"] = float((h1 - hp).abs().max())
+        w_entry["agreement"] = wave_agreement(h1, p1, hp, pp)
+        w_entry["bytes_ms"], w_entry["ops_ms"] = wave_bound_ms(inp)
+        timing[f"wave_{mode}/{len(sizes)}x{sizes[0]}"] = w_entry
+        del inp, h1, p1, hp, pp
+        torch.cuda.empty_cache()
+    emit({"phase": "training_timing_new_modes", "nvidia_smi": smi,
           "shapes": timing})
     return timing
 

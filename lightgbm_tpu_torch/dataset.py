@@ -4,10 +4,13 @@ device tensors.
 The port of the JAX package's ``dataset.py::TrainData``: ``build`` checks
 the label and weights, bins the matrix on the host with the port's
 ``bin_dataset`` (the JAX package's mappers byte for byte), and
-``bins_device`` / ``feature_meta_device`` put the (N, F) bins and the
-per-feature metadata on a device.  Bins stay one unpacked uint8 (N, F)
-tensor: the JAX package's 4-bit nibble packing is a storage layout that
-gives the same trees and is not ported yet (ROADMAP B1b).
+``bins_device`` / ``feature_meta_device`` put the bins and the
+per-feature metadata on a device.  The bins are the (N, F) uint8 matrix,
+or with ``packed4`` (every feature at <= 16 bins) its (N, ceil(F/2))
+4-bit nibble pairs (``ops/histogram.py::pack_bins4``, packed on the
+host).  One layout is resident per device: asking for the packed one
+drops the unpacked copy, so the halving is real on the card (the JAX
+package's ``gbdt.py`` drops its byte-per-bin matrix the same way).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 
 from .binning import BinnedData, _is_sparse, bin_dataset
 from .config import Config
+from .ops.histogram import pack_bins4
 
 
 def _check_finite(arr: np.ndarray, what: str) -> None:
@@ -77,8 +81,6 @@ class TrainData:
         if key not in self._dev:
             b = self.binned
             self._dev[key] = {
-                "bins": torch.from_numpy(np.ascontiguousarray(b.bins)).to(
-                    device),
                 "num_bins_per_feature": torch.as_tensor(
                     b.num_bins_per_feature, dtype=torch.int32, device=device),
                 "nan_bins": torch.as_tensor(b.nan_bins, dtype=torch.int32,
@@ -88,9 +90,18 @@ class TrainData:
             }
         return self._dev[key]
 
-    def bins_device(self, device: torch.device) -> torch.Tensor:
-        """The (N, F) uint8 bins on ``device`` (uploaded once)."""
-        return self._on(device)["bins"]
+    def bins_device(self, device: torch.device,
+                    packed4: bool = False) -> torch.Tensor:
+        """The (N, F) uint8 bins on ``device``, or with ``packed4`` their
+        (N, ceil(F/2)) nibble pairs; uploaded once, and the other layout's
+        copy on ``device`` is dropped."""
+        d = self._on(device)
+        key, other = ("bins4", "bins") if packed4 else ("bins", "bins4")
+        if key not in d:
+            d.pop(other, None)
+            host = torch.from_numpy(np.ascontiguousarray(self.binned.bins))
+            d[key] = (pack_bins4(host) if packed4 else host).to(device)
+        return d[key]
 
     def feature_meta_device(self, device: torch.device) -> dict:
         """``num_bins_per_feature``, ``nan_bins`` (int32) and

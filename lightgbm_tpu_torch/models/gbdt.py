@@ -7,7 +7,9 @@ average, then per iteration binary gradients -> leaf-wise growth
 package's rounding rule (the shrunk leaf values are materialized, then
 one add per row).  Under ``use_quantized_grad`` each iteration's
 stochastic rounding draws from its own ``torch.Generator`` seeded from
-``(seed, iteration)`` (``ops/quantize.py::quant_generator``).  Scores,
+``(seed, iteration)`` (``ops/quantize.py::quant_generator``).  With every
+feature at <= 16 bins and ``tpu_4bit_bins`` on (the default) the bins
+are stored as 4-bit nibble pairs (``GrowerConfig.packed4``).  Scores,
 bins and gradients live on the device; each grown tree becomes a host
 ``Tree`` at once.  ``torch.profiler`` ranges
 (``gbdt/gradients``, ``gbdt/grow``, ``gbdt/score_update``,
@@ -38,7 +40,7 @@ from ..utils.device import resolve_device
 from .grower import GrowerConfig, make_grower
 from .tree import Tree
 
-#: histogram impls the slice runs (flat_bf16 raises in ops/histogram.py)
+#: histogram impls the port trains with
 _HIST_IMPLS = ("auto", "pallas", "flat", "flat_bf16", "segment", "onehot")
 
 
@@ -149,6 +151,11 @@ class GBDT:
         self.models: List[List[Tree]] = [[]]
         self.objective = create_objective(cfg)
         self.objective.init(train.label, train.weight, self.device)
+        # 4-bit bin storage (reference DenseBin IS_4BIT; the JAX package's
+        # gate without its EFB and feature-parallel exclusions, which the
+        # port refuses or lacks): every feature at <= 16 bins.
+        packed4 = bool(cfg.tpu_4bit_bins
+                       and train.binned.max_num_bins <= 16)
         self.grower_cfg = GrowerConfig(
             num_leaves=cfg.num_leaves, max_depth=cfg.max_depth,
             num_bins=train.binned.max_num_bins,
@@ -159,9 +166,9 @@ class GBDT:
             quantized=cfg.use_quantized_grad,
             num_grad_quant_bins=cfg.num_grad_quant_bins,
             stochastic_rounding=cfg.stochastic_rounding,
-            quant_renew_leaf=cfg.quant_train_renew_leaf)
+            quant_renew_leaf=cfg.quant_train_renew_leaf, packed4=packed4)
         self.grow = make_grower(self.grower_cfg)
-        self.bins_dev = train.bins_device(self.device)
+        self.bins_dev = train.bins_device(self.device, packed4=packed4)
         self.meta_dev = train.feature_meta_device(self.device)
         self.init_scores = np.zeros(1, np.float64)
         if cfg.boost_from_average and train.init_score is None:

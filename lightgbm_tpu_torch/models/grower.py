@@ -12,6 +12,14 @@
 - **Mask layout** (up to ``_MIN_BUCKET`` rows): a ``row_leaf`` vector;
   one full-row masked histogram per split.
 
+Bins are the (N, F) uint8 matrix or, with ``packed4`` (every feature at
+<= 16 bins), its (N, ceil(F/2)) 4-bit nibble pairs: the partition reads
+the split feature's nibble, the kernels and the histogram impls unpack
+themselves, and the mask layout unpacks once (small data, small cost).
+Under ``histogram_impl="flat_bf16"`` (f32 training) the channel values
+are rounded to bf16 once per tree, so every histogram and wave runs the
+kernels' bf16 mode on them without a cast of its own.
+
 Under quantized training (``quantized``, the JAX package's
 ``use_quantized_grad`` path) the gradients become int8 levels under
 per-tree scales (``ops/quantize.py``), every histogram is int32 (the
@@ -44,7 +52,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..ops.histogram import histogram_from_vals, resolve_impl
+from ..ops.histogram import histogram_from_vals, resolve_impl, unpack_bins4
 from ..ops.quantize import discretize_gradients, gradient_scales
 from ..ops.split import (BestSplit, SplitConfig, best_split, best_split_batch,
                          first_argmax, leaf_output, smoothed_output)
@@ -74,6 +82,10 @@ class GrowerConfig:
     num_grad_quant_bins: int = 4
     stochastic_rounding: bool = True
     quant_renew_leaf: bool = False
+    # 4-bit bin storage (reference DenseBin IS_4BIT): the bins are
+    # (N, ceil(F/2)) nibble pairs.  Set by GBDT when every feature has
+    # <= 16 bins and tpu_4bit_bins is on.
+    packed4: bool = False
 
 
 class TreeArrays(NamedTuple):
@@ -122,7 +134,7 @@ class _State:
     """Host decision state of one tree (the JAX ``_GrowState`` minus the
     device arrays)."""
 
-    def __init__(self, L: int, B: int, f: int):
+    def __init__(self, L: int, B: int):
         M = max(L - 1, 1)
         f32 = dict(dtype=torch.float32)
         i32 = dict(dtype=torch.int32)
@@ -220,6 +232,12 @@ class Grower:
                                        torch.ones((), device=dev)])
         else:
             vals = torch.stack([g, h, in_bag.to(torch.float32)], dim=-1)
+            if cfg.histogram_impl == "flat_bf16":
+                vals = vals.to(torch.bfloat16)
+        self.nf = int(num_bins_per_feature.shape[0])
+        self.packed4 = cfg.packed4 and bins.shape[0] > _MIN_BUCKET
+        if cfg.packed4 and not self.packed4:
+            bins = unpack_bins4(bins, self.nf)
         self.bins = bins
         self.vals = vals
         self.dev = dev
@@ -256,7 +274,8 @@ class Grower:
         """RAW (F, B, 3) histogram through the configured impl."""
         return histogram_from_vals(bins, vals, num_bins=self.cfg.num_bins,
                                    impl=self.cfg.histogram_impl,
-                                   rows_block=self.cfg.rows_block)
+                                   rows_block=self.cfg.rows_block,
+                                   packed4=self.packed4, features=self.nf)
 
     def _best(self, hist, pg, ph, pc, pout) -> BestSplit:
         nbpf, nanb, iscat, fmask = self.meta_dev
@@ -279,12 +298,11 @@ class Grower:
         ``_root_best``)."""
         cfg = self.cfg
         L, B = cfg.num_leaves, cfg.num_bins
-        f = self.bins.shape[1]
         root_hist = self._hist(self.bins, self.vals)
         # the JAX package's form: scale the first feature, then sum its bins
         root_tot = scale_hist(root_hist[0:1], self.scale3)[0].sum(dim=0)
         root_tot = root_tot.cpu()
-        st = _State(L, B, f)
+        st = _State(L, B)
         st.leaf_rows[0] = n
         st.leaf_sum_grad[0] = root_tot[0]
         st.leaf_sum_hess[0] = root_tot[1]
@@ -322,7 +340,12 @@ class Grower:
         off = torch.arange(total, device=dev) - si[:, 2]
         pos = si[:, 0] + off
         rows = perm[pos]
-        col = self.bins[rows.long(), si[:, 3]].long()
+        feat = si[:, 3]
+        if self.packed4:
+            byte = self.bins[rows.long(), feat // 2].long()
+            col = (byte >> ((feat % 2) * 4)) & 15
+        else:
+            col = self.bins[rows.long(), feat].long()
         go_left = col <= si[:, 4]
         is_cat = si[:, 7] > 0
         go_left = torch.where((col == si[:, 5]) & ~is_cat, si[:, 6] > 0,
@@ -346,11 +369,12 @@ class Grower:
         cfg = self.cfg
         L, B = cfg.num_leaves, cfg.num_bins
         M = max(L - 1, 1)
-        n, f = self.bins.shape
+        n = self.bins.shape[0]
         W = min(cfg.leaf_batch, max(L - 1, 1))
         dev = self.dev
         meta_w = wave_meta(*self.meta_dev)
-        wave = (functools.partial(fused_wave_call, scale3=self.scale3)
+        wave = (functools.partial(fused_wave_call, scale3=self.scale3,
+                                  packed4=self.packed4)
                 if wave_fused_for(cfg, dev)
                 else functools.partial(wave_plain, histogram=self._hist,
                                        scale3=self.scale3))

@@ -104,20 +104,20 @@ def _bind(lib: ctypes.CDLL) -> None:
                    i64, i32, i32, i32, i32, i32, i32, i32, i32, p]
     fn = lib.lgbt_histogram
     fn.restype = i32
-    fn.argtypes = [p, p, i64, i32, i32, i32, i32, p, p, p]
+    fn.argtypes = [p, p, i64, i32, i32, i32, i32, i32, i32, p, p, p]
     fn = lib.lgbt_histogram_i8
     fn.restype = i32
-    fn.argtypes = [p, p, i64, i32, i32, i32, i32, p, p]
+    fn.argtypes = [p, p, i64, i32, i32, i32, i32, i32, p, p]
     fn = lib.lgbt_wave
     fn.restype = i32
     fn.argtypes = [p, p, p, i32, i32, p, i32, i32, i32, p, p, p,
                    f32, f32, f32, f32, f32, f32, f32, i32, i32, i32,
-                   p, p, p, p]
+                   i32, i32, p, p, p, p]
     fn = lib.lgbt_wave_i8
     fn.restype = i32
     fn.argtypes = [p, p, p, i32, i32, p, i32, i32, i32, p, p, p, p,
                    f32, f32, f32, f32, f32, f32, f32, i32, i32, i32,
-                   p, p, p, p]
+                   i32, p, p, p, p]
 
 
 def load_library() -> ctypes.CDLL:

@@ -14,9 +14,20 @@
 // do not depend on their order, so each block accumulates its chunk into
 // a block-private int32 histogram in shared memory with atomicAdd and
 // flushes it with one global atomicAdd per nonzero cell.
+//
+// bf16 values (kVal = __nv_bfloat16) and 4-bit bins (kPacked) are
+// template parameters of the loaders only.  A bf16 value is widened to
+// f32 as it is staged (exact), and the accumulation loop is the f32 one,
+// so a bf16 launch gives the bits of an f32 launch on the bf16-rounded
+// values.  Packed bins are (N, ceil(F/2)) bytes, feature 2j in the low
+// nibble of byte j and 2j+1 in the high one; a block's feature group
+// starts on an even feature, so no byte straddles two groups, and the
+// loader writes the same per-feature bin ids the unpacked loader writes:
+// the packed kernel's sums are the unpacked kernel's, add for add.
 #pragma once
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace lgbt {
@@ -45,16 +56,40 @@ __device__ __forceinline__ int segment_of(const int32_t* seg, int w_count,
   return lo;
 }
 
+// Bin id of local feature j of a row whose feature group starts at `row`
+// (at feature f0 of the unpacked row, at byte f0 / 2 of a packed one; f0
+// is even).
+template <bool kPacked>
+__device__ __forceinline__ int bin_at(const uint8_t* row, int j) {
+  if (kPacked) return (row[j >> 1] >> ((j & 1) << 2)) & 15;
+  return row[j];
+}
+
+// Bytes per row of the bin matrix and the start of feature f0's group.
+template <bool kPacked>
+__device__ __forceinline__ const uint8_t* group_row(const uint8_t* bins,
+                                                    int64_t row, int f,
+                                                    int f0) {
+  if (kPacked) return bins + row * ((f + 1) >> 1) + (f0 >> 1);
+  return bins + row * f + f0;
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
 // Segment table of a multi-segment launch (device int32, 3W + 1 entries):
 //   seg[w]          first perm position of segment w
 //   seg[W + w]      its row count
 //   seg[2W + w]     its first chunk; seg[3W] is the total chunk count.
 // With seg == nullptr there is one segment: rows [0, single_cnt) in
-// storage order (no perm).
-template <bool kPerm>
+// storage order (no perm).  `f` is the real feature count; kVal is float
+// or __nv_bfloat16.
+template <bool kPerm, bool kPacked, typename kVal>
 __global__ void __launch_bounds__(kThreads)
 hist_accumulate_kernel(const uint8_t* __restrict__ bins, int f,
-                       const float* __restrict__ vals,
+                       const kVal* __restrict__ vals,
                        const int32_t* __restrict__ perm,
                        const int32_t* __restrict__ seg, int w_count,
                        int64_t single_cnt, int chunk_rows, int nbins,
@@ -87,13 +122,14 @@ hist_accumulate_kernel(const uint8_t* __restrict__ bins, int f,
     if (threadIdx.x < rows) {
       const int64_t pos = start + t0 + threadIdx.x;
       const int64_t row = kPerm ? (int64_t)perm[pos] : pos;
-      const uint8_t* src = bins + row * f + f0;
+      const uint8_t* src = group_row<kPacked>(bins, row, f, f0);
 #pragma unroll
       for (int j = 0; j < kFeatPerBlock; ++j)
-        s_bins[threadIdx.x * kFeatPerBlock + j] = j < nf ? src[j] : 0;
-      s_vals[threadIdx.x * 3 + 0] = vals[row * 3 + 0];
-      s_vals[threadIdx.x * 3 + 1] = vals[row * 3 + 1];
-      s_vals[threadIdx.x * 3 + 2] = vals[row * 3 + 2];
+        s_bins[threadIdx.x * kFeatPerBlock + j] =
+            j < nf ? (uint8_t)bin_at<kPacked>(src, j) : 0;
+      s_vals[threadIdx.x * 3 + 0] = to_f32(vals[row * 3 + 0]);
+      s_vals[threadIdx.x * 3 + 1] = to_f32(vals[row * 3 + 1]);
+      s_vals[threadIdx.x * 3 + 2] = to_f32(vals[row * 3 + 2]);
     }
     __syncthreads();
     for (int i = 0; i < rows; ++i) {
@@ -117,14 +153,38 @@ hist_accumulate_kernel(const uint8_t* __restrict__ bins, int f,
   }
 }
 
+// Launches the f32 / bf16 accumulation of `packed` or unpacked bins:
+// grid (nchunks, ceil(f / kFeatPerBlock)).  Returns cudaGetLastError().
+template <bool kPerm>
+inline int launch_accumulate(const void* bins, int f, const void* vals,
+                             bool packed, bool bf16, const int32_t* perm,
+                             const int32_t* seg, int w_count,
+                             int64_t single_cnt, int chunk_rows, int nbins,
+                             int nchunks, float* partial, cudaStream_t s) {
+  const dim3 grid((unsigned)nchunks,
+                  (unsigned)((f + kFeatPerBlock - 1) / kFeatPerBlock));
+  const uint8_t* b = (const uint8_t*)bins;
+#define LGBT_ACC(P, V)                                                    \
+  hist_accumulate_kernel<kPerm, P, V><<<grid, kThreads, 0, s>>>(          \
+      b, f, (const V*)vals, perm, seg, w_count, single_cnt, chunk_rows,   \
+      nbins, partial)
+  if (packed && bf16) LGBT_ACC(true, __nv_bfloat16);
+  else if (packed) LGBT_ACC(true, float);
+  else if (bf16) LGBT_ACC(false, __nv_bfloat16);
+  else LGBT_ACC(false, float);
+#undef LGBT_ACC
+  return (int)cudaGetLastError();
+}
+
 // int8 mode, threads per block.
 constexpr int kI8Threads = 512;
 
 // int8 mode accumulation.  Grid (chunks, feature groups of
-// `feat_per_block`); dynamic shared memory of feat_per_block * nbins * 3
-// int32.  `vals` is (N, 3) int8; `out` is (segments, f, nbins, 3) int32,
-// zeroed by the caller.  A bin >= nbins is dropped.
-template <bool kPerm>
+// `feat_per_block`, even under kPacked); dynamic shared memory of
+// feat_per_block * nbins * 3 int32.  `vals` is (N, 3) int8; `out` is
+// (segments, f, nbins, 3) int32, zeroed by the caller.  A bin >= nbins
+// is dropped.
+template <bool kPerm, bool kPacked>
 __global__ void __launch_bounds__(kI8Threads)
 hist_accumulate_i8_kernel(const uint8_t* __restrict__ bins, int f,
                           const int8_t* __restrict__ vals,
@@ -157,9 +217,9 @@ hist_accumulate_i8_kernel(const uint8_t* __restrict__ bins, int f,
     const int8_t* v = vals + row * 3;
     const int g = v[0], h = v[1], c = v[2];
     if ((g | h | c) == 0) continue;
-    const uint8_t* src = bins + row * f + f0;
+    const uint8_t* src = group_row<kPacked>(bins, row, f, f0);
     for (int j = 0; j < nf; ++j) {
-      const int b = src[j];
+      const int b = bin_at<kPacked>(src, j);
       if (b >= nbins) continue;
       int32_t* cell = s_hist + (j * nbins + b) * 3;
       if (g != 0) atomicAdd(cell + 0, g);
@@ -179,9 +239,14 @@ hist_accumulate_i8_kernel(const uint8_t* __restrict__ bins, int f,
 // memory budget (above 48 KB a block must opt in), and that opt-in.
 constexpr int kI8SmemBudget = 96 * 1024;
 
-inline int i8_feat_per_block(int f, int nbins) {
+// Under packed bins a group must start on an even feature (a byte holds
+// features 2j and 2j + 1), so a group that does not cover every feature
+// is rounded down to even.
+inline int i8_feat_per_block(int f, int nbins, bool packed) {
   const int fit = kI8SmemBudget / (nbins * 3 * (int)sizeof(int32_t));
-  return fit < 1 ? 1 : (fit < f ? fit : f);
+  if (fit >= f) return f;
+  if (!packed) return fit < 1 ? 1 : fit;
+  return fit < 2 ? 2 : (fit & ~1);
 }
 
 template <typename Kernel>
@@ -189,6 +254,37 @@ inline int i8_smem_opt_in(Kernel kernel, int smem) {
   if (smem <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+// Launches the int8 accumulation of `packed` or unpacked bins into `out`
+// (zeroed by the caller).  Returns the first CUDA error.
+template <bool kPerm>
+inline int launch_accumulate_i8(const void* bins, int f, const void* vals,
+                                bool packed, const int32_t* perm,
+                                const int32_t* seg, int w_count,
+                                int64_t single_cnt, int chunk_rows,
+                                int nbins, int nchunks, int32_t* out,
+                                cudaStream_t s) {
+  const int fpb = i8_feat_per_block(f, nbins, packed);
+  const int smem = fpb * nbins * 3 * (int)sizeof(int32_t);
+  const dim3 grid((unsigned)nchunks, (unsigned)((f + fpb - 1) / fpb));
+  const uint8_t* b = (const uint8_t*)bins;
+  const int8_t* v = (const int8_t*)vals;
+  int err;
+  if (packed) {
+    err = i8_smem_opt_in(hist_accumulate_i8_kernel<kPerm, true>, smem);
+    if (err != 0) return err;
+    hist_accumulate_i8_kernel<kPerm, true><<<grid, kI8Threads, smem, s>>>(
+        b, f, v, perm, seg, w_count, single_cnt, chunk_rows, nbins, fpb,
+        out);
+  } else {
+    err = i8_smem_opt_in(hist_accumulate_i8_kernel<kPerm, false>, smem);
+    if (err != 0) return err;
+    hist_accumulate_i8_kernel<kPerm, false><<<grid, kI8Threads, smem, s>>>(
+        b, f, v, perm, seg, w_count, single_cnt, chunk_rows, nbins, fpb,
+        out);
+  }
+  return (int)cudaGetLastError();
 }
 
 // Sums the chunk partials of every cell in chunk order.  With `parent`

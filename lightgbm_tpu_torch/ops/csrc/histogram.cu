@@ -1,7 +1,8 @@
 // Gradient/hessian histogram for Hopper (sm_90a).
 //
 // Replaces lightgbm_tpu/ops/pallas_histogram.py::histogram_flat (body
-// _flat_kernel, contraction pallas_common.py::onehot_contract), f32 mode:
+// _flat_kernel, contraction pallas_common.py::onehot_contract), every
+// mode; f32 first:
 //   out[f, b, c] = sum_n vals[n, c] * [bins[n, f] == b]
 // for (N, F) uint8 bins and (N, 3) f32 vals (grad, hess, in-bag count),
 // out (F, B, 3) f32.  On the training path it builds every root histogram
@@ -41,25 +42,49 @@
 // levels skipped), and the block flushes each nonzero cell with one global
 // atomicAdd into the zeroed output (hist_common.cuh).  The result is the
 // same bits on every run.
+//
+// bf16 mode (the TPU kernel's dtype="bf16": bf16 operands, f32
+// accumulation): (N, 3) __nv_bfloat16 values, f32 sums.  The kernel reads
+// the bf16 values themselves, so the value bytes a row streams halve (6
+// instead of 12: N * (F + 6) + F * B * 12 bytes, ~6.9 MB at the bench
+// shape); the wrapper rounds f32 values once and the grower builds its
+// values in bf16 once per tree.  Each value is widened to f32 as it is
+// staged and the accumulation is the f32 mode's, in the same chunk
+// order: a bf16 launch gives the bits of an f32 launch on the
+// bf16-rounded values (rounding in the loader instead would keep 12
+// bytes a row and buy nothing).
+//
+// packed4 mode (the TPU kernel's packed4=True, any value type): bins are
+// (N, ceil(F/2)) bytes of two 4-bit features (feature 2j low nibble, 2j+1
+// high), so the bin bytes a row streams halve too.  The loaders read the
+// nibbles and stage the same bin ids the unpacked loaders stage; feature
+// groups start on even features, so a byte never straddles two blocks.
+// The accumulation is untouched: a packed4 launch gives the bits of the
+// unpacked launch on the same rows, in every value type.  The TPU
+// kernel's nibble-plane layout and the un-permute after it exist for
+// Mosaic's lane rules only: this kernel writes original feature order.
+// At B <= 16 the f32 and bf16 modes keep one thread per bin on 256
+// threads (240 of them idle): a simple first version; its time is in
+// PERF.md and the redesign is ROADMAP B1b.
 
 #include "hist_common.cuh"
 
 // Plain C entry point (bound with ctypes).  Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() after the launches.
-// `partial` is scratch of nchunks * f * nbins * 3 floats.
+// synchronise, and returns cudaGetLastError() after the launches.  `vals`
+// is (N, 3) f32, or __nv_bfloat16 with `bf16`; `bins` (N, F) uint8, or
+// (N, ceil(F/2)) nibble pairs with `packed4`; `f` the real F.  `partial`
+// is scratch of nchunks * f * nbins * 3 floats.
 extern "C" int lgbt_histogram(const void* bins, const void* vals, int64_t n,
                               int f, int nbins, int chunk_rows, int nchunks,
-                              void* partial, void* out, void* stream) {
-  if (nbins < 1 || nbins > lgbt::kThreads || f < 1 || nchunks < 1 || n < 1)
+                              int packed4, int bf16, void* partial, void* out,
+                              void* stream) {
+  if (nbins < 1 || nbins > lgbt::kThreads || f < 1 || nchunks < 1 || n < 1 ||
+      (packed4 && nbins > 16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)nchunks,
-                  (unsigned)((f + lgbt::kFeatPerBlock - 1) /
-                             lgbt::kFeatPerBlock));
-  lgbt::hist_accumulate_kernel<false><<<grid, lgbt::kThreads, 0, s>>>(
-      (const uint8_t*)bins, f, (const float*)vals, nullptr, nullptr, 1, n,
-      chunk_rows, nbins, (float*)partial);
-  int err = (int)cudaGetLastError();
+  int err = lgbt::launch_accumulate<false>(
+      bins, f, vals, packed4 != 0, bf16 != 0, nullptr, nullptr, 1, n,
+      chunk_rows, nbins, nchunks, (float*)partial, s);
   if (err != 0) return err;
   const int64_t cells = (int64_t)f * nbins * 3;
   const dim3 cgrid((unsigned)((cells + 255) / 256), 1);
@@ -69,25 +94,21 @@ extern "C" int lgbt_histogram(const void* bins, const void* vals, int64_t n,
   return (int)cudaGetLastError();
 }
 
-// int8 mode.  `vals` (N, 3) int8, `out` (F, B, 3) int32 (zeroed here).
-// Launches on `stream`, does not synchronise, returns the first CUDA error.
+// int8 mode.  `vals` (N, 3) int8, `out` (F, B, 3) int32 (zeroed here);
+// `bins` as above.  Launches on `stream`, does not synchronise, returns
+// the first CUDA error.
 extern "C" int lgbt_histogram_i8(const void* bins, const void* vals,
                                  int64_t n, int f, int nbins, int chunk_rows,
-                                 int nchunks, void* out, void* stream) {
-  if (nbins < 1 || nbins > lgbt::kThreads || f < 1 || nchunks < 1 || n < 1)
+                                 int nchunks, int packed4, void* out,
+                                 void* stream) {
+  if (nbins < 1 || nbins > lgbt::kThreads || f < 1 || nchunks < 1 || n < 1 ||
+      (packed4 && nbins > 16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err = (int)cudaMemsetAsync(
       out, 0, (size_t)f * nbins * 3 * sizeof(int32_t), s);
   if (err != 0) return err;
-  const int fpb = lgbt::i8_feat_per_block(f, nbins);
-  const int smem = fpb * nbins * 3 * (int)sizeof(int32_t);
-  err = lgbt::i8_smem_opt_in(lgbt::hist_accumulate_i8_kernel<false>, smem);
-  if (err != 0) return err;
-  const dim3 grid((unsigned)nchunks, (unsigned)((f + fpb - 1) / fpb));
-  lgbt::hist_accumulate_i8_kernel<false>
-      <<<grid, lgbt::kI8Threads, smem, s>>>(
-          (const uint8_t*)bins, f, (const int8_t*)vals, nullptr, nullptr, 1,
-          n, chunk_rows, nbins, fpb, (int32_t*)out);
-  return (int)cudaGetLastError();
+  return lgbt::launch_accumulate_i8<false>(
+      bins, f, vals, packed4 != 0, nullptr, nullptr, 1, n, chunk_rows, nbins,
+      nchunks, (int32_t*)out, s);
 }

@@ -3,7 +3,7 @@
 // that split in one wave of leaf-wise growth.
 //
 // Replaces lightgbm_tpu/ops/pallas_wave.py::fused_wave_call (body
-// _wave_kernel), f32 mode.  For each wave slot w:
+// _wave_kernel), every mode; f32 first.  For each wave slot w:
 //   1. accumulate the smaller sibling's histogram over its rows, reading
 //      bins[perm[start + i], f] directly (no gathered copy of the rows);
 //   2. larger sibling = parent - smaller;
@@ -54,6 +54,18 @@
 // multiply, as the JAX package's _scale_hist and _wave_kernel do), then
 // runs the f32 scan unchanged.  The scales stay on the device (a pointer),
 // so quantized growth adds no device-to-host copy.
+//
+// bf16 and packed4 modes: stage 1 runs the histogram kernel's bf16 and
+// packed4 loaders (hist_common.cuh): bf16 values are widened to f32 as
+// they are staged, `bins[perm[i], f]` reads become nibble reads of
+// `bins4[perm[i], f / 2]`, and the accumulation, the combine and the scan
+// are unchanged.  So a bf16 wave gives the bits of an f32 wave on the
+// bf16-rounded values, and a packed4 wave those of the unpacked wave on
+// the same rows, in every value type.  The child histograms stay in the
+// grower's (F, B, 3) original feature order: the TPU kernel's nibble
+// planes, and the original-order tie-break keys they force, fall away
+// (the scan already breaks ties in original order).  An odd F's phantom
+// high nibble is never read: feature groups stop at F.
 
 #include <math_constants.h>
 
@@ -299,7 +311,9 @@ int launch_scan(const T* hist, const float* scale3, const float* stats,
 // (accumulate, combine + subtract, scan + select); does not synchronise;
 // returns the first CUDA error.  `seg` is the device segment table of
 // hist_common.cuh for the W smaller siblings; `partial` is scratch of
-// total_chunks * f * nbins * 3 floats.
+// total_chunks * f * nbins * 3 floats.  `vals` is (N, 3) f32, or
+// __nv_bfloat16 with `bf16`; `bins` (N, F) uint8, or (N, ceil(F/2)) nibble
+// pairs with `packed4`; `f` the real F.
 extern "C" int lgbt_wave(const void* bins, const void* vals, const void* perm,
                          int f, int nbins, const void* seg, int w,
                          int total_chunks, int chunk_rows, const void* parent,
@@ -307,20 +321,17 @@ extern "C" int lgbt_wave(const void* bins, const void* vals, const void* perm,
                          float l2, float min_count, float min_hess,
                          float gain_thr, float max_delta, float path_smooth,
                          int has_nan, int has_cat, int max_cat_onehot,
-                         void* partial, void* out_hist, void* payload,
-                         void* stream) {
+                         int packed4, int bf16, void* partial,
+                         void* out_hist, void* payload, void* stream) {
   if (nbins < 1 || nbins > lgbt::kThreads || f < 1 || w < 1 ||
-      total_chunks < 0)
+      total_chunks < 0 || (packed4 && nbins > 16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (total_chunks > 0) {
-    const dim3 grid((unsigned)total_chunks,
-                    (unsigned)((f + lgbt::kFeatPerBlock - 1) /
-                               lgbt::kFeatPerBlock));
-    lgbt::hist_accumulate_kernel<true><<<grid, lgbt::kThreads, 0, s>>>(
-        (const uint8_t*)bins, f, (const float*)vals, (const int32_t*)perm,
-        (const int32_t*)seg, w, 0, chunk_rows, nbins, (float*)partial);
-    const int err = (int)cudaGetLastError();
+    const int err = lgbt::launch_accumulate<true>(
+        bins, f, vals, packed4 != 0, bf16 != 0, (const int32_t*)perm,
+        (const int32_t*)seg, w, 0, chunk_rows, nbins, total_chunks,
+        (float*)partial, s);
     if (err != 0) return err;
   }
   const int64_t cells = (int64_t)f * nbins * 3;
@@ -339,9 +350,9 @@ extern "C" int lgbt_wave(const void* bins, const void* vals, const void* perm,
 
 // int8 mode: `vals` (N, 3) int8, `parent` (W, F, B, 3) int32, `scale3` 3
 // device f32 channel scales, `small` scratch of W * F * B * 3 int32 (zeroed
-// here), `out_hist` (W, 2, F, B, 3) int32.  Three launches on `stream`
-// (accumulate, combine, scan); does not synchronise; returns the first
-// CUDA error.
+// here), `out_hist` (W, 2, F, B, 3) int32; `bins` as above.  Three
+// launches on `stream` (accumulate, combine, scan); does not synchronise;
+// returns the first CUDA error.
 extern "C" int lgbt_wave_i8(const void* bins, const void* vals,
                             const void* perm, int f, int nbins,
                             const void* seg, int w, int total_chunks,
@@ -350,27 +361,21 @@ extern "C" int lgbt_wave_i8(const void* bins, const void* vals,
                             const void* scale3, float l1, float l2,
                             float min_count, float min_hess, float gain_thr,
                             float max_delta, float path_smooth, int has_nan,
-                            int has_cat, int max_cat_onehot, void* small,
-                            void* out_hist, void* payload, void* stream) {
+                            int has_cat, int max_cat_onehot, int packed4,
+                            void* small, void* out_hist, void* payload,
+                            void* stream) {
   if (nbins < 1 || nbins > lgbt::kThreads || f < 1 || w < 1 ||
-      total_chunks < 0)
+      total_chunks < 0 || (packed4 && nbins > 16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t cells = (int64_t)f * nbins * 3;
   int err = (int)cudaMemsetAsync(small, 0, (size_t)w * cells * 4, s);
   if (err != 0) return err;
   if (total_chunks > 0) {
-    const int fpb = lgbt::i8_feat_per_block(f, nbins);
-    const int smem = fpb * nbins * 3 * (int)sizeof(int32_t);
-    err = lgbt::i8_smem_opt_in(lgbt::hist_accumulate_i8_kernel<true>, smem);
-    if (err != 0) return err;
-    const dim3 grid((unsigned)total_chunks, (unsigned)((f + fpb - 1) / fpb));
-    lgbt::hist_accumulate_i8_kernel<true>
-        <<<grid, lgbt::kI8Threads, smem, s>>>(
-            (const uint8_t*)bins, f, (const int8_t*)vals,
-            (const int32_t*)perm, (const int32_t*)seg, w, 0, chunk_rows,
-            nbins, fpb, (int32_t*)small);
-    err = (int)cudaGetLastError();
+    err = lgbt::launch_accumulate_i8<true>(
+        bins, f, vals, packed4 != 0, (const int32_t*)perm,
+        (const int32_t*)seg, w, 0, chunk_rows, nbins, total_chunks,
+        (int32_t*)small, s);
     if (err != 0) return err;
   }
   const dim3 cgrid((unsigned)((cells + 255) / 256), (unsigned)w);

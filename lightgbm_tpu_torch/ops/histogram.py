@@ -6,14 +6,19 @@ The port of the JAX package's ``ops/histogram.py``:
 
 ``histogram_segment`` is the scatter-add form (``index_add_`` over flat
 ``feature * B + bin`` ids) and the plain version of the hand-written CUDA
-histogram kernel (``ops/histogram_flat.py``): f32 values sum in f32, int8
-values (quantized training) in int32.  ``histogram_from_vals``
+histogram kernel (``ops/histogram_flat.py``): f32 and bf16 values sum in
+f32, int8 values (quantized training) in int32.  ``histogram_from_vals``
 dispatches: on a CUDA tensor ``auto``/``pallas``/``flat`` launch the
-kernel (its int8 mode for integer values, as the JAX package routes
-them); on a CPU tensor they run the plain version.  ``segment`` and
-``onehot`` are torch ops everywhere, as they are XLA ops in the JAX
-package.  ``flat_bf16`` (the kernel's bf16 mode) is not ported yet; with
-integer values it means the int8 mode, as in the JAX package.
+kernel and ``flat_bf16`` its bf16 mode (integer values take its int8
+mode under every one of them, as the JAX package routes them); on a CPU
+tensor they run the plain version.  ``segment`` and ``onehot`` are torch
+ops everywhere, as they are XLA ops in the JAX package.
+
+4-bit bins (``packed4``): when every feature has at most 16 bins, the
+(N, F) matrix is stored as (N, ceil(F/2)) uint8, feature 2j in the low
+nibble of column j and 2j+1 in the high one (``pack_bins4``, the JAX
+package's layout byte for byte).  The torch ops unpack per block of
+rows; the kernel reads the nibbles itself.
 """
 
 from __future__ import annotations
@@ -22,8 +27,26 @@ from typing import Optional
 
 import torch
 
-_BF16_TODO = ("tpu_histogram_impl=flat_bf16 (the bf16 mode of the histogram "
-              "kernel) is not ported yet (ROADMAP queue B, item B1b)")
+
+def pack_bins4(bins: torch.Tensor) -> torch.Tensor:
+    """(N, F) bins that all fit 4 bits -> (N, ceil(F/2)) uint8 nibble
+    pairs; an odd F gets a phantom high nibble of 0."""
+    n, f = bins.shape
+    b = bins.to(torch.uint8)
+    if f % 2:
+        b = torch.cat([b, torch.zeros(n, 1, dtype=torch.uint8,
+                                      device=b.device)], dim=1)
+    b = b.reshape(n, b.shape[1] // 2, 2)
+    return (b[:, :, 0] | (b[:, :, 1] << 4)).contiguous()
+
+
+def unpack_bins4(packed: torch.Tensor, num_features: int) -> torch.Tensor:
+    """Inverse of :func:`pack_bins4` (drops the phantom odd-F column)."""
+    low = packed & 15
+    high = (packed >> 4) & 15
+    n, cols = packed.shape
+    full = torch.stack([low, high], dim=-1).reshape(n, 2 * cols)
+    return full[:, :num_features]
 
 
 def pack_values(grad: torch.Tensor, hess: torch.Tensor,
@@ -36,14 +59,21 @@ def pack_values(grad: torch.Tensor, hess: torch.Tensor,
 
 
 def acc_dtype(vals: torch.Tensor) -> torch.dtype:
-    """int32 sums for integer (quantized) values, else the values' type."""
-    return vals.dtype if vals.dtype.is_floating_point else torch.int32
+    """int32 sums for integer (quantized) values, f32 for bf16 values
+    (the kernel's bf16 mode accumulates in f32), else the values' type."""
+    if not vals.dtype.is_floating_point:
+        return torch.int32
+    return torch.float32 if vals.dtype == torch.bfloat16 else vals.dtype
 
 
 def histogram_segment(bins: torch.Tensor, vals: torch.Tensor, *,
-                      num_bins: int) -> torch.Tensor:
-    """Scatter-add histogram: (N, F) integer bins, (N, 3) f32 or int8
-    values -> (F, num_bins, 3) f32 or int32."""
+                      num_bins: int, packed4: bool = False,
+                      features: int = 0) -> torch.Tensor:
+    """Scatter-add histogram: (N, F) integer bins (or (N, ceil(F/2))
+    nibble pairs with ``packed4`` and the real F in ``features``), (N, 3)
+    f32, bf16 or int8 values -> (F, num_bins, 3) f32 or int32."""
+    if packed4:
+        bins = unpack_bins4(bins, features)
     n, f = bins.shape
     flat = (bins.long() + torch.arange(f, device=bins.device)[None, :]
             * num_bins).reshape(-1)
@@ -55,17 +85,22 @@ def histogram_segment(bins: torch.Tensor, vals: torch.Tensor, *,
 
 
 def histogram_onehot(bins: torch.Tensor, vals: torch.Tensor, *,
-                     num_bins: int, rows_block: int = 16384) -> torch.Tensor:
+                     num_bins: int, rows_block: int = 16384,
+                     packed4: bool = False, features: int = 0
+                     ) -> torch.Tensor:
     """One-hot contraction, blockwise over rows (the JAX package's
-    ``histogram_onehot``).  Integer values contract in float64, exact for
-    any int32 sum, and come back as int32."""
-    n, f = bins.shape
+    ``histogram_onehot``; ``packed4`` bins unpack per block).  Integer
+    values contract in float64, exact for any int32 sum, and come back as
+    int32."""
+    n = bins.shape[0]
+    f = features if packed4 else bins.shape[1]
     acc = acc_dtype(vals)
     work = torch.float64 if acc == torch.int32 else acc
     iota = torch.arange(num_bins, device=bins.device)
     hist = torch.zeros(f, num_bins, 3, dtype=work, device=vals.device)
     for s in range(0, n, rows_block):
-        b = bins[s:s + rows_block].long()
+        b = bins[s:s + rows_block]
+        b = (unpack_bins4(b, f) if packed4 else b).long()
         oh = (b[:, :, None] == iota[None, None, :]).to(work)
         hist += torch.einsum("nfb,nc->fbc", oh,
                              vals[s:s + rows_block].to(work))
@@ -83,18 +118,20 @@ def resolve_impl(impl: str, device: torch.device) -> str:
 
 def histogram_from_vals(bins: torch.Tensor, vals: torch.Tensor, *,
                         num_bins: int, impl: str = "auto",
-                        rows_block: int = 16384) -> torch.Tensor:
+                        rows_block: int = 16384, packed4: bool = False,
+                        features: int = 0) -> torch.Tensor:
     """Histogram from pre-packed (N, 3) channel values."""
-    if impl == "flat_bf16" and vals.dtype.is_floating_point:
-        raise NotImplementedError(_BF16_TODO)
+    layout = dict(packed4=packed4, features=features)
     if impl in ("auto", "pallas", "flat", "flat_bf16"):
         from .histogram_flat import histogram_flat
-        return histogram_flat(bins, vals, num_bins=num_bins)
+        return histogram_flat(bins, vals, num_bins=num_bins,
+                              dtype="bf16" if impl == "flat_bf16" else "f32",
+                              **layout)
     if impl == "onehot":
         return histogram_onehot(bins, vals, num_bins=num_bins,
-                                rows_block=rows_block)
+                                rows_block=rows_block, **layout)
     if impl == "segment":
-        return histogram_segment(bins, vals, num_bins=num_bins)
+        return histogram_segment(bins, vals, num_bins=num_bins, **layout)
     raise ValueError(f"unknown histogram impl: {impl}")
 
 

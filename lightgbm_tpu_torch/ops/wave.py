@@ -1,6 +1,6 @@
 """Fused wave step: the wrapper of the hand-written CUDA kernel
 ``ops/csrc/wave.cu`` (the port of the JAX package's
-``ops/pallas_wave.py::fused_wave_call``, f32 and int8 modes).
+``ops/pallas_wave.py::fused_wave_call``, every mode).
 
 For each of the W leaves of a wave: the smaller sibling's histogram over
 its rows of the permutation, the larger sibling by subtraction from the
@@ -17,10 +17,18 @@ histograms, and ``scale3``, the (3,) f32 device tensor of channel scales
 [grad, hess, 1]; the scan sees each cell as ``float(h) * scale[c]`` (the
 JAX package's ``_scale_hist``).
 
-The TPU kernel's VMEM layout (``wave_layout``), lane padding and the
-gathered ``(W, S, ct)`` row copy have no counterpart: the kernel reads the
-(N, F) uint8 bins through the permutation, and each child histogram stays
-in the (F, B, 3) layout the grower stores.
+bf16 mode (``tpu_histogram_impl=flat_bf16``): bf16 values, f32
+histograms; the siblings' sums are f32 sums of the bf16 values.  packed4
+(``packed4=True``): the bins are the (N, ceil(F/2)) nibble pairs of
+``ops/histogram.py::pack_bins4``, F being the parents' feature count.
+Both combine with the value types above: the six modes of
+``ops/histogram_flat.py::MODES``.
+
+The TPU kernel's VMEM layout (``wave_layout``), lane padding, the
+gathered ``(W, S, ct)`` row copy and the packed4 nibble-plane order with
+its original-order tie-break keys have no counterpart: the kernel reads
+the bins through the permutation, and each child histogram stays in the
+(F, B, 3) original-order layout the grower stores.
 """
 
 from __future__ import annotations
@@ -31,8 +39,8 @@ import numpy as np
 import torch
 
 from .histogram import histogram_segment
-from .histogram_flat import (MAX_BINS, MIN_CHUNK_ROWS, MIN_CHUNK_ROWS_INT8,
-                             check_int8_rows)
+from .histogram_flat import (MIN_CHUNK_ROWS, MIN_CHUNK_ROWS_INT8, MODES,
+                             check_int8_rows, check_layout, mode_name)
 from .split import BestSplit, SplitConfig, _EPS, scan_tables, select_payload
 
 #: scalar lanes ahead of the cat one-hot in the per-child payload:
@@ -42,9 +50,8 @@ PAYLOAD_SCALARS = 16
 STAT_LANES = 8
 
 #: kernel launches made by ``fused_wave_call`` (one per wave; plain
-#: ints), f32 mode and int8 mode
-launches = 0
-launches_int8 = 0
+#: ints), per mode of ``ops/histogram_flat.py::MODES``
+launches = dict.fromkeys(MODES, 0)
 
 #: chunk-partial scratch a wave may use (bytes) and chunks it may cut
 SCRATCH_BYTES = 256 << 20
@@ -113,15 +120,18 @@ def scale_hist(hist: torch.Tensor, scale3) -> torch.Tensor:
 def wave_plain(bins, vals, perm, small_start: Sequence[int],
                small_cnt: Sequence[int], parent, stats, meta,
                cfg: SplitConfig, num_bins: int, histogram=None,
-               scale3=None):
+               scale3=None, packed4: bool = False):
     """The plain version: returns ``(child_hists (W, 2, F, B, 3),
     payload (W, 2, PAYLOAD_SCALARS + B))``.  ``histogram(bins, vals)``
-    builds each smaller sibling (default: the plain ``histogram_segment``;
-    the grower's unfused step passes its histogram impl).  With int8
-    ``vals`` the histograms are int32 and the scan sees them through
-    ``scale3``."""
+    builds each smaller sibling from its rows of ``bins`` (default: the
+    plain ``histogram_segment``, which unpacks ``packed4`` bins; the
+    grower's unfused step passes its histogram impl, which knows its
+    layout).  With int8 ``vals`` the histograms are int32 and the scan
+    sees them through ``scale3``; bf16 ``vals`` sum in f32."""
     if histogram is None:
-        histogram = lambda b, v: histogram_segment(b, v, num_bins=num_bins)
+        histogram = lambda b, v: histogram_segment(
+            b, v, num_bins=num_bins, packed4=packed4,
+            features=parent.shape[1])
     hists, pays = [], []
     for w in range(parent.shape[0]):
         s0, cnt = int(small_start[w]), int(small_cnt[w])
@@ -144,8 +154,8 @@ def segment_table(small_cnt: Sequence[int], f: int, num_bins: int,
     """(chunk_rows, chunk offsets (W + 1,)) for one wave: chunks of at
     least MIN_CHUNK_ROWS rows (MIN_CHUNK_ROWS_INT8 in int8 mode, whose
     blocks each flush a whole shared histogram), no more than MAX_CHUNKS
-    of them nor, in f32 mode, more than the partials' scratch budget
-    holds."""
+    of them nor, in f32 and bf16 modes, more than the partials' scratch
+    budget holds."""
     total = int(sum(small_cnt))
     if int8:
         cap, min_rows = MAX_CHUNKS, MIN_CHUNK_ROWS_INT8
@@ -161,25 +171,28 @@ def fused_wave_call(bins: torch.Tensor, vals: torch.Tensor,
                     perm: torch.Tensor, small_start: Sequence[int],
                     small_cnt: Sequence[int], parent: torch.Tensor,
                     stats: torch.Tensor, meta: torch.Tensor,
-                    cfg: SplitConfig, num_bins: int, scale3=None):
+                    cfg: SplitConfig, num_bins: int, scale3=None,
+                    packed4: bool = False):
     """One wave of W leaves -> ``(child_hists, payload)``.
 
-    ``bins`` (N, F) uint8, ``vals`` (N, 3) f32 (or int8 with ``scale3``),
-    ``perm`` (>= N,) int32 rows grouped by leaf;
+    ``bins`` (N, F) uint8, or (N, ceil(F/2)) nibble pairs with
+    ``packed4``; ``vals`` (N, 3) f32, bf16 (bf16 mode), or int8 with
+    ``scale3``; ``perm`` (>= N,) int32 rows grouped by leaf;
     ``small_start``/``small_cnt`` host ints of each smaller sibling's perm
     range; ``parent`` (W, F, B, 3) f32 (int32 in int8 mode); ``stats``
     (W, 2, STAT_LANES) f32; ``meta`` (F, 4) int32 (``wave_meta``);
     ``scale3`` (3,) f32 channel scales, int8 mode only."""
     w = parent.shape[0]
-    n, f = bins.shape
+    f = meta.shape[0]
     if (parent.shape != (w, f, num_bins, 3) or stats.shape != (w, 2, STAT_LANES)
-            or meta.shape != (f, 4) or len(small_start) != w
-            or len(small_cnt) != w
-            or (scale3 is not None and scale3.shape != (3,))):
+            or meta.shape != (f, 4) or bins.dim() != 2
+            or len(small_start) != w or len(small_cnt) != w
+            or (scale3 is not None and scale3.shape != (3,))
+            or check_layout(bins, num_bins, packed4, f) != f):
         raise ValueError(
-            f"wave shapes: parent {tuple(parent.shape)}, stats "
-            f"{tuple(stats.shape)}, meta {tuple(meta.shape)}, {w} slots, "
-            f"{f} features, {num_bins} bins")
+            f"wave shapes: bins {tuple(bins.shape)}, parent "
+            f"{tuple(parent.shape)}, stats {tuple(stats.shape)}, meta "
+            f"{tuple(meta.shape)}, {w} slots, {f} features, {num_bins} bins")
     int8 = vals.dtype == torch.int8
     if int8 != (scale3 is not None):
         raise ValueError("int8 values go with scale3, f32 values without")
@@ -187,42 +200,43 @@ def fused_wave_call(bins: torch.Tensor, vals: torch.Tensor,
         if t.device != bins.device:
             raise ValueError("wave operands must share one device")
     if int8:
-        check_int8_rows(n)
+        check_int8_rows(bins.shape[0])
     if bins.device.type == "cpu":
         return wave_plain(bins, vals, perm, small_start, small_cnt, parent,
-                          stats, meta, cfg, num_bins, scale3=scale3)
+                          stats, meta, cfg, num_bins, scale3=scale3,
+                          packed4=packed4)
     if bins.device.type != "cuda":
         raise ValueError(f"unsupported device {bins.device}")
     return _launch(bins, vals, perm, small_start, small_cnt, parent, stats,
-                   meta, cfg, num_bins, scale3)
+                   meta, cfg, num_bins, scale3, packed4)
 
 
 def _launch(bins, vals, perm, small_start, small_cnt, parent, stats, meta,
-            cfg: SplitConfig, num_bins: int, scale3):
-    global launches, launches_int8
+            cfg: SplitConfig, num_bins: int, scale3, packed4: bool):
     from ._build import load_library
     int8 = scale3 is not None
-    val_t, hist_t = ((torch.int8, torch.int32) if int8
-                     else (torch.float32, torch.float32))
-    if bins.dtype != torch.uint8 or vals.dtype != val_t \
+    hist_t = torch.int32 if int8 else torch.float32
+    val_ok = (vals.dtype == torch.int8 if int8
+              else vals.dtype in (torch.float32, torch.bfloat16))
+    if bins.dtype != torch.uint8 or not val_ok \
             or perm.dtype != torch.int32 or parent.dtype != hist_t \
             or stats.dtype != torch.float32 or meta.dtype != torch.int32 \
             or (int8 and scale3.dtype != torch.float32):
-        raise ValueError("wave kernel dtypes: uint8 bins, f32 vals/parent "
-                         "(int8 vals, int32 parent and f32 scale3 in int8 "
-                         "mode), f32 stats, int32 perm/meta")
-    if not 1 <= num_bins <= MAX_BINS:
-        raise ValueError(f"num_bins={num_bins}: the kernel takes 1..{MAX_BINS}")
+        raise ValueError("wave kernel dtypes: uint8 bins, f32 or bf16 vals "
+                         "with f32 parent (int8 vals, int32 parent and f32 "
+                         "scale3 in int8 mode), f32 stats, int32 perm/meta")
     lib = load_library()
     w = parent.shape[0]
-    n, f = bins.shape
+    f = meta.shape[0]
     dev = bins.device
+    mode = mode_name(vals.dtype, packed4)
     chunk_rows, offs = segment_table(small_cnt, f, num_bins, int8)
     total_chunks = int(offs[-1])
     seg = torch.from_numpy(np.concatenate([
         np.asarray(small_start, np.int64), np.asarray(small_cnt, np.int64),
         offs]).astype(np.int32)).to(dev)
-    # f32: chunk partials; int8: the W smaller siblings' int32 histograms
+    # f32 / bf16: chunk partials; int8: the W smaller siblings' int32
+    # histograms
     scratch = torch.empty((w if int8 else max(total_chunks, 1)), f, num_bins,
                           3, dtype=hist_t, device=dev)
     out_hist = torch.empty(w, 2, f, num_bins, 3, dtype=hist_t, device=dev)
@@ -243,17 +257,15 @@ def _launch(bins, vals, perm, small_start, small_cnt, parent, stats, meta,
     with torch.cuda.device(dev):
         if int8:
             scale3 = scale3.contiguous()
-            err = lib.lgbt_wave_i8(*head, scale3.data_ptr(), *scan, *tail)
+            err = lib.lgbt_wave_i8(*head, scale3.data_ptr(), *scan,
+                                   int(packed4), *tail)
         else:
-            err = lib.lgbt_wave(*head, *scan, *tail)
+            err = lib.lgbt_wave(*head, *scan, int(packed4),
+                                int(vals.dtype == torch.bfloat16), *tail)
     if err != 0:
-        mode = "int8" if int8 else "f32"
         raise RuntimeError(f"wave kernel launch failed ({mode} mode): CUDA "
                            f"error {err}")
-    if int8:
-        launches_int8 += 1
-    else:
-        launches += 1
+    launches[mode] += 1
     return out_hist, payload
 
 

@@ -22,8 +22,20 @@ interpret mode) and on the mask layout; ``quant_renew_leaf`` leaf values
 within 1e-6 relative (f32 per-leaf sums; bitwise in practice, both sum
 in row order).
 
+4-bit bins (``packed4=True``: the bins are (N, ceil(F/2)) nibble pairs
+on <= 16-bin data): trees and ``row_leaf`` bit for bit against JAX
+``make_grower(packed4=True)`` at leaf_batch 1 and 16, f32 on exact sums
+and quantized on power-of-two scales, the port's fused and unfused steps
+against JAX's fused kernel (interpret mode), and on the mask layout
+(which unpacks once).  bf16 values (``histogram_impl="flat_bf16"``):
+JAX's own flat_bf16 path cannot run on the CPU (its root histogram calls
+the Pallas kernel outside interpret mode), so the port's bf16 grower,
+fused and unfused, is held against JAX ``histogram_impl="segment"`` on
+exact-sum gradients, which bf16 represents exactly.
+
 On the card (``cuda`` marker) the grower driven through both CUDA kernels
-gives the CPU plain version's trees bit for bit, f32 and quantized."""
+gives the CPU plain version's trees bit for bit, f32 and quantized, over
+packed bins and with bf16 values, through the matching kernel modes."""
 
 import numpy as np
 import pytest
@@ -89,6 +101,64 @@ def test_16_bin_data_bitwise_vs_jax_packed4():
                          wave_kernel="fused")
     assert want["num_leaves"] > 8
     assert_same_tree(want, got, rl, prl)
+
+
+@pytest.fixture(scope="module")
+def data16():
+    """<= 16-bin rows (max_bin 15, few distinct values per feature, an odd
+    F of 9): f32 exact-sum gradients and power-of-two-scale ones."""
+    rng = np.random.RandomState(11)
+    n, f = 3 * 2560, 9
+    X = np.round(rng.randn(n, f) * 2)
+    X[rng.rand(n) < 0.05, 4] = np.nan
+    y = (X[:, 0] + X[:, 1] > 0).astype(np.float64)
+    return X, y, exact_grads(n), pow2_scale_grads(n)
+
+
+P15 = dict(P, max_bin=15)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "quantized"])
+@pytest.mark.parametrize("leaf_batch", [1, 16])
+def test_packed4_bitwise_vs_jax(data16, leaf_batch, quant):
+    X, y, exact, pow2 = data16
+    g, h = pow2 if quant else exact
+    kw = dict(Q) if quant else {}
+    if quant:                       # interpret-mode JAX growth is slow
+        X, y, g, h = X[:3200], y[:3200], g[:3200], h[:3200]
+    want, rl = jax_grow(X, y, P15, g, h, leaf_batch=leaf_batch,
+                        wave_kernel="fused", packed4=True, **kw)
+    assert want["num_leaves"] == 31
+    for kernel in ("fused", "unfused"):
+        got, prl = port_grow(X, y, P15, g, h, leaf_batch=leaf_batch,
+                             wave_kernel=kernel, packed4=True, **kw)
+        assert_same_tree(want, got, rl, prl)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "quantized"])
+def test_packed4_mask_layout_bitwise_vs_jax(data16, quant):
+    X, y, exact, pow2 = data16
+    n = 2000
+    g, h = pow2 if quant else exact
+    kw = dict(Q) if quant else {}
+    params = dict(P15, min_data_in_leaf=5)
+    want, rl = jax_grow(X[:n], y[:n], params, g[:n], h[:n], packed4=True,
+                        **kw)
+    got, prl = port_grow(X[:n], y[:n], params, g[:n], h[:n], leaf_batch=4,
+                         packed4=True, **kw)
+    assert want["num_leaves"] > 8
+    assert_same_tree(want, got, rl, prl)
+
+
+@pytest.mark.parametrize("leaf_batch", [1, 16])
+def test_bf16_grower_bitwise_vs_jax_segment(grown, leaf_batch):
+    X, y, g, h = grown
+    want, rl = jax_grow(X, y, P, g, h, leaf_batch=leaf_batch,
+                        histogram_impl="segment")
+    for kernel in ("fused", "unfused"):
+        got, prl = port_grow(X, y, P, g, h, leaf_batch=leaf_batch,
+                             histogram_impl="flat_bf16", wave_kernel=kernel)
+        assert_same_tree(want, got, rl, prl)
 
 
 def test_onehot_categorical_bitwise_vs_jax():
@@ -166,6 +236,11 @@ def test_wave_fused_gate():
     assert PG.wave_fused_for(rep(wave_kernel="fused"), cpu)
     assert not PG.wave_fused_for(rep(wave_kernel="unfused"), cuda)
     assert not PG.wave_fused_for(rep(histogram_impl="segment"), cuda)
+    # flat_bf16: auto keeps the unfused wave (each smaller sibling through
+    # the bf16 histogram), fused forces the bf16 wave kernel
+    assert not PG.wave_fused_for(rep(histogram_impl="flat_bf16"), cuda)
+    assert PG.wave_fused_for(rep(histogram_impl="flat_bf16",
+                                 wave_kernel="fused"), cuda)
     with pytest.raises(ValueError, match="wave_kernel"):
         PG.wave_fused_for(rep(wave_kernel="bogus"), cpu)
 
@@ -178,10 +253,10 @@ def test_kernel_path_matches_plain(grown, cuda_device, leaf_batch):
     X, y, g, h = grown
     want, rl = port_grow(X, y, P, g, h, leaf_batch=leaf_batch,
                          wave_kernel="fused")
-    h0, w0 = HF.launches, WV.launches
+    h0, w0 = HF.launches["f32"], WV.launches["f32"]
     got, prl = port_grow(X, y, P, g, h, leaf_batch=leaf_batch,
                          device=cuda_device)
-    assert HF.launches == h0 + 1 and WV.launches > w0
+    assert HF.launches["f32"] == h0 + 1 and WV.launches["f32"] > w0
     assert_same_tree(want, got, rl, prl)
 
 
@@ -194,9 +269,53 @@ def test_quantized_kernel_path_matches_plain(quant_data, cuda_device,
     X, y, g, h = quant_data
     want, rl = port_grow(X, y, P, g, h, leaf_batch=leaf_batch,
                          wave_kernel="fused", **Q)
-    before = (HF.launches, WV.launches, HF.launches_int8, WV.launches_int8)
+    before = (HF.launches["f32"], WV.launches["f32"], HF.launches["int8"],
+              WV.launches["int8"])
     got, prl = port_grow(X, y, P, g, h, leaf_batch=leaf_batch,
                          device=cuda_device, **Q)
-    assert (HF.launches, WV.launches) == before[:2]
-    assert HF.launches_int8 == before[2] + 1 and WV.launches_int8 > before[3]
+    assert (HF.launches["f32"], WV.launches["f32"]) == before[:2]
+    assert HF.launches["int8"] == before[2] + 1
+    assert WV.launches["int8"] > before[3]
+    assert_same_tree(want, got, rl, prl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "quantized"])
+def test_packed4_kernel_path_matches_plain(data16, cuda_device, quant):
+    """Growth over packed bins on the card runs only the packed4 modes of
+    both kernels and gives the CPU plain version's trees bit for bit."""
+    X, y, exact, pow2 = data16
+    g, h = pow2 if quant else exact
+    kw = dict(Q, packed4=True) if quant else dict(packed4=True)
+    mode = "int8_packed4" if quant else "f32_packed4"
+    want, rl = port_grow(X, y, P15, g, h, leaf_batch=16,
+                         wave_kernel="fused", **kw)
+    hist0, wave0 = dict(HF.launches), dict(WV.launches)
+    got, prl = port_grow(X, y, P15, g, h, leaf_batch=16, device=cuda_device,
+                         **kw)
+    hist_new = {k: HF.launches[k] - hist0[k] for k in HF.MODES}
+    wave_new = {k: WV.launches[k] - wave0[k] for k in WV.MODES}
+    assert hist_new == {**dict.fromkeys(HF.MODES, 0), mode: 1}
+    assert wave_new[mode] > 0 and sum(wave_new.values()) == wave_new[mode]
+    assert_same_tree(want, got, rl, prl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wave_kernel", ["auto", "fused"])
+def test_bf16_kernel_path_matches_plain(grown, cuda_device, wave_kernel):
+    """flat_bf16 growth on the card: ``auto`` builds the root and every
+    smaller sibling with the bf16 histogram, ``fused`` runs the bf16 wave
+    kernel; both give the CPU plain version's trees bit for bit."""
+    X, y, g, h = grown
+    want, rl = port_grow(X, y, P, g, h, leaf_batch=16,
+                         histogram_impl="flat_bf16")
+    hist0, wave0 = HF.launches["bf16"], WV.launches["bf16"]
+    got, prl = port_grow(X, y, P, g, h, leaf_batch=16, device=cuda_device,
+                         histogram_impl="flat_bf16", wave_kernel=wave_kernel)
+    if wave_kernel == "fused":
+        assert HF.launches["bf16"] == hist0 + 1
+        assert WV.launches["bf16"] > wave0
+    else:
+        assert HF.launches["bf16"] > hist0 + 1
+        assert WV.launches["bf16"] == wave0
     assert_same_tree(want, got, rl, prl)

@@ -11,11 +11,22 @@ mode) and ``histogram_segment``.
   JAX ``histogram_flat(dtype="int8")`` and ``histogram_segment`` (integer
   sums are exact in any order), the dispatch of integer values to the
   int8 mode, and the int32 overflow guard.
+- 4-bit bins: ``pack_bins4`` / ``unpack_bins4`` byte-equal to JAX's (odd
+  F, N = 0); packed ``histogram_segment`` / ``histogram_onehot`` bitwise
+  equal to JAX's, f32 and int32.
+- The bf16 and packed4 modes (bf16, f32_packed4, bf16_packed4,
+  int8_packed4) of the plain version against JAX ``histogram_flat(dtype=
+  ..., packed4=..., interpret=True)``: bitwise on exact sums (values k/256,
+  exact in bf16 and in any f32 order), within 1e-5 relative on random
+  values (in bf16 mode both round the values to bf16 first).
 
 On the card (``cuda`` marker) the kernel equals its plain version bitwise
 on exact-sum values at the bench shape, is run-to-run bitwise on random
 values, and stays within 1e-5 relative of the plain version there; its
-int8 mode equals its plain version bitwise at N in {1, 1,000, 200,000}."""
+int8 mode equals its plain version bitwise at N in {1, 1,000, 200,000}.
+Its bf16 and packed4 modes equal their plain versions the same way (F =
+28 and 27), and bitwise the kernel's own f32 launch on the bf16-rounded
+values and unpacked launch on the same rows."""
 
 import numpy as np
 import pytest
@@ -25,8 +36,10 @@ from torch_port_util import cuda_device  # noqa: F401
 
 from lightgbm_tpu_torch.ops import histogram_flat as HF
 from lightgbm_tpu_torch.ops.histogram import (histogram_from_vals,
-                                              histogram_segment, pack_values,
-                                              subtract_histogram)
+                                              histogram_onehot,
+                                              histogram_segment, pack_bins4,
+                                              pack_values, subtract_histogram,
+                                              unpack_bins4)
 
 # (rows, features, bins): N not a multiple of any block, N = 1, F = 1
 SHAPES = [(1, 28, 255), (1, 1, 4), (777, 3, 17), (3001, 5, 64),
@@ -58,13 +71,28 @@ def _int8_vals(n, seed):
     return np.stack([g, h, c], axis=1).astype(np.int8)
 
 
-def _jax_flat(bins, vals, b):
+def _jax_flat(bins, vals, b, dtype="f32", packed4=False, features=0):
+    """JAX ``histogram_flat`` in interpret mode.  The CPU backend cannot
+    run the bf16 kernel's dot when the call is a single row block (XLA's
+    DotThunk has no BF16 x BF16 = F32), so bf16 calls use 128-row blocks,
+    and a bf16 call of one block runs the f32 kernel on the bf16-rounded
+    values: the same function (bf16 products are exact in f32)."""
     import jax.numpy as jnp
 
     from lightgbm_tpu.ops.pallas_histogram import histogram_flat
-    dtype = "int8" if vals.dtype == np.int8 else "f32"
+    if vals.dtype == np.int8:
+        dtype = "int8"
+    rows_block = 0
+    if dtype == "bf16":
+        rows_block = 128
+        if bins.shape[0] <= rows_block:
+            dtype = "f32"
+            vals = np.asarray(jnp.asarray(vals).astype(jnp.bfloat16)
+                              .astype(jnp.float32))
     return np.asarray(histogram_flat(jnp.asarray(bins), jnp.asarray(vals),
-                                     num_bins=b, dtype=dtype, interpret=True))
+                                     num_bins=b, dtype=dtype, interpret=True,
+                                     packed4=packed4, features=features,
+                                     rows_block=rows_block))
 
 
 def _jax_segment(bins, vals, b):
@@ -140,6 +168,10 @@ def test_int8_dispatch_and_overflow_guard():
 
 
 def test_dispatch_on_cpu_and_bf16_refusal():
+    """Every impl on a CPU tensor runs the plain version; ``flat_bf16``
+    with f32 values takes the bf16 mode's plain version: the f32 sums of
+    the values rounded to bf16 (it used to raise), which on random values
+    is not the f32 histogram."""
     bins, vals = _data(500, 4, 32, seed=1, exact=True)
     tb, tv = torch.from_numpy(bins), torch.from_numpy(vals)
     want = histogram_segment(tb, tv, num_bins=32)
@@ -147,10 +179,117 @@ def test_dispatch_on_cpu_and_bf16_refusal():
         got = histogram_from_vals(tb, tv, num_bins=32, impl=impl,
                                   rows_block=128)
         assert torch.equal(got, want), impl
-    with pytest.raises(NotImplementedError, match="B1b"):
-        histogram_from_vals(tb, tv, num_bins=32, impl="flat_bf16")
+    _, rv = _data(500, 4, 32, seed=1, exact=False)
+    rv = torch.from_numpy(rv)
+    got = histogram_from_vals(tb, rv, num_bins=32, impl="flat_bf16")
+    want = histogram_segment(tb, rv.to(torch.bfloat16).float(), num_bins=32)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert not torch.equal(got, histogram_segment(tb, rv, num_bins=32))
     with pytest.raises(ValueError, match="unknown"):
         histogram_from_vals(tb, tv, num_bins=32, impl="bogus")
+
+
+@pytest.mark.parametrize("n,f", [(0, 5), (1, 1), (777, 28), (3001, 27)])
+def test_pack_unpack_bins4_byte_equal_to_jax(n, f):
+    import jax.numpy as jnp
+
+    from lightgbm_tpu.ops import histogram as jh
+    bins = np.random.RandomState(n + f).randint(0, 16, (n, f)).astype(
+        np.uint8)
+    got = pack_bins4(torch.from_numpy(bins))
+    want = np.asarray(jh.pack_bins4(jnp.asarray(bins)))
+    assert got.dtype == torch.uint8 and got.shape == (n, (f + 1) // 2)
+    np.testing.assert_array_equal(got.numpy(), want)
+    back = unpack_bins4(got, f)
+    np.testing.assert_array_equal(back.numpy(), bins)
+    if n:          # JAX's unpack cannot reshape zero rows; the port's can
+        np.testing.assert_array_equal(
+            back.numpy(), np.asarray(jh.unpack_bins4(jnp.asarray(want), f)))
+    if f % 2:
+        assert not (got[:, -1] >> 4).any()          # the phantom nibble
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("n,f", [(1, 1), (777, 27), (3001, 6)])
+def test_packed4_segment_and_onehot_bitwise_vs_jax(n, f, int8):
+    import jax.numpy as jnp
+
+    from lightgbm_tpu.ops import histogram as jh
+    bins, vals = _data(n, f, 16, seed=5 * n + f, exact=True)
+    if int8:
+        vals = _int8_vals(n, seed=n)
+    packed = pack_bins4(torch.from_numpy(bins))
+    tv = torch.from_numpy(vals)
+    jb, jv = jnp.asarray(packed.numpy()), jnp.asarray(vals)
+    kw = dict(num_bins=16, packed4=True, features=f)
+    seg = histogram_segment(packed, tv, **kw)
+    onehot = histogram_onehot(packed, tv, rows_block=256, **kw)
+    assert seg.dtype == (torch.int32 if int8 else torch.float32)
+    np.testing.assert_array_equal(
+        seg.numpy(), np.asarray(jh.histogram_segment(jb, jv, **kw)))
+    np.testing.assert_array_equal(
+        onehot.numpy(), np.asarray(jh.histogram_onehot(jb, jv,
+                                                       rows_block=256, **kw)))
+    np.testing.assert_array_equal(
+        seg.numpy(), histogram_segment(torch.from_numpy(bins), tv,
+                                       num_bins=16).numpy())
+
+
+def _mode_case(mode, n, f, seed, exact):
+    """(bins, vals, num_bins, histogram_flat kwargs) of one bf16 / packed4
+    mode: packed modes at 16 bins, bf16 at 255; exact values are k/256
+    (exact in bf16, every sum exact in f32), random ones ordinary f32."""
+    packed4 = mode.endswith("packed4")
+    b = 16 if packed4 else 255
+    bins, vals = _data(n, f, b, seed=seed, exact=exact)
+    if exact:
+        rng = np.random.RandomState(seed)
+        vals[:, 0] = rng.randint(-255, 256, n) / 256.0
+        vals[:, 1] = rng.randint(1, 256, n) / 256.0
+    if mode.startswith("int8"):
+        vals = _int8_vals(n, seed=seed)
+    kw = dict(dtype="bf16" if mode.startswith("bf16") else "f32",
+              packed4=packed4, features=f if packed4 else 0)
+    if packed4:
+        bins = pack_bins4(torch.from_numpy(bins)).numpy()
+    return bins, vals, b, kw
+
+
+NEW_MODES = ["bf16", "f32_packed4", "bf16_packed4", "int8_packed4"]
+
+
+@pytest.mark.parametrize("mode", NEW_MODES)
+@pytest.mark.parametrize("n,f", [(1, 28), (777, 27), (3001, 5)])
+def test_new_modes_plain_vs_jax_flat(mode, n, f):
+    for exact in (True, False):
+        bins, vals, b, kw = _mode_case(mode, n, f, seed=n + f, exact=exact)
+        got = HF.histogram_flat(torch.from_numpy(bins),
+                                torch.from_numpy(vals), num_bins=b, **kw)
+        want = _jax_flat(bins, vals, b, **kw)
+        assert got.shape == (f, b, 3)
+        if exact or mode.startswith("int8"):
+            np.testing.assert_array_equal(got.numpy(), want)
+        else:
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                       atol=1e-5 * np.abs(want).max())
+
+
+def test_new_mode_names_and_layout_checks():
+    tb = torch.zeros(4, 3, dtype=torch.uint8)
+    f32, bf16, i8 = (torch.zeros(4, 3, dtype=t) for t in
+                     (torch.float32, torch.bfloat16, torch.int8))
+    assert [HF.mode_name(v.dtype, p) for p in (False, True)
+            for v in (f32, bf16, i8)] == [
+        "f32", "bf16", "int8", "f32_packed4", "bf16_packed4", "int8_packed4"]
+    assert sorted(HF.launches) == sorted(HF.MODES)
+    got = HF.histogram_flat(tb, bf16, num_bins=8, dtype="f32")
+    assert got.dtype == torch.float32 and got.shape == (3, 8, 3)
+    with pytest.raises(ValueError, match="columns"):
+        HF.histogram_flat(tb, f32, num_bins=8, packed4=True, features=3)
+    with pytest.raises(ValueError, match="at most 16"):
+        HF.histogram_flat(tb, f32, num_bins=17, packed4=True, features=6)
+    with pytest.raises(ValueError, match="dtype"):
+        HF.histogram_flat(tb, f32, num_bins=8, dtype="int8")
 
 
 def test_pack_values_and_subtract_vs_jax():
@@ -175,7 +314,7 @@ def test_pack_values_and_subtract_vs_jax():
 def test_wrapper_input_checks_and_chunking():
     bins, vals = _data(10, 2, 8, seed=0, exact=True)
     tb, tv = torch.from_numpy(bins), torch.from_numpy(vals)
-    with pytest.raises(ValueError, match="float32 or int8"):
+    with pytest.raises(ValueError, match="float32, bfloat16 or int8"):
         HF.histogram_flat(tb, tv.double(), num_bins=8)
     with pytest.raises(ValueError, match="vals"):
         HF.histogram_flat(tb, tv[:, :2], num_bins=8)
@@ -196,12 +335,12 @@ def test_kernel_matches_plain_bench_shape(cuda_device, n):
         bins, vals = _data(n, 28, 255, seed=n, exact=exact)
         tb = torch.from_numpy(bins).to(cuda_device)
         tv = torch.from_numpy(vals).to(cuda_device)
-        launches = HF.launches
+        launches = HF.launches["f32"]
         got = HF.histogram_flat(tb, tv, num_bins=255)
         again = HF.histogram_flat(tb, tv, num_bins=255)
         want = histogram_segment(tb, tv, num_bins=255)
         torch.cuda.synchronize()
-        assert HF.launches == launches + 2
+        assert HF.launches["f32"] == launches + 2
         assert torch.equal(got, again)
         if exact:
             assert torch.equal(got, want)
@@ -218,9 +357,45 @@ def test_int8_kernel_matches_plain_bench_shape(cuda_device, n):
     bins, _ = _data(n, 28, 255, seed=n, exact=True)
     tb = torch.from_numpy(bins).to(cuda_device)
     tv = torch.from_numpy(_int8_vals(n, seed=n)).to(cuda_device)
-    launches = HF.launches_int8
+    launches = HF.launches["int8"]
     got = HF.histogram_flat(tb, tv, num_bins=255)
     want = histogram_segment(tb, tv, num_bins=255)
     torch.cuda.synchronize()
-    assert HF.launches_int8 == launches + 1
+    assert HF.launches["int8"] == launches + 1
     assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", NEW_MODES)
+@pytest.mark.parametrize("n", [1, 1000, 200_000])
+def test_new_mode_kernels_match_plain(cuda_device, mode, n):
+    """Each bf16 / packed4 mode at F = 28 and 27: bitwise equal to its
+    plain version on exact sums and within 1e-5 relative on random
+    values, as the f32 mode (bitwise in integer modes), run-to-run bitwise, and bitwise
+    equal to the kernel's own unpacked launch on the same rows and (bf16)
+    its f32 launch on the bf16-rounded values."""
+    for f in (28, 27):
+        for exact in (True, False):
+            bins, vals, b, kw = _mode_case(mode, n, f, seed=n + f,
+                                           exact=exact)
+            tb = torch.from_numpy(bins).to(cuda_device)
+            tv = torch.from_numpy(vals).to(cuda_device)
+            launches = HF.launches[mode]
+            got = HF.histogram_flat(tb, tv, num_bins=b, **kw)
+            again = HF.histogram_flat(tb, tv, num_bins=b, **kw)
+            plain = histogram_segment(
+                tb, tv.to(torch.bfloat16) if kw["dtype"] == "bf16" else tv,
+                num_bins=b, packed4=kw["packed4"], features=f)
+            base_bins = unpack_bins4(tb, f) if kw["packed4"] else tb
+            base_vals = (tv.to(torch.bfloat16).float()
+                         if kw["dtype"] == "bf16" else tv)
+            base = HF.histogram_flat(base_bins.contiguous(), base_vals,
+                                     num_bins=b)
+            torch.cuda.synchronize()
+            assert HF.launches[mode] == launches + 2
+            assert torch.equal(got, again) and torch.equal(got, base)
+            if exact or mode.startswith("int8"):
+                assert torch.equal(got, plain)
+            else:
+                scale = float(plain.abs().max())
+                assert float((got - plain).abs().max()) <= 1e-5 * scale

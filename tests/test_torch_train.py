@@ -27,12 +27,24 @@
   ``Booster.predict(raw_score=True)`` (the JAX package sums small batches
   on its float64 host path) and bit for bit like its fp32 serve plan
   (tests/test_torch_serve.py).
+- 4-bit bins: at max_bin 15 training packs the bins (``Booster`` reports
+  ``packed4`` on its grower config, the device bins are (N, ceil(F/2))
+  uint8); one exact-sum iteration's model text is byte-equal to the JAX
+  package's and, but for the ``[tpu_4bit_bins: False]`` parameter line
+  that records the option, to the same run with ``tpu_4bit_bins=false``,
+  f32 and quantized.
+- ``tpu_histogram_impl=flat_bf16`` trains (it used to raise), through the
+  fused and the unfused wave: the values are rounded to bf16 once per
+  tree; one exact-sum iteration gives the f32 run's model text but for
+  the parameter line, and ten ordinary iterations stay within 1e-2
+  holdout AUC of f32.
 - Every unsupported param, an EFB-bundled dataset and a sorted
   categorical feature raise ``NotImplementedError``; without ``device``
   on a machine with no card, ``train`` raises.
 
 On the card (``cuda`` marker), one exact-sum iteration gives the CPU
-model text byte for byte, f32 and quantized (deterministic rounding)."""
+model text byte for byte, f32 and quantized (deterministic rounding),
+over packed bins and with bf16 values."""
 
 import numpy as np
 import pytest
@@ -247,6 +259,77 @@ def test_stochastic_rounding_repeats_and_tracks_jax_auc(lgb):
     assert abs(a_port - a_jax) <= 5e-3, (a_port, a_jax)
 
 
+def _drop_param(text: str, line: str) -> str:
+    """Model text without one ``[key: value]`` parameter line (the line
+    that records an option the two runs differ in)."""
+    assert text.count(f"\n{line}\n") == 1, line
+    return text.replace(f"\n{line}\n", "\n")
+
+
+def _data16():
+    rng = np.random.RandomState(21)
+    n = 3 * 2560
+    X = np.round(rng.randn(n, 7) * 2)
+    X[rng.rand(n) < 0.05, 2] = np.nan
+    y = (X[:, 0] + X[:, 1] + rng.randn(n) > 0).astype(np.float64)
+    return X, y
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "quantized"])
+def test_max_bin_15_packs_bins_and_matches(lgb, quant):
+    X, y = _data16()
+    params = dict(QUANT if quant else EXACT, max_bin=15,
+                  categorical_feature="")
+    jb = lgb.train(params, lgb.Dataset(X, label=y), 1)
+    pb = lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu")
+    off = lgt.train(dict(params, tpu_4bit_bins=False),
+                    lgt.Dataset(X, label=y), 1, device="cpu")
+    assert pb._gbdt.grower_cfg.packed4 and jb._gbdt.grower_cfg.packed4
+    assert not off._gbdt.grower_cfg.packed4
+    assert pb._gbdt.bins_dev.shape == (len(y), 4)
+    assert pb._gbdt.bins_dev.dtype == torch.uint8
+    assert off._gbdt.bins_dev.shape == (len(y), 7)
+    text = pb.model_to_string()
+    assert text == jb.model_to_string()
+    assert text == _drop_param(off.model_to_string(),
+                               "[tpu_4bit_bins: False]")
+    Xc, yc = higgs_like(3000, 4)                 # 255 bins: not packed
+    coarse = lgt.train(dict(params, max_bin=255), lgt.Dataset(Xc, label=yc),
+                       1, device="cpu")
+    assert not coarse._gbdt.grower_cfg.packed4
+
+
+@pytest.mark.parametrize("wave_kernel", ["auto", "fused"])
+def test_flat_bf16_trains(grown, wave_kernel):
+    """flat_bf16 used to raise NotImplementedError; it now trains with
+    bf16 values through the unfused (auto) or fused wave."""
+    X, y = grown
+    params = dict(EXACT, tpu_histogram_impl="flat_bf16",
+                  tpu_wave_kernel=wave_kernel)
+    pb = lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu")
+    assert pb._gbdt.grow.vals.dtype == torch.bfloat16
+    f32 = lgt.train(dict(EXACT, tpu_wave_kernel=wave_kernel),
+                    lgt.Dataset(X, label=y), 1, device="cpu")
+    assert _drop_param(pb.model_to_string(),
+                       "[tpu_histogram_impl: flat_bf16]") == \
+        f32.model_to_string()
+    # ordinary gradients: bf16 keeps 8 significant bits of each, which
+    # flips near-tie splits, so the trees differ from f32's; holdout AUC
+    # after ten iterations stays within 1e-2 of f32's (measured gaps on
+    # these rows are a few 1e-3, either way)
+    Xh, yh = higgs_like(30_000, 28, seed=5)
+    ordinary = {"objective": "binary", "num_leaves": 15, "verbosity": -1,
+                "tpu_leaf_batch": 4, "tpu_wave_kernel": wave_kernel}
+    runs = [lgt.train(dict(ordinary, **extra),
+                      lgt.Dataset(Xh[:20_000], label=yh[:20_000]), 10,
+                      device="cpu")
+            for extra in ({"tpu_histogram_impl": "flat_bf16"}, {})]
+    assert runs[0].model_to_string() != runs[1].model_to_string()
+    aucs = [auc(yh[20_000:], b.predict(Xh[20_000:], raw_score=True))
+            for b in runs]
+    assert aucs[0] > 0.66 and abs(aucs[0] - aucs[1]) <= 1e-2, aucs
+
+
 def test_config_table_matches_jax():
     """Every key of the port's param table has the JAX package's type,
     default, aliases and bounds, and both resolve the same params alike."""
@@ -289,7 +372,6 @@ UNSUPPORTED = [
     {"max_bin_by_feature": [16, 16, 16, 16]},
     {"input_model": "model.txt"},
     {"histogram_pool_size": 64},
-    {"tpu_histogram_impl": "flat_bf16"},
 ]
 
 
@@ -363,3 +445,28 @@ def test_card_quantized_iteration_matches_cpu_model_text(grown, cuda_device):
     got = lgt.train(QUANT, lgt.Dataset(X, label=y), 1, device=cuda_device)
     assert got.model_to_string() == want.model_to_string()
     assert torch.equal(got._gbdt.scores.cpu(), want._gbdt.scores)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "quantized"])
+def test_card_packed4_iteration_matches_cpu_model_text(cuda_device, quant):
+    X, y = _data16()
+    params = dict(QUANT if quant else EXACT, max_bin=15,
+                  categorical_feature="")
+    want = lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu")
+    got = lgt.train(params, lgt.Dataset(X, label=y), 1, device=cuda_device)
+    assert got._gbdt.grower_cfg.packed4
+    assert got._gbdt.bins_dev.shape == (len(y), 4)
+    assert got.model_to_string() == want.model_to_string()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wave_kernel", ["auto", "fused"])
+def test_card_bf16_iteration_matches_cpu_model_text(grown, cuda_device,
+                                                    wave_kernel):
+    X, y = grown
+    params = dict(EXACT, tpu_histogram_impl="flat_bf16",
+                  tpu_wave_kernel=wave_kernel)
+    want = lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu")
+    got = lgt.train(params, lgt.Dataset(X, label=y), 1, device=cuda_device)
+    assert got.model_to_string() == want.model_to_string()

@@ -6,7 +6,12 @@ against the same step assembled from the JAX package's ops — its
 bit for bit on exact-sum values, with inactive slots (gain -inf); and
 its int8 mode (int8 levels, int32 histograms, the scan reading each cell
 times its channel's scale) against the same JAX ops on power-of-two
-scales, where every scaled sum is exact.
+scales, where every scaled sum is exact.  The bf16 and packed4 modes
+(bf16, f32_packed4, bf16_packed4, int8_packed4) of ``wave_plain`` against
+the JAX package's ``fused_wave_call`` itself (interpret mode, F = 7: the
+packed4 nibble planes with a phantom feature), its outputs mapped back
+through ``hist_from_flat``: child histograms and payloads bitwise on
+exact sums.
 
 On the card (``cuda`` marker): the kernel against its plain version at
 W in {1, 16}, sibling sizes from 1 row to 100k rows, child histograms and
@@ -14,7 +19,10 @@ payloads bitwise on exact-sum values; on random values run-to-run bitwise
 and within 1e-5 relative of the plain version (``chip_smoke.py``'s
 ``wave_agreement``, whose own checks are pinned here on the CPU).  int8
 mode: child histograms bitwise on any levels, payloads bitwise on
-power-of-two scales and within ``wave_agreement`` on random scales."""
+power-of-two scales and within ``wave_agreement`` on random scales.  The
+bf16 and packed4 modes against their plain versions the same way at F =
+28 and 27, and bitwise against the kernel's own f32 launch on the
+bf16-rounded values and unpacked launch on the same rows."""
 
 import pathlib
 import sys
@@ -26,7 +34,8 @@ import torch
 from torch_port_util import cuda_device  # noqa: F401
 
 from lightgbm_tpu_torch.ops import wave as WV
-from lightgbm_tpu_torch.ops.histogram import histogram_segment
+from lightgbm_tpu_torch.ops.histogram import (histogram_segment, pack_bins4,
+                                              unpack_bins4)
 from lightgbm_tpu_torch.ops.split import SplitConfig
 
 
@@ -36,12 +45,16 @@ POW2_SCALES = np.array([2.0 ** -6, 2.0 ** -9, 1.0], np.float32)
 RANDOM_SCALES = np.array([0.0123, 0.00391, 1.0], np.float32)
 
 
-def wave_inputs(n, f, b, sizes, seed, exact, device="cpu", scales=None):
+def wave_inputs(n, f, b, sizes, seed, exact, device="cpu", scales=None,
+                mode="f32"):
     """A wave over a random permutation: slot w's parent is the perm range
     [start_w, start_w + 2 * size_w) (clipped to n), its smaller sibling the
     first ``size_w`` positions (or the last, for odd w); slot 2 is
     inactive.  With ``scales`` (int8 mode) the values are int8 levels, the
-    parents int32 and the stats the scaled sums."""
+    parents int32 and the stats the scaled sums.  A ``mode`` starting with
+    bf16 rounds the values to bf16 (exact ones are k/256, exact in bf16
+    and in every f32 sum) and passes them as bf16; one ending in packed4
+    packs the bins (``aux`` keeps them unpacked)."""
     rng = np.random.RandomState(seed)
     bins = rng.randint(0, b, (n, f)).astype(np.uint8)
     nan_feats = rng.rand(f) < 0.5
@@ -51,13 +64,18 @@ def wave_inputs(n, f, b, sizes, seed, exact, device="cpu", scales=None):
         h = rng.randint(0, 128, n)
         vals = np.stack([g, h, np.ones(n, np.int64)], axis=1).astype(np.int8)
     else:
-        if exact:
+        if exact and mode.startswith("bf16"):
+            g = (rng.randint(-255, 256, n) / 256.0).astype(np.float32)
+            h = (rng.randint(13, 256, n) / 256.0).astype(np.float32)
+        elif exact:
             g = rng.choice([-0.5, 0.5], n).astype(np.float32)
             h = np.full(n, 0.25, np.float32)
         else:
             g = rng.randn(n).astype(np.float32)
             h = (rng.rand(n) + 0.05).astype(np.float32)
         vals = np.stack([g, h, np.ones(n, np.float32)], axis=1)
+        if mode.startswith("bf16"):
+            vals = torch.from_numpy(vals).to(torch.bfloat16).float().numpy()
     perm = rng.permutation(n).astype(np.int32)
     w = len(sizes)
     starts, small_start, small_cnt, parents, stats = [], [], [], [], []
@@ -94,7 +112,10 @@ def wave_inputs(n, f, b, sizes, seed, exact, device="cpu", scales=None):
     fmask[-1] = False
     t = lambda a: torch.as_tensor(a, device=device)
     meta = WV.wave_meta(t(nbpf), t(nanb), t(is_cat), t(fmask))
-    inp = dict(bins=t(bins), vals=t(vals), perm=t(perm),
+    packed4 = mode.endswith("packed4")
+    tbins = pack_bins4(t(bins)) if packed4 else t(bins)
+    tvals = t(vals).to(torch.bfloat16) if mode.startswith("bf16") else t(vals)
+    inp = dict(bins=tbins, vals=tvals, perm=t(perm), packed4=packed4,
                small_start=small_start, small_cnt=small_cnt,
                parent=torch.stack(parents).to(device),
                stats=t(np.asarray(stats, np.float32)), meta=meta,
@@ -158,6 +179,75 @@ def test_plain_wave_bitwise_vs_jax_ops(mode):
     assert np.isinf(float(best.gain[2])) and np.isinf(float(best.gain[7]))
 
 
+NEW_MODES = ["bf16", "f32_packed4", "bf16_packed4", "int8_packed4"]
+
+
+def jax_fused_wave(inp, aux, dtype, scales=None):
+    """The JAX package's ``fused_wave_call`` (interpret mode) on the same
+    wave: each smaller sibling's rows gathered (padded with a zero row),
+    the parents in its flat plane layout, its own ``wave_meta``; outputs
+    mapped back to (W, 2, F, B, 3) original-order histograms and the
+    (W, 2, 16 + B) payload."""
+    import jax.numpy as jnp
+
+    from lightgbm_tpu.ops import pallas_wave as PW
+    from lightgbm_tpu.ops import split as JS
+    from lightgbm_tpu.ops.pallas_common import C_PAD
+    nbpf, nanb, is_cat, fmask, bins, vals, perm = aux
+    n, f = bins.shape
+    b, packed4 = inp["num_bins"], inp["packed4"]
+    lay = PW.wave_layout(f, b, dtype, 0, packed4)
+    order, inverse = PW.plane_order(f, packed4)
+    meta = PW.wave_meta(jnp.asarray(nbpf), jnp.asarray(nanb),
+                        jnp.asarray(is_cat), jnp.asarray(fmask), features=f,
+                        num_bins=b, packed4=packed4)
+    parent = PW.hist_to_flat(jnp.asarray(inp["parent"].numpy()),
+                             lay["ftile"], lay["b_pad"], order)
+    jb = inp["bins"].numpy()
+    jb = np.concatenate([jb, np.zeros((1, jb.shape[1]), np.uint8)])
+    jv = np.concatenate([vals, np.zeros((1, 3), vals.dtype)])
+    s = max(inp["small_cnt"])
+    rows = np.full((len(inp["small_cnt"]), s), n, np.int64)
+    for w, (s0, c) in enumerate(zip(inp["small_start"], inp["small_cnt"])):
+        rows[w, :c] = perm[s0:s0 + c]
+    gvals = jnp.pad(jnp.asarray(jv[rows]), ((0, 0), (0, 0), (0, C_PAD - 3)))
+    jcfg = JS.SplitConfig(min_data_in_leaf=1, min_sum_hessian_in_leaf=0.5,
+                          lambda_l2=0.25, has_categorical=False,
+                          use_sorted_categorical=False, has_monotone=False)
+    scale3 = (None if scales is None else jnp.asarray(
+        np.append(scales, 0).reshape(1, 4).astype(np.float32)))
+    hist, pay = PW.fused_wave_call(
+        jnp.asarray(jb[rows]), jnp.transpose(gvals, (0, 2, 1)), parent,
+        jnp.asarray(inp["stats"].numpy()), meta, scale3, num_bins=b,
+        features=f, rows_block=min(1024, s), dtype=dtype, packed4=packed4,
+        scfg=jcfg, interpret=True)
+    return (np.asarray(PW.hist_from_flat(hist, f, b, lay["b_pad"], inverse)),
+            np.asarray(pay))
+
+
+@pytest.mark.parametrize("mode", NEW_MODES)
+def test_new_modes_plain_bitwise_vs_jax_fused_wave_call(mode):
+    packed4 = mode.endswith("packed4")
+    scales = POW2_SCALES if mode.startswith("int8") else None
+    inp, aux = wave_inputs(3000, 7, 16 if packed4 else 40,
+                           [300, 1, 33, 200, 5], seed=1, exact=True,
+                           scales=scales, mode=mode)
+    assert inp["bins"].shape[1] == (4 if packed4 else 7)
+    hist, pay = WV.fused_wave_call(cfg=CFG, **inp)
+    want_h, want_p = jax_fused_wave(inp, aux, mode.split("_")[0], scales)
+    np.testing.assert_array_equal(hist.numpy(), want_h)
+    np.testing.assert_array_equal(pay.numpy(), want_p)
+    assert np.isfinite(want_p[:, :, 0]).sum() >= 4   # real splits compared
+    # the plain wave of a mode is the f32 / unpacked one on the same rows
+    f32, _ = wave_inputs(3000, 7, 16 if packed4 else 40, [300, 1, 33, 200, 5],
+                         seed=1, exact=True, scales=scales,
+                         mode="bf16" if mode.startswith("bf16") else "f32")
+    f32["vals"] = f32["vals"].float() if scales is None else f32["vals"]
+    f32["packed4"] = False
+    h32, p32 = WV.fused_wave_call(cfg=CFG, **f32)
+    assert torch.equal(hist, h32) and torch.equal(pay, p32)
+
+
 def test_shape_and_device_checks():
     inp, _ = wave_inputs(3000, 3, 16, [10, 20], seed=2, exact=True)
     bad = dict(inp, small_cnt=[10])
@@ -171,6 +261,13 @@ def test_shape_and_device_checks():
         WV.fused_wave_call(cfg=CFG, **dict(q, scale3=None))
     with pytest.raises(ValueError, match="wave shapes"):
         WV.fused_wave_call(cfg=CFG, **dict(q, scale3=torch.ones(4)))
+    p4, _ = wave_inputs(3000, 5, 16, [10, 20], seed=2, exact=True,
+                        mode="f32_packed4")
+    with pytest.raises(ValueError, match="wave shapes"):
+        WV.fused_wave_call(cfg=CFG, **dict(p4, packed4=False))
+    with pytest.raises(ValueError, match="columns"):
+        WV.fused_wave_call(cfg=CFG, **dict(p4, bins=inp["bins"][:, :2],
+                                           vals=p4["vals"]))
     rows, offs = WV.segment_table([1, 0, 100_000], 28, 255, int8=True)
     assert rows >= WV.MIN_CHUNK_ROWS_INT8 and offs[-1] <= WV.MAX_CHUNKS
     chunk_rows, offs = WV.segment_table([1, 0, 100_000], 28, 255)
@@ -258,7 +355,9 @@ def test_wave_agreement_catches_faults(kind):
 def test_bounds_count_what_the_function_needs():
     """Histogram: N*F*3 adds, so bytes bound it at the bench shape.  Wave:
     the siblings' adds, the subtraction and the scan of this run's live
-    features, bins and NaN directions."""
+    features, bins and NaN directions.  The bytes count the bins as
+    stored (packed: ceil(F/2) a row) and the values' own width (bf16: 6
+    bytes a row)."""
     cs = _chip_smoke()
     nbytes, ops = cs.hist_bound_ms(200_000, 28, 255)
     assert nbytes == pytest.approx((200_000 * 40 + 28 * 255 * 12)
@@ -275,6 +374,18 @@ def test_bounds_count_what_the_function_needs():
     want = (37 * 6 * 3 + 2 * 6 * 10 * 3 + 2 * (
         cells * cs.SCAN_OPS_PER_BIN + cands * cs.SCAN_OPS_PER_DIRECTION))
     assert ops == pytest.approx(want / cs.SCALAR_OPS_PER_S * 1e3)
+    # bf16 values (6 bytes a row) and packed bins (ceil(F/2) bytes a row)
+    nbytes, _ = cs.hist_bound_ms(200_000, 28, 16, val_bytes=6, bin_bytes=14)
+    assert nbytes == pytest.approx((200_000 * 20 + 28 * 16 * 12)
+                                   / cs.HBM_BYTES_PER_S * 1e3)
+    packed = cs.wave_case(gen, torch.device("cpu"), [30, 7], exact=False,
+                          f=7, b=10, mode="bf16_packed4")
+    assert packed["bins"].shape == (74, 4) and packed["packed4"]
+    nbytes, _ = cs.wave_bound_ms(packed)
+    hist = 7 * 10 * 12
+    assert nbytes == pytest.approx((37 * (4 + 6 + 4) + 3 * 2 * hist + 2 * 2
+                                    * (WV.PAYLOAD_SCALARS + 10) * 4)
+                                   / cs.HBM_BYTES_PER_S * 1e3)
 
 
 @pytest.mark.cuda
@@ -288,11 +399,11 @@ def test_kernel_matches_plain(cuda_device, sizes):
         inp, _ = wave_inputs(sum(2 * s for s in sizes), 28, 255, sizes,
                              seed=len(sizes), exact=exact,
                              device=cuda_device)
-        launches = WV.launches
+        launches = WV.launches["f32"]
         h1, p1 = WV.fused_wave_call(cfg=CFG, **inp)
         h2, p2 = WV.fused_wave_call(cfg=CFG, **inp)
         torch.cuda.synchronize()
-        assert WV.launches == launches + 2
+        assert WV.launches["f32"] == launches + 2
         assert torch.equal(h1, h2) and torch.equal(p1, p2)
         hp, pp = WV.wave_plain(cfg=CFG, **inp)
         if exact:
@@ -314,11 +425,11 @@ def test_int8_kernel_matches_plain(cuda_device, sizes):
         inp, _ = wave_inputs(sum(2 * s for s in sizes), 28, 255, sizes,
                              seed=len(sizes), exact=True, device=cuda_device,
                              scales=scales)
-        launches = WV.launches_int8
+        launches = WV.launches["int8"]
         h1, p1 = WV.fused_wave_call(cfg=CFG, **inp)
         h2, p2 = WV.fused_wave_call(cfg=CFG, **inp)
         torch.cuda.synchronize()
-        assert WV.launches_int8 == launches + 2
+        assert WV.launches["int8"] == launches + 2
         assert torch.equal(h1, h2) and torch.equal(p1, p2)
         hp, pp = WV.wave_plain(cfg=CFG, **inp)
         assert h1.dtype == torch.int32 and torch.equal(h1, hp)
@@ -327,3 +438,44 @@ def test_int8_kernel_matches_plain(cuda_device, sizes):
         else:
             scaled = WV.scale_hist(hp, inp["scale3"])
             _chip_smoke().wave_agreement(scaled, p1, scaled, pp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", NEW_MODES)
+@pytest.mark.parametrize("sizes", [[100_000], [1, 5, 0, 2047, 2048, 12_500,
+                                               40_000, 3, 900, 1, 77, 4096,
+                                               100_000, 10, 250, 6]],
+                         ids=["W1", "W16"])
+def test_new_mode_kernels_match_plain(cuda_device, mode, sizes):
+    """bf16 / packed4 modes at F = 28 and 27: child histograms and
+    payloads bitwise on exact sums (int8: histograms always, payloads on
+    power-of-two scales), ``wave_agreement`` on random values, run-to-run
+    bitwise, and bitwise equal to the kernel's own f32 launch on the
+    bf16-rounded values and unpacked launch on the same rows."""
+    sizes = [max(s, 1) for s in sizes]
+    packed4 = mode.endswith("packed4")
+    b = 16 if packed4 else 255
+    int8 = mode.startswith("int8")
+    for f in (28, 27):
+        for exact in ((True,) if int8 else (True, False)):
+            inp, _ = wave_inputs(sum(2 * s for s in sizes), f, b, sizes,
+                                 seed=len(sizes) + f, exact=exact,
+                                 device=cuda_device, mode=mode,
+                                 scales=POW2_SCALES if int8 else None)
+            launches = WV.launches[mode]
+            h1, p1 = WV.fused_wave_call(cfg=CFG, **inp)
+            h2, p2 = WV.fused_wave_call(cfg=CFG, **inp)
+            base = dict(inp, packed4=False,
+                        bins=unpack_bins4(inp["bins"], f).contiguous()
+                        if packed4 else inp["bins"],
+                        vals=inp["vals"] if int8 else inp["vals"].float())
+            hb, pb = WV.fused_wave_call(cfg=CFG, **base)
+            torch.cuda.synchronize()
+            assert WV.launches[mode] == launches + 2
+            assert torch.equal(h1, h2) and torch.equal(p1, p2)
+            assert torch.equal(h1, hb) and torch.equal(p1, pb)
+            hp, pp = WV.wave_plain(cfg=CFG, **inp)
+            if exact:
+                assert torch.equal(h1, hp) and torch.equal(p1, pp)
+            else:
+                _chip_smoke().wave_agreement(h1, p1, hp, pp)

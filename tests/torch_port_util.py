@@ -148,7 +148,8 @@ def port_grow(X, y, params, grad, hess, categorical=(), device="cpu",
     meta = td.feature_meta_device(dev)
     n, f = td.binned.bins.shape
     tree, row_leaf = grow(
-        td.bins_device(dev), torch.from_numpy(grad).to(dev),
+        td.bins_device(dev, packed4=grower_kw.get("packed4", False)),
+        torch.from_numpy(grad).to(dev),
         torch.from_numpy(hess).to(dev), torch.ones(n, device=dev),
         torch.ones(f, dtype=torch.bool, device=dev),
         meta["num_bins_per_feature"], meta["nan_bins"],
