@@ -105,6 +105,25 @@ values:
     yardstick over the bf16-rounded values for bf16 (no single PyTorch
     call unpacks the nibbles: none for packed4).
 
+The f32 / bf16 accumulation and the split scan of both kernels keep
+every sum's order, so their results are checked bit for bit on random
+values, not only on exact sums:
+
+24. histogram kernel in f32, bf16, f32_packed4 and bf16_packed4 against
+    ``ops/histogram.py::histogram_chunked`` (the plain twin of its
+    summation order) at N in {1, 1,000, 20,000, 200,000}, F = 28 (and 27
+    packed), random values, bit for bit; also with every row in one bin
+    (32 lanes in one group), at B = 1 and B = 256, and odd F packed;
+25. wave kernel's child histograms in the same four modes against
+    ``ops/wave.py::wave_hists_chunked`` at W = 1 and W = 16 with inactive
+    slots, random values, bit for bit (payloads: ``wave_agreement``), and
+    a wave whose children have no valid split (all gains -inf: the
+    payload of key 0, equal to the plain version's).
+
+Each wave timing (phases 14, 18, 23) also gives its three launches'
+device times by kernel name under ``torch.profiler`` (``wave_stage_ms``):
+stage 1, the combine and the scan.
+
 Each phase prints one JSON line; any mismatch raises, so the process exits
 non-zero without the final ``{"ok": true, ...}`` line.  Exits non-zero when
 no CUDA device is visible, or when the port's package is not beside it.
@@ -150,6 +169,12 @@ NEW_MODES = ("bf16", "f32_packed4", "bf16_packed4", "int8_packed4")
 #: index_add_'s atomics), relative to the largest cell; at B = 16 a cell
 #: sums 16x the rows it sums at B = 255, and the rounding grows with it
 HIST_RTOL = 1e-5
+#: phase 24's histogram rows; the four modes whose sums the twin repeats
+TWIN_ROWS = (1, 1000, 20_000, 200_000)
+TWIN_MODES = ("f32", "bf16", "f32_packed4", "bf16_packed4")
+#: a wave's launches, by a part of their kernel names
+WAVE_STAGES = (("stage1", "hist_accumulate"), ("combine", "combine"),
+               ("scan", "wave_scan"))
 #: slice 4's kernel-vs-plain shapes: histogram rows, and waves of smaller
 #: siblings (W = 1; W = 16 with slots 5 and 11 inactive)
 CHECK_ROWS = (1, 1000, 200_000)
@@ -574,6 +599,40 @@ def wave_agreement(h, p, hp, pp, rtol=1e-5):
             "other_winner": int((fin & ~same).sum())}
 
 
+def wave_stage_ms(fn, iters=10):
+    """Device milliseconds per call of each of a wave's launches (stage 1,
+    the combine, the scan; ``other``: the segment table's copy and the
+    int8 mode's memset), from the kernel names ``torch.profiler`` records
+    over ``iters`` calls of ``fn`` after one warm-up call."""
+    out = kernel_stage_ms(fn, iters)
+    require(out["stage1"] > 0 and out["scan"] > 0,
+            "the profiler saw no wave kernel")
+    return out
+
+
+def kernel_stage_ms(fn, iters=10):
+    """``wave_stage_ms`` for any call: device ms per call by the
+    ``WAVE_STAGES`` part of each kernel's name (a histogram: stage 1 and
+    the combine)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys([k for k, _ in WAVE_STAGES] + ["other"], 0.0)
+    for ev in prof.events():
+        if "cuda" not in str(getattr(ev, "device_type", "")).lower():
+            continue
+        key = next((k for k, part in WAVE_STAGES if part in ev.name),
+                   "other")
+        out[key] += ev.time_range.end - ev.time_range.start
+    return {k: v / 1e3 / iters for k, v in out.items()}
+
+
 def profile_phase(params, ds, dev, warmup=3, iters=5):
     """13. Train ``warmup`` iterations of a fresh booster, then ``iters``
     more under ``torch.profiler``.  Host time per iteration in each of the
@@ -887,7 +946,7 @@ def train_phase(dev, fix, rows, name, extra, ds, hist_mode, wave_mode,
 
 
 def training_phases(seed, dev, smi):
-    """Phases 8-24; returns the histogram and wave entries of the kernels
+    """Phases 8-25; returns the histogram and wave entries of the kernels
     line, every mode."""
     import torch
     import lightgbm_tpu_torch as lgt
@@ -906,6 +965,8 @@ def training_phases(seed, dev, smi):
     wave_int8_phase(gen, dev)
     new_hist_err = new_mode_histogram_phase(gen, dev)
     new_mode_wave_phase(gen, dev)
+    twin_histogram_phase(gen, dev)
+    twin_wave_phase(gen, dev)
     fix = load_bench_fixture(root)
     rows = bench_rows(fix)
     Xv = rows[0][fix["data"]["n_train"]:]
@@ -991,6 +1052,8 @@ def training_phases(seed, dev, smi):
     w_entry["max_abs_err"] = float((h1 - hp).abs().max())
     w_entry["agreement"] = wave_agreement(h1, p1, hp, pp)
     w_entry["bytes_ms"], w_entry["ops_ms"] = wave_bound_ms(inp)
+    w_entry["stage_ms"] = wave_stage_ms(
+        lambda: WV.fused_wave_call(cfg=cfg, **inp))
     timing[f"wave/{len(sizes)}x{sizes[0]}"] = w_entry
     emit({"phase": "training_timing", "nvidia_smi": smi, "shapes": timing})
     del inp, h1, p1, hp, pp
@@ -1031,7 +1094,8 @@ def training_phases(seed, dev, smi):
             "bound_ms": max(t["bytes_ms"], t["ops_ms"]),
             "bound_by": ("bytes" if t["bytes_ms"] >= t["ops_ms"]
                          else "operations"),
-            "library_ms": t.get("library_ms"), "rows": nrows})
+            "library_ms": t.get("library_ms"), "rows": nrows,
+            **({"stage_ms": t["stage_ms"]} if "stage_ms" in t else {})})
     return entries
 
 
@@ -1088,6 +1152,8 @@ def int8_timing(gen, dev, smi):
                                     - sh).abs().max())
     w_entry["agreement"] = wave_agreement(sh, p1, sh, pp)
     w_entry["bytes_ms"], w_entry["ops_ms"] = wave_bound_ms(inp)
+    w_entry["stage_ms"] = wave_stage_ms(
+        lambda: WV.fused_wave_call(cfg=cfg, **inp))
     timing[f"wave_int8/{len(sizes)}x{sizes[0]}"] = w_entry
     emit({"phase": "training_timing_int8", "nvidia_smi": smi,
           "shapes": timing})
@@ -1238,6 +1304,95 @@ def new_mode_wave_phase(gen, dev):
                                 "payload_equal": bool(torch.equal(p1, pp)),
                                 **agree}
     emit({"phase": "wave_new_modes_vs_plain", "bitwise_vs_base_launch": True,
+          "cases": out})
+
+
+def twin_histogram_phase(gen, dev):
+    """24. The f32 / bf16 histogram modes against the plain twin of their
+    summation order, bit for bit on random values."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram_flat as HF
+    from lightgbm_tpu_torch.ops.histogram import histogram_chunked, pack_bins4
+    out = {}
+
+    def check(tag, bins, vals, b, packed4, f):
+        kw = dict(num_bins=b, packed4=packed4, features=f if packed4 else 0)
+        got = HF.histogram_flat(bins, vals, **kw)
+        want = histogram_chunked(bins, vals, **kw)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"histogram {tag} != its chunk-"
+                f"ordered twin (off by {float((got - want).abs().max())})")
+        out[tag] = {"bitwise": True, "rows": int(bins.shape[0]),
+                    "bins": b, "features": f}
+
+    for mode in TWIN_MODES:
+        packed4 = mode.endswith("packed4")
+        for f in (28, 27) if packed4 else (28,):
+            for n in TWIN_ROWS:
+                bins, b = mode_bins(gen, n, f, mode, dev)
+                check(f"{mode} F={f} N={n}", bins,
+                      mode_vals(gen, n, mode, dev, exact=False), b, packed4,
+                      f)
+        # every row in bin 0: each step's 32 lanes are one group
+        bins, b = mode_bins(gen, 20_000, 28, mode, dev)
+        check(f"{mode} one bin", torch.zeros_like(bins),
+              mode_vals(gen, 20_000, mode, dev, exact=False), b, packed4, 28)
+    for b in (1, 256):
+        bins = torch.randint(0, b, (20_000, 28), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        check(f"f32 B={b}", bins, device_vals(gen, 20_000, dev, False), b,
+              False, 28)
+    for f in (1, 3):
+        bins = pack_bins4(device_bins(gen, 20_000, f, 16, dev))
+        check(f"f32_packed4 F={f}", bins, device_vals(gen, 20_000, dev,
+                                                        False), 16, True, f)
+    emit({"phase": "histogram_vs_chunked_twin", "random_values": True,
+          "cases": out})
+
+
+def twin_wave_phase(gen, dev):
+    """25. The f32 / bf16 wave modes' child histograms against the twin of
+    their summation order, bit for bit on random values; and a wave with
+    no valid split, whose payload (key 0's) equals the plain version's."""
+    import torch
+    from lightgbm_tpu_torch.ops import wave as WV
+    from lightgbm_tpu_torch.ops.split import SplitConfig
+    cfg = SplitConfig(min_data_in_leaf=0, min_sum_hessian_in_leaf=1.0,
+                      lambda_l2=0.5, max_cat_to_onehot=4)
+    out = {}
+    for mode in TWIN_MODES:
+        packed4 = mode.endswith("packed4")
+        for name, (sizes, inactive) in CHECK_WAVES.items():
+            inp = wave_case(gen, dev, sizes, False, b=16 if packed4 else 255,
+                            inactive=inactive, mode=mode)
+            h, p = WV.fused_wave_call(cfg=cfg, **inp)
+            want = WV.wave_hists_chunked(
+                inp["bins"], inp["vals"], inp["perm"], inp["small_start"],
+                inp["small_cnt"], inp["parent"], inp["stats"],
+                inp["num_bins"], packed4=packed4)
+            hp, pp = WV.wave_plain(cfg=cfg, **inp)
+            torch.cuda.synchronize()
+            tag = f"{mode} {name}"
+            require(torch.equal(h, want), f"wave {tag}: child histograms != "
+                    "their chunk-ordered twin (off by "
+                    f"{float((h - want).abs().max())})")
+            out[tag] = {"hist_bitwise": True, "slots": len(sizes),
+                        **wave_agreement(h, p, hp, pp)}
+    none = SplitConfig(min_data_in_leaf=10 ** 9, min_sum_hessian_in_leaf=1.0,
+                       lambda_l2=0.5, max_cat_to_onehot=4)
+    sizes, inactive = CHECK_WAVES["W16"]
+    inp = wave_case(gen, dev, sizes, True, inactive=inactive)
+    h, p = WV.fused_wave_call(cfg=none, **inp)
+    hp, pp = WV.wave_plain(cfg=none, **inp)
+    torch.cuda.synchronize()
+    require(bool(torch.isinf(p[:, :, 0]).all()), "a child split under "
+            "min_data_in_leaf = 1e9")
+    require(torch.equal(h, hp) and torch.equal(p, pp),
+            "all -inf wave != plain version")
+    require(not bool(p[:, :, 1:3].any()), "all -inf children did not "
+            "select key 0")
+    out["no valid split"] = {"payload_bitwise": True, "slots": len(sizes)}
+    emit({"phase": "wave_vs_chunked_twin", "random_values": True,
           "cases": out})
 
 
@@ -1401,6 +1556,8 @@ def new_mode_timing(gen, dev, smi):
         w_entry["max_abs_err"] = float((h1 - hp).abs().max())
         w_entry["agreement"] = wave_agreement(h1, p1, hp, pp)
         w_entry["bytes_ms"], w_entry["ops_ms"] = wave_bound_ms(inp)
+        w_entry["stage_ms"] = wave_stage_ms(
+            lambda: WV.fused_wave_call(cfg=cfg, **inp))
         timing[f"wave_{mode}/{len(sizes)}x{sizes[0]}"] = w_entry
         del inp, h1, p1, hp, pp
         torch.cuda.empty_cache()

@@ -3,12 +3,46 @@
 //
 //   out[f, b, c] = sum_n vals[n, c] * [bins[n, f] == b]
 //
-// f32 mode: no float atomics.  Rows are cut into chunks of `chunk_rows`;
-// each block owns one chunk and kFeatPerBlock features and writes that
-// chunk's partial histogram to global scratch.  A second kernel sums the
-// partials of each cell in chunk order.  Every sum is therefore taken in
-// the same order on every run: within a chunk in row order, across chunks
-// in chunk order.
+// f32 / bf16 mode: no float atomics, one fixed order of every sum.  Rows
+// are cut into chunks of `chunk_rows`; each block owns one chunk and a
+// group of features and writes that chunk's partial histogram to global
+// scratch; a second kernel sums the partials of each cell in chunk order.
+// Every cell is therefore ((0 + v_first) + v_next) + ... over the chunk's
+// rows in row order, then the chunk partials in chunk order, on every run.
+//
+// What bounds the accumulation: instruction issue and latency on the
+// CUDA cores.  A histogram needs N * F * 3 adds; the bytes (N * (F + 12))
+// take ~2 us at the bench shape.  The design spends one warp step of
+// grouping and read-modify-write per 32 row-features:
+//   - a block's shared memory holds its chunk histogram of every feature
+//     of its group, and one warp owns each feature's histogram: no other
+//     warp writes it, so it needs no atomics.  Over rows in storage order
+//     a group is every feature, up to kMaxFeatPerBlock (all 28 at B = 255:
+//     86 KB, with the dynamic shared-memory opt-in); over rows gathered
+//     through a permutation (the wave) it is kMaxFeatPerGather = 8, whose
+//     smaller blocks keep more warps in flight to hide the gathers (both
+//     timed on an H100 with tools/torch_kernel_ab.py: PERF.md).  Wider F
+//     is cut into groups that fit kHistSmemBudget, even under packed bins;
+//   - per step the warp's 32 lanes take 32 consecutive staged rows; the
+//     lanes that hit one bin are grouped (what __match_any_sync returns,
+//     computed with a ballot per bit of the id: same_bin_lanes), and the
+//     lowest lane of each group reads the cell, adds its own value and
+//     then each peer's in ascending lane (= row) order, and writes the
+//     cell back.  That is the
+//     register sum of a one-thread-per-row loop, add for add, at N * F /
+//     32 steps instead of the N * F * 256 compares of one thread per bin;
+//     16 bins (packed4) leave no thread idle;
+//   - rows are staged in shared memory in tiles of kTileRows, two tiles
+//     in flight: the contiguous rows of an unpermuted histogram whose
+//     block covers every feature are copied with cp.async (16-byte
+//     blocks, aligned down and up: the copy may read up to 15 bytes
+//     around a tile in the same 16-byte block, never across a page),
+//     other rows are loaded by a thread per row, all of its loads in
+//     flight, each gathered row's bytes read once per feature group.
+// Not tensor cores: a one-hot mma / wgmma would take bf16 products
+// exactly, but it accumulates in f32 in the unit's own order, not in row
+// order, so the sums would neither equal the plain twin's nor keep the
+// bf16 launch equal to the f32 launch on the rounded values.
 //
 // int8 mode (quantized training): int8 values, int32 sums.  Integer sums
 // do not depend on their order, so each block accumulates its chunk into
@@ -16,14 +50,13 @@
 // flushes it with one global atomicAdd per nonzero cell.
 //
 // bf16 values (kVal = __nv_bfloat16) and 4-bit bins (kPacked) are
-// template parameters of the loaders only.  A bf16 value is widened to
-// f32 as it is staged (exact), and the accumulation loop is the f32 one,
-// so a bf16 launch gives the bits of an f32 launch on the bf16-rounded
-// values.  Packed bins are (N, ceil(F/2)) bytes, feature 2j in the low
-// nibble of byte j and 2j+1 in the high one; a block's feature group
-// starts on an even feature, so no byte straddles two groups, and the
-// loader writes the same per-feature bin ids the unpacked loader writes:
-// the packed kernel's sums are the unpacked kernel's, add for add.
+// template parameters.  A bf16 value is widened to f32 as the lane reads
+// it (exact) and summed by the f32 adds, so a bf16 launch gives the bits
+// of an f32 launch on the bf16-rounded values.  Packed bins are (N,
+// ceil(F/2)) bytes of two nibbles, feature 2j low in byte j and 2j + 1
+// high; a feature group starts on an even feature, so no byte straddles
+// two groups, and the lanes read the same bin ids the unpacked bytes
+// hold: the packed kernel's sums are the unpacked kernel's, add for add.
 #pragma once
 
 #include <cstdint>
@@ -35,12 +68,21 @@ namespace lgbt {
 // into one library.
 namespace {
 
-// One thread per bin: the bin axis B must be <= kThreads (uint8 bins).
-constexpr int kThreads = 256;
-// Features per block (grid.y covers ceil(F / kFeatPerBlock) groups).
-constexpr int kFeatPerBlock = 8;
-// Rows staged in shared memory per step (one loader thread per row).
-constexpr int kTileRows = kThreads;
+// Bins per feature at most (uint8 bin ids).
+constexpr int kMaxBins = 256;
+// Rows per staged tile, and warps per block at most.
+constexpr int kTileRows = 256;
+constexpr int kMaxWarps = 16;
+// f32 / bf16 mode: features per block at most, over rows in storage
+// order (whole rows copied with cp.async) and over rows gathered through
+// a permutation (smaller blocks, more of them in flight to hide the
+// gathers' latency), and the shared memory its chunk histograms may take.
+constexpr int kMaxFeatPerBlock = 32;
+constexpr int kMaxFeatPerGather = 8;
+constexpr int kHistSmemBudget = 96 * 1024;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+__host__ __device__ constexpr int align16(int x) { return (x + 15) & ~15; }
 
 // The segment of a chunk in a multi-segment launch: the last segment whose
 // first chunk is <= `chunk` (empty segments share their first chunk with
@@ -74,9 +116,95 @@ __device__ __forceinline__ const uint8_t* group_row(const uint8_t* bins,
   return bins + row * f + f0;
 }
 
+// Bytes that hold `nf` features (a group starting on an even feature).
+__host__ __device__ __forceinline__ int feat_bytes(int nf, bool packed) {
+  return packed ? (nf + 1) >> 1 : nf;
+}
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+
+// Warps for `nf` features, a warp owning each: at most kMaxWarps, each
+// with the same number of features (the last ones with one fewer).
+__host__ __device__ inline int warps_for(int nf) {
+  const int per = (nf + kMaxWarps - 1) / kMaxWarps;
+  return (nf + per - 1) / per;
+}
+
+// f32 / bf16 mode: features per block (every feature when its chunk
+// histograms fit kHistSmemBudget and it has at most kMaxFeatPerBlock, or
+// kMaxFeatPerGather under `perm`; otherwise the most that do, even under
+// packed bins), warps per block
+// (each warp owns the same number of features, at most kMaxWarps warps)
+// and the dynamic shared memory: the histograms, then two stages of
+// kTileRows rows (bin bytes, then values, each with 32 bytes of slack for
+// the 16-byte alignment of cp.async).
+struct AccShape {
+  int fpb, groups, warps, row_stride, bin_stage, stage, smem;
+};
+
+__host__ __device__ inline AccShape acc_shape(int f, int nbins, bool packed,
+                                              int val_bytes, bool perm) {
+  AccShape a;
+  const int most = perm ? kMaxFeatPerGather : kMaxFeatPerBlock;
+  int fit = kHistSmemBudget / (nbins * 3 * (int)sizeof(float));
+  fit = fit < most ? fit : most;
+  if (fit >= f) a.fpb = f;
+  else if (packed) a.fpb = fit < 2 ? 2 : (fit & ~1);
+  else a.fpb = fit < 1 ? 1 : fit;
+  a.groups = (f + a.fpb - 1) / a.fpb;
+  a.warps = warps_for(a.fpb);
+  // one group stages whole rows (contiguous in storage order); several
+  // stage their own bytes of each row
+  a.row_stride = a.groups == 1 ? feat_bytes(f, packed)
+                               : feat_bytes(a.fpb, packed);
+  a.bin_stage = align16(kTileRows * a.row_stride + 32);
+  a.stage = a.bin_stage + align16(kTileRows * val_bytes + 32);
+  a.smem = align16(a.fpb * nbins * 3 * (int)sizeof(float)) + 2 * a.stage;
+  return a;
+}
+
+// cp.async of the bytes [b0, b1) of `base` into `dst` (16-byte aligned) as
+// whole 16-byte blocks of the aligned span; returns the offset in `dst` of
+// byte b0.  The span may reach up to 15 bytes before b0 and after b1, in
+// the same 16-byte blocks (the caching allocator's blocks are 512-byte
+// aligned, so these stay in memory it owns).
+__device__ __forceinline__ int copy_async16(unsigned char* dst,
+                                            const unsigned char* base,
+                                            int64_t b0, int64_t b1) {
+  const uintptr_t lo = (uintptr_t)(base + b0) & ~(uintptr_t)15;
+  const uintptr_t hi = ((uintptr_t)(base + b1) + 15) & ~(uintptr_t)15;
+  const int blocks = (int)((hi - lo) >> 4);
+  for (int i = threadIdx.x; i < blocks; i += blockDim.x) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst + 16 * i);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"((const void*)(lo + 16 * (uintptr_t)i)));
+  }
+  return (int)((uintptr_t)(base + b0) - lo);
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// The lanes of `act` whose bin id `b` equals this lane's (what
+// __match_any_sync returns, which measured slower here): one ballot per
+// bit of the id, kBits = 8 for bytes and 4 for nibbles.
+template <int kBits>
+__device__ __forceinline__ unsigned same_bin_lanes(unsigned act, int b) {
+  unsigned m = act;
+#pragma unroll
+  for (int i = 0; i < kBits; ++i) {
+    const unsigned set = __ballot_sync(act, (b >> i) & 1);
+    m &= ((b >> i) & 1) ? set : ~set;
+  }
+  return m;
 }
 
 // Segment table of a multi-segment launch (device int32, 3W + 1 entries):
@@ -85,17 +213,22 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 //   seg[2W + w]     its first chunk; seg[3W] is the total chunk count.
 // With seg == nullptr there is one segment: rows [0, single_cnt) in
 // storage order (no perm).  `f` is the real feature count; kVal is float
-// or __nv_bfloat16.
+// or __nv_bfloat16.  Grid (chunks, feature groups), acc_shape's warps
+// and shared memory; `partial` is (chunks, f, nbins, 3) f32.  A bin id
+// >= nbins is dropped.  Packed bins keep three blocks on an SM (at most
+// 42 registers a thread; an H100 timed it 8-20% faster there, and the
+// byte-bin kernels slower under the same cap).
 template <bool kPerm, bool kPacked, typename kVal>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxWarps * 32, kPacked ? 3 : 1)
 hist_accumulate_kernel(const uint8_t* __restrict__ bins, int f,
                        const kVal* __restrict__ vals,
                        const int32_t* __restrict__ perm,
                        const int32_t* __restrict__ seg, int w_count,
                        int64_t single_cnt, int chunk_rows, int nbins,
                        float* __restrict__ partial) {
-  __shared__ uint8_t s_bins[kTileRows * kFeatPerBlock];
-  __shared__ float s_vals[kTileRows * 3];
+  extern __shared__ __align__(16) unsigned char s_acc[];
+  constexpr int kValBytes = 3 * (int)sizeof(kVal);
+  const AccShape a = acc_shape(f, nbins, kPacked, kValBytes, kPerm);
   const int chunk = blockIdx.x;
   int64_t start = 0;
   int64_t cnt = single_cnt;
@@ -108,66 +241,133 @@ hist_accumulate_kernel(const uint8_t* __restrict__ bins, int f,
   }
   const int64_t r0 = (int64_t)local * chunk_rows;
   const int64_t r1 = min(cnt, r0 + (int64_t)chunk_rows);
-  const int f0 = blockIdx.y * kFeatPerBlock;
-  const int nf = min(kFeatPerBlock, f - f0);
-  const int b = threadIdx.x;
-  float acc[kFeatPerBlock][3];
-#pragma unroll
-  for (int j = 0; j < kFeatPerBlock; ++j) {
-    acc[j][0] = 0.f; acc[j][1] = 0.f; acc[j][2] = 0.f;
-  }
-  for (int64_t t0 = r0; t0 < r1; t0 += kTileRows) {
+  const int f0 = blockIdx.y * a.fpb;
+  const int nf = min(a.fpb, f - f0);
+  const int row_bytes = feat_bytes(f, kPacked);
+  const int group_bytes = feat_bytes(nf, kPacked);
+  const int fb0 = kPacked ? f0 >> 1 : f0;
+  const bool contiguous = !kPerm && a.groups == 1;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  float* hist = reinterpret_cast<float*>(s_acc);
+  unsigned char* stages =
+      s_acc + align16(a.fpb * nbins * 3 * (int)sizeof(float));
+  const int cells = nf * nbins * 3;
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) hist[i] = 0.f;
+
+  // Stage tile k into buffer k & 1 and commit it as one cp.async group
+  // (an empty group on the gather path, whose plain stores the next
+  // __syncthreads publishes).
+  const int ntiles = (int)((r1 - r0 + kTileRows - 1) / kTileRows);
+  auto issue = [&](int k) {
+    unsigned char* buf = stages + (k & 1) * a.stage;
+    const int64_t t0 = r0 + (int64_t)k * kTileRows;
     const int rows = (int)min((int64_t)kTileRows, r1 - t0);
-    __syncthreads();                       // the previous tile is consumed
-    if (threadIdx.x < rows) {
-      const int64_t pos = start + t0 + threadIdx.x;
-      const int64_t row = kPerm ? (int64_t)perm[pos] : pos;
-      const uint8_t* src = group_row<kPacked>(bins, row, f, f0);
+    if (contiguous) {
+      const int64_t g0 = start + t0;
+      copy_async16(buf, bins, g0 * row_bytes, (g0 + rows) * row_bytes);
+      copy_async16(buf + a.bin_stage, (const unsigned char*)vals,
+                   g0 * kValBytes, (g0 + rows) * kValBytes);
+    } else {                               // a thread per row, its loads
+      kVal* dv = reinterpret_cast<kVal*>(buf + a.bin_stage);   // in flight
+      for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+        const int64_t pos = start + t0 + r;
+        const int64_t row = kPerm ? (int64_t)perm[pos] : pos;
+        const uint8_t* src = bins + row * row_bytes + fb0;
+        uint8_t* dst = buf + r * a.row_stride;
+        const kVal v0 = vals[row * 3 + 0], v1 = vals[row * 3 + 1],
+                   v2 = vals[row * 3 + 2];
+        for (int j0 = 0; j0 < group_bytes; j0 += 16) {
+          uint8_t x[16];
 #pragma unroll
-      for (int j = 0; j < kFeatPerBlock; ++j)
-        s_bins[threadIdx.x * kFeatPerBlock + j] =
-            j < nf ? (uint8_t)bin_at<kPacked>(src, j) : 0;
-      s_vals[threadIdx.x * 3 + 0] = to_f32(vals[row * 3 + 0]);
-      s_vals[threadIdx.x * 3 + 1] = to_f32(vals[row * 3 + 1]);
-      s_vals[threadIdx.x * 3 + 2] = to_f32(vals[row * 3 + 2]);
-    }
-    __syncthreads();
-    for (int i = 0; i < rows; ++i) {
-      const float g = s_vals[i * 3 + 0];
-      const float h = s_vals[i * 3 + 1];
-      const float c = s_vals[i * 3 + 2];
+          for (int j = 0; j < 16; ++j)
+            if (j0 + j < group_bytes) x[j] = src[j0 + j];
 #pragma unroll
-      for (int j = 0; j < kFeatPerBlock; ++j) {
-        if (s_bins[i * kFeatPerBlock + j] == b) {
-          acc[j][0] += g; acc[j][1] += h; acc[j][2] += c;
+          for (int j = 0; j < 16; ++j)
+            if (j0 + j < group_bytes) dst[j0 + j] = x[j];
         }
+        dv[r * 3 + 0] = v0; dv[r * 3 + 1] = v1; dv[r * 3 + 2] = v2;
       }
     }
-  }
-  if (b < nbins) {
-    float* dst = partial + (int64_t)chunk * f * nbins * 3;
-    for (int j = 0; j < nf; ++j) {
-      float* cell = dst + ((int64_t)(f0 + j) * nbins + b) * 3;
-      cell[0] = acc[j][0]; cell[1] = acc[j][1]; cell[2] = acc[j][2];
+    cp_async_commit();
+  };
+
+  issue(0);
+  for (int k = 0; k < ntiles; ++k) {
+    if (k + 1 < ntiles) issue(k + 1);
+    else cp_async_commit();
+    cp_async_wait_one();                   // this thread's tile k landed
+    __syncthreads();                       // every thread's, and the zeros
+    const unsigned char* buf = stages + (k & 1) * a.stage;
+    const int64_t t0 = r0 + (int64_t)k * kTileRows;
+    const int rows = (int)min((int64_t)kTileRows, r1 - t0);
+    const uint8_t* tb = buf;
+    const kVal* tv = reinterpret_cast<const kVal*>(buf + a.bin_stage);
+    if (contiguous) {                      // the offsets copy_async16 used
+      const int64_t g0 = start + t0;
+      tb += (uintptr_t)(bins + g0 * row_bytes) & 15;
+      tv = reinterpret_cast<const kVal*>(
+          buf + a.bin_stage +
+          ((uintptr_t)((const unsigned char*)vals + g0 * kValBytes) & 15));
     }
+    for (int s0 = 0; s0 < rows; s0 += 32) {
+      if (s0 + lane >= rows) break;        // live lanes are a prefix
+      const unsigned act =
+          rows - s0 >= 32 ? kFullMask : (1u << (rows - s0)) - 1u;
+      const uint8_t* rb = tb + (s0 + lane) * a.row_stride;
+      for (int j = warp; j < nf; j += nwarps) {
+        const int b = bin_at<kPacked>(rb, j);
+        const unsigned grp = same_bin_lanes<kPacked ? 4 : 8>(act, b);
+        if (b < nbins && lane == __ffs(grp) - 1) {
+          float* cell = hist + (j * nbins + b) * 3;
+          float g = cell[0], h = cell[1], c = cell[2];
+          for (unsigned m = grp; m != 0; m &= m - 1) {
+            const kVal* v = tv + (s0 + __ffs(m) - 1) * 3;
+            g += to_f32(v[0]);
+            h += to_f32(v[1]);
+            c += to_f32(v[2]);
+          }
+          cell[0] = g; cell[1] = h; cell[2] = c;
+        }
+        __syncwarp(act);                   // the cell, for the next step
+      }
+    }
+    __syncthreads();                       // buffer k & 1 is free again
   }
+  float* dst = partial + ((int64_t)chunk * f + f0) * nbins * 3;
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) dst[i] = hist[i];
+}
+
+// Raises the dynamic shared-memory limit of `kernel` to `smem` where it
+// is above the default 48 KB.
+template <typename Kernel>
+inline int smem_opt_in(Kernel kernel, int smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 // Launches the f32 / bf16 accumulation of `packed` or unpacked bins:
-// grid (nchunks, ceil(f / kFeatPerBlock)).  Returns cudaGetLastError().
+// grid (nchunks, feature groups).  Returns the first CUDA error.
 template <bool kPerm>
 inline int launch_accumulate(const void* bins, int f, const void* vals,
                              bool packed, bool bf16, const int32_t* perm,
                              const int32_t* seg, int w_count,
                              int64_t single_cnt, int chunk_rows, int nbins,
                              int nchunks, float* partial, cudaStream_t s) {
-  const dim3 grid((unsigned)nchunks,
-                  (unsigned)((f + kFeatPerBlock - 1) / kFeatPerBlock));
+  const AccShape a = acc_shape(f, nbins, packed, bf16 ? 6 : 12, kPerm);
+  const dim3 grid((unsigned)nchunks, (unsigned)a.groups);
   const uint8_t* b = (const uint8_t*)bins;
+  int err = 0;
 #define LGBT_ACC(P, V)                                                    \
-  hist_accumulate_kernel<kPerm, P, V><<<grid, kThreads, 0, s>>>(          \
-      b, f, (const V*)vals, perm, seg, w_count, single_cnt, chunk_rows,   \
-      nbins, partial)
+  do {                                                                    \
+    err = smem_opt_in(hist_accumulate_kernel<kPerm, P, V>, a.smem);       \
+    if (err != 0) return err;                                             \
+    hist_accumulate_kernel<kPerm, P, V><<<grid, 32 * a.warps, a.smem, s>>>( \
+        b, f, (const V*)vals, perm, seg, w_count, single_cnt, chunk_rows, \
+        nbins, partial);                                                  \
+  } while (0)
   if (packed && bf16) LGBT_ACC(true, __nv_bfloat16);
   else if (packed) LGBT_ACC(true, float);
   else if (bf16) LGBT_ACC(false, __nv_bfloat16);
@@ -236,7 +436,7 @@ hist_accumulate_i8_kernel(const uint8_t* __restrict__ bins, int f,
 }
 
 // int8 mode: features per block whose int32 histogram fits the shared
-// memory budget (above 48 KB a block must opt in), and that opt-in.
+// memory budget (above 48 KB a block must opt in: smem_opt_in).
 constexpr int kI8SmemBudget = 96 * 1024;
 
 // Under packed bins a group must start on an even feature (a byte holds
@@ -247,13 +447,6 @@ inline int i8_feat_per_block(int f, int nbins, bool packed) {
   if (fit >= f) return f;
   if (!packed) return fit < 1 ? 1 : fit;
   return fit < 2 ? 2 : (fit & ~1);
-}
-
-template <typename Kernel>
-inline int i8_smem_opt_in(Kernel kernel, int smem) {
-  if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 // Launches the int8 accumulation of `packed` or unpacked bins into `out`
@@ -272,13 +465,13 @@ inline int launch_accumulate_i8(const void* bins, int f, const void* vals,
   const int8_t* v = (const int8_t*)vals;
   int err;
   if (packed) {
-    err = i8_smem_opt_in(hist_accumulate_i8_kernel<kPerm, true>, smem);
+    err = smem_opt_in(hist_accumulate_i8_kernel<kPerm, true>, smem);
     if (err != 0) return err;
     hist_accumulate_i8_kernel<kPerm, true><<<grid, kI8Threads, smem, s>>>(
         b, f, v, perm, seg, w_count, single_cnt, chunk_rows, nbins, fpb,
         out);
   } else {
-    err = i8_smem_opt_in(hist_accumulate_i8_kernel<kPerm, false>, smem);
+    err = smem_opt_in(hist_accumulate_i8_kernel<kPerm, false>, smem);
     if (err != 0) return err;
     hist_accumulate_i8_kernel<kPerm, false><<<grid, kI8Threads, smem, s>>>(
         b, f, v, perm, seg, w_count, single_cnt, chunk_rows, nbins, fpb,

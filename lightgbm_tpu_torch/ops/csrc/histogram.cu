@@ -2,70 +2,58 @@
 //
 // Replaces lightgbm_tpu/ops/pallas_histogram.py::histogram_flat (body
 // _flat_kernel, contraction pallas_common.py::onehot_contract), every
-// mode; f32 first:
+// mode:
 //   out[f, b, c] = sum_n vals[n, c] * [bins[n, f] == b]
-// for (N, F) uint8 bins and (N, 3) f32 vals (grad, hess, in-bag count),
-// out (F, B, 3) f32.  On the training path it builds every root histogram
-// (and, unfused, every smaller sibling).
+// for (N, F) uint8 bins and (N, 3) vals (grad, hess, in-bag count), out
+// (F, B, 3).  On the training path it builds every root histogram (and,
+// unfused, every smaller sibling).  The TPU kernel contracts against an
+// in-VMEM one-hot on the MXU because a TPU has no atomics; its VMEM tile
+// budget and 128-lane bin padding have no counterpart here: the bin axis
+// is the data's own B (<= 256).
 //
-// What bounds it on this card: operations, not bytes.  The inputs are
-// N * (F + 12) bytes (~6 MB at N = 200k, F = 28: ~2 us at 3.35 TB/s),
-// but the one-hot form of the contraction costs N * F * B compares, each
-// followed by a predicated add of three channels (~1.4 G compares at the
-// bench shape).  The TPU kernel does the same work on the MXU as a matmul
-// against an in-VMEM one-hot; on Hopper an f32 matmul would need the
-// one-hot at full precision and buys nothing, so the compares run on the
-// CUDA cores.
-//
-// What the design does about it (a simple first version, deterministic):
-//   - one thread per bin; a block owns kFeatPerBlock features and one row
-//     chunk, stages the chunk's bin bytes and values in shared memory in
-//     tiles of 256 rows (coalesced loads) and every thread reads them as
-//     broadcasts;
-//   - each thread accumulates in registers in row order; the chunk's
-//     partial goes to global scratch and a second kernel sums the
-//     partials in chunk order (hist_common.cuh).  No float atomics, so a
-//     repeated run gives the same bits;
-//   - the TPU's VMEM tile budget and 128-lane bin padding have no
-//     counterpart: the bin axis is the data's own B (<= 256).
-// Later work: shared-memory privatized histograms with a warp-ordered
-// combine, cp.async staging, fewer partials.
+// f32 mode, (N, 3) f32 values, f32 sums; two launches (hist_common.cuh):
+// the accumulation, a block per (row chunk, feature group) with a warp per
+// feature's shared-memory histogram (the lanes of one bin are grouped and
+// the group's lowest lane adds them in row order), and the combine of the
+// chunk partials in chunk order.  What bounds it: issue and latency of
+// N * F / 32 warp steps (grouping the lanes, about half of it, then the
+// leaders' read-modify-writes in shared memory), then the partials:
+// each chunk writes F * B * 3 floats and the combine reads them back (196
+// chunks, 16.8 MB at the bench shape).  The function itself needs
+// N * (F + 12) bytes (~6 MB at N = 200k, F = 28: ~2 us at 3.35 TB/s) and
+// N * F * 3 adds.  The chunking (ops/histogram_flat.py::chunking) fixes
+// every sum's order: the same bits on every run, equal to the plain twin
+// ops/histogram.py::histogram_chunked on any values.
 //
 // int8 mode (quantized training; the TPU kernel's dtype="int8", s8 x s8 ->
 // s32 on the MXU): (N, 3) int8 values (grad and hess levels, in-bag 0/1),
 // out (F, B, 3) int32.  Bound by bytes (N * (F + 3) + F * B * 12: ~6.2
 // MB at N = 200k, F = 28, ~1.9 us).  Integer sums are exact in any order,
-// so the design is the privatized one: each block owns a row chunk and a
-// feature group whose int32 histogram fits 96 KB of shared memory (all 28
-// features at B = 255, 86 KB, with the dynamic shared-memory opt-in), one
-// thread per row adds its three levels with shared-memory atomicAdd (zero
-// levels skipped), and the block flushes each nonzero cell with one global
-// atomicAdd into the zeroed output (hist_common.cuh).  The result is the
-// same bits on every run.
+// so each block owns a row chunk and a feature group whose int32
+// histogram fits 96 KB of shared memory (all 28 features at B = 255, 86
+// KB, with the dynamic shared-memory opt-in), one thread per row adds its
+// three levels with shared-memory atomicAdd (zero levels skipped), and the
+// block flushes each nonzero cell with one global atomicAdd into the
+// zeroed output (hist_common.cuh).  The result is the same bits on every
+// run.
 //
 // bf16 mode (the TPU kernel's dtype="bf16": bf16 operands, f32
 // accumulation): (N, 3) __nv_bfloat16 values, f32 sums.  The kernel reads
 // the bf16 values themselves, so the value bytes a row streams halve (6
-// instead of 12: N * (F + 6) + F * B * 12 bytes, ~6.9 MB at the bench
-// shape); the wrapper rounds f32 values once and the grower builds its
-// values in bf16 once per tree.  Each value is widened to f32 as it is
-// staged and the accumulation is the f32 mode's, in the same chunk
-// order: a bf16 launch gives the bits of an f32 launch on the
-// bf16-rounded values (rounding in the loader instead would keep 12
-// bytes a row and buy nothing).
+// instead of 12); the wrapper rounds f32 values once and the grower builds
+// its values in bf16 once per tree.  Each value is widened to f32 as a
+// lane reads it and summed by the f32 mode's adds in the same order: a
+// bf16 launch gives the bits of an f32 launch on the bf16-rounded values.
 //
 // packed4 mode (the TPU kernel's packed4=True, any value type): bins are
 // (N, ceil(F/2)) bytes of two 4-bit features (feature 2j low nibble, 2j+1
-// high), so the bin bytes a row streams halve too.  The loaders read the
-// nibbles and stage the same bin ids the unpacked loaders stage; feature
-// groups start on even features, so a byte never straddles two blocks.
-// The accumulation is untouched: a packed4 launch gives the bits of the
-// unpacked launch on the same rows, in every value type.  The TPU
-// kernel's nibble-plane layout and the un-permute after it exist for
-// Mosaic's lane rules only: this kernel writes original feature order.
-// At B <= 16 the f32 and bf16 modes keep one thread per bin on 256
-// threads (240 of them idle): a simple first version; its time is in
-// PERF.md and the redesign is ROADMAP B1b.
+// high), so the bin bytes a row streams halve too.  The lanes read the
+// nibbles and get the bin ids the unpacked bytes hold; feature groups
+// start on even features.  A packed4 launch gives the bits of the
+// unpacked launch on the same rows, in every value type, and at B = 16 a
+// lane still adds only its own row (no thread waits on 240 empty bins).
+// The TPU kernel's nibble-plane layout and the un-permute after it exist
+// for Mosaic's lane rules only: this kernel writes original feature order.
 
 #include "hist_common.cuh"
 
@@ -78,7 +66,7 @@ extern "C" int lgbt_histogram(const void* bins, const void* vals, int64_t n,
                               int f, int nbins, int chunk_rows, int nchunks,
                               int packed4, int bf16, void* partial, void* out,
                               void* stream) {
-  if (nbins < 1 || nbins > lgbt::kThreads || f < 1 || nchunks < 1 || n < 1 ||
+  if (nbins < 1 || nbins > lgbt::kMaxBins || f < 1 || nchunks < 1 || n < 1 ||
       (packed4 && nbins > 16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -101,7 +89,7 @@ extern "C" int lgbt_histogram_i8(const void* bins, const void* vals,
                                  int64_t n, int f, int nbins, int chunk_rows,
                                  int nchunks, int packed4, void* out,
                                  void* stream) {
-  if (nbins < 1 || nbins > lgbt::kThreads || f < 1 || nchunks < 1 || n < 1 ||
+  if (nbins < 1 || nbins > lgbt::kMaxBins || f < 1 || nchunks < 1 || n < 1 ||
       (packed4 && nbins > 16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

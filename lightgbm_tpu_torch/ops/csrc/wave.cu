@@ -3,7 +3,7 @@
 // that split in one wave of leaf-wise growth.
 //
 // Replaces lightgbm_tpu/ops/pallas_wave.py::fused_wave_call (body
-// _wave_kernel), every mode; f32 first.  For each wave slot w:
+// _wave_kernel), every mode.  For each wave slot w:
 //   1. accumulate the smaller sibling's histogram over its rows, reading
 //      bins[perm[start + i], f] directly (no gathered copy of the rows);
 //   2. larger sibling = parent - smaller;
@@ -19,30 +19,36 @@
 //      payload [gain, feature, bin, default_left, is_cat, GL, HL, CL, GR,
 //      HR, CR, 0 x 5, cat one-hot]; an inactive slot gets gain -inf.
 //
-// What bounds it on this card: operations.  Stage 1 is the histogram
-// kernel's one-hot accumulation over the smaller siblings' rows (R * F * B
-// compares for R rows in the wave); the bytes are the rows' bins and
-// values plus the W parent histograms read and 2W child histograms
-// written (~86 KB each at F = 28, B = 255).  The scan is 2W * F * B
-// candidates, each a few dozen flops, but this first version runs it with
-// only 2W blocks of one thread per feature, so on small waves the scan's
-// latency, not stage 1, takes most of the kernel's time.
+// What bounds it on this card.  Stage 1 is the histogram kernel's
+// accumulation over the smaller siblings' rows (hist_common.cuh): issue
+// of about one warp instruction per row-feature, the bins gathered
+// through the permutation.  The combine reads the chunk partials and the
+// W parents and writes the 2W child histograms (~86 KB each at F = 28, B
+// = 255).  The scan is 2W * F * B candidates, each a few dozen flops with
+// two IEEE divisions, and a cumulative sum over B bins per (child,
+// feature) whose adds must stay in sequence.
 //
-// What the design does about it (a simple first version, deterministic):
+// What the design does about it (three launches, deterministic):
 //   - stage 1 splits every sibling's rows into chunks over many blocks
 //     (a wave has only 1-16 leaves, so one block per leaf would leave most
-//     of the 132 SMs idle); chunk partials are summed in chunk order by a
-//     second launch, which also subtracts from the parent and orders the
-//     pair (hist_common.cuh).  No float atomics;
-//   - stage 3 runs one block per child and one thread per feature: the
-//     cumulative sums run sequentially over bins in f32, the candidates
-//     of each feature are compared in bin order, and a block reduction
-//     keeps (gain, key) with the lowest key on ties;
+//     of the 132 SMs idle); a block covers a group of 8 features of its
+//     rows with a warp per feature's shared-memory histogram (blocks over
+//     every feature, each gathered row read once, timed 40% slower: fewer
+//     blocks in flight hide the gathers worse); the chunk partials are
+//     summed in chunk order by the combine, which also subtracts from the
+//     parent and orders the pair.  No float atomics;
+//   - the scan runs one block per child and one warp per feature: the
+//     cumulative sums stay sequential in f32 (lanes 0-2, a channel each,
+//     the same adds in the same order), every lane evaluates the
+//     candidates of its bins, and (gain, key) is reduced across lanes,
+//     features and warps with the lowest key on ties, so the payload is
+//     the sequential first-max scan's, bit for bit.  A warp-parallel
+//     prefix scan would round differently, and is not used;
 //   - built with --fmad=false so every a*b+c rounds twice, as the plain
 //     version's separate torch ops round.
-// Later work: keep the child histograms in shared memory between the
-// stages (one child is 86 KB at the bench shape, within the 227 KB a block
-// may opt into), a warp-parallel prefix scan, fusing the partition.
+// Later work: fuse the combine into the scan (the child histogram read
+// once from the partials), and spread a child's features over more than
+// one SM for small waves.
 //
 // int8 mode (quantized training; the TPU kernel with dtype="int8" and its
 // scale3 operand), the same three launches: stage 1 accumulates each
@@ -50,23 +56,24 @@
 // kernel's privatized shared-memory design, flushed with integer atomics:
 // exact in any order); the combine computes parent - smaller in int32 and
 // orders the pair; the child histograms come out int32, as the grower
-// stores them; the scan reads each cell as float(h) * scale[c] (one
+// stores them; the scan stages each cell as float(h) * scale[c] (one
 // multiply, as the JAX package's _scale_hist and _wave_kernel do), then
 // runs the f32 scan unchanged.  The scales stay on the device (a pointer),
 // so quantized growth adds no device-to-host copy.
 //
 // bf16 and packed4 modes: stage 1 runs the histogram kernel's bf16 and
-// packed4 loaders (hist_common.cuh): bf16 values are widened to f32 as
-// they are staged, `bins[perm[i], f]` reads become nibble reads of
-// `bins4[perm[i], f / 2]`, and the accumulation, the combine and the scan
-// are unchanged.  So a bf16 wave gives the bits of an f32 wave on the
-// bf16-rounded values, and a packed4 wave those of the unpacked wave on
-// the same rows, in every value type.  The child histograms stay in the
+// packed4 forms (hist_common.cuh): bf16 values are widened to f32 as the
+// lanes read them, `bins[perm[i], f]` reads become nibble reads of
+// `bins4[perm[i], f / 2]`, and the accumulation order, the combine and
+// the scan are unchanged.  So a bf16 wave gives the bits of an f32 wave on
+// the bf16-rounded values, and a packed4 wave those of the unpacked wave
+// on the same rows, in every value type.  The child histograms stay in the
 // grower's (F, B, 3) original feature order: the TPU kernel's nibble
 // planes, and the original-order tie-break keys they force, fall away
 // (the scan already breaks ties in original order).  An odd F's phantom
-// high nibble is never read: feature groups stop at F.
+// high nibble is never read: a lane reads only features below F.
 
+#include <climits>
 #include <math_constants.h>
 
 #include "hist_common.cuh"
@@ -159,23 +166,54 @@ __device__ __forceinline__ float cell(const int32_t* h, int i, float scale) {
   return (float)h[i] * scale;
 }
 
-// One block per (slot, child); thread t scans features t, t + blockDim, ...
-// hist: (W, 2, F, B, 3) f32 or int32; scale3: 3 f32 channel scales (int8
-// mode; nullptr for f32); stats: (W, 2, 8) [pg, ph, pc, pout, small_left,
-// active, 0, 0]; meta: (F, 4) int32 [num_bins, nan_bin, is_cat, fmask].
+// A candidate split as the scan keeps it: gain, key = feature * B + bin,
+// NaN direction, kind, and the six child sums of the payload.
+struct Best {
+  float gain;
+  int key;
+  int dl, cat;
+  float s[6];
+};
+
+// Dynamic shared memory of the scan: each warp's Best and the winner's
+// bin, then each warp's (B, 3) cells.
+inline int scan_smem(int warps, int nbins) {
+  return lgbt::align16(warps * (int)sizeof(Best) + (int)sizeof(int)) +
+         warps * nbins * 3 * (int)sizeof(float);
+}
+
+// One block per (slot, child), one warp per feature (a warp scans
+// features warp, warp + warps, ...).  hist: (W, 2, F, B, 3) f32 or int32;
+// scale3: 3 f32 channel scales (int8 mode; nullptr for f32); stats: (W,
+// 2, 8) [pg, ph, pc, pout, small_left, active, 0, 0]; meta: (F, 4) int32
+// [num_bins, nan_bin, is_cat, fmask].  Per feature the warp stages the
+// cells in shared memory (int8: times the channel's scale), lanes 0-2
+// turn them into the masked cumulative sums of G, H and C over the bins
+// in sequence (one channel each, the adds of a sequential scan), and
+// every lane evaluates the candidates of bins lane, lane + 32, ...; the
+// winner is the maximum gain with the lowest key on ties, reduced across
+// lanes, then features, then warps: the sequential first-max over keys in
+// order (an all -inf child selects key 0).
 template <typename T>
-__global__ void wave_scan_kernel(const T* __restrict__ hist,
-                                 const float* __restrict__ scale3,
-                                 const float* __restrict__ stats,
-                                 const int32_t* __restrict__ meta, int f,
-                                 int nbins, ScanCfg c,
-                                 float* __restrict__ payload) {
-  __shared__ float s_gain[1024];
-  __shared__ int s_key[1024];
-  __shared__ int s_win[3];  // key, bin, is_cat
-  const float sg = scale3 != nullptr ? scale3[0] : 1.f;
-  const float sh = scale3 != nullptr ? scale3[1] : 1.f;
-  const float sc = scale3 != nullptr ? scale3[2] : 1.f;
+__global__ void __launch_bounds__(lgbt::kMaxWarps * 32)
+wave_scan_kernel(const T* __restrict__ hist,
+                 const float* __restrict__ scale3,
+                 const float* __restrict__ stats,
+                 const int32_t* __restrict__ meta, int f, int nbins,
+                 ScanCfg c, float* __restrict__ payload) {
+  extern __shared__ __align__(16) unsigned char s_scan[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  Best* s_best = reinterpret_cast<Best*>(s_scan);
+  int* s_win_bin = reinterpret_cast<int*>(s_best + nwarps);
+  float* cells = reinterpret_cast<float*>(
+                     s_scan + lgbt::align16(nwarps * (int)sizeof(Best) +
+                                            (int)sizeof(int))) +
+                 warp * nbins * 3;
+  const float scale[3] = {scale3 != nullptr ? scale3[0] : 1.f,
+                          scale3 != nullptr ? scale3[1] : 1.f,
+                          scale3 != nullptr ? scale3[2] : 1.f};
   const int child = blockIdx.x;         // w * 2 + ci
   const float* st = stats + (int64_t)child * kStatLanes;
   const float pg = st[0], ph = st[1], pc = st[2], pout = st[3];
@@ -184,45 +222,56 @@ __global__ void wave_scan_kernel(const T* __restrict__ hist,
                                           : leaf_gain(pg, ph, c);
   const T* h0 = hist + (int64_t)child * f * nbins * 3;
 
-  float best_gain = -CUDART_INF_F;
-  int best_key = 0x7fffffff;
-  bool best_dl = false, best_cat = false;
-  float best_s[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int feat = threadIdx.x; feat < f; feat += blockDim.x) {
+  // the warp's best so far (the same in every lane)
+  float run_gain = -CUDART_INF_F;
+  int run_key = INT_MAX;
+  if (lane == 0) s_best[warp] = Best{-CUDART_INF_F, INT_MAX, 0, 0, {}};
+  for (int feat = warp; feat < f; feat += nwarps) {
     const int nb = meta[feat * 4 + 0];
     const int nanb = meta[feat * 4 + 1];
     const bool iscat = c.has_cat && meta[feat * 4 + 2] != 0;
     const bool fm = meta[feat * 4 + 3] != 0;
     const bool sorted_el = iscat && nb > c.max_cat_onehot;
     const T* hf = h0 + (int64_t)feat * nbins * 3;
+    for (int i = lane; i < nbins * 3; i += 32)
+      cells[i] = cell(hf, i, scale[i % 3]);
+    __syncwarp();
     float gn = 0.f, hn = 0.f, cn = 0.f;
     if (nanb < nbins) {
-      gn = cell(hf, nanb * 3 + 0, sg);
-      hn = cell(hf, nanb * 3 + 1, sh);
-      cn = cell(hf, nanb * 3 + 2, sc);
+      gn = cells[nanb * 3 + 0];
+      hn = cells[nanb * 3 + 1];
+      cn = cells[nanb * 3 + 2];
     }
-    float cg = 0.f, ch = 0.f, cc = 0.f;
-    for (int b = 0; b < nbins; ++b) {
-      const float g = cell(hf, b * 3 + 0, sg), h = cell(hf, b * 3 + 1, sh),
-                  cnt = cell(hf, b * 3 + 2, sc);
+    __syncwarp();
+    if (!iscat && lane < 3) {           // categorical bins stand alone
+      float run = 0.f;
+      for (int b = 0; b < nbins; ++b) {
+        const bool vm = b < nb && b != nanb;
+        float* p = cells + b * 3 + lane;
+        run = run + (vm ? *p : 0.f);
+        *p = run;
+      }
+    }
+    __syncwarp();
+    Best mine{-CUDART_INF_F, INT_MAX, 0, 0, {}};
+    for (int b = lane; b < nbins; b += 32) {
+      const float* p = cells + b * 3;   // the bin's cells, or cumulative
       const bool in_f = b < nb;
       const bool vm = in_f && b != nanb;
-      cg = cg + (vm ? g : 0.f);
-      ch = ch + (vm ? h : 0.f);
-      cc = cc + (vm ? cnt : 0.f);
       Cand cand;
       bool dl = false;
       float gain;
       if (iscat) {
-        cand = eval_dir(g, h, cnt, pg, ph, pc, pout, pgain, c);
+        cand = eval_dir(p[0], p[1], p[2], pg, ph, pc, pout, pgain, c);
         gain = in_f ? cand.gain : -CUDART_INF_F;
       } else {
-        const Cand mr = eval_dir(cg, ch, cc, pg, ph, pc, pout, pgain, c);
+        const Cand mr = eval_dir(p[0], p[1], p[2], pg, ph, pc, pout, pgain,
+                                 c);
         cand = mr;
         gain = mr.gain;
         if (c.has_nan) {
-          const Cand ml = eval_dir(cg + gn, ch + hn, cc + cn, pg, ph, pc,
-                                   pout, pgain, c);
+          const Cand ml = eval_dir(p[0] + gn, p[1] + hn, p[2] + cn, pg, ph,
+                                   pc, pout, pgain, c);
           const float gml = nanb < nbins ? ml.gain : -CUDART_INF_F;
           gain = fmaxf(mr.gain, gml);
           dl = gml > mr.gain;
@@ -231,49 +280,52 @@ __global__ void wave_scan_kernel(const T* __restrict__ hist,
         if (!vm) gain = -CUDART_INF_F;
       }
       if (sorted_el || !fm) gain = -CUDART_INF_F;
-      // in key order: the first candidate seeds the best (an all -inf
-      // block selects key 0, as the plain version's min-key tie-break)
-      if (best_key == 0x7fffffff || gain > best_gain) {
-        best_gain = gain;
-        best_key = feat * nbins + b;
-        best_dl = dl;
-        best_cat = iscat;
-        for (int i = 0; i < 6; ++i) best_s[i] = cand.s[i];
+      // in key order: the lane's first candidate seeds its best
+      if (mine.key == INT_MAX || gain > mine.gain) {
+        mine.gain = gain;
+        mine.key = feat * nbins + b;
+        mine.dl = dl;
+        mine.cat = iscat;
+        for (int i = 0; i < 6; ++i) mine.s[i] = cand.s[i];
       }
     }
+    float wg = mine.gain;
+    int wk = mine.key;
+    for (int o = 16; o > 0; o >>= 1) {
+      const float og = __shfl_xor_sync(lgbt::kFullMask, wg, o);
+      const int ok = __shfl_xor_sync(lgbt::kFullMask, wk, o);
+      if (og > wg || (og == wg && ok < wk)) { wg = og; wk = ok; }
+    }
+    if (wg > run_gain || (wg == run_gain && wk < run_key)) {
+      run_gain = wg;
+      run_key = wk;
+      if (mine.key == wk) s_best[warp] = mine;
+    }
+    __syncwarp();                       // cells and s_best, for the next
   }
-  s_gain[threadIdx.x] = best_gain;
-  s_key[threadIdx.x] = best_key;
   __syncthreads();
-  for (int stride = blockDim.x / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride) {
-      const float og = s_gain[threadIdx.x + stride];
-      const int ok = s_key[threadIdx.x + stride];
-      const float mg = s_gain[threadIdx.x];
-      if (og > mg || (og == mg && ok < s_key[threadIdx.x])) {
-        s_gain[threadIdx.x] = og;
-        s_key[threadIdx.x] = ok;
-      }
-    }
-    __syncthreads();
-  }
-  const int win_key = s_key[0];
   float* pay = payload + (int64_t)child * (kPayloadScalars + nbins);
-  if (best_key == win_key) {
-    pay[0] = active ? best_gain : -CUDART_INF_F;
-    pay[1] = (float)(win_key / nbins);
-    pay[2] = (float)(win_key % nbins);
-    pay[3] = (!best_cat && best_dl) ? 1.f : 0.f;
-    pay[4] = best_cat ? 1.f : 0.f;
-    for (int i = 0; i < 6; ++i) pay[5 + i] = best_s[i];
+  if (threadIdx.x == 0) {
+    int bi = 0;
+    for (int i = 1; i < nwarps; ++i) {
+      const Best& o = s_best[i];
+      if (o.gain > s_best[bi].gain ||
+          (o.gain == s_best[bi].gain && o.key < s_best[bi].key))
+        bi = i;
+    }
+    const Best& win = s_best[bi];
+    pay[0] = active ? win.gain : -CUDART_INF_F;
+    pay[1] = (float)(win.key / nbins);
+    pay[2] = (float)(win.key % nbins);
+    pay[3] = (!win.cat && win.dl) ? 1.f : 0.f;
+    pay[4] = win.cat ? 1.f : 0.f;
+    for (int i = 0; i < 6; ++i) pay[5 + i] = win.s[i];
     for (int i = 11; i < kPayloadScalars; ++i) pay[i] = 0.f;
-    s_win[0] = win_key;
-    s_win[1] = win_key % nbins;
-    s_win[2] = best_cat ? 1 : 0;
+    *s_win_bin = win.cat ? win.key % nbins : -1;
   }
   __syncthreads();
   for (int b = threadIdx.x; b < nbins; b += blockDim.x)
-    pay[kPayloadScalars + b] = (s_win[2] && b == s_win[1]) ? 1.f : 0.f;
+    pay[kPayloadScalars + b] = b == *s_win_bin ? 1.f : 0.f;
 }
 
 // int8 mode combine: larger sibling = parent - smaller in int32, the pair
@@ -298,9 +350,11 @@ template <typename T>
 int launch_scan(const T* hist, const float* scale3, const float* stats,
                 const int32_t* meta, int f, int nbins, int w, ScanCfg c,
                 float* payload, cudaStream_t s) {
-  int threads = 32;
-  while (threads < f && threads < 1024) threads *= 2;
-  wave_scan_kernel<T><<<(unsigned)(2 * w), threads, 0, s>>>(
+  const int warps = lgbt::warps_for(f);
+  const int smem = scan_smem(warps, nbins);
+  const int err = lgbt::smem_opt_in(wave_scan_kernel<T>, smem);
+  if (err != 0) return err;
+  wave_scan_kernel<T><<<(unsigned)(2 * w), 32 * warps, smem, s>>>(
       hist, scale3, stats, meta, f, nbins, c, payload);
   return (int)cudaGetLastError();
 }
@@ -323,7 +377,7 @@ extern "C" int lgbt_wave(const void* bins, const void* vals, const void* perm,
                          int has_nan, int has_cat, int max_cat_onehot,
                          int packed4, int bf16, void* partial,
                          void* out_hist, void* payload, void* stream) {
-  if (nbins < 1 || nbins > lgbt::kThreads || f < 1 || w < 1 ||
+  if (nbins < 1 || nbins > lgbt::kMaxBins || f < 1 || w < 1 ||
       total_chunks < 0 || (packed4 && nbins > 16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -364,7 +418,7 @@ extern "C" int lgbt_wave_i8(const void* bins, const void* vals,
                             int has_cat, int max_cat_onehot, int packed4,
                             void* small, void* out_hist, void* payload,
                             void* stream) {
-  if (nbins < 1 || nbins > lgbt::kThreads || f < 1 || w < 1 ||
+  if (nbins < 1 || nbins > lgbt::kMaxBins || f < 1 || w < 1 ||
       total_chunks < 0 || (packed4 && nbins > 16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -7,7 +7,12 @@ The port of the JAX package's ``ops/histogram.py``:
 ``histogram_segment`` is the scatter-add form (``index_add_`` over flat
 ``feature * B + bin`` ids) and the plain version of the hand-written CUDA
 histogram kernel (``ops/histogram_flat.py``): f32 and bf16 values sum in
-f32, int8 values (quantized training) in int32.  ``histogram_from_vals``
+f32, int8 values (quantized training) in int32.  ``histogram_chunked``
+(and ``segment_histograms_chunked``, its permuted multi-segment form for
+the wave kernel's stage 1) repeats the kernel's summation order, row
+chunks in row order then the chunk sums in chunk order, so the kernel
+equals it bit for bit on any values; only tests and ``chip_smoke.py``
+call it.  ``histogram_from_vals``
 dispatches: on a CUDA tensor ``auto``/``pallas``/``flat`` launch the
 kernel and ``flat_bf16`` its bf16 mode (integer values take its int8
 mode under every one of them, as the JAX package routes them); on a CPU
@@ -25,6 +30,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -82,6 +88,75 @@ def histogram_segment(bins: torch.Tensor, vals: torch.Tensor, *,
     src = vals.to(acc)[:, None, :].expand(n, f, 3).reshape(-1, 3)
     hist.index_add_(0, flat, src)
     return hist.reshape(f, num_bins, 3)
+
+
+def segment_histograms_chunked(bins: torch.Tensor, vals: torch.Tensor,
+                               perm: Optional[torch.Tensor], starts, counts,
+                               *, num_bins: int, chunk_rows: int,
+                               packed4: bool = False,
+                               features: int = 0) -> torch.Tensor:
+    """The CUDA kernel's f32 sums in its own order, for tests and
+    ``chip_smoke.py`` (nothing on the training path calls it): segment w
+    is the rows at positions ``starts[w] .. starts[w] + counts[w] - 1``
+    (through ``perm`` when given), cut into chunks of ``chunk_rows`` from
+    its start; each chunk is summed in row order, one f32 add per row and
+    cell from 0, and the chunk sums in chunk order from 0.  (N, F) bins
+    (or ``packed4`` nibble pairs of ``features`` features), (N, 3) f32 or
+    bf16 values (widened) -> (W, F, num_bins, 3) f32; a bin id >=
+    num_bins is dropped."""
+    if packed4:
+        bins = unpack_bins4(bins, features)
+    dev = bins.device
+    f = bins.shape[1]
+    vals = vals.to(torch.float32)
+    counts = np.asarray(counts, np.int64)
+    per = -(-counts // chunk_rows)
+    offs = np.concatenate([[0], np.cumsum(per)])
+    out = torch.zeros(len(counts), f, num_bins, 3, dtype=torch.float32,
+                      device=dev)
+    if offs[-1] == 0:
+        return out
+    seg = np.repeat(np.arange(len(counts)), per)
+    local = np.arange(offs[-1]) - offs[seg]
+    first = torch.as_tensor(np.asarray(starts, np.int64)[seg]
+                            + local * chunk_rows, device=dev)
+    length = np.minimum(chunk_rows, counts[seg] - local * chunk_rows)
+    part = torch.zeros(int(offs[-1]), f, num_bins, 3, dtype=torch.float32,
+                       device=dev)
+    feat = torch.arange(f, device=dev)
+    for r in range(int(length.max())):
+        # the r-th row of every chunk that has one: one add per (chunk,
+        # feature) cell, so no index repeats within a step
+        ks = torch.as_tensor(np.flatnonzero(length > r), device=dev)
+        pos = first[ks] + r
+        rows = perm[pos].long() if perm is not None else pos
+        b = bins[rows].long()
+        keep = b < num_bins
+        idx = (ks[:, None].expand_as(b)[keep], feat.expand_as(b)[keep],
+               b[keep])
+        part[idx] += vals[rows][:, None, :].expand(-1, f, 3)[keep]
+    for j in range(int(per.max())):
+        has = np.flatnonzero(per > j)
+        out[has] = out[has] + part[torch.as_tensor(offs[has] + j,
+                                                   device=dev)]
+    return out
+
+
+def histogram_chunked(bins: torch.Tensor, vals: torch.Tensor, *,
+                      num_bins: int, chunk_rows: Optional[int] = None,
+                      packed4: bool = False, features: int = 0
+                      ) -> torch.Tensor:
+    """The f32 / bf16 histogram kernel's sums in its own order (the plain
+    twin of its summation, for tests): rows in storage order cut into
+    chunks of ``chunk_rows`` (default: the wrapper's
+    ``ops/histogram_flat.py::chunking``), each summed in row order, then
+    the chunk sums in chunk order.  Returns (F, num_bins, 3) f32."""
+    if chunk_rows is None:
+        from .histogram_flat import chunking
+        chunk_rows = chunking(bins.shape[0])[0]
+    return segment_histograms_chunked(
+        bins, vals, None, [0], [bins.shape[0]], num_bins=num_bins,
+        chunk_rows=chunk_rows, packed4=packed4, features=features)[0]
 
 
 def histogram_onehot(bins: torch.Tensor, vals: torch.Tensor, *,

@@ -36,7 +36,7 @@ launches = dict.fromkeys(MODES, 0)
 #: histogram is F * B * 3 floats of scratch, summed in chunk order
 MIN_CHUNK_ROWS = 1024
 MAX_CHUNKS = 1024
-#: the kernel runs one thread per bin; 4-bit bins hold 16 bins
+#: bins a feature may have (uint8 bin ids); 4-bit bins hold 16
 MAX_BINS = 256
 MAX_BINS_PACKED4 = 16
 

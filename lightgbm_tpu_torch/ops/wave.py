@@ -38,7 +38,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .histogram import histogram_segment
+from .histogram import histogram_segment, segment_histograms_chunked
 from .histogram_flat import (MIN_CHUNK_ROWS, MIN_CHUNK_ROWS_INT8, MODES,
                              check_int8_rows, check_layout, mode_name)
 from .split import BestSplit, SplitConfig, _EPS, scan_tables, select_payload
@@ -165,6 +165,25 @@ def segment_table(small_cnt: Sequence[int], f: int, num_bins: int,
     chunk_rows = max(min_rows, -(-total // cap))
     per = [-(-int(c) // chunk_rows) for c in small_cnt]
     return chunk_rows, np.concatenate([[0], np.cumsum(per)]).astype(np.int64)
+
+
+def wave_hists_chunked(bins, vals, perm, small_start: Sequence[int],
+                       small_cnt: Sequence[int], parent, stats,
+                       num_bins: int, packed4: bool = False):
+    """The f32 / bf16 wave kernel's child histograms in its own summation
+    order (for tests and ``chip_smoke.py``): each smaller sibling summed
+    over its perm range in chunks of ``segment_table``'s rows (row order,
+    then chunk order), the larger one as parent - smaller, the pair in
+    (left, right) order by ``stats[w, 0, 4]``.  Returns (W, 2, F, B, 3)."""
+    f = parent.shape[1]
+    chunk_rows, _ = segment_table(small_cnt, f, num_bins)
+    small = segment_histograms_chunked(
+        bins, vals, perm, small_start, small_cnt, num_bins=num_bins,
+        chunk_rows=chunk_rows, packed4=packed4, features=f)
+    big = parent - small
+    left = (stats[:, 0, 4] > 0.5)[:, None, None, None]
+    return torch.stack([torch.where(left, small, big),
+                        torch.where(left, big, small)], dim=1)
 
 
 def fused_wave_call(bins: torch.Tensor, vals: torch.Tensor,

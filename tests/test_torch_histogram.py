@@ -33,9 +33,11 @@ import pytest
 import torch
 
 from torch_port_util import cuda_device  # noqa: F401
+from torch_port_util import order_sensitive_vals, sequential_chunk_hist
 
 from lightgbm_tpu_torch.ops import histogram_flat as HF
-from lightgbm_tpu_torch.ops.histogram import (histogram_from_vals,
+from lightgbm_tpu_torch.ops.histogram import (histogram_chunked,
+                                              histogram_from_vals,
                                               histogram_onehot,
                                               histogram_segment, pack_bins4,
                                               pack_values, subtract_histogram,
@@ -274,6 +276,80 @@ def test_new_modes_plain_vs_jax_flat(mode, n, f):
                                        atol=1e-5 * np.abs(want).max())
 
 
+TWIN_MODES = ["f32", "bf16", "f32_packed4", "bf16_packed4"]
+
+
+def _twin_inputs(mode, bins, vals):
+    """Torch inputs of a mode's ``histogram_flat`` call (bf16 values
+    rounded, as the wrapper rounds them) and the twin's layout kwargs."""
+    tv = torch.from_numpy(vals)
+    if mode.startswith("bf16"):
+        tv = tv.to(torch.bfloat16)
+    return torch.from_numpy(bins), tv
+
+
+@pytest.mark.parametrize("mode", TWIN_MODES)
+@pytest.mark.parametrize("n,f", [(1, 28), (777, 27), (3001, 5)])
+def test_chunked_twin_vs_segment_and_jax(mode, n, f):
+    """The plain twin of the kernel's summation order equals the
+    scatter-add plain version and JAX ``histogram_flat`` (interpret mode)
+    bit for bit on exact sums, and the plain version within 1e-5 relative
+    on random values; chunks of 256 rows, so several chunks are summed."""
+    for exact in (True, False):
+        bins, vals, b, kw = _mode_case(mode, n, f, seed=2 * n + f,
+                                       exact=exact)
+        tb, tv = _twin_inputs(mode, bins, vals)
+        lay = dict(packed4=kw["packed4"], features=f)
+        got = histogram_chunked(tb, tv, num_bins=b, chunk_rows=256, **lay)
+        want = histogram_segment(tb, tv, num_bins=b, **lay)
+        assert got.shape == (f, b, 3) and got.dtype == torch.float32
+        if exact:
+            assert torch.equal(got, want)
+            np.testing.assert_array_equal(got.numpy(),
+                                          _jax_flat(bins, vals, b, **kw))
+        else:
+            scale = float(want.abs().max())
+            assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("n,chunk_rows", [(2500, None), (700, 64),
+                                          (1, None)])
+def test_chunked_twin_keeps_the_wrappers_chunking(n, chunk_rows):
+    """On values whose f32 sums depend on their order, the twin equals the
+    summation order written out as loops, with ``chunking()``'s chunk rows
+    by default; another chunking gives other bits (the check bites)."""
+    rng = np.random.RandomState(n)
+    bins = rng.randint(0, 3, (n, 2)).astype(np.uint8)
+    vals = order_sensitive_vals(n, seed=n)
+    rows = chunk_rows or HF.chunking(n)[0]
+    got = histogram_chunked(torch.from_numpy(bins), torch.from_numpy(vals),
+                            num_bins=3, chunk_rows=chunk_rows).numpy()
+    np.testing.assert_array_equal(got, sequential_chunk_hist(bins, vals, 3,
+                                                             rows))
+    if n > 1:
+        assert not np.array_equal(got, sequential_chunk_hist(bins, vals, 3,
+                                                             rows - 1))
+    # packed bins and bf16 values: the same sums of the same rows
+    packed = pack_bins4(torch.from_numpy(bins))
+    got4 = histogram_chunked(packed, torch.from_numpy(vals), num_bins=3,
+                             chunk_rows=chunk_rows, packed4=True, features=2)
+    np.testing.assert_array_equal(got4.numpy(), got)
+    half = torch.from_numpy(vals).to(torch.bfloat16)
+    np.testing.assert_array_equal(
+        histogram_chunked(torch.from_numpy(bins), half, num_bins=3,
+                          chunk_rows=chunk_rows).numpy(),
+        sequential_chunk_hist(bins, half.float().numpy(), 3, rows))
+
+
+def test_chunked_twin_drops_bins_past_num_bins():
+    """A bin id >= num_bins is dropped, as the kernel drops it."""
+    bins = np.array([[0], [5], [1], [2]], np.uint8)
+    vals = np.ones((4, 3), np.float32)
+    got = histogram_chunked(torch.from_numpy(bins), torch.from_numpy(vals),
+                            num_bins=3).numpy()
+    np.testing.assert_array_equal(got[0, :, 2], [1, 1, 1])
+
+
 def test_new_mode_names_and_layout_checks():
     tb = torch.zeros(4, 3, dtype=torch.uint8)
     f32, bf16, i8 = (torch.zeros(4, 3, dtype=t) for t in
@@ -399,3 +475,49 @@ def test_new_mode_kernels_match_plain(cuda_device, mode, n):
             else:
                 scale = float(plain.abs().max())
                 assert float((got - plain).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", TWIN_MODES)
+@pytest.mark.parametrize("n", [1, 1000, 20_000, 200_000])
+def test_kernel_equals_chunked_twin_on_random_values(cuda_device, mode, n):
+    """The f32 / bf16 kernel keeps the twin's summation order: bit for
+    bit on random values (F = 28, and odd F = 27 packed)."""
+    packed4 = mode.endswith("packed4")
+    for f in (28, 27) if packed4 else (28,):
+        bins, vals, b, kw = _mode_case(mode, n, f, seed=n + f, exact=False)
+        tb, tv = (t.to(cuda_device) for t in _twin_inputs(mode, bins, vals))
+        got = HF.histogram_flat(tb, tv, num_bins=b, **kw)
+        want = histogram_chunked(tb, tv, num_bins=b, packed4=packed4,
+                                 features=f)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (mode, n, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_bin", "one_bin_packed4", "B1", "B256",
+                                  "packed4_F1", "packed4_F3", "F100",
+                                  "packed4_F65"])
+def test_kernel_edge_shapes_equal_chunked_twin(cuda_device, case):
+    """Every row in one bin (each step's 32 lanes one group), B = 1 and
+    B = 256, odd F packed, and F wide enough to cut the features into
+    groups: bit for bit the twin on random values."""
+    n = 20_000
+    f = {"F100": 100, "packed4_F1": 1, "packed4_F3": 3,
+         "packed4_F65": 65}.get(case, 28)
+    b = {"B1": 1, "B256": 256}.get(case, 16 if "packed4" in case else 255)
+    rng = np.random.RandomState(f + b)
+    bins = rng.randint(0, b, (n, f)).astype(np.uint8)
+    if case.startswith("one_bin"):
+        bins[:] = 0
+    _, vals = _data(n, f, b, seed=b, exact=False)
+    packed4 = "packed4" in case
+    tb = torch.from_numpy(bins).to(cuda_device)
+    if packed4:
+        tb = pack_bins4(tb)
+    tv = torch.from_numpy(vals).to(cuda_device)
+    kw = dict(num_bins=b, packed4=packed4, features=f if packed4 else 0)
+    got = HF.histogram_flat(tb, tv, **kw)
+    want = histogram_chunked(tb, tv, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), case

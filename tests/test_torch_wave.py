@@ -32,6 +32,7 @@ import pytest
 import torch
 
 from torch_port_util import cuda_device  # noqa: F401
+from torch_port_util import order_sensitive_vals, sequential_chunk_hist
 
 from lightgbm_tpu_torch.ops import wave as WV
 from lightgbm_tpu_torch.ops.histogram import (histogram_segment, pack_bins4,
@@ -246,6 +247,67 @@ def test_new_modes_plain_bitwise_vs_jax_fused_wave_call(mode):
     f32["packed4"] = False
     h32, p32 = WV.fused_wave_call(cfg=CFG, **f32)
     assert torch.equal(hist, h32) and torch.equal(pay, p32)
+
+
+TWIN_MODES = ["f32", "bf16", "f32_packed4", "bf16_packed4"]
+HIST_ARGS = ("bins", "vals", "perm", "small_start", "small_cnt", "parent",
+             "stats", "num_bins")
+
+
+@pytest.mark.parametrize("mode", TWIN_MODES)
+def test_wave_chunked_twin_vs_plain_and_jax(mode):
+    """``wave_hists_chunked`` (the plain twin of the kernel's summation
+    order: segment_table's chunks, the subtraction, the (left, right)
+    order) equals ``wave_plain``'s child histograms and JAX
+    ``fused_wave_call``'s bit for bit on exact sums, and the plain
+    version's within 1e-5 relative on random values.  Slot 0's smaller
+    sibling spans two chunks."""
+    packed4 = mode.endswith("packed4")
+    b = 16 if packed4 else 40
+    for exact in (True, False):
+        inp, aux = wave_inputs(3000, 7, b, [1100, 1, 33, 200, 5], seed=5,
+                               exact=exact, mode=mode)
+        got = WV.wave_hists_chunked(*(inp[k] for k in HIST_ARGS),
+                                    packed4=packed4)
+        hp, _ = WV.wave_plain(cfg=CFG, **inp)
+        assert got.shape == hp.shape and got.dtype == torch.float32
+        if exact:
+            assert torch.equal(got, hp)
+            want_h, _ = jax_fused_wave(inp, aux, mode.split("_")[0])
+            np.testing.assert_array_equal(got.numpy(), want_h)
+        else:
+            scale = float(hp[..., :2].abs().max())
+            assert float((got - hp).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16_packed4"])
+def test_wave_chunked_twin_keeps_segment_table_chunking(mode):
+    """On values whose f32 sums depend on their order, the twin's smaller
+    siblings equal the summation order written out as loops over each
+    perm range in ``segment_table``'s chunks (one of 2,500 rows spans
+    three), the larger siblings parent - smaller."""
+    packed4 = mode.endswith("packed4")
+    b = 16 if packed4 else 40
+    sizes = [2500, 1, 33, 1100, 5]
+    inp, aux = wave_inputs(9000, 5, b, sizes, seed=6, exact=False, mode=mode)
+    vals = order_sensitive_vals(9000, seed=6)
+    if mode.startswith("bf16"):
+        vals = torch.from_numpy(vals).to(torch.bfloat16).float().numpy()
+    inp["vals"] = torch.from_numpy(vals).to(inp["vals"].dtype)
+    got = WV.wave_hists_chunked(*(inp[k] for k in HIST_ARGS),
+                                packed4=packed4)
+    chunk_rows, offs = WV.segment_table(sizes, 5, b)
+    assert chunk_rows == WV.MIN_CHUNK_ROWS and offs[1] == 3
+    bins, perm = aux[4], aux[6]
+    for w, (s0, cnt) in enumerate(zip(inp["small_start"], sizes)):
+        rows = perm[s0:s0 + cnt]
+        small = sequential_chunk_hist(bins[rows], vals[rows], b, chunk_rows)
+        big = inp["parent"][w].numpy() - small
+        left_small = bool(inp["stats"][w, 0, 4] > 0.5)
+        np.testing.assert_array_equal(got[w, 0 if left_small else 1].numpy(),
+                                      small)
+        np.testing.assert_array_equal(got[w, 1 if left_small else 0].numpy(),
+                                      big)
 
 
 def test_shape_and_device_checks():
@@ -479,3 +541,69 @@ def test_new_mode_kernels_match_plain(cuda_device, mode, sizes):
                 assert torch.equal(h1, hp) and torch.equal(p1, pp)
             else:
                 _chip_smoke().wave_agreement(h1, p1, hp, pp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", TWIN_MODES)
+@pytest.mark.parametrize("sizes", [[100_000], [1, 5, 0, 2047, 2048, 12_500,
+                                               40_000, 3, 900, 1, 77, 4096,
+                                               100_000, 10, 250, 6]],
+                         ids=["W1", "W16"])
+def test_kernel_child_hists_equal_chunked_twin(cuda_device, mode, sizes):
+    """On random values the kernel's child histograms equal the twin of
+    its summation order bit for bit (slot 2 inactive); its payloads stay
+    within ``wave_agreement`` of the plain version."""
+    sizes = [max(s, 1) for s in sizes]
+    packed4 = mode.endswith("packed4")
+    inp, _ = wave_inputs(sum(2 * s for s in sizes), 28, 16 if packed4 else 255,
+                         sizes, seed=len(sizes) + 1, exact=False,
+                         device=cuda_device, mode=mode)
+    h, p = WV.fused_wave_call(cfg=CFG, **inp)
+    want = WV.wave_hists_chunked(*(inp[k] for k in HIST_ARGS),
+                                 packed4=packed4)
+    hp, pp = WV.wave_plain(cfg=CFG, **inp)
+    torch.cuda.synchronize()
+    assert torch.equal(h, want)
+    _chip_smoke().wave_agreement(h, p, hp, pp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,b", [(100, 255), (65, 16)])
+def test_kernel_wide_features_equal_chunked_twin(cuda_device, f, b):
+    """F cut into several feature groups (packed: odd F): child histograms
+    bit for bit the twin on random values; payloads bitwise the plain
+    version on exact sums."""
+    packed4 = b == 16
+    sizes = [3000, 1, 700, 2500]
+    for exact in (False, True):
+        inp, _ = wave_inputs(sum(2 * s for s in sizes), f, b, sizes,
+                             seed=f, exact=exact, device=cuda_device,
+                             mode="f32_packed4" if packed4 else "f32")
+        h, p = WV.fused_wave_call(cfg=CFG, **inp)
+        want = WV.wave_hists_chunked(*(inp[k] for k in HIST_ARGS),
+                                     packed4=packed4)
+        hp, pp = WV.wave_plain(cfg=CFG, **inp)
+        torch.cuda.synchronize()
+        assert torch.equal(h, want)
+        if exact:
+            assert torch.equal(h, hp) and torch.equal(p, pp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "int8"])
+def test_kernel_all_minus_inf_children(cuda_device, mode):
+    """No child has a valid split (min_data_in_leaf above every count):
+    every gain is -inf and each payload is key 0's candidate (feature 0,
+    bin 0), bit for bit the plain version's."""
+    none = SplitConfig(min_data_in_leaf=10 ** 9, min_sum_hessian_in_leaf=0.5,
+                       lambda_l2=0.25, has_categorical=False)
+    sizes = [5000, 1, 33, 2048]
+    inp, _ = wave_inputs(sum(2 * s for s in sizes), 28, 255, sizes, seed=9,
+                         exact=True, device=cuda_device,
+                         scales=POW2_SCALES if mode == "int8" else None)
+    h, p = WV.fused_wave_call(cfg=none, **inp)
+    hp, pp = WV.wave_plain(cfg=none, **inp)
+    torch.cuda.synchronize()
+    assert bool(torch.isinf(p[:, :, 0]).all())
+    assert not bool(p[:, :, 1:3].any())
+    assert torch.equal(h, hp) and torch.equal(p, pp)

@@ -159,6 +159,31 @@ def port_grow(X, y, params, grad, hess, categorical=(), device="cpu",
     return fields, row_leaf.cpu().numpy()
 
 
+def sequential_chunk_hist(bins, vals, num_bins, chunk_rows):
+    """The CUDA kernels' summation order written out as loops: the rows
+    of (N, F) numpy bins and (N, 3) float32 values in chunks of
+    ``chunk_rows``, each chunk summed cell by cell in row order from 0 in
+    float32, then the chunk sums in chunk order from 0."""
+    n, f = bins.shape
+    total = np.zeros((f, num_bins, 3), np.float32)
+    for c0 in range(0, n, chunk_rows):
+        part = np.zeros((f, num_bins, 3), np.float32)
+        for r in range(c0, min(n, c0 + chunk_rows)):
+            for j in range(f):
+                part[j, bins[r, j]] += vals[r]
+        total = total + part
+    return total
+
+
+def order_sensitive_vals(n, seed):
+    """(n, 3) float32 values whose float32 sums depend on their order:
+    gradients and hessians across eight decades, counts 1."""
+    rng = np.random.RandomState(seed)
+    g = rng.randn(n) * 10.0 ** rng.uniform(-4, 4, n)
+    h = rng.rand(n) * 10.0 ** rng.uniform(-4, 4, n)
+    return np.stack([g, h, np.ones(n)], axis=1).astype(np.float32)
+
+
 def assert_same_tree(want, got, rl_want=None, rl_got=None):
     """Every TreeArrays field and row_leaf bit for bit."""
     assert got["num_leaves"] == want["num_leaves"]
