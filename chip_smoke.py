@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--seed 0]
 
 Drives the port's main paths (serving, training, quantized training,
-bf16 and 4-bit-bin training) at full width and holds every kernel against its plain PyTorch version and
-every result against an independent reference.
+bf16 and 4-bit-bin training, training at max_bin 1023 over uint16 bins)
+at full width and holds every kernel against its plain PyTorch version
+and every result against an independent reference.
 
 Serving (slice 1) — quantized serving through the hand-written CUDA
 traversal kernel at the width of the bench's headline ensemble (binary,
@@ -119,6 +120,31 @@ values, not only on exact sums:
     slots, random values, bit for bit (payloads: ``wave_agreement``), and
     a wave whose children have no valid split (all gains -inf: the
     payload of key 0, equal to the plain version's).
+
+uint16 bins (slice 7, ``max_bin`` above 255): the histogram kernel's
+uint16 modes, in f32, bf16 and int8, on the unfused wave path (the fused
+wave over more than 256 bins is ROADMAP B2e):
+
+26. histogram kernel in f32_uint16, bf16_uint16 and int8_uint16 against
+    its twin (``hist_twin``: ``histogram_chunked``, the plain twin of the
+    f32 / bf16 summation order; ``histogram_segment`` for int8) bit for
+    bit on random values at B in {257, 511, 1,023, 4,095, 65,536} (the
+    last in eight bin tiles) and N in {1, 1,000, 200,000} (B = 65,536 at
+    N <= 1,000), and 10,500,000 rows at B = 1,023; rows gathered through
+    a permutation; and the unfused wave step over 16 smaller siblings
+    (``wave_plain`` with the kernel vs with the twin, child histograms
+    and payloads bit for bit);
+27. training at max_bin 1023 on the bench rows, binned once (seconds
+    reported, uint16 bins on the card): f32 and quantized 10 iterations,
+    bf16 5, each launching only its uint16 histogram mode and no wave
+    kernel; the holdout AUC beside the 255-bin f32 run's at 10
+    iterations (no gate: no genuine-LightGBM number at 1,023 bins); two
+    3-iteration f32 runs give equal model text, and 3-iteration f32 and
+    quantized runs with ``histogram_flat`` swapped for ``hist_twin`` give
+    the kernel runs' model text; the f32 model served through
+    ``Predictor`` (int16 pack) equals the numpy walk bit for bit;
+28. timing of the uint16 modes at B = 1,023, N = 200,000 and 10,500,000:
+    kernel, device ms by launch, plain version, ``index_add_``, bounds.
 
 Each wave timing (phases 14, 18, 23) also gives its three launches'
 device times by kernel name under ``torch.profiler`` (``wave_stage_ms``):
@@ -380,14 +406,17 @@ def request_breakdown(pred, X, rng, n=65_536, repeats=5):
 
 # ------------------------------------------------------- training kernels
 def device_bins(gen, n, f, b, dev, nan_frac=0.05):
-    """(n, f) uint8 bins on the card; every other feature has a NaN bin
-    (b - 1) that ``nan_frac`` of its rows fall in."""
+    """(n, f) bins on the card, uint8 (uint16 above 256 bins, made in
+    int32: torch has no uint16 ``where`` there); every other feature has a
+    NaN bin (b - 1) that ``nan_frac`` of its rows fall in."""
     import torch
+    wide = b > 256
     bins = torch.randint(0, b - 1, (n, f), generator=gen, device=dev,
-                         dtype=torch.uint8)
+                         dtype=torch.int32 if wide else torch.uint8)
     nan = (torch.rand(n, f, generator=gen, device=dev) < nan_frac)
     nan[:, 1::2] = False
-    return torch.where(nan, torch.full_like(bins, b - 1), bins)
+    bins = torch.where(nan, torch.full_like(bins, b - 1), bins)
+    return bins.to(torch.uint16) if wide else bins
 
 
 def device_vals(gen, n, dev, exact):
@@ -440,7 +469,7 @@ def wave_case(gen, dev, sizes, exact, f=28, b=255, inactive=(),
     from lightgbm_tpu_torch.ops.histogram import histogram_segment, pack_bins4
     n = sum(2 * s for s in sizes)
     bins = device_bins(gen, n, f, b, dev)
-    bins[:, 3] = bins[:, 3] % 4
+    bins[:, 3] = (bins[:, 3].long() % 4).to(bins.dtype)
     if scales is None:
         vals = device_vals(gen, n, dev, exact)
         if mode.startswith("bf16"):
@@ -455,7 +484,8 @@ def wave_case(gen, dev, sizes, exact, f=28, b=255, inactive=(),
     pos = 0
     for j, s in enumerate(sizes):
         rows = perm[pos:pos + 2 * s].long()
-        parents.append(histogram_segment(bins[rows], vals[rows], num_bins=b))
+        parents.append(histogram_segment(bins.index_select(0, rows),
+                                         vals[rows], num_bins=b))
         small_left = j % 2 == 0
         starts.append(pos if small_left else pos + s)
         cnts.append(s)
@@ -946,7 +976,7 @@ def train_phase(dev, fix, rows, name, extra, ds, hist_mode, wave_mode,
 
 
 def training_phases(seed, dev, smi):
-    """Phases 8-25; returns the histogram and wave entries of the kernels
+    """Phases 8-28; returns the histogram and wave entries of the kernels
     line, every mode."""
     import torch
     import lightgbm_tpu_torch as lgt
@@ -967,6 +997,7 @@ def training_phases(seed, dev, smi):
     new_mode_wave_phase(gen, dev)
     twin_histogram_phase(gen, dev)
     twin_wave_phase(gen, dev)
+    u16_err = uint16_histogram_phase(gen, dev)
     fix = load_bench_fixture(root)
     rows = bench_rows(fix)
     Xv = rows[0][fix["data"]["n_train"]:]
@@ -1063,6 +1094,10 @@ def training_phases(seed, dev, smi):
     runs4 = slice4_training(dev, fix, rows, ds)
     timing4 = new_mode_timing(gen, dev, smi)
 
+    # 27-28. max_bin 1023 training through the uint16 modes; their times
+    runs16 = wide_training(dev, fix, rows, ds)
+    timing16 = uint16_timing(gen, dev, smi)
+
     h = timing[f"histogram/{HIST_TIMING_ROWS[0]}"]
     h8 = timing8[f"histogram_int8/{HIST_TIMING_ROWS[0]}"]
     wave_key = f"{len(sizes)}x{sizes[0]}"
@@ -1083,6 +1118,10 @@ def training_phases(seed, dev, smi):
                    runs4["histogram"][mode], new_hist_err[mode], rows0),
                   (f"wave_{mode}", WAVE_SOURCE, WAVE_REPLACES, tw,
                    runs4["wave"][mode], tw["max_abs_err"], sum(sizes))]
+    for mode in U16_MODES:
+        table.append((f"histogram_{mode}", HIST_SOURCE, HIST_REPLACES,
+                      timing16[f"histogram_{mode}/{rows0}"], runs16[mode],
+                      u16_err[mode], rows0))
     entries = []
     for name, src_, rep, t, launches_, err_, nrows in table:
         require(launches_ > 0, f"{name}: no launch on its training path")
@@ -1562,6 +1601,249 @@ def new_mode_timing(gen, dev, smi):
         del inp, h1, p1, hp, pp
         torch.cuda.empty_cache()
     emit({"phase": "training_timing_new_modes", "nvidia_smi": smi,
+          "shapes": timing})
+    return timing
+
+
+# --------------------------------- slice 7: uint16 bins (max_bin above 255)
+#: the histogram kernel's uint16 modes (ops/histogram_flat.py::MODES)
+U16_MODES = ("f32_uint16", "bf16_uint16", "int8_uint16")
+#: phase 26's bin counts (65,536: eight bin tiles of 8,192) and rows; B =
+#: 65,536 only at N <= 1,000 (its 28 x 65,536-cell twin is large); and
+#: the Higgs row count at B = 1,023
+U16_BINS = (257, 511, 1023, 4095, 65536)
+U16_ROWS = (1, 1000, 200_000)
+U16_LARGE = (10_500_000, 1023)
+#: phase 27's training: the max_bin, and the iterations of each run
+WIDE_MAX_BIN = 1023
+WIDE_ITERS = {"f32": 10, "quantized": 10, "bf16": 5, "repeat": 3}
+
+
+def hist_twin(bins, vals, *, num_bins, dtype="f32", packed4=False,
+              features=0, max_level=127):
+    """``histogram_flat``'s plain twin, call for call: f32 / bf16 values
+    (bf16 rounded first, as the wrapper rounds them) through
+    ``histogram_chunked``, the kernel's summation order; int8 levels
+    through ``histogram_segment`` (exact int32 sums)."""
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import (histogram_chunked,
+                                                  histogram_segment)
+    kw = dict(num_bins=num_bins, packed4=packed4, features=features)
+    if vals.dtype == torch.int8:
+        return histogram_segment(bins, vals, **kw)
+    if dtype == "bf16":
+        vals = vals.to(torch.bfloat16)
+    return histogram_chunked(bins, vals, **kw)
+
+
+def uint16_histogram_phase(gen, dev):
+    """26. The histogram kernel's uint16 modes against their twins
+    (``hist_twin``), bit for bit on random values: at every B of
+    U16_BINS and N of U16_ROWS, and 10.5M rows at B = 1,023; rows in
+    storage order, rows gathered through a permutation, and the unfused
+    wave step's 16 smaller siblings (``wave_plain`` with the kernel and
+    with the twin: child histograms and payloads bit for bit).  Returns
+    each mode's largest error at 200,000 rows, B = 1,023."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram_flat as HF
+    from lightgbm_tpu_torch.ops import wave as WV
+    from lightgbm_tpu_torch.ops.split import SplitConfig
+    cfg = SplitConfig(min_data_in_leaf=0, min_sum_hessian_in_leaf=1.0,
+                      lambda_l2=0.5, max_cat_to_onehot=4)
+    out, err_200k = {}, {}
+
+    def check(tag, bins, vals, b):
+        got = HF.histogram_flat(bins, vals, num_bins=b)
+        want = hist_twin(bins, vals, num_bins=b)
+        torch.cuda.synchronize()
+        err = float((got.double() - want.double()).abs().max())
+        require(torch.equal(got, want), f"histogram {tag} != its twin (off "
+                f"by {err})")
+        out[tag] = {"bitwise": True, "rows": int(bins.shape[0]), "bins": b}
+        return err
+
+    for mode in U16_MODES:
+        for b in U16_BINS:
+            for n in U16_ROWS:
+                if b == 65536 and n > 1000:
+                    continue
+                bins = device_bins(gen, n, 28, b, dev)
+                vals = mode_vals(gen, n, mode, dev, exact=False)
+                err = check(f"{mode} B={b} N={n}", bins, vals, b)
+                if n == U16_ROWS[-1]:
+                    perm = torch.randperm(n, generator=gen, device=dev)
+                    check(f"{mode} B={b} N={n} permuted",
+                          bins.index_select(0, perm), vals[perm], b)
+                    if b == WIDE_MAX_BIN:
+                        err_200k[mode] = err
+        n, b = U16_LARGE
+        bins = device_bins(gen, n, 28, b, dev)
+        check(f"{mode} B={b} N={n}", bins,
+              mode_vals(gen, n, mode, dev, exact=False), b)
+        del bins
+        torch.cuda.empty_cache()
+        sizes, inactive = CHECK_WAVES["W16"]
+        inp = wave_case(gen, dev, sizes, False, b=WIDE_MAX_BIN,
+                        inactive=inactive, mode=mode,
+                        scales=POW2_SCALES if mode.startswith("int8")
+                        else None)
+        runs = [WV.wave_plain(cfg=cfg, histogram=lambda bb, vv, fn=fn: fn(
+                    bb, vv, num_bins=WIDE_MAX_BIN), **inp)
+                for fn in (HF.histogram_flat, hist_twin)]
+        torch.cuda.synchronize()
+        (hk, pk), (ht, pt) = runs
+        require(torch.equal(hk, ht) and torch.equal(pk, pt),
+                f"unfused wave over {mode} bins: the kernel's child "
+                "histograms or payloads != the twin's")
+        out[f"{mode} unfused wave W16"] = {
+            "hist_bitwise": True, "payload_bitwise": True,
+            "slots": len(sizes), "rows": sum(sizes), "bins": WIDE_MAX_BIN}
+    emit({"phase": "histogram_uint16_vs_twin", "random_values": True,
+          "features": 28, "cases": out})
+    return err_200k
+
+
+def wide_training(dev, fix, rows, ds):
+    """27. Training at max_bin 1023 on the bench rows, binned once: f32,
+    quantized and bf16, unfused (the uint16 histogram per root and per
+    smaller sibling, no wave kernel); two f32 runs give equal model text,
+    and so do runs with ``histogram_flat`` swapped for its twin (f32 and
+    quantized); the f32 model served through ``Predictor`` (int16 pack)
+    equals the numpy walk bit for bit.  The holdout AUC stands beside the
+    255-bin run's at the same iteration count (no genuine-LightGBM number
+    exists at 1,023 bins: no gate).  Returns the launches of each uint16
+    mode on its training path."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import histogram_flat as HF
+    from lightgbm_tpu_torch.ops import traverse
+    ds_w, binning_s = bench_dataset(fix, rows, WIDE_MAX_BIN)
+    binned = ds_w.construct().binned
+    nt, f = fix["data"]["n_train"], fix["data"]["n_features"]
+    emit({"phase": "binning", "max_bin": WIDE_MAX_BIN, "rows": nt,
+          "max_num_bins": int(binned.max_num_bins),
+          "bins_dtype": str(binned.bins.dtype), "seconds": binning_s})
+    require(binned.bins.dtype == np.uint16, "max_bin 1023 did not bin to "
+            "uint16")
+    wide = {"max_bin": WIDE_MAX_BIN}
+    launches = {}
+    runs = {}
+    for name, extra, mode in (
+            ("f32", {}, "f32_uint16"),
+            ("quantized", {"use_quantized_grad": True}, "int8_uint16"),
+            ("bf16", {"tpu_histogram_impl": "flat_bf16"}, "bf16_uint16")):
+        bst, params, rec = train_phase(
+            dev, fix, rows, f"train_max_bin_{WIDE_MAX_BIN}_{name}",
+            dict(wide, **extra), ds_w, mode, None, iters=WIDE_ITERS[name])
+        dbins = bst._gbdt.bins_dev
+        require(tuple(dbins.shape) == (nt, f)
+                and dbins.dtype == torch.uint16,
+                f"device bins {tuple(dbins.shape)} {dbins.dtype}")
+        launches[mode] = rec["histogram_launches"]
+        runs[name] = (bst, params, rec)
+    _b, _p, rec255 = train_phase(dev, fix, rows, "train_max_bin_255_f32",
+                                 {}, ds, "f32", "f32",
+                                 iters=WIDE_ITERS["f32"])
+    emit({"phase": "auc_by_max_bin", "iterations": WIDE_ITERS["f32"],
+          f"holdout_auc_max_bin_{WIDE_MAX_BIN}": runs["f32"][2][
+              "holdout_auc"],
+          "holdout_auc_max_bin_255": rec255["holdout_auc"],
+          "s_per_iteration_max_bin_255": rec255["s_per_iteration"]})
+    del _b
+
+    # two runs repeat; the twin gives the kernel's model text
+    reps = WIDE_ITERS["repeat"]
+    texts = {}
+    for name in ("f32", "quantized"):
+        prm = runs[name][1]
+        t0 = time.perf_counter()
+        texts[name] = lgt.train(prm, ds_w, reps, device=dev).model_to_string()
+        if name == "f32":
+            again = lgt.train(prm, ds_w, reps, device=dev).model_to_string()
+            require(again == texts[name], f"two {reps}-iteration max_bin "
+                    f"{WIDE_MAX_BIN} runs gave different model text")
+        kernel_s = time.perf_counter() - t0
+        saved = HF.histogram_flat
+        HF.histogram_flat = hist_twin
+        try:
+            t0 = time.perf_counter()
+            twin = lgt.train(prm, ds_w, reps, device=dev).model_to_string()
+            twin_s = time.perf_counter() - t0
+        finally:
+            HF.histogram_flat = saved
+        require(twin == texts[name], f"max_bin {WIDE_MAX_BIN} {name}: the "
+                "twin's model text != the kernel's")
+        emit({"phase": "determinism", "training": f"max_bin_{WIDE_MAX_BIN}_"
+              f"{name}", "iterations": reps, "repeat_equal": name == "f32",
+              "twin_equal": True, "model_bytes": len(texts[name]),
+              "kernel_seconds": kernel_s, "twin_seconds": twin_s})
+
+    # serving the f32 model through the int16 pack
+    bst = runs["f32"][0]
+    rng = np.random.RandomState(7)
+    Xv = rows[0][nt:]
+    rows_s = Xv[rng.randint(0, Xv.shape[0], 4096)].astype(np.float64)
+    pred = bst.serving_predictor(quantize="int16", raw_score=True)
+    pack = pred.plan._packs[0]
+    traverse.launches = 0
+    served = pred.predict(rows_s)
+    torch.cuda.synchronize()
+    require(traverse.launches == 1, f"{traverse.launches} traversal "
+            "launches for 1 request")
+    acc, _ = walk_pack_numpy(pack, binned.apply(rows_s), binned.nan_bins)
+    want = (acc.astype(np.int32).astype(np.float32)
+            * np.float32(pack["scale"])).astype(np.float64) + \
+        bst._gbdt.init_scores[0]
+    require(np.array_equal(served, want), "served max_bin "
+            f"{WIDE_MAX_BIN} raw scores != the numpy walk")
+    emit({"phase": "serve_max_bin_1023", "rows": rows_s.shape[0],
+          "launches": 1, "raw_bitwise": True,
+          "split_bin_max": int(pack["split_bin"].max())})
+    return launches
+
+
+def uint16_timing(gen, dev, smi):
+    """28. The uint16 modes at B = 1,023 and N = 200,000 and 10,500,000:
+    kernel (CUDA events), ``index_add_`` (f32; over the bf16-rounded
+    values for bf16; int32 for int8) and the bounds (2 bin bytes a
+    feature); at 200,000 rows also the plain version and the device ms
+    of the kernel's launches by name (at 10.5M rows the profiler recorded
+    none of them)."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram_flat as HF
+    from lightgbm_tpu_torch.ops.histogram import histogram_segment
+    b, f = WIDE_MAX_BIN, 28
+    timing = {}
+    for mode in U16_MODES:
+        val_bytes = {"bf16": 6, "int8": 3}.get(mode.split("_")[0], 12)
+        for n in HIST_TIMING_ROWS:
+            bins = device_bins(gen, n, f, b, dev)
+            vals = mode_vals(gen, n, mode, dev, exact=False)
+            small = n <= 200_000
+            iters = 20 if small else 5
+            fn = lambda: HF.histogram_flat(bins, vals, num_bins=b)
+            entry = {"kernel_ms": cuda_time_ms(fn, iters=iters)}
+            flat = (bins.long() + torch.arange(f, device=dev)[None, :]
+                    * b).reshape(-1)
+            int8 = vals.dtype == torch.int8
+            src = (vals.int() if int8 else vals.float())[:, None, :].expand(
+                n, f, 3).reshape(-1, 3)
+            acc = torch.zeros(f * b, 3, device=dev,
+                              dtype=torch.int32 if int8 else torch.float32)
+            entry["library_ms"] = cuda_time_ms(
+                lambda: acc.index_add_(0, flat, src), iters=iters)
+            del flat, src
+            if small:
+                entry["plain_ms"] = cuda_time_ms(
+                    lambda: histogram_segment(bins, vals, num_bins=b),
+                    iters=20)
+                entry["stage_ms"] = kernel_stage_ms(fn, iters=iters)
+            entry["bytes_ms"], entry["ops_ms"] = hist_bound_ms(
+                n, f, b, val_bytes=val_bytes, bin_bytes=2 * f)
+            timing[f"histogram_{mode}/{n}"] = entry
+            del bins, vals
+        torch.cuda.empty_cache()
+    emit({"phase": "training_timing_uint16", "nvidia_smi": smi, "bins": b,
           "shapes": timing})
     return timing
 

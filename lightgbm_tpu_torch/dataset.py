@@ -5,8 +5,9 @@ The port of the JAX package's ``dataset.py::TrainData``: ``build`` checks
 the label and weights, bins the matrix on the host with the port's
 ``bin_dataset`` (the JAX package's mappers byte for byte), and
 ``bins_device`` / ``feature_meta_device`` put the bins and the
-per-feature metadata on a device.  The bins are the (N, F) uint8 matrix,
-or with ``packed4`` (every feature at <= 16 bins) its (N, ceil(F/2))
+per-feature metadata on a device.  The bins are the (N, F) uint8 matrix
+(uint16 above 256 bins, as the JAX package stores them), or with
+``packed4`` (every feature at <= 16 bins) its (N, ceil(F/2))
 4-bit nibble pairs (``ops/histogram.py::pack_bins4``, packed on the
 host).  One layout is resident per device: asking for the packed one
 drops the unpacked copy, so the halving is real on the card (the JAX
@@ -92,9 +93,9 @@ class TrainData:
 
     def bins_device(self, device: torch.device,
                     packed4: bool = False) -> torch.Tensor:
-        """The (N, F) uint8 bins on ``device``, or with ``packed4`` their
-        (N, ceil(F/2)) nibble pairs; uploaded once, and the other layout's
-        copy on ``device`` is dropped."""
+        """The (N, F) uint8 (uint16 above 256 bins) bins on ``device``, or
+        with ``packed4`` their (N, ceil(F/2)) nibble pairs; uploaded once,
+        and the other layout's copy on ``device`` is dropped."""
         d = self._on(device)
         key, other = ("bins4", "bins") if packed4 else ("bins", "bins4")
         if key not in d:

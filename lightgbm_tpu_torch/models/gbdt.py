@@ -104,8 +104,6 @@ def check_supported(cfg: Config, train: Optional[TrainData] = None) -> None:
     if train is None:
         return
     b = train.binned
-    if b.max_num_bins > 256:
-        raise _todo("more than 256 bins per feature (uint16 bins)", "B1")
     sorted_cat = b.is_categorical & (b.num_bins_per_feature
                                      > cfg.max_cat_to_onehot)
     if sorted_cat.any():

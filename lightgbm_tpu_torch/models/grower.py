@@ -12,10 +12,15 @@
 - **Mask layout** (up to ``_MIN_BUCKET`` rows): a ``row_leaf`` vector;
   one full-row masked histogram per split.
 
-Bins are the (N, F) uint8 matrix or, with ``packed4`` (every feature at
-<= 16 bins), its (N, ceil(F/2)) 4-bit nibble pairs: the partition reads
-the split feature's nibble, the kernels and the histogram impls unpack
-themselves, and the mask layout unpacks once (small data, small cost).
+Bins are the (N, F) uint8 matrix, the (N, F) uint16 one above 256 bins
+(read through ``ops/histogram.py::read_bins``: torch has no uint16
+compares, nor uint16 indexing on CUDA), or, with
+``packed4`` (every feature at <= 16 bins), its (N, ceil(F/2)) 4-bit
+nibble pairs: the partition reads the split feature's nibble, the
+kernels and the histogram impls unpack themselves, and the mask layout
+unpacks once (small data, small cost).  Above 256 bins every wave is
+unfused (``wave_fused_for``): one histogram kernel launch per smaller
+sibling.
 Under ``histogram_impl="flat_bf16"`` (f32 training) the channel values
 are rounded to bf16 once per tree, so every histogram and wave runs the
 kernels' bf16 mode on them without a cast of its own.
@@ -52,8 +57,10 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..ops.histogram import histogram_from_vals, resolve_impl, unpack_bins4
-from ..ops.quantize import discretize_gradients, gradient_scales
+from ..ops.histogram import (histogram_from_vals, read_bins, resolve_impl,
+                             unpack_bins4)
+from ..ops.histogram_flat import MAX_BINS
+from ..ops.quantize import discretize_gradients, gradient_scales, max_level
 from ..ops.split import (BestSplit, SplitConfig, best_split, best_split_batch,
                          first_argmax, leaf_output, smoothed_output)
 from ..ops.wave import (fused_wave_call, payload_to_best, scale_hist,
@@ -118,11 +125,21 @@ def wave_fused_for(cfg: GrowerConfig, device: torch.device) -> bool:
     """Does wave growth go through the fused wave kernel?  ``fused``
     forces it (its plain version on the CPU); ``auto`` takes it where the
     histogram kernel is the live impl — on a CUDA device, as the JAX
-    package takes it on a TPU."""
+    package takes it on a TPU.  Above 256 bins the wave kernel is not
+    ported (ROADMAP B2e): ``auto`` keeps the unfused wave on every device
+    and ``fused`` raises, where the JAX package fuses whenever its
+    ``wave_layout`` fits."""
     if cfg.wave_kernel not in ("auto", "fused", "unfused"):
         raise ValueError(f"wave_kernel={cfg.wave_kernel!r}: expected auto, "
                          "fused or unfused")
     if cfg.wave_kernel == "unfused":
+        return False
+    if cfg.num_bins > MAX_BINS:
+        if cfg.wave_kernel == "fused":
+            raise NotImplementedError(
+                f"wave_kernel=fused over {cfg.num_bins} bins is not ported "
+                "to lightgbm_tpu_torch yet (ROADMAP B2e): at most "
+                f"{MAX_BINS} bins")
         return False
     if cfg.wave_kernel == "fused":
         return True
@@ -206,9 +223,9 @@ class Grower:
     ``row_leaf`` stays on the rows' device."""
 
     def __init__(self, cfg: GrowerConfig):
-        if cfg.num_bins > 256:
-            raise ValueError("the port's bins are uint8: num_bins <= 256")
         self.cfg = cfg
+        # the largest int8 level a quantized row holds (int32 bound)
+        self.max_level = max_level(cfg.num_grad_quant_bins)
 
     def __call__(self, bins, grad, hess, sample_mask, feature_mask,
                  num_bins_per_feature, nan_bins, is_categorical,
@@ -275,7 +292,8 @@ class Grower:
         return histogram_from_vals(bins, vals, num_bins=self.cfg.num_bins,
                                    impl=self.cfg.histogram_impl,
                                    rows_block=self.cfg.rows_block,
-                                   packed4=self.packed4, features=self.nf)
+                                   packed4=self.packed4, features=self.nf,
+                                   max_level=self.max_level)
 
     def _best(self, hist, pg, ph, pc, pout) -> BestSplit:
         nbpf, nanb, iscat, fmask = self.meta_dev
@@ -345,7 +363,7 @@ class Grower:
             byte = self.bins[rows.long(), feat // 2].long()
             col = (byte >> ((feat % 2) * 4)) & 15
         else:
-            col = self.bins[rows.long(), feat].long()
+            col = read_bins(self.bins, rows.long(), feat)
         go_left = col <= si[:, 4]
         is_cat = si[:, 7] > 0
         go_left = torch.where((col == si[:, 5]) & ~is_cat, si[:, 6] > 0,
@@ -374,7 +392,8 @@ class Grower:
         dev = self.dev
         meta_w = wave_meta(*self.meta_dev)
         wave = (functools.partial(fused_wave_call, scale3=self.scale3,
-                                  packed4=self.packed4)
+                                  packed4=self.packed4,
+                                  max_level=self.max_level)
                 if wave_fused_for(cfg, dev)
                 else functools.partial(wave_plain, histogram=self._hist,
                                        scale3=self.scale3))

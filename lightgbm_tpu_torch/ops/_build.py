@@ -95,29 +95,32 @@ def _compile(srcs, out_dir: str, lib_path: str) -> str:
     return "".join(report)
 
 
-def _bind(lib: ctypes.CDLL) -> None:
-    p, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+_P, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                         ctypes.c_float)
-    fn = lib.lgbt_traverse_sums
-    fn.restype = i32
-    fn.argtypes = [p, p, p, p, p, p, p, p, p, p, i32, p,
-                   i64, i32, i32, i32, i32, i32, i32, i32, i32, p]
-    fn = lib.lgbt_histogram
-    fn.restype = i32
-    fn.argtypes = [p, p, i64, i32, i32, i32, i32, i32, i32, p, p, p]
-    fn = lib.lgbt_histogram_i8
-    fn.restype = i32
-    fn.argtypes = [p, p, i64, i32, i32, i32, i32, i32, p, p]
-    fn = lib.lgbt_wave
-    fn.restype = i32
-    fn.argtypes = [p, p, p, i32, i32, p, i32, i32, i32, p, p, p,
-                   f32, f32, f32, f32, f32, f32, f32, i32, i32, i32,
-                   i32, i32, p, p, p, p]
-    fn = lib.lgbt_wave_i8
-    fn.restype = i32
-    fn.argtypes = [p, p, p, i32, i32, p, i32, i32, i32, p, p, p, p,
-                   f32, f32, f32, f32, f32, f32, f32, i32, i32, i32,
-                   i32, p, p, p, p]
+#: every C entry point's argument types (all return an int CUDA error)
+SIGNATURES = {
+    "lgbt_traverse_sums": [_P] * 10 + [_I32, _P, _I64] + [_I32] * 8 + [_P],
+    "lgbt_histogram": [_P, _P, _I64] + [_I32] * 6 + [_P] * 3,
+    "lgbt_histogram_i8": [_P, _P, _I64] + [_I32] * 5 + [_P] * 2,
+    "lgbt_histogram_u16": [_P, _P, _I64] + [_I32] * 5 + [_P] * 3,
+    "lgbt_histogram_i8_u16": [_P, _P, _I64] + [_I32] * 4 + [_P] * 2,
+    "lgbt_wave": ([_P] * 3 + [_I32] * 2 + [_P] + [_I32] * 3 + [_P] * 3
+                  + [_F32] * 7 + [_I32] * 5 + [_P] * 4),
+    "lgbt_wave_i8": ([_P] * 3 + [_I32] * 2 + [_P] + [_I32] * 3 + [_P] * 4
+                     + [_F32] * 7 + [_I32] * 4 + [_P] * 4),
+}
+
+
+def _bind(lib: ctypes.CDLL, only_present: bool = False) -> None:
+    """Set each entry point's ctypes signature; with ``only_present``
+    (another commit's build, tools/torch_kernel_ab.py) skip those the
+    library lacks."""
+    for name, argtypes in SIGNATURES.items():
+        if only_present and not hasattr(lib, name):
+            continue
+        fn = getattr(lib, name)
+        fn.restype = _I32
+        fn.argtypes = argtypes
 
 
 def load_library() -> ctypes.CDLL:

@@ -49,6 +49,19 @@
 // a block-private int32 histogram in shared memory with atomicAdd and
 // flushes it with one global atomicAdd per nonzero cell.
 //
+// uint16 bins (kBin = uint16_t; more than 256 bins, up to 65,536): the
+// same accumulation over 2-byte bin ids.  One feature's f32 chunk
+// histogram is B * 12 bytes (12 KB at B = 1,023, so acc_shape puts 8
+// features in a block); past B = 8,192 it no longer fits the budget, and
+// the bin axis is cut into equal tiles over grid.z (bin_tile): a lane
+// whose bin lies outside its block's tile adds nothing there, and every
+// cell is still summed in row order by one lane.  Lanes are grouped by
+// the ceil(log2 T) bits of their bin's offset in the tile of T bins
+// (same_tile_lanes: 10 ballots at B = 1,023, 13 at a tile of 8,192).
+// The int8 kernel tiles its int32 histogram the same way.  The uint8
+// instantiations take none of these branches (if constexpr): their code
+// is the uint8 kernels'.
+//
 // bf16 values (kVal = __nv_bfloat16) and 4-bit bins (kPacked) are
 // template parameters.  A bf16 value is widened to f32 as the lane reads
 // it (exact) and summed by the f32 adds, so a bf16 launch gives the bits
@@ -68,8 +81,9 @@ namespace lgbt {
 // into one library.
 namespace {
 
-// Bins per feature at most (uint8 bin ids).
+// Bins per feature at most: uint8 bin ids, uint16 bin ids.
 constexpr int kMaxBins = 256;
+constexpr int kMaxBinsWide = 65536;
 // Rows per staged tile, and warps per block at most.
 constexpr int kTileRows = 256;
 constexpr int kMaxWarps = 16;
@@ -100,20 +114,21 @@ __device__ __forceinline__ int segment_of(const int32_t* seg, int w_count,
 
 // Bin id of local feature j of a row whose feature group starts at `row`
 // (at feature f0 of the unpacked row, at byte f0 / 2 of a packed one; f0
-// is even).
-template <bool kPacked>
+// is even).  kBin is the stored id's type, uint8_t or uint16_t (never
+// packed); `row` is 2-byte aligned for uint16_t.
+template <bool kPacked, typename kBin = uint8_t>
 __device__ __forceinline__ int bin_at(const uint8_t* row, int j) {
   if (kPacked) return (row[j >> 1] >> ((j & 1) << 2)) & 15;
-  return row[j];
+  return reinterpret_cast<const kBin*>(row)[j];
 }
 
-// Bytes per row of the bin matrix and the start of feature f0's group.
-template <bool kPacked>
+// The start of feature f0's group in row `row` of the bin matrix.
+template <bool kPacked, typename kBin = uint8_t>
 __device__ __forceinline__ const uint8_t* group_row(const uint8_t* bins,
                                                     int64_t row, int f,
                                                     int f0) {
   if (kPacked) return bins + row * ((f + 1) >> 1) + (f0 >> 1);
-  return bins + row * f + f0;
+  return bins + (row * f + f0) * (int64_t)sizeof(kBin);
 }
 
 // Bytes that hold `nf` features (a group starting on an even feature).
@@ -126,6 +141,14 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+// Bins per tile of one feature's chunk histogram (12 bytes a bin: three
+// f32 or int32 sums) within `budget`: every bin (always for uint8 bins,
+// up to B = 8,192 at 96 KB), else the fewest equal tiles that fit.
+__host__ __device__ inline int bin_tile(int nbins, int budget) {
+  const int tiles = (nbins * 12 + budget - 1) / budget;
+  return (nbins + tiles - 1) / tiles;
+}
+
 // Warps for `nf` features, a warp owning each: at most kMaxWarps, each
 // with the same number of features (the last ones with one fewer).
 __host__ __device__ inline int warps_for(int nf) {
@@ -133,23 +156,27 @@ __host__ __device__ inline int warps_for(int nf) {
   return (nf + per - 1) / per;
 }
 
-// f32 / bf16 mode: features per block (every feature when its chunk
+// f32 / bf16 mode: bins per tile and tiles (uint16 bins past 8,192: the
+// grid's z), features per block (every feature when its chunk
 // histograms fit kHistSmemBudget and it has at most kMaxFeatPerBlock, or
 // kMaxFeatPerGather under `perm`; otherwise the most that do, even under
 // packed bins), warps per block
 // (each warp owns the same number of features, at most kMaxWarps warps)
 // and the dynamic shared memory: the histograms, then two stages of
 // kTileRows rows (bin bytes, then values, each with 32 bytes of slack for
-// the 16-byte alignment of cp.async).
+// the 16-byte alignment of cp.async).  `bin_bytes` is 1 or 2 (uint16).
 struct AccShape {
-  int fpb, groups, warps, row_stride, bin_stage, stage, smem;
+  int tile, tiles, fpb, groups, warps, row_stride, bin_stage, stage, smem;
 };
 
 __host__ __device__ inline AccShape acc_shape(int f, int nbins, bool packed,
-                                              int val_bytes, bool perm) {
+                                              int val_bytes, bool perm,
+                                              int bin_bytes = 1) {
   AccShape a;
+  a.tile = bin_bytes == 1 ? nbins : bin_tile(nbins, kHistSmemBudget);
+  a.tiles = (nbins + a.tile - 1) / a.tile;
   const int most = perm ? kMaxFeatPerGather : kMaxFeatPerBlock;
-  int fit = kHistSmemBudget / (nbins * 3 * (int)sizeof(float));
+  int fit = kHistSmemBudget / (a.tile * 3 * (int)sizeof(float));
   fit = fit < most ? fit : most;
   if (fit >= f) a.fpb = f;
   else if (packed) a.fpb = fit < 2 ? 2 : (fit & ~1);
@@ -158,11 +185,11 @@ __host__ __device__ inline AccShape acc_shape(int f, int nbins, bool packed,
   a.warps = warps_for(a.fpb);
   // one group stages whole rows (contiguous in storage order); several
   // stage their own bytes of each row
-  a.row_stride = a.groups == 1 ? feat_bytes(f, packed)
-                               : feat_bytes(a.fpb, packed);
+  a.row_stride = (a.groups == 1 ? feat_bytes(f, packed)
+                                : feat_bytes(a.fpb, packed)) * bin_bytes;
   a.bin_stage = align16(kTileRows * a.row_stride + 32);
   a.stage = a.bin_stage + align16(kTileRows * val_bytes + 32);
-  a.smem = align16(a.fpb * nbins * 3 * (int)sizeof(float)) + 2 * a.stage;
+  a.smem = align16(a.fpb * a.tile * 3 * (int)sizeof(float)) + 2 * a.stage;
   return a;
 }
 
@@ -207,18 +234,32 @@ __device__ __forceinline__ unsigned same_bin_lanes(unsigned act, int b) {
   return m;
 }
 
+// uint16 bins: the lanes of `act` in this lane's bin tile (`mine`) whose
+// offset `b` in the tile (< 2^bits) equals this lane's: a ballot for the
+// tile, then one per bit.  `bits` is the same in every lane.
+__device__ __forceinline__ unsigned same_tile_lanes(unsigned act, bool mine,
+                                                    int b, int bits) {
+  unsigned m = __ballot_sync(act, mine);
+  for (int i = 0; i < bits; ++i) {
+    const unsigned set = __ballot_sync(act, (b >> i) & 1);
+    m &= ((b >> i) & 1) ? set : ~set;
+  }
+  return m;
+}
+
 // Segment table of a multi-segment launch (device int32, 3W + 1 entries):
 //   seg[w]          first perm position of segment w
 //   seg[W + w]      its row count
 //   seg[2W + w]     its first chunk; seg[3W] is the total chunk count.
 // With seg == nullptr there is one segment: rows [0, single_cnt) in
 // storage order (no perm).  `f` is the real feature count; kVal is float
-// or __nv_bfloat16.  Grid (chunks, feature groups), acc_shape's warps
-// and shared memory; `partial` is (chunks, f, nbins, 3) f32.  A bin id
-// >= nbins is dropped.  Packed bins keep three blocks on an SM (at most
-// 42 registers a thread; an H100 timed it 8-20% faster there, and the
-// byte-bin kernels slower under the same cap).
-template <bool kPerm, bool kPacked, typename kVal>
+// or __nv_bfloat16; kBin uint8_t or uint16_t.  Grid (chunks, feature
+// groups, bin tiles), acc_shape's warps and shared memory; `partial` is
+// (chunks, f, nbins, 3) f32.  A bin id >= nbins is dropped.  Packed bins
+// keep three blocks on an SM (at most 42 registers a thread; an H100
+// timed it 8-20% faster there, and the byte-bin kernels slower under the
+// same cap).
+template <bool kPerm, bool kPacked, typename kVal, typename kBin = uint8_t>
 __global__ void __launch_bounds__(kMaxWarps * 32, kPacked ? 3 : 1)
 hist_accumulate_kernel(const uint8_t* __restrict__ bins, int f,
                        const kVal* __restrict__ vals,
@@ -228,7 +269,9 @@ hist_accumulate_kernel(const uint8_t* __restrict__ bins, int f,
                        float* __restrict__ partial) {
   extern __shared__ __align__(16) unsigned char s_acc[];
   constexpr int kValBytes = 3 * (int)sizeof(kVal);
-  const AccShape a = acc_shape(f, nbins, kPacked, kValBytes, kPerm);
+  constexpr bool kWide = sizeof(kBin) == 2;
+  const AccShape a = acc_shape(f, nbins, kPacked, kValBytes, kPerm,
+                               (int)sizeof(kBin));
   const int chunk = blockIdx.x;
   int64_t start = 0;
   int64_t cnt = single_cnt;
@@ -243,17 +286,22 @@ hist_accumulate_kernel(const uint8_t* __restrict__ bins, int f,
   const int64_t r1 = min(cnt, r0 + (int64_t)chunk_rows);
   const int f0 = blockIdx.y * a.fpb;
   const int nf = min(a.fpb, f - f0);
-  const int row_bytes = feat_bytes(f, kPacked);
-  const int group_bytes = feat_bytes(nf, kPacked);
-  const int fb0 = kPacked ? f0 >> 1 : f0;
+  // this block's bins [bin0, bin0 + tlen) (every bin for uint8 bins), and
+  // the ballots that group lanes on one of them
+  const int bin0 = kWide ? (int)blockIdx.z * a.tile : 0;
+  const int tlen = kWide ? min(a.tile, nbins - bin0) : nbins;
+  const int bits = 32 - __clz(tlen - 1);
+  const int row_bytes = feat_bytes(f, kPacked) * (int)sizeof(kBin);
+  const int group_bytes = feat_bytes(nf, kPacked) * (int)sizeof(kBin);
+  const int fb0 = (kPacked ? f0 >> 1 : f0) * (int)sizeof(kBin);
   const bool contiguous = !kPerm && a.groups == 1;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   float* hist = reinterpret_cast<float*>(s_acc);
   unsigned char* stages =
-      s_acc + align16(a.fpb * nbins * 3 * (int)sizeof(float));
-  const int cells = nf * nbins * 3;
+      s_acc + align16(a.fpb * a.tile * 3 * (int)sizeof(float));
+  const int cells = nf * tlen * 3;
   for (int i = threadIdx.x; i < cells; i += blockDim.x) hist[i] = 0.f;
 
   // Stage tile k into buffer k & 1 and commit it as one cp.async group
@@ -316,19 +364,30 @@ hist_accumulate_kernel(const uint8_t* __restrict__ bins, int f,
       const unsigned act =
           rows - s0 >= 32 ? kFullMask : (1u << (rows - s0)) - 1u;
       const uint8_t* rb = tb + (s0 + lane) * a.row_stride;
+      // the group's lowest lane adds its own value and each peer's, in
+      // lane (= row) order
+      auto add_group = [&](float* cell, unsigned grp) {
+        float g = cell[0], h = cell[1], c = cell[2];
+        for (unsigned m = grp; m != 0; m &= m - 1) {
+          const kVal* v = tv + (s0 + __ffs(m) - 1) * 3;
+          g += to_f32(v[0]);
+          h += to_f32(v[1]);
+          c += to_f32(v[2]);
+        }
+        cell[0] = g; cell[1] = h; cell[2] = c;
+      };
       for (int j = warp; j < nf; j += nwarps) {
-        const int b = bin_at<kPacked>(rb, j);
-        const unsigned grp = same_bin_lanes<kPacked ? 4 : 8>(act, b);
-        if (b < nbins && lane == __ffs(grp) - 1) {
-          float* cell = hist + (j * nbins + b) * 3;
-          float g = cell[0], h = cell[1], c = cell[2];
-          for (unsigned m = grp; m != 0; m &= m - 1) {
-            const kVal* v = tv + (s0 + __ffs(m) - 1) * 3;
-            g += to_f32(v[0]);
-            h += to_f32(v[1]);
-            c += to_f32(v[2]);
-          }
-          cell[0] = g; cell[1] = h; cell[2] = c;
+        const int b = bin_at<kPacked, kBin>(rb, j);
+        if constexpr (kWide) {
+          const int lb = b - bin0;
+          const bool mine = (unsigned)lb < (unsigned)tlen;
+          const unsigned grp = same_tile_lanes(act, mine, lb, bits);
+          if (mine && lane == __ffs(grp) - 1)
+            add_group(hist + (j * tlen + lb) * 3, grp);
+        } else {
+          const unsigned grp = same_bin_lanes<kPacked ? 4 : 8>(act, b);
+          if (b < nbins && lane == __ffs(grp) - 1)
+            add_group(hist + (j * nbins + b) * 3, grp);
         }
         __syncwarp(act);                   // the cell, for the next step
       }
@@ -336,7 +395,15 @@ hist_accumulate_kernel(const uint8_t* __restrict__ bins, int f,
     __syncthreads();                       // buffer k & 1 is free again
   }
   float* dst = partial + ((int64_t)chunk * f + f0) * nbins * 3;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) dst[i] = hist[i];
+  if constexpr (kWide) {                   // each feature's tile in place
+    const int span = tlen * 3;
+    for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+      const int j = i / span;
+      dst[(int64_t)j * nbins * 3 + bin0 * 3 + (i - j * span)] = hist[i];
+    }
+  } else {
+    for (int i = threadIdx.x; i < cells; i += blockDim.x) dst[i] = hist[i];
+  }
 }
 
 // Raises the dynamic shared-memory limit of `kernel` to `smem` where it
@@ -348,43 +415,54 @@ inline int smem_opt_in(Kernel kernel, int smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-// Launches the f32 / bf16 accumulation of `packed` or unpacked bins:
-// grid (nchunks, feature groups).  Returns the first CUDA error.
-template <bool kPerm>
+// Launches the f32 / bf16 accumulation of `packed` or unpacked bins of
+// type kBin (uint16_t: never packed): grid (nchunks, feature groups, bin
+// tiles).  Returns the first CUDA error.
+template <bool kPerm, typename kBin = uint8_t>
 inline int launch_accumulate(const void* bins, int f, const void* vals,
                              bool packed, bool bf16, const int32_t* perm,
                              const int32_t* seg, int w_count,
                              int64_t single_cnt, int chunk_rows, int nbins,
                              int nchunks, float* partial, cudaStream_t s) {
-  const AccShape a = acc_shape(f, nbins, packed, bf16 ? 6 : 12, kPerm);
-  const dim3 grid((unsigned)nchunks, (unsigned)a.groups);
+  const AccShape a = acc_shape(f, nbins, packed, bf16 ? 6 : 12, kPerm,
+                               (int)sizeof(kBin));
+  const dim3 grid((unsigned)nchunks, (unsigned)a.groups, (unsigned)a.tiles);
   const uint8_t* b = (const uint8_t*)bins;
   int err = 0;
 #define LGBT_ACC(P, V)                                                    \
   do {                                                                    \
-    err = smem_opt_in(hist_accumulate_kernel<kPerm, P, V>, a.smem);       \
+    err = smem_opt_in(hist_accumulate_kernel<kPerm, P, V, kBin>, a.smem); \
     if (err != 0) return err;                                             \
-    hist_accumulate_kernel<kPerm, P, V><<<grid, 32 * a.warps, a.smem, s>>>( \
-        b, f, (const V*)vals, perm, seg, w_count, single_cnt, chunk_rows, \
-        nbins, partial);                                                  \
+    hist_accumulate_kernel<kPerm, P, V, kBin>                             \
+        <<<grid, 32 * a.warps, a.smem, s>>>(b, f, (const V*)vals, perm,   \
+                                            seg, w_count, single_cnt,     \
+                                            chunk_rows, nbins, partial);  \
   } while (0)
-  if (packed && bf16) LGBT_ACC(true, __nv_bfloat16);
-  else if (packed) LGBT_ACC(true, float);
-  else if (bf16) LGBT_ACC(false, __nv_bfloat16);
-  else LGBT_ACC(false, float);
+  if constexpr (sizeof(kBin) == 2) {
+    if (bf16) LGBT_ACC(false, __nv_bfloat16);
+    else LGBT_ACC(false, float);
+  } else {
+    if (packed && bf16) LGBT_ACC(true, __nv_bfloat16);
+    else if (packed) LGBT_ACC(true, float);
+    else if (bf16) LGBT_ACC(false, __nv_bfloat16);
+    else LGBT_ACC(false, float);
+  }
 #undef LGBT_ACC
   return (int)cudaGetLastError();
 }
 
-// int8 mode, threads per block.
+// int8 mode, threads per block, and the shared memory its int32
+// histogram may take (above 48 KB a block must opt in: smem_opt_in).
 constexpr int kI8Threads = 512;
+constexpr int kI8SmemBudget = 96 * 1024;
 
 // int8 mode accumulation.  Grid (chunks, feature groups of
-// `feat_per_block`, even under kPacked); dynamic shared memory of
-// feat_per_block * nbins * 3 int32.  `vals` is (N, 3) int8; `out` is
+// `feat_per_block`, even under kPacked; bin tiles of bin_tile(nbins,
+// kI8SmemBudget) bins for uint16 kBin); dynamic shared memory of
+// feat_per_block * tile * 3 int32.  `vals` is (N, 3) int8; `out` is
 // (segments, f, nbins, 3) int32, zeroed by the caller.  A bin >= nbins
 // is dropped.
-template <bool kPerm, bool kPacked>
+template <bool kPerm, bool kPacked, typename kBin = uint8_t>
 __global__ void __launch_bounds__(kI8Threads)
 hist_accumulate_i8_kernel(const uint8_t* __restrict__ bins, int f,
                           const int8_t* __restrict__ vals,
@@ -406,9 +484,14 @@ hist_accumulate_i8_kernel(const uint8_t* __restrict__ bins, int f,
   }
   const int64_t r0 = (int64_t)local * chunk_rows;
   const int64_t r1 = min(cnt, r0 + (int64_t)chunk_rows);
+  constexpr bool kWide = sizeof(kBin) == 2;
   const int f0 = blockIdx.y * feat_per_block;
   const int nf = min(feat_per_block, f - f0);
-  const int cells = nf * nbins * 3;
+  // this block's bins [bin0, bin0 + tlen): every bin for uint8 bins
+  const int tile = kWide ? bin_tile(nbins, kI8SmemBudget) : nbins;
+  const int bin0 = kWide ? (int)blockIdx.z * tile : 0;
+  const int tlen = min(tile, nbins - bin0);
+  const int cells = nf * tlen * 3;
   for (int i = threadIdx.x; i < cells; i += blockDim.x) s_hist[i] = 0;
   __syncthreads();
   for (int64_t i = r0 + threadIdx.x; i < r1; i += blockDim.x) {
@@ -417,54 +500,72 @@ hist_accumulate_i8_kernel(const uint8_t* __restrict__ bins, int f,
     const int8_t* v = vals + row * 3;
     const int g = v[0], h = v[1], c = v[2];
     if ((g | h | c) == 0) continue;
-    const uint8_t* src = group_row<kPacked>(bins, row, f, f0);
+    const uint8_t* src = group_row<kPacked, kBin>(bins, row, f, f0);
     for (int j = 0; j < nf; ++j) {
-      const int b = bin_at<kPacked>(src, j);
-      if (b >= nbins) continue;
-      int32_t* cell = s_hist + (j * nbins + b) * 3;
+      const int b = bin_at<kPacked, kBin>(src, j) - bin0;
+      if ((unsigned)b >= (unsigned)tlen) continue;
+      int32_t* cell = s_hist + (j * tlen + b) * 3;
       if (g != 0) atomicAdd(cell + 0, g);
       if (h != 0) atomicAdd(cell + 1, h);
       if (c != 0) atomicAdd(cell + 2, c);
     }
   }
   __syncthreads();
-  int32_t* dst = out + ((int64_t)w * f + f0) * nbins * 3;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const int32_t v = s_hist[i];
-    if (v != 0) atomicAdd(dst + i, v);
+  if constexpr (kWide) {                   // each feature's tile in place
+    const int span = tlen * 3;
+    for (int j = 0; j < nf; ++j) {
+      int32_t* dst = out + (((int64_t)w * f + f0 + j) * nbins + bin0) * 3;
+      for (int i = threadIdx.x; i < span; i += blockDim.x) {
+        const int32_t v = s_hist[j * span + i];
+        if (v != 0) atomicAdd(dst + i, v);
+      }
+    }
+  } else {
+    int32_t* dst = out + ((int64_t)w * f + f0) * nbins * 3;
+    for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+      const int32_t v = s_hist[i];
+      if (v != 0) atomicAdd(dst + i, v);
+    }
   }
 }
 
-// int8 mode: features per block whose int32 histogram fits the shared
-// memory budget (above 48 KB a block must opt in: smem_opt_in).
-constexpr int kI8SmemBudget = 96 * 1024;
-
 // Under packed bins a group must start on an even feature (a byte holds
 // features 2j and 2j + 1), so a group that does not cover every feature
-// is rounded down to even.
-inline int i8_feat_per_block(int f, int nbins, bool packed) {
-  const int fit = kI8SmemBudget / (nbins * 3 * (int)sizeof(int32_t));
+// is rounded down to even.  `tile` is the bins of one block's tile.
+inline int i8_feat_per_block(int f, int tile, bool packed) {
+  const int fit = kI8SmemBudget / (tile * 3 * (int)sizeof(int32_t));
   if (fit >= f) return f;
   if (!packed) return fit < 1 ? 1 : fit;
   return fit < 2 ? 2 : (fit & ~1);
 }
 
-// Launches the int8 accumulation of `packed` or unpacked bins into `out`
-// (zeroed by the caller).  Returns the first CUDA error.
-template <bool kPerm>
+// Launches the int8 accumulation of `packed` or unpacked bins of type
+// kBin (uint16_t: never packed) into `out` (zeroed by the caller).
+// Returns the first CUDA error.
+template <bool kPerm, typename kBin = uint8_t>
 inline int launch_accumulate_i8(const void* bins, int f, const void* vals,
                                 bool packed, const int32_t* perm,
                                 const int32_t* seg, int w_count,
                                 int64_t single_cnt, int chunk_rows,
                                 int nbins, int nchunks, int32_t* out,
                                 cudaStream_t s) {
-  const int fpb = i8_feat_per_block(f, nbins, packed);
-  const int smem = fpb * nbins * 3 * (int)sizeof(int32_t);
-  const dim3 grid((unsigned)nchunks, (unsigned)((f + fpb - 1) / fpb));
+  const int tile =
+      sizeof(kBin) == 2 ? bin_tile(nbins, kI8SmemBudget) : nbins;
+  const int fpb = i8_feat_per_block(f, tile, packed);
+  const int smem = fpb * tile * 3 * (int)sizeof(int32_t);
+  const dim3 grid((unsigned)nchunks, (unsigned)((f + fpb - 1) / fpb),
+                  (unsigned)((nbins + tile - 1) / tile));
   const uint8_t* b = (const uint8_t*)bins;
   const int8_t* v = (const int8_t*)vals;
   int err;
-  if (packed) {
+  if constexpr (sizeof(kBin) == 2) {
+    err = smem_opt_in(hist_accumulate_i8_kernel<kPerm, false, kBin>, smem);
+    if (err != 0) return err;
+    hist_accumulate_i8_kernel<kPerm, false, kBin>
+        <<<grid, kI8Threads, smem, s>>>(b, f, v, perm, seg, w_count,
+                                        single_cnt, chunk_rows, nbins, fpb,
+                                        out);
+  } else if (packed) {
     err = smem_opt_in(hist_accumulate_i8_kernel<kPerm, true>, smem);
     if (err != 0) return err;
     hist_accumulate_i8_kernel<kPerm, true><<<grid, kI8Threads, smem, s>>>(

@@ -4,12 +4,13 @@
 // _flat_kernel, contraction pallas_common.py::onehot_contract), every
 // mode:
 //   out[f, b, c] = sum_n vals[n, c] * [bins[n, f] == b]
-// for (N, F) uint8 bins and (N, 3) vals (grad, hess, in-bag count), out
-// (F, B, 3).  On the training path it builds every root histogram (and,
-// unfused, every smaller sibling).  The TPU kernel contracts against an
-// in-VMEM one-hot on the MXU because a TPU has no atomics; its VMEM tile
-// budget and 128-lane bin padding have no counterpart here: the bin axis
-// is the data's own B (<= 256).
+// for (N, F) uint8 or uint16 bins and (N, 3) vals (grad, hess, in-bag
+// count), out (F, B, 3).  On the training path it builds every root
+// histogram (and, unfused, every smaller sibling).  The TPU kernel
+// contracts against an in-VMEM one-hot on the MXU because a TPU has no
+// atomics; its VMEM tile budget and 128-lane bin padding have no
+// counterpart here: the bin axis is the data's own B (<= 256 over uint8
+// bins, <= 65,536 over uint16 bins).
 //
 // f32 mode, (N, 3) f32 values, f32 sums; two launches (hist_common.cuh):
 // the accumulation, a block per (row chunk, feature group) with a warp per
@@ -55,6 +56,19 @@
 // The TPU kernel's nibble-plane layout and the un-permute after it exist
 // for Mosaic's lane rules only: this kernel writes original feature order.
 
+// uint16 bins (max_bin above 255; the TPU kernel takes (N, F) uint16 bins
+// at a 128-multiple padded B): every value type above, through the same
+// accumulation with 2-byte bin ids (hist_common.cuh, kBin = uint16_t).
+// At F = 28 and B = 1,023 a feature's chunk histogram is 12 KB, so a
+// block covers 8 features (4 groups, each staging its own 16 bytes of a
+// row); lanes are grouped with 10 ballots (8 for uint8); past B = 8,192
+// the bin axis is tiled over the grid.  What bounds it is what bounds the
+// uint8 kernel, plus the partials: F * B * 12 bytes a chunk (344 KB at B =
+// 1,023), so the chunking caps them at 256 MB
+// (ops/histogram_flat.py::chunking).  int8 values take the int8 kernel
+// over uint16 ids, its int32 histogram tiled the same way.  The uint8
+// and packed4 entry points below are the uint8 kernels, untouched.
+
 #include "hist_common.cuh"
 
 // Plain C entry point (bound with ctypes).  Launches on `stream`, does not
@@ -98,5 +112,44 @@ extern "C" int lgbt_histogram_i8(const void* bins, const void* vals,
   if (err != 0) return err;
   return lgbt::launch_accumulate_i8<false>(
       bins, f, vals, packed4 != 0, nullptr, nullptr, 1, n, chunk_rows, nbins,
+      nchunks, (int32_t*)out, s);
+}
+
+// uint16 bins, f32 / bf16 values: lgbt_histogram over (N, F) uint16 bins
+// (never packed), up to kMaxBinsWide bins.
+extern "C" int lgbt_histogram_u16(const void* bins, const void* vals,
+                                  int64_t n, int f, int nbins, int chunk_rows,
+                                  int nchunks, int bf16, void* partial,
+                                  void* out, void* stream) {
+  if (nbins < 1 || nbins > lgbt::kMaxBinsWide || f < 1 || nchunks < 1 ||
+      n < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err = lgbt::launch_accumulate<false, uint16_t>(
+      bins, f, vals, false, bf16 != 0, nullptr, nullptr, 1, n, chunk_rows,
+      nbins, nchunks, (float*)partial, s);
+  if (err != 0) return err;
+  const int64_t cells = (int64_t)f * nbins * 3;
+  const dim3 cgrid((unsigned)((cells + 255) / 256), 1);
+  lgbt::hist_combine_kernel<<<cgrid, 256, 0, s>>>(
+      (const float*)partial, nullptr, 1, nchunks, cells, nullptr, nullptr,
+      (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// uint16 bins, int8 values: lgbt_histogram_i8 over (N, F) uint16 bins.
+extern "C" int lgbt_histogram_i8_u16(const void* bins, const void* vals,
+                                     int64_t n, int f, int nbins,
+                                     int chunk_rows, int nchunks, void* out,
+                                     void* stream) {
+  if (nbins < 1 || nbins > lgbt::kMaxBinsWide || f < 1 || nchunks < 1 ||
+      n < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err = (int)cudaMemsetAsync(
+      out, 0, (size_t)f * nbins * 3 * sizeof(int32_t), s);
+  if (err != 0) return err;
+  return lgbt::launch_accumulate_i8<false, uint16_t>(
+      bins, f, vals, false, nullptr, nullptr, 1, n, chunk_rows, nbins,
       nchunks, (int32_t*)out, s);
 }

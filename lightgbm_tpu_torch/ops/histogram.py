@@ -19,6 +19,12 @@ mode under every one of them, as the JAX package routes them); on a CPU
 tensor they run the plain version.  ``segment`` and ``onehot`` are torch
 ops everywhere, as they are XLA ops in the JAX package.
 
+Bins are (N, F) uint8, or uint16 above 256 bins.  Torch has no ordering
+compares on uint16 tensors, and on a CUDA tensor no advanced indexing
+either: every op here widens the ids with ``.long()`` as it reads them,
+and reads rows of uint16 bins through ``read_bins`` (``index_select``
+keeps the uint16 rows themselves).
+
 4-bit bins (``packed4``): when every feature has at most 16 bins, the
 (N, F) matrix is stored as (N, ceil(F/2)) uint8, feature 2j in the low
 nibble of column j and 2j+1 in the high one (``pack_bins4``, the JAX
@@ -53,6 +59,15 @@ def unpack_bins4(packed: torch.Tensor, num_features: int) -> torch.Tensor:
     n, cols = packed.shape
     full = torch.stack([low, high], dim=-1).reshape(n, 2 * cols)
     return full[:, :num_features]
+
+
+def read_bins(bins: torch.Tensor, *index) -> torch.Tensor:
+    """``bins[index]`` as int64 bin ids.  uint16 bins are indexed through
+    their int16 view (torch indexes no uint16 CUDA tensor), whose ids
+    above 32,767 read negative and are masked back to 16 bits."""
+    if bins.dtype == torch.uint16:
+        return bins.view(torch.int16)[index].long() & 0xFFFF
+    return bins[index].long()
 
 
 def pack_values(grad: torch.Tensor, hess: torch.Tensor,
@@ -103,7 +118,12 @@ def segment_histograms_chunked(bins: torch.Tensor, vals: torch.Tensor,
     cell from 0, and the chunk sums in chunk order from 0.  (N, F) bins
     (or ``packed4`` nibble pairs of ``features`` features), (N, 3) f32 or
     bf16 values (widened) -> (W, F, num_bins, 3) f32; a bin id >=
-    num_bins is dropped."""
+    num_bins is dropped.
+
+    Step k adds, to every (chunk, feature, bin) cell at once, the value
+    of the cell's k-th row (its rank among the chunk's rows in that cell,
+    from a stable sort): no cell repeats within a step, and the steps are
+    as many as the fullest cell has rows."""
     if packed4:
         bins = unpack_bins4(bins, features)
     dev = bins.device
@@ -116,25 +136,36 @@ def segment_histograms_chunked(bins: torch.Tensor, vals: torch.Tensor,
                       device=dev)
     if offs[-1] == 0:
         return out
-    seg = np.repeat(np.arange(len(counts)), per)
-    local = np.arange(offs[-1]) - offs[seg]
-    first = torch.as_tensor(np.asarray(starts, np.int64)[seg]
-                            + local * chunk_rows, device=dev)
-    length = np.minimum(chunk_rows, counts[seg] - local * chunk_rows)
-    part = torch.zeros(int(offs[-1]), f, num_bins, 3, dtype=torch.float32,
+    # every row of every segment in position order, and its chunk
+    seg = np.repeat(np.arange(len(counts)), counts)
+    local = np.arange(len(seg)) - np.repeat(np.cumsum(counts) - counts,
+                                            counts)
+    pos = torch.as_tensor(np.asarray(starts, np.int64)[seg] + local,
+                          device=dev)
+    chunk = torch.as_tensor(offs[seg] + local // chunk_rows, device=dev)
+    rows = perm[pos].long() if perm is not None else pos
+    b = read_bins(bins, rows)                               # (R, F)
+    keep = b < num_bins
+    cell = ((chunk[:, None] * f + torch.arange(f, device=dev)) * num_bins
+            + b)[keep]                     # row-major: row order per cell
+    src = rows[:, None].expand_as(b)[keep]
+    cell, order = torch.sort(cell, stable=True)
+    src = src[order]
+    first = torch.ones_like(cell, dtype=torch.bool)
+    first[1:] = cell[1:] != cell[:-1]
+    idx = torch.arange(cell.numel(), device=dev)
+    rank = idx - torch.cummax(torch.where(first, idx, 0), 0).values
+    rank, by_rank = torch.sort(rank, stable=True)
+    sizes = torch.bincount(rank).tolist()
+    cell, src = cell[by_rank], src[by_rank]
+    part = torch.zeros(int(offs[-1]) * f * num_bins, 3, dtype=torch.float32,
                        device=dev)
-    feat = torch.arange(f, device=dev)
-    for r in range(int(length.max())):
-        # the r-th row of every chunk that has one: one add per (chunk,
-        # feature) cell, so no index repeats within a step
-        ks = torch.as_tensor(np.flatnonzero(length > r), device=dev)
-        pos = first[ks] + r
-        rows = perm[pos].long() if perm is not None else pos
-        b = bins[rows].long()
-        keep = b < num_bins
-        idx = (ks[:, None].expand_as(b)[keep], feat.expand_as(b)[keep],
-               b[keep])
-        part[idx] += vals[rows][:, None, :].expand(-1, f, 3)[keep]
+    lo = 0
+    for size in sizes:
+        ids = cell[lo:lo + size]
+        part[ids] = part[ids] + vals[src[lo:lo + size]]
+        lo += size
+    part = part.reshape(int(offs[-1]), f, num_bins, 3)
     for j in range(int(per.max())):
         has = np.flatnonzero(per > j)
         out[has] = out[has] + part[torch.as_tensor(offs[has] + j,
@@ -149,11 +180,13 @@ def histogram_chunked(bins: torch.Tensor, vals: torch.Tensor, *,
     """The f32 / bf16 histogram kernel's sums in its own order (the plain
     twin of its summation, for tests): rows in storage order cut into
     chunks of ``chunk_rows`` (default: the wrapper's
-    ``ops/histogram_flat.py::chunking``), each summed in row order, then
-    the chunk sums in chunk order.  Returns (F, num_bins, 3) f32."""
+    ``ops/histogram_flat.py::chunking`` of N rows and F * num_bins
+    cells), each summed in row order, then the chunk sums in chunk order.
+    Returns (F, num_bins, 3) f32."""
     if chunk_rows is None:
         from .histogram_flat import chunking
-        chunk_rows = chunking(bins.shape[0])[0]
+        f = features if packed4 else bins.shape[1]
+        chunk_rows = chunking(bins.shape[0], f * num_bins)[0]
     return segment_histograms_chunked(
         bins, vals, None, [0], [bins.shape[0]], num_bins=num_bins,
         chunk_rows=chunk_rows, packed4=packed4, features=features)[0]
@@ -194,14 +227,16 @@ def resolve_impl(impl: str, device: torch.device) -> str:
 def histogram_from_vals(bins: torch.Tensor, vals: torch.Tensor, *,
                         num_bins: int, impl: str = "auto",
                         rows_block: int = 16384, packed4: bool = False,
-                        features: int = 0) -> torch.Tensor:
-    """Histogram from pre-packed (N, 3) channel values."""
+                        features: int = 0,
+                        max_level: int = 127) -> torch.Tensor:
+    """Histogram from pre-packed (N, 3) channel values (int8 values:
+    levels of at most ``max_level`` in magnitude)."""
     layout = dict(packed4=packed4, features=features)
     if impl in ("auto", "pallas", "flat", "flat_bf16"):
         from .histogram_flat import histogram_flat
         return histogram_flat(bins, vals, num_bins=num_bins,
                               dtype="bf16" if impl == "flat_bf16" else "f32",
-                              **layout)
+                              max_level=max_level, **layout)
     if impl == "onehot":
         return histogram_onehot(bins, vals, num_bins=num_bins,
                                 rows_block=rows_block, **layout)

@@ -6,9 +6,11 @@ Values: f32 (f32 sums), bf16 (``dtype="bf16"``: the values rounded to
 bf16 once, summed in f32 — the TPU kernel's bf16 operands with f32
 accumulation) or int8 (quantized training: int32 sums; integer values
 take this mode whatever ``dtype`` says, as in the JAX package).  Bins:
-(N, F) uint8, or with ``packed4`` the (N, ceil(F/2)) nibble pairs of
-``ops/histogram.py::pack_bins4`` and the real F in ``features``.  The six
-combinations are the kernel's modes (``MODES``).
+(N, F) uint8 (up to 256 bins), (N, F) uint16 (up to 65,536 bins: the
+JAX package's storage above 256 bins), or with ``packed4`` the (N,
+ceil(F/2)) nibble pairs of ``ops/histogram.py::pack_bins4`` and the real
+F in ``features``.  The nine combinations are the kernel's modes
+(``MODES``).
 
 On a CUDA tensor ``histogram_flat`` launches the kernel on PyTorch's
 current stream, or raises.  On a CPU tensor it runs the kernel's plain
@@ -24,20 +26,27 @@ import torch
 
 from .histogram import histogram_segment
 
-#: the kernel's modes: value type, then ``_packed4`` for 4-bit bins
-MODES = ("f32", "bf16", "int8", "f32_packed4", "bf16_packed4",
-         "int8_packed4")
+#: the kernel's modes over uint8 and packed4 bins (the fused wave kernel
+#: has these, ops/wave.py), then over uint16 bins: value type, then the
+#: bin layout
+BYTE_MODES = ("f32", "bf16", "int8", "f32_packed4", "bf16_packed4",
+              "int8_packed4")
+MODES = BYTE_MODES + ("f32_uint16", "bf16_uint16", "int8_uint16")
 
 #: kernel launches made by ``histogram_flat`` in this process, per mode
 #: (plain ints; chip_smoke.py zeroes them before driving a training path)
 launches = dict.fromkeys(MODES, 0)
 
 #: rows per chunk at least / chunks at most: each chunk's partial
-#: histogram is F * B * 3 floats of scratch, summed in chunk order
+#: histogram is F * B * 3 floats of scratch, summed in chunk order; the
+#: partials of one launch (or one wave, ops/wave.py) take at most
+#: SCRATCH_BYTES, which caps the chunks where F * B is large
 MIN_CHUNK_ROWS = 1024
 MAX_CHUNKS = 1024
-#: bins a feature may have (uint8 bin ids); 4-bit bins hold 16
+SCRATCH_BYTES = 256 << 20
+#: bins a feature may have: uint8 bin ids, uint16 ones, 4-bit ones
 MAX_BINS = 256
+MAX_BINS_UINT16 = 65536
 MAX_BINS_PACKED4 = 16
 
 
@@ -45,53 +54,72 @@ MAX_BINS_PACKED4 = 16
 #: histogram with up to F * B * 3 global atomics) and blocks at most
 MIN_CHUNK_ROWS_INT8 = 2048
 MAX_CHUNKS_INT8 = 264
-#: int8 mode: the most rows whose int32 sums cannot overflow (127 * N)
-MAX_ROWS_INT8 = (2 ** 31 - 1) // 127
+#: the largest int32 sum a histogram cell may hold exactly
+INT32_MAX = 2 ** 31 - 1
 
 
-def mode_name(vals_dtype: torch.dtype, packed4: bool) -> str:
+def mode_name(vals_dtype: torch.dtype, packed4: bool,
+              bins_dtype: torch.dtype = torch.uint8) -> str:
     """The kernel mode of values of ``vals_dtype`` (int8, bf16, else f32)
-    over unpacked or ``packed4`` bins."""
+    over unpacked, ``packed4`` or uint16 bins."""
     kind = {torch.int8: "int8", torch.bfloat16: "bf16"}.get(vals_dtype,
                                                            "f32")
-    return kind + ("_packed4" if packed4 else "")
+    if packed4:
+        return kind + "_packed4"
+    return kind + ("_uint16" if bins_dtype == torch.uint16 else "")
 
 
-def chunking(n: int, min_rows: int = MIN_CHUNK_ROWS,
-             max_chunks: int = MAX_CHUNKS):
-    """(chunk_rows, nchunks) for n rows: a function of n only, so the
-    order of every sum depends on nothing but the input."""
+def chunking(n: int, feature_bins: int = 0, *,
+             min_rows: int = MIN_CHUNK_ROWS, max_chunks: int = MAX_CHUNKS):
+    """(chunk_rows, nchunks) for n rows whose chunk partials hold
+    ``feature_bins`` = F * B cells of 3 floats each (0: no partials): at
+    most ``max_chunks``, and no more than SCRATCH_BYTES of partials.  A
+    function of n and F * B only, so the order of every sum depends on
+    nothing but the input's shape."""
+    if feature_bins:
+        max_chunks = max(1, min(max_chunks,
+                                SCRATCH_BYTES // (feature_bins * 12)))
     chunk_rows = max(min_rows, -(-n // max_chunks))
     return chunk_rows, -(-n // chunk_rows)
 
 
-def check_int8_rows(n: int) -> None:
-    """int32 sums of int8 levels stay exact only up to MAX_ROWS_INT8 rows."""
-    if n > MAX_ROWS_INT8:
-        raise ValueError(f"{n} rows of int8 levels could overflow the int32 "
-                         f"histogram (127 * N > 2^31 - 1 above "
-                         f"{MAX_ROWS_INT8} rows)")
+def check_int8_rows(n: int, max_level: int = 127) -> None:
+    """int32 sums of n rows of int8 levels, none above ``max_level`` in
+    magnitude (quantized training's ``ops/quantize.py::max_level``; 127
+    for any int8), stay exact while n * max_level <= 2^31 - 1."""
+    if n * max_level > INT32_MAX:
+        raise ValueError(f"{n} rows of int8 levels up to {max_level} could "
+                         f"overflow the int32 histogram ({max_level} * N > "
+                         f"2^31 - 1 above {INT32_MAX // max_level} rows)")
 
 
 def check_layout(bins: torch.Tensor, num_bins: int, packed4: bool,
                  features: int) -> int:
     """The real feature count F of ``bins``; raises on a bin layout the
-    kernel does not take (more than 256 bins, or more than 16 packed)."""
+    kernel does not take: more than 65,536 bins over uint16 bins, 256
+    over other bins, or 16 packed."""
     cols = bins.shape[1]
+    wide = bins.dtype == torch.uint16
     if packed4:
+        if wide:
+            raise ValueError("packed4 bins are uint8 nibble pairs, got "
+                             "uint16 bins")
         if features < 1 or cols != (features + 1) // 2:
             raise ValueError(f"packed4 bins of {features} features need "
                              f"{(features + 1) // 2} columns, got {cols}")
         if num_bins > MAX_BINS_PACKED4:
             raise ValueError(f"num_bins={num_bins}: 4-bit bins hold at most "
                              f"{MAX_BINS_PACKED4}")
-    if not 1 <= num_bins <= MAX_BINS:
-        raise ValueError(f"num_bins={num_bins}: the kernel takes 1..{MAX_BINS}")
+    most = MAX_BINS_UINT16 if wide else MAX_BINS
+    if not 1 <= num_bins <= most:
+        raise ValueError(f"num_bins={num_bins}: the kernel takes 1..{most} "
+                         f"over {bins.dtype} bins")
     return features if packed4 else cols
 
 
 def check_inputs(bins: torch.Tensor, vals: torch.Tensor, num_bins: int,
-                 packed4: bool = False, features: int = 0) -> int:
+                 packed4: bool = False, features: int = 0,
+                 max_level: int = 127) -> int:
     """Returns the real feature count F."""
     if bins.dim() != 2 or vals.dim() != 2 or vals.shape != (bins.shape[0], 3):
         raise ValueError(f"bins must be (N, F) and vals (N, 3), got "
@@ -100,7 +128,7 @@ def check_inputs(bins: torch.Tensor, vals: torch.Tensor, num_bins: int,
         raise ValueError(f"vals must be float32, bfloat16 or int8, got "
                          f"{vals.dtype}")
     if vals.dtype == torch.int8:
-        check_int8_rows(bins.shape[0])
+        check_int8_rows(bins.shape[0], max_level)
     if vals.device != bins.device:
         raise ValueError("bins and vals must be on one device")
     return check_layout(bins, num_bins, packed4, features)
@@ -108,14 +136,15 @@ def check_inputs(bins: torch.Tensor, vals: torch.Tensor, num_bins: int,
 
 def histogram_flat(bins: torch.Tensor, vals: torch.Tensor, *,
                    num_bins: int, dtype: str = "f32", packed4: bool = False,
-                   features: int = 0) -> torch.Tensor:
-    """(N, F) bins (``packed4``: (N, ceil(F/2)) nibble pairs of ``features``
-    features), (N, 3) f32, bf16 or int8 values -> (F, num_bins, 3) f32 or
-    int32.  ``dtype="bf16"`` rounds f32 values to bf16 (bf16 values are
-    taken as they are)."""
+                   features: int = 0, max_level: int = 127) -> torch.Tensor:
+    """(N, F) uint8 or uint16 bins (``packed4``: (N, ceil(F/2)) nibble
+    pairs of ``features`` features), (N, 3) f32, bf16 or int8 values ->
+    (F, num_bins, 3) f32 or int32.  ``dtype="bf16"`` rounds f32 values to
+    bf16 (bf16 values are taken as they are); int8 values are levels of
+    at most ``max_level`` in magnitude."""
     if dtype not in ("f32", "bf16"):
         raise ValueError(f"dtype={dtype!r}: expected f32 or bf16")
-    f = check_inputs(bins, vals, num_bins, packed4, features)
+    f = check_inputs(bins, vals, num_bins, packed4, features, max_level)
     if dtype == "bf16" and vals.dtype == torch.float32:
         vals = vals.to(torch.bfloat16)
     if bins.device.type == "cpu":
@@ -129,12 +158,13 @@ def histogram_flat(bins: torch.Tensor, vals: torch.Tensor, *,
 def _launch(bins: torch.Tensor, vals: torch.Tensor, num_bins: int,
             packed4: bool, f: int) -> torch.Tensor:
     from ._build import load_library
-    if bins.dtype != torch.uint8:
-        raise ValueError(f"the histogram kernel takes uint8 bins, got "
-                         f"{bins.dtype}")
+    if bins.dtype not in (torch.uint8, torch.uint16):
+        raise ValueError(f"the histogram kernel takes uint8 or uint16 bins, "
+                         f"got {bins.dtype}")
     lib = load_library()
     n = bins.shape[0]
-    mode = mode_name(vals.dtype, packed4)
+    mode = mode_name(vals.dtype, packed4, bins.dtype)
+    wide = bins.dtype == torch.uint16
     int8 = vals.dtype == torch.int8
     out_dtype = torch.int32 if int8 else torch.float32
     if n == 0 or f == 0:
@@ -145,21 +175,30 @@ def _launch(bins: torch.Tensor, vals: torch.Tensor, num_bins: int,
     stream = torch.cuda.current_stream(bins.device).cuda_stream
     out = torch.empty(f, num_bins, 3, dtype=out_dtype, device=bins.device)
     if int8:
-        chunk_rows, nchunks = chunking(n, MIN_CHUNK_ROWS_INT8,
-                                       MAX_CHUNKS_INT8)
+        chunk_rows, nchunks = chunking(n, min_rows=MIN_CHUNK_ROWS_INT8,
+                                       max_chunks=MAX_CHUNKS_INT8)
+        head = (bins.data_ptr(), vals.data_ptr(), n, f, num_bins, chunk_rows,
+                nchunks)
         with torch.cuda.device(bins.device):
-            err = lib.lgbt_histogram_i8(bins.data_ptr(), vals.data_ptr(), n,
-                                        f, num_bins, chunk_rows, nchunks,
-                                        int(packed4), out.data_ptr(), stream)
+            if wide:
+                err = lib.lgbt_histogram_i8_u16(*head, out.data_ptr(),
+                                                stream)
+            else:
+                err = lib.lgbt_histogram_i8(*head, int(packed4),
+                                            out.data_ptr(), stream)
     else:
-        chunk_rows, nchunks = chunking(n)
+        chunk_rows, nchunks = chunking(n, f * num_bins)
         partial = torch.empty(nchunks, f, num_bins, 3, dtype=torch.float32,
                               device=bins.device)
+        head = (bins.data_ptr(), vals.data_ptr(), n, f, num_bins, chunk_rows,
+                nchunks)
+        tail = (int(vals.dtype == torch.bfloat16), partial.data_ptr(),
+                out.data_ptr(), stream)
         with torch.cuda.device(bins.device):
-            err = lib.lgbt_histogram(
-                bins.data_ptr(), vals.data_ptr(), n, f, num_bins, chunk_rows,
-                nchunks, int(packed4), int(vals.dtype == torch.bfloat16),
-                partial.data_ptr(), out.data_ptr(), stream)
+            if wide:
+                err = lib.lgbt_histogram_u16(*head, *tail)
+            else:
+                err = lib.lgbt_histogram(*head, int(packed4), *tail)
     if err != 0:
         raise RuntimeError(f"histogram kernel launch failed ({mode} mode): "
                            f"CUDA error {err}")

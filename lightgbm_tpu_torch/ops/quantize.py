@@ -21,12 +21,24 @@ import torch
 _EPS = 1e-30
 
 
+def quant_levels(num_bins: int) -> Tuple[int, int]:
+    """(grad, hess) levels of ``num_grad_quant_bins`` = ``num_bins``:
+    ``num_bins // 2`` signed gradient levels and ``num_bins`` hessian
+    levels, each capped at 127 (int8 storage)."""
+    return min(max(num_bins // 2, 1), 127), min(max(num_bins, 1), 127)
+
+
+def max_level(num_bins: int) -> int:
+    """The largest level any channel of a quantized row holds (the count
+    channel's is 1): N rows' int32 histogram sums stay exact while
+    N * max_level <= 2^31 - 1."""
+    return max(*quant_levels(num_bins), 1)
+
+
 def gradient_scales(grad: torch.Tensor, hess: torch.Tensor,
                     num_bins: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """f32 scales mapping grad onto ``num_bins // 2`` signed levels and
-    hess onto ``num_bins`` levels, each capped at 127 (int8 storage)."""
-    g_levels = min(max(num_bins // 2, 1), 127)
-    h_levels = min(max(num_bins, 1), 127)
+    """f32 scales mapping grad and hess onto their ``quant_levels``."""
+    g_levels, h_levels = quant_levels(num_bins)
     g_scale = torch.clamp_min(grad.abs().max() / g_levels, _EPS)
     h_scale = torch.clamp_min(hess.abs().max() / h_levels, _EPS)
     return g_scale.to(torch.float32), h_scale.to(torch.float32)

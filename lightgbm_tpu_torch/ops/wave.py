@@ -22,7 +22,9 @@ histograms; the siblings' sums are f32 sums of the bf16 values.  packed4
 (``packed4=True``): the bins are the (N, ceil(F/2)) nibble pairs of
 ``ops/histogram.py::pack_bins4``, F being the parents' feature count.
 Both combine with the value types above: the six modes of
-``ops/histogram_flat.py::MODES``.
+``ops/histogram_flat.py::BYTE_MODES``.  uint16 bins (more than 256 bins)
+raise ``NotImplementedError`` here on every device (ROADMAP B2e); the
+grower keeps the unfused wave for them (``wave_plain`` takes any bins).
 
 The TPU kernel's VMEM layout (``wave_layout``), lane padding, the
 gathered ``(W, S, ct)`` row copy and the packed4 nibble-plane order with
@@ -39,8 +41,12 @@ import numpy as np
 import torch
 
 from .histogram import histogram_segment, segment_histograms_chunked
-from .histogram_flat import (MIN_CHUNK_ROWS, MIN_CHUNK_ROWS_INT8, MODES,
-                             check_int8_rows, check_layout, mode_name)
+# MAX_CHUNKS and MIN_CHUNK_ROWS name the wave's chunking too (it is the
+# histogram kernel's)
+from .histogram_flat import (BYTE_MODES, MAX_BINS, MAX_CHUNKS,  # noqa: F401
+                             MIN_CHUNK_ROWS, MIN_CHUNK_ROWS_INT8,
+                             check_int8_rows, check_layout, chunking,
+                             mode_name)
 from .split import BestSplit, SplitConfig, _EPS, scan_tables, select_payload
 
 #: scalar lanes ahead of the cat one-hot in the per-child payload:
@@ -49,13 +55,13 @@ PAYLOAD_SCALARS = 16
 #: per-child stat lanes: [pg, ph, pc, parent_out, small_left, active, 0, 0]
 STAT_LANES = 8
 
-#: kernel launches made by ``fused_wave_call`` (one per wave; plain
-#: ints), per mode of ``ops/histogram_flat.py::MODES``
-launches = dict.fromkeys(MODES, 0)
+#: the kernel's modes: those of the histogram kernel over uint8 and
+#: packed4 bins (uint16 bins, more than 256 bins, are ROADMAP B2e)
+MODES = BYTE_MODES
 
-#: chunk-partial scratch a wave may use (bytes) and chunks it may cut
-SCRATCH_BYTES = 256 << 20
-MAX_CHUNKS = 1024
+#: kernel launches made by ``fused_wave_call`` (one per wave; plain
+#: ints), per mode
+launches = dict.fromkeys(MODES, 0)
 
 
 def wave_meta(num_bins_per_feature, nan_bins, is_categorical,
@@ -136,7 +142,7 @@ def wave_plain(bins, vals, perm, small_start: Sequence[int],
     for w in range(parent.shape[0]):
         s0, cnt = int(small_start[w]), int(small_cnt[w])
         rows = perm[s0:s0 + cnt].long()
-        small = histogram(bins[rows], vals[rows])
+        small = histogram(bins.index_select(0, rows), vals[rows])
         big = parent[w] - small
         sl = bool(stats[w, 0, 4] > 0.5)
         left, right = (small, big) if sl else (big, small)
@@ -151,18 +157,15 @@ def wave_plain(bins, vals, perm, small_start: Sequence[int],
 
 def segment_table(small_cnt: Sequence[int], f: int, num_bins: int,
                   int8: bool = False):
-    """(chunk_rows, chunk offsets (W + 1,)) for one wave: chunks of at
-    least MIN_CHUNK_ROWS rows (MIN_CHUNK_ROWS_INT8 in int8 mode, whose
-    blocks each flush a whole shared histogram), no more than MAX_CHUNKS
-    of them nor, in f32 and bf16 modes, more than the partials' scratch
-    budget holds."""
+    """(chunk_rows, chunk offsets (W + 1,)) for one wave: the histogram
+    kernel's ``chunking`` of all its rows (MIN_CHUNK_ROWS_INT8 at least
+    in int8 mode, whose blocks each flush a whole shared histogram; in
+    f32 and bf16 modes no more partials than its SCRATCH_BYTES holds)."""
     total = int(sum(small_cnt))
     if int8:
-        cap, min_rows = MAX_CHUNKS, MIN_CHUNK_ROWS_INT8
+        chunk_rows, _ = chunking(total, min_rows=MIN_CHUNK_ROWS_INT8)
     else:
-        cap = max(1, min(MAX_CHUNKS, SCRATCH_BYTES // (f * num_bins * 12)))
-        min_rows = MIN_CHUNK_ROWS
-    chunk_rows = max(min_rows, -(-total // cap))
+        chunk_rows, _ = chunking(total, f * num_bins)
     per = [-(-int(c) // chunk_rows) for c in small_cnt]
     return chunk_rows, np.concatenate([[0], np.cumsum(per)]).astype(np.int64)
 
@@ -191,18 +194,25 @@ def fused_wave_call(bins: torch.Tensor, vals: torch.Tensor,
                     small_cnt: Sequence[int], parent: torch.Tensor,
                     stats: torch.Tensor, meta: torch.Tensor,
                     cfg: SplitConfig, num_bins: int, scale3=None,
-                    packed4: bool = False):
+                    packed4: bool = False, max_level: int = 127):
     """One wave of W leaves -> ``(child_hists, payload)``.
 
-    ``bins`` (N, F) uint8, or (N, ceil(F/2)) nibble pairs with
-    ``packed4``; ``vals`` (N, 3) f32, bf16 (bf16 mode), or int8 with
-    ``scale3``; ``perm`` (>= N,) int32 rows grouped by leaf;
+    ``bins`` (N, F) uint8 (at most 256 bins: above that the grower keeps
+    the unfused wave until ROADMAP B2e), or (N, ceil(F/2)) nibble pairs
+    with ``packed4``; ``vals`` (N, 3) f32, bf16 (bf16 mode), or int8
+    levels of at most ``max_level`` with ``scale3``; ``perm`` (>= N,)
+    int32 rows grouped by leaf;
     ``small_start``/``small_cnt`` host ints of each smaller sibling's perm
     range; ``parent`` (W, F, B, 3) f32 (int32 in int8 mode); ``stats``
     (W, 2, STAT_LANES) f32; ``meta`` (F, 4) int32 (``wave_meta``);
     ``scale3`` (3,) f32 channel scales, int8 mode only."""
     w = parent.shape[0]
     f = meta.shape[0]
+    if bins.dtype == torch.uint16 or num_bins > MAX_BINS:
+        raise NotImplementedError(
+            f"the fused wave over {num_bins} bins ({bins.dtype} bins) is not "
+            "ported to lightgbm_tpu_torch yet (ROADMAP B2e): at most "
+            f"{MAX_BINS} bins")
     if (parent.shape != (w, f, num_bins, 3) or stats.shape != (w, 2, STAT_LANES)
             or meta.shape != (f, 4) or bins.dim() != 2
             or len(small_start) != w or len(small_cnt) != w
@@ -219,7 +229,7 @@ def fused_wave_call(bins: torch.Tensor, vals: torch.Tensor,
         if t.device != bins.device:
             raise ValueError("wave operands must share one device")
     if int8:
-        check_int8_rows(bins.shape[0])
+        check_int8_rows(bins.shape[0], max_level)
     if bins.device.type == "cpu":
         return wave_plain(bins, vals, perm, small_start, small_cnt, parent,
                           stats, meta, cfg, num_bins, scale3=scale3,

@@ -1,6 +1,8 @@
 """Port parity: host binning (lightgbm_tpu_torch/binning.py) against the JAX
 package's binning.py — mappers byte for byte (in the flat-array encoding a
-model is carried across in) and bin matrices equal, dtype included.
+model is carried across in) and bin matrices equal, dtype included; at
+max_bin 511 and 1023 (with NaNs and a categorical column) the matrices
+are uint16 in both.
 
 The JAX package is imported inside the tests, never at module level, so the
 file also collects on the card, where only the port is installed."""
@@ -21,6 +23,8 @@ def _datasets():
     const = np.column_stack([np.ones(300), rng.randn(300),
                              np.full(300, np.nan)])
     heavy = np.round(rng.randn(2000, 3) * 3)          # heavy hitters
+    wide = higgs_like(4000, 6, seed=2)[0].astype(np.float64)
+    wide[rng.rand(4000, 6) < 0.05] = np.nan
     return {
         "messy": (messy_data()[0], {"categorical_features": [4]}),
         "higgs": (higgs_like(3000, 8)[0], {}),
@@ -31,6 +35,9 @@ def _datasets():
         "constant_and_all_nan": (const, {}),
         "heavy_hitters_small_max_bin": (heavy, {"max_bin": 15,
                                                 "min_data_in_bin": 20}),
+        "nan_max_bin_1023": (wide, {"max_bin": 1023}),
+        "messy_max_bin_511": (messy_data()[0], {"categorical_features": [4],
+                                                "max_bin": 511}),
     }
 
 
@@ -106,3 +113,13 @@ def test_mapper_arrays_round_trip():
     back = tb.mappers_to_arrays(tb.mappers_from_arrays(arrays))
     for k in arrays:
         assert arrays[k].tobytes() == back[k].tobytes(), k
+
+
+@pytest.mark.parametrize("name", ["nan_max_bin_1023", "messy_max_bin_511"])
+def test_wide_max_bin_bins_are_uint16(name):
+    """Above 256 bins a feature, the bin matrix is uint16 (the JAX
+    package's storage), with ids past 255 in use."""
+    X, kw = _DATA[name]
+    t = tb.bin_dataset(X, **kw)
+    assert t.bins.dtype == np.uint16 and t.max_num_bins > 256
+    assert int(t.bins.max()) > 255

@@ -33,9 +33,18 @@ the Pallas kernel outside interpret mode), so the port's bf16 grower,
 fused and unfused, is held against JAX ``histogram_impl="segment"`` on
 exact-sum gradients, which bf16 represents exactly.
 
+uint16 bins (``max_bin`` 1023: about 1,000 bins a feature): trees and
+``row_leaf`` bit for bit against JAX ``make_grower`` at leaf_batch 1 and
+16 on exact sums (the port's auto and unfused steps; above 256 bins both
+are unfused, the smaller siblings through the plain histogram), quantized
+on power-of-two scales, and on the mask layout.  ``wave_fused_for``
+keeps the unfused wave above 256 bins and refuses ``fused`` (ROADMAP
+B2e).
+
 On the card (``cuda`` marker) the grower driven through both CUDA kernels
 gives the CPU plain version's trees bit for bit, f32 and quantized, over
-packed bins and with bf16 values, through the matching kernel modes."""
+packed bins, with bf16 values and over uint16 bins, through the matching
+kernel modes."""
 
 import numpy as np
 import pytest
@@ -245,6 +254,52 @@ def test_wave_fused_gate():
         PG.wave_fused_for(rep(wave_kernel="bogus"), cpu)
 
 
+P1023 = dict(P, max_bin=1023)
+
+
+@pytest.mark.parametrize("leaf_batch", [1, 16])
+def test_max_bin_1023_bitwise_vs_jax(grown, leaf_batch):
+    X, y, g, h = grown
+    want, rl = jax_grow(X, y, P1023, g, h, leaf_batch=leaf_batch)
+    assert want["num_leaves"] == 31
+    assert int(want["split_bin"].max()) > 255
+    for kernel in ("auto", "unfused"):
+        got, prl = port_grow(X, y, P1023, g, h, leaf_batch=leaf_batch,
+                             wave_kernel=kernel)
+        assert_same_tree(want, got, rl, prl)
+
+
+@pytest.mark.parametrize("layout", ["wave", "mask"])
+def test_max_bin_1023_quantized_bitwise_vs_jax(quant_data, layout):
+    X, y, g, h = quant_data
+    kw = dict(Q, leaf_batch=16)
+    params = P1023
+    if layout == "mask":
+        n = 2000
+        X, y, g, h = X[:n], y[:n], g[:n], h[:n]
+        params = dict(P1023, min_data_in_leaf=5)
+    want, rl = jax_grow(X, y, params, g, h, **kw)
+    got, prl = port_grow(X, y, params, g, h, **kw)
+    assert want["num_leaves"] > 8
+    assert_same_tree(want, got, rl, prl)
+
+
+def test_wave_fused_gate_above_256_bins():
+    """Above 256 bins ``auto`` keeps the unfused wave on every device (the
+    JAX package would fuse where its wave_layout fits) and ``fused``
+    raises naming ROADMAP B2e; 256 bins still fuse on CUDA."""
+    cuda = torch.device("cuda")
+    for b in (257, 511, 1023):
+        cfg = PG.GrowerConfig(num_bins=b)
+        assert not PG.wave_fused_for(cfg, cuda)
+        assert not PG.wave_fused_for(
+            PG.GrowerConfig(num_bins=b, wave_kernel="unfused"), cuda)
+        with pytest.raises(NotImplementedError, match="B2e"):
+            PG.wave_fused_for(PG.GrowerConfig(num_bins=b,
+                                              wave_kernel="fused"), cuda)
+    assert PG.wave_fused_for(PG.GrowerConfig(num_bins=256), cuda)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("leaf_batch", [1, 16])
 def test_kernel_path_matches_plain(grown, cuda_device, leaf_batch):
@@ -318,4 +373,27 @@ def test_bf16_kernel_path_matches_plain(grown, cuda_device, wave_kernel):
     else:
         assert HF.launches["bf16"] > hist0 + 1
         assert WV.launches["bf16"] == wave0
+    assert_same_tree(want, got, rl, prl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "int8", "bf16"])
+def test_uint16_kernel_path_matches_plain(grown, quant_data, cuda_device,
+                                          mode):
+    """Growth over uint16 bins (max_bin 1023) on the card launches only
+    the histogram kernel's uint16 mode of its value type, once per root
+    and smaller sibling, no wave kernel, and gives the CPU plain version's
+    trees bit for bit."""
+    X, y, g, h = quant_data if mode == "int8" else grown
+    kw = dict(Q) if mode == "int8" else {}
+    if mode == "bf16":
+        kw["histogram_impl"] = "flat_bf16"
+    want, rl = port_grow(X, y, P1023, g, h, leaf_batch=16, **kw)
+    hist0, wave0 = dict(HF.launches), dict(WV.launches)
+    got, prl = port_grow(X, y, P1023, g, h, leaf_batch=16,
+                         device=cuda_device, **kw)
+    hist_new = {k: HF.launches[k] - hist0[k] for k in HF.MODES}
+    assert hist_new == {**dict.fromkeys(HF.MODES, 0),
+                        f"{mode}_uint16": got["num_leaves"]}
+    assert dict(WV.launches) == wave0
     assert_same_tree(want, got, rl, prl)

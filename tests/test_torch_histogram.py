@@ -10,7 +10,13 @@ mode) and ``histogram_segment``.
 - int8 values (quantized training): the int32 histogram bitwise equal to
   JAX ``histogram_flat(dtype="int8")`` and ``histogram_segment`` (integer
   sums are exact in any order), the dispatch of integer values to the
-  int8 mode, and the int32 overflow guard.
+  int8 mode, and the int32 overflow guard, bounded by the run's largest
+  level (``num_grad_quant_bins``).
+- uint16 bins (more than 256 bins) at B = 257, 511 and 1,023: the plain
+  version bitwise equal to JAX ``histogram_flat(interpret=True)`` and
+  ``histogram_segment`` on exact sums (f32), on any int8 levels, and in
+  bf16 at 128-row blocks on k/256 values; the chunk-ordered twin bitwise
+  equal to the plain version at B = 65,536 (the kernel's bin tiles).
 - 4-bit bins: ``pack_bins4`` / ``unpack_bins4`` byte-equal to JAX's (odd
   F, N = 0); packed ``histogram_segment`` / ``histogram_onehot`` bitwise
   equal to JAX's, f32 and int32.
@@ -40,8 +46,10 @@ from lightgbm_tpu_torch.ops.histogram import (histogram_chunked,
                                               histogram_from_vals,
                                               histogram_onehot,
                                               histogram_segment, pack_bins4,
-                                              pack_values, subtract_histogram,
+                                              pack_values, read_bins,
+                                              subtract_histogram,
                                               unpack_bins4)
+from lightgbm_tpu_torch.ops.quantize import max_level
 
 # (rows, features, bins): N not a multiple of any block, N = 1, F = 1
 SHAPES = [(1, 28, 255), (1, 1, 4), (777, 3, 17), (3001, 5, 64),
@@ -146,8 +154,10 @@ def test_int8_plain_bitwise_vs_jax(n, f, b):
 
 def test_int8_dispatch_and_overflow_guard():
     """Every impl gives the int32 histogram of integer values (flat_bf16
-    means the int8 mode then, as in the JAX package); N * 127 must fit
-    int32."""
+    means the int8 mode then, as in the JAX package); N * max_level must
+    fit int32, max_level being the run's largest level: at the default
+    num_grad_quant_bins of 4, 536,870,911 rows pass and one more raises
+    (the check used to take every level as 127 and refuse 16,909,321)."""
     bins, _ = _data(700, 4, 32, seed=2, exact=True)
     tb = torch.from_numpy(bins)
     tv = torch.from_numpy(_int8_vals(700, seed=2))
@@ -157,13 +167,22 @@ def test_int8_dispatch_and_overflow_guard():
         got = histogram_from_vals(tb, tv, num_bins=32, impl=impl,
                                   rows_block=128)
         assert got.dtype == torch.int32 and torch.equal(got, want), impl
-    assert HF.MAX_ROWS_INT8 == 16_909_320
-    HF.check_int8_rows(HF.MAX_ROWS_INT8)
-    huge = HF.MAX_ROWS_INT8 + 1
+    level = max_level(4)
+    assert level == 4
+    HF.check_int8_rows(536_870_911, level)
+    with pytest.raises(ValueError, match="overflow"):
+        HF.check_int8_rows(536_870_912, level)
+    # any int8 level (the default): 127 * N must fit
+    HF.check_int8_rows(16_909_320)
+    huge = 16_909_321
     with pytest.raises(ValueError, match="overflow"):
         HF.histogram_flat(torch.zeros(1, 1, dtype=torch.uint8).expand(huge, 1),
                           torch.zeros(1, 3, dtype=torch.int8).expand(huge, 3),
                           num_bins=4)
+    # with the run's level the same rows pass the check
+    HF.check_inputs(torch.zeros(1, 1, dtype=torch.uint8).expand(huge, 1),
+                    torch.zeros(1, 3, dtype=torch.int8).expand(huge, 3), 4,
+                    max_level=level)
     # f32 values may have any row count
     HF.check_inputs(torch.zeros(1, 1, dtype=torch.uint8).expand(huge, 1),
                     torch.zeros(1, 3).expand(huge, 3), 4)
@@ -396,10 +415,115 @@ def test_wrapper_input_checks_and_chunking():
         HF.histogram_flat(tb, tv[:, :2], num_bins=8)
     with pytest.raises(ValueError, match="num_bins"):
         HF.histogram_flat(tb, tv, num_bins=257)
-    # the chunking is a function of N alone: sums keep one order per N
+    # the chunking is a function of N and F * B alone: sums keep one
+    # order per shape
     assert HF.chunking(1) == (HF.MIN_CHUNK_ROWS, 1)
     rows, chunks = HF.chunking(10_500_000)
     assert chunks <= HF.MAX_CHUNKS and rows * chunks >= 10_500_000
+    # the bench shape (F * B = 28 * 255) is under the partials' cap
+    assert HF.chunking(10_500_000, 28 * 255) == (rows, chunks)
+
+
+def _u16_case(mode, n, f, b, seed):
+    """uint16 bins of ``b`` bins (the NaN bin b - 1 often) and values of
+    one value mode: f32 exact sums (+-0.5, 0.25), bf16 k/256 values
+    (exact in bf16 and in any f32 order), int8 levels."""
+    bins, vals = _data(n, f, 256, seed=seed, exact=True)
+    rng = np.random.RandomState(seed)
+    bins = rng.randint(0, b, (n, f)).astype(np.uint16)
+    bins[rng.rand(n, f) < 0.1] = b - 1
+    if mode == "bf16":
+        vals[:, 0] = rng.randint(-255, 256, n) / 256.0
+        vals[:, 1] = rng.randint(1, 256, n) / 256.0
+    if mode == "int8":
+        vals = _int8_vals(n, seed=seed)
+    return bins, vals
+
+
+@pytest.mark.parametrize("b", [257, 511, 1023])
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+def test_uint16_plain_bitwise_vs_jax(mode, b):
+    """The plain version on (N, F) uint16 bins equals JAX
+    ``histogram_flat`` (interpret mode; bf16 at 128-row blocks) and JAX
+    ``histogram_segment`` bit for bit, and so does the chunk-ordered twin
+    (chunks of 128 rows): every sum here is exact."""
+    n, f = 777, 5
+    bins, vals = _u16_case(mode, n, f, b, seed=b + n)
+    tb, tv = torch.from_numpy(bins), torch.from_numpy(vals)
+    dtype = "bf16" if mode == "bf16" else "f32"
+    got = HF.histogram_flat(tb, tv, num_bins=b, dtype=dtype)
+    assert got.shape == (f, b, 3)
+    assert got.dtype == (torch.int32 if mode == "int8" else torch.float32)
+    np.testing.assert_array_equal(got.numpy(),
+                                  _jax_flat(bins, vals, b, dtype=dtype))
+    np.testing.assert_array_equal(got.numpy(), _jax_segment(bins, vals, b))
+    if mode != "int8":
+        twin_vals = tv.to(torch.bfloat16) if mode == "bf16" else tv
+        twin = histogram_chunked(tb, twin_vals, num_bins=b, chunk_rows=128)
+        assert torch.equal(twin, got)
+
+
+@pytest.mark.parametrize("chunk_rows", [None, 7])
+def test_chunked_twin_bin_tiles_at_65536_bins(chunk_rows):
+    """At B = 65,536 (the kernel cuts the bin axis into 8 tiles) the twin
+    equals the plain version bit for bit on exact sums, with ids above
+    32,767 (whose int16 view is negative) and the last bin, and on values
+    whose sums depend on their order it equals the order written out as
+    loops."""
+    rng = np.random.RandomState(65)
+    n, f, b = 60, 3, 65536
+    bins = rng.randint(0, b, (n, f)).astype(np.uint16)
+    bins[:5] = b - 1
+    bins[5:9] = 40_000
+    _, vals = _data(n, f, 4, seed=3, exact=True)
+    tb = torch.from_numpy(bins)
+    got = histogram_chunked(tb, torch.from_numpy(vals), num_bins=b,
+                            chunk_rows=chunk_rows)
+    assert torch.equal(got, histogram_segment(tb, torch.from_numpy(vals),
+                                              num_bins=b))
+    ov = order_sensitive_vals(n, seed=4)
+    rows = chunk_rows or HF.chunking(n, f * b)[0]
+    np.testing.assert_array_equal(
+        histogram_chunked(tb, torch.from_numpy(ov), num_bins=b,
+                          chunk_rows=chunk_rows).numpy(),
+        sequential_chunk_hist(bins.astype(np.int64), ov, b, rows))
+
+
+def test_uint16_modes_layout_checks_and_chunking():
+    """uint16 bins take 1..65,536 bins and name their own modes; uint8
+    bins stay at 256 and packed ones at 16 (and uint8); the chunk
+    partials stay within SCRATCH_BYTES, which leaves the bench shape's
+    chunking as it was and caps it at F * B = 28 * 1,023; ``read_bins``
+    reads ids above 32,767."""
+    u16 = torch.zeros(4, 3, dtype=torch.uint16)
+    f32, bf16, i8 = (torch.zeros(4, 3, dtype=t) for t in
+                     (torch.float32, torch.bfloat16, torch.int8))
+    assert [HF.mode_name(v.dtype, False, torch.uint16)
+            for v in (f32, bf16, i8)] == ["f32_uint16", "bf16_uint16",
+                                          "int8_uint16"]
+    assert set(HF.MODES) == set(HF.BYTE_MODES) | {
+        "f32_uint16", "bf16_uint16", "int8_uint16"}
+    assert HF.check_layout(u16, 65536, False, 0) == 3
+    with pytest.raises(ValueError, match="1..65536"):
+        HF.check_layout(u16, 65537, False, 0)
+    with pytest.raises(ValueError, match="1..256"):
+        HF.check_layout(u16.to(torch.uint8), 257, False, 0)
+    with pytest.raises(ValueError, match="uint16"):
+        HF.check_layout(u16, 16, True, 6)
+    got = HF.histogram_flat(u16, torch.ones(4, 3), num_bins=1023)
+    assert got.shape == (3, 1023, 3) and float(got[:, 0, 2].sum()) == 12.0
+    # chunking: 196 chunks of 1,024 rows at 200k either way; at 10.5M rows
+    # the 28 x 1,023 partials cap the chunks at 780
+    assert HF.chunking(200_000, 28 * 1023) == HF.chunking(200_000) == (
+        1024, 196)
+    rows, chunks = HF.chunking(10_500_000, 28 * 1023)
+    assert chunks == HF.SCRATCH_BYTES // (28 * 1023 * 12) == 780
+    assert rows * chunks >= 10_500_000
+    assert HF.chunking(1000, 28 * 65536) == (1024, 1)
+    ids = np.array([[0, 255, 256, 32_767, 32_768, 65_535]], np.uint16)
+    np.testing.assert_array_equal(
+        read_bins(torch.from_numpy(ids), torch.tensor([0])).numpy(),
+        ids.astype(np.int64))
 
 
 @pytest.mark.cuda
@@ -521,3 +645,32 @@ def test_kernel_edge_shapes_equal_chunked_twin(cuda_device, case):
     want = histogram_chunked(tb, tv, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, want), case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("b", [257, 511, 1023, 4095, 65536])
+def test_uint16_kernel_equals_twin(cuda_device, mode, b):
+    """The uint16 modes on random values at F = 28: f32 / bf16 bit for
+    bit the chunk-ordered twin, int8 bit for bit the plain version, in
+    storage order and through a permutation; one launch of the mode per
+    call (B = 65,536: eight bin tiles, at N <= 1,000)."""
+    key = f"{mode}_uint16"
+    for n in (1, 1000) if b == 65536 else (1, 1000, 20_000):
+        rng = np.random.RandomState(n + b)
+        bins = torch.from_numpy(rng.randint(0, b, (n, 28)).astype(
+            np.uint16)).to(cuda_device)
+        vals = (_int8_vals(n, seed=n) if mode == "int8"
+                else order_sensitive_vals(n, seed=n))
+        tv = torch.from_numpy(vals).to(cuda_device)
+        if mode == "bf16":
+            tv = tv.to(torch.bfloat16)
+        perm = torch.from_numpy(rng.permutation(n)).to(cuda_device)
+        for tb, v in ((bins, tv), (bins.index_select(0, perm), tv[perm])):
+            launches = HF.launches[key]
+            got = HF.histogram_flat(tb, v, num_bins=b)
+            want = (histogram_segment if mode == "int8"
+                    else histogram_chunked)(tb, v, num_bins=b)
+            torch.cuda.synchronize()
+            assert HF.launches[key] == launches + 1
+            assert torch.equal(got, want), (mode, b, n)

@@ -11,12 +11,15 @@ the JAX package's.
   errors of x), one generator seed gives one set of levels, and levels are
   clipped.
 - ``quant_generator``: one generator per (seed, iteration), repeatable,
-  and different for another iteration or seed."""
+  and different for another iteration or seed.
+- ``quant_levels`` / ``max_level``: the JAX package's levels, and the
+  int32 histogram's row bound at the largest of them."""
 
 import numpy as np
 import pytest
 import torch
 
+from lightgbm_tpu_torch.ops import histogram_flat as HF
 from lightgbm_tpu_torch.ops import quantize as PQ
 
 
@@ -115,3 +118,27 @@ def test_quant_generator_per_iteration():
     assert not torch.equal(draw(0, 3), draw(0, 4))
     assert not torch.equal(draw(0, 3), draw(1, 3))
     assert torch.equal(draw(-7, 0), draw(-7, 0))       # negative seeds work
+
+
+@pytest.mark.parametrize("num_bins,levels,level", [
+    (4, (2, 4), 4), (1, (1, 1), 1), (7, (3, 7), 7), (64, (32, 64), 64),
+    (300, (127, 127), 127)])
+def test_levels_and_the_int32_row_bound(num_bins, levels, level):
+    """The levels of ``num_grad_quant_bins`` are the JAX package's (its
+    scales put the largest |gradient| at exactly that many levels), and
+    the int32 histogram bound counts rows against the largest of them:
+    536,870,911 rows at the default 4 bins."""
+    import jax.numpy as jnp
+
+    from lightgbm_tpu.ops.quantize import gradient_scales as jax_scales
+    assert PQ.quant_levels(num_bins) == levels
+    assert PQ.max_level(num_bins) == level
+    g = np.array([-3.0, 0.5], np.float32)
+    h = np.array([0.25, 2.0], np.float32)
+    js = [float(v) for v in jax_scales(jnp.asarray(g), jnp.asarray(h),
+                                       num_bins)]
+    assert js == [float(np.float32(3.0) / np.float32(levels[0])),
+                  float(np.float32(2.0) / np.float32(levels[1]))]
+    HF.check_int8_rows((2 ** 31 - 1) // level, level)
+    with pytest.raises(ValueError, match="overflow"):
+        HF.check_int8_rows((2 ** 31 - 1) // level + 1, level)

@@ -3,8 +3,10 @@
 gives the JAX package's ``serve.Predictor(..., quantize="int16",
 traverse="fused")`` answers — raw scores bit for bit (the JAX side runs its
 Pallas kernel in interpret mode), transformed outputs within 1e-6 (both
-compute in float32; the exp is another library's).  On the card (``cuda``
-marker) the CUDA path equals the CPU path bit for bit.
+compute in float32; the exp is another library's).  A max_bin-1023
+model (uint16 bins, split bins past 255) serves the same way through both
+packs.  On the card (``cuda`` marker) the CUDA path equals the CPU path
+bit for bit.
 
 The JAX package is imported inside fixtures, so the file collects on the
 card too."""
@@ -116,6 +118,21 @@ def test_regression_identity_output_vs_jax(lgb, messy):
     want = serve.Predictor(bst, quantize="int16").predict(X[:50])
     got = Predictor(model, quantize="int16", device="cpu").predict(X[:50])
     assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("quantize", ["int16", "int8"])
+def test_max_bin_1023_model_bitwise_vs_jax_fused(lgb, messy, quantize):
+    from lightgbm_tpu import serve
+    X, y = messy
+    bst = lgb.train(dict(P, max_bin=1023), lgb.Dataset(X, label=y), 4)
+    assert bst._gbdt.train_data.binned.bins.dtype == np.uint16
+    model = model_from_arrays(state_from_booster(bst))
+    assert max(int(t.split_bin.max()) for t in model.host_trees()[0]) > 255
+    want = serve.Predictor(bst, raw_score=True, quantize=quantize,
+                           traverse="fused").predict(X[:200])
+    got = Predictor(model, raw_score=True, quantize=quantize,
+                    device="cpu").predict(X[:200])
     np.testing.assert_array_equal(got, want)
 
 

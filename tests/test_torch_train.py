@@ -38,13 +38,19 @@
   tree; one exact-sum iteration gives the f32 run's model text but for
   the parameter line, and ten ordinary iterations stay within 1e-2
   holdout AUC of f32.
+- max_bin 1023 (uint16 bins): one exact-sum iteration gives the JAX
+  package's model text byte for byte, f32 and quantized; five ordinary
+  iterations predict within 1e-4 of the JAX package's training on the
+  same params, and the model text loads in ``lightgbm_tpu.Booster(
+  model_str=...)`` and predicts within 1e-6; ``tpu_wave_kernel=fused``
+  above 256 bins raises ``NotImplementedError`` naming ROADMAP B2e.
 - Every unsupported param, an EFB-bundled dataset and a sorted
   categorical feature raise ``NotImplementedError``; without ``device``
   on a machine with no card, ``train`` raises.
 
 On the card (``cuda`` marker), one exact-sum iteration gives the CPU
 model text byte for byte, f32 and quantized (deterministic rounding),
-over packed bins and with bf16 values."""
+over packed bins, with bf16 values and at max_bin 1023."""
 
 import numpy as np
 import pytest
@@ -330,6 +336,44 @@ def test_flat_bf16_trains(grown, wave_kernel):
     assert aucs[0] > 0.66 and abs(aucs[0] - aucs[1]) <= 1e-2, aucs
 
 
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "quantized"])
+def test_max_bin_1023_iteration_model_text_byte_equal(lgb, grown, quant):
+    X, y = grown
+    params = dict(QUANT if quant else EXACT, max_bin=1023)
+    jb = lgb.train(params, lgb.Dataset(X, label=y), 1)
+    pb = lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu")
+    assert pb._gbdt.bins_dev.dtype == torch.uint16
+    assert pb.model_to_string() == jb.model_to_string()
+
+
+def test_max_bin_1023_trains_loads_in_jax_and_tracks_jax(lgb):
+    X, y = higgs_like(6000, 28, seed=3)
+    params = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+              "tpu_leaf_batch": 4, "max_bin": 1023}
+    pb = lgt.train(params, lgt.Dataset(X, label=y), 5, device="cpu")
+    assert pb._gbdt.grower_cfg.num_bins > 256
+    rp = pb.predict(X, raw_score=True)
+    loaded = lgb.Booster(model_str=pb.model_to_string())
+    np.testing.assert_allclose(loaded.predict(X, raw_score=True), rp,
+                               rtol=0, atol=1e-6)
+    jb = lgb.train(params, lgb.Dataset(X, label=y), 5)
+    np.testing.assert_allclose(rp, jb.predict(X, raw_score=True), rtol=0,
+                               atol=1e-4)
+
+
+def test_fused_wave_above_256_bins_raises():
+    """The fused wave kernel over uint16 bins is ROADMAP B2e: asking for
+    it raises at the first wave; auto trains (unfused)."""
+    X, y = higgs_like(3000, 6)
+    params = {"objective": "binary", "num_leaves": 15, "verbosity": -1,
+              "max_bin": 511}
+    with pytest.raises(NotImplementedError, match="B2e"):
+        lgt.train(dict(params, tpu_wave_kernel="fused"),
+                  lgt.Dataset(X, label=y), 1, device="cpu")
+    assert lgt.train(params, lgt.Dataset(X, label=y), 1,
+                     device="cpu").num_trees() == 1
+
+
 def test_config_table_matches_jax():
     """Every key of the port's param table has the JAX package's type,
     default, aliases and bounds, and both resolve the same params alike."""
@@ -469,4 +513,17 @@ def test_card_bf16_iteration_matches_cpu_model_text(grown, cuda_device,
                   tpu_wave_kernel=wave_kernel)
     want = lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu")
     got = lgt.train(params, lgt.Dataset(X, label=y), 1, device=cuda_device)
+    assert got.model_to_string() == want.model_to_string()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "quantized"])
+def test_card_max_bin_1023_iteration_matches_cpu_model_text(grown,
+                                                            cuda_device,
+                                                            quant):
+    X, y = grown
+    params = dict(QUANT if quant else EXACT, max_bin=1023)
+    want = lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu")
+    got = lgt.train(params, lgt.Dataset(X, label=y), 1, device=cuda_device)
+    assert got._gbdt.bins_dev.dtype == torch.uint16
     assert got.model_to_string() == want.model_to_string()

@@ -57,7 +57,8 @@ def wave_inputs(n, f, b, sizes, seed, exact, device="cpu", scales=None,
     and in every f32 sum) and passes them as bf16; one ending in packed4
     packs the bins (``aux`` keeps them unpacked)."""
     rng = np.random.RandomState(seed)
-    bins = rng.randint(0, b, (n, f)).astype(np.uint8)
+    bins = rng.randint(0, b, (n, f)).astype(np.uint8 if b <= 256
+                                            else np.uint16)
     nan_feats = rng.rand(f) < 0.5
     bins[(rng.rand(n, f) < 0.05) & nan_feats[None, :]] = b - 1
     if scales is not None:
@@ -132,6 +133,27 @@ CFG = SplitConfig(min_data_in_leaf=1, min_sum_hessian_in_leaf=0.5,
 
 @pytest.mark.parametrize("mode", ["f32", "int8"])
 def test_plain_wave_bitwise_vs_jax_ops(mode):
+    _check_wave_vs_jax_ops(mode, 40, WV.fused_wave_call)
+
+
+@pytest.mark.parametrize("mode", ["f32", "int8"])
+def test_uint16_plain_wave_bitwise_vs_jax_ops(mode):
+    """Over uint16 bins (B = 511) the unfused step, ``wave_plain``, is the
+    JAX ops' step bit for bit; the fused wave refuses them (ROADMAP
+    B2e)."""
+    inp = _check_wave_vs_jax_ops(mode, 511, WV.wave_plain)
+    assert inp["bins"].dtype == torch.uint16
+    with pytest.raises(NotImplementedError, match="B2e"):
+        WV.fused_wave_call(cfg=CFG, **inp)
+    with pytest.raises(NotImplementedError, match="B2e"):
+        WV.fused_wave_call(cfg=CFG, **dict(inp, bins=inp["bins"].to(
+            torch.uint8)))
+
+
+def _check_wave_vs_jax_ops(mode, b, wave):
+    """``wave(cfg, **inputs)`` over ``b`` bins against the step assembled
+    from the JAX package's ops, bit for bit on exact sums; returns the
+    inputs."""
     import jax.numpy as jnp
 
     from lightgbm_tpu.ops import split as JS
@@ -139,8 +161,8 @@ def test_plain_wave_bitwise_vs_jax_ops(mode):
     sizes = [700, 1, 33, 2048, 5]
     scales = POW2_SCALES if mode == "int8" else None
     inp, (nbpf, nanb, is_cat, fmask, bins, vals, perm) = wave_inputs(
-        9000, 5, 40, sizes, seed=1, exact=True, scales=scales)
-    hist, pay = WV.fused_wave_call(cfg=CFG, **inp)
+        9000, 5, b, sizes, seed=1, exact=True, scales=scales)
+    hist, pay = wave(cfg=CFG, **inp)
     assert hist.dtype == (torch.int32 if scales is not None
                           else torch.float32)
     jcfg = JS.SplitConfig(min_data_in_leaf=1, min_sum_hessian_in_leaf=0.5,
@@ -150,7 +172,7 @@ def test_plain_wave_bitwise_vs_jax_ops(mode):
     for j, (s0, s) in enumerate(zip(inp["small_start"], inp["small_cnt"])):
         rows = perm[s0:s0 + s]
         small = np.asarray(jseg(jnp.asarray(bins[rows]),
-                                jnp.asarray(vals[rows]), num_bins=40))
+                                jnp.asarray(vals[rows]), num_bins=b))
         big = inp["parent"][j].numpy() - small
         pair = (small, big) if stats[j, 0, 4] > 0.5 else (big, small)
         np.testing.assert_array_equal(hist[j, 0].numpy(), pair[0])
@@ -178,6 +200,7 @@ def test_plain_wave_bitwise_vs_jax_ops(mode):
     best = WV.payload_to_best(WV.split_payload(pay))
     assert best.gain.shape == (2 * len(sizes),)
     assert np.isinf(float(best.gain[2])) and np.isinf(float(best.gain[7]))
+    return inp
 
 
 NEW_MODES = ["bf16", "f32_packed4", "bf16_packed4", "int8_packed4"]

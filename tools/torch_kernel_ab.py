@@ -33,13 +33,16 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
+#: the modes over uint8 and packed4 bins (the ones every build since the
+#: fifth slice has)
 HIST_MODES = ("f32", "bf16", "int8", "f32_packed4", "bf16_packed4",
               "int8_packed4")
 
 
 def build_other(csrc, label):
     """The sources in ``csrc`` built into their own library, bound with
-    the port's ctypes signatures."""
+    the port's ctypes signatures (those of its entry points it has: an
+    older build lacks the uint16 ones)."""
     import ctypes
     from lightgbm_tpu_torch.ops import _build
     srcs = sorted(glob.glob(os.path.join(os.path.abspath(csrc), "*.cu")))
@@ -50,7 +53,7 @@ def build_other(csrc, label):
     lib_path = os.path.join(out_dir, "liblgbt_kernels.so")
     _build._compile(srcs, out_dir, lib_path)
     lib = ctypes.CDLL(lib_path)
-    _build._bind(lib)
+    _build._bind(lib, only_present=True)
     return lib
 
 
