@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--seed 0]
 
 Drives the port's main paths (serving, training, quantized training,
-bf16 and 4-bit-bin training, training at max_bin 1023 over uint16 bins)
-at full width and holds every kernel against its plain PyTorch version
+bf16 and 4-bit-bin training, training at max_bin 1023 over uint16 bins,
+unfused and through the fused wave) at full width and holds every kernel against its plain PyTorch version
 and every result against an independent reference.
 
 Serving (slice 1) — quantized serving through the hand-written CUDA
@@ -122,8 +122,7 @@ values, not only on exact sums:
     payload of key 0, equal to the plain version's).
 
 uint16 bins (slice 7, ``max_bin`` above 255): the histogram kernel's
-uint16 modes, in f32, bf16 and int8, on the unfused wave path (the fused
-wave over more than 256 bins is ROADMAP B2e):
+uint16 modes, in f32, bf16 and int8, on the unfused wave path:
 
 26. histogram kernel in f32_uint16, bf16_uint16 and int8_uint16 against
     its twin (``hist_twin``: ``histogram_chunked``, the plain twin of the
@@ -135,18 +134,41 @@ wave over more than 256 bins is ROADMAP B2e):
     (``wave_plain`` with the kernel vs with the twin, child histograms
     and payloads bit for bit);
 27. training at max_bin 1023 on the bench rows, binned once (seconds
-    reported, uint16 bins on the card): f32 and quantized 10 iterations,
-    bf16 5, each launching only its uint16 histogram mode and no wave
-    kernel; the holdout AUC beside the 255-bin f32 run's at 10
-    iterations (no gate: no genuine-LightGBM number at 1,023 bins); two
-    3-iteration f32 runs give equal model text, and 3-iteration f32 and
-    quantized runs with ``histogram_flat`` swapped for ``hist_twin`` give
-    the kernel runs' model text; the f32 model served through
-    ``Predictor`` (int16 pack) equals the numpy walk bit for bit;
+    reported, uint16 bins on the card), ``tpu_wave_kernel=unfused``: f32
+    10 iterations, quantized 5, bf16 3, each launching only its uint16
+    histogram mode and no wave kernel; the holdout AUC beside the 255-bin
+    f32 run's at 10 iterations (no gate: no genuine-LightGBM number at
+    1,023 bins); two 3-iteration f32 runs give equal model text, and
+    3-iteration f32 and quantized runs with ``histogram_flat`` swapped for
+    ``hist_twin`` give the kernel runs' model text; the f32 model served
+    through ``Predictor`` (int16 pack) equals the numpy walk bit for bit;
 28. timing of the uint16 modes at B = 1,023, N = 200,000 and 10,500,000:
     kernel, device ms by launch, plain version, ``index_add_``, bounds.
 
-Each wave timing (phases 14, 18, 23) also gives its three launches'
+The fused wave over uint16 bins (slice 8): the wave kernel's uint16
+modes, so max_bin above 255 trains through the fused wave:
+
+29. wave kernel in f32_uint16, bf16_uint16 and int8_uint16 against
+    ``wave_plain`` and ``wave_hists_chunked`` at B in {257, 511, 1,023,
+    2,047, 4,095} (the scan tiled from 2,047), F = 28 and 27, W = 1 and
+    W = 16 with inactive slots, and B = 65,536 at W = 1 over 300 rows:
+    child histograms and payloads bit for bit on exact sums (int8:
+    power-of-two scales); on random values child histograms bit for bit
+    the twin's (int8: the plain version's) and payloads within
+    ``wave_agreement``; a wave with no valid split at B = 2,047;
+30. fused training at max_bin 1023, 100 iterations: f32 and quantized
+    under ``auto``, bf16 with ``flat_bf16`` and ``tpu_wave_kernel=fused``;
+    only the ``<mode>_uint16`` wave launches, plus one uint16 histogram a
+    tree (the root); s/iteration and holdout AUC beside phase 27's
+    unfused runs and the 255-bin run's; two 10-iteration runs give equal
+    model text (f32, quantized), and the fused f32 AUC at 10 iterations
+    is within 1e-3 of the unfused run's; the ``torch.profiler`` split of
+    phase 13 for the fused f32 run;
+31. timing of the three uint16 wave modes at W = 16 x 12,500, F = 28, B =
+    1,023 (and f32 at 511, int8 at 2,047): kernel, device ms by launch,
+    plain version, bound, launches per iteration.
+
+Each wave timing (phases 14, 18, 23, 31) also gives its three launches'
 device times by kernel name under ``torch.profiler`` (``wave_stage_ms``):
 stage 1, the combine and the scan.
 
@@ -521,15 +543,15 @@ def wave_case(gen, dev, sizes, exact, f=28, b=255, inactive=(),
 
 def wave_bound_ms(inp):
     """Wave bound for the inputs of one wave (``wave_case``): each smaller
-    sibling's rows (bin bytes as stored: F, or ceil(F/2) packed; values:
-    12 bytes f32, 6 bf16, 3 int8; the perm index) and the W parent histograms
-    read once, 2W child histograms and payloads written once, over the
-    memory rate; over the scalar rate, the operations the function needs
-    on this run's data: the siblings' R*F*3 adds, the W*F*B*3 subtractions,
-    and per active child the scan of every in-feature bin of every live
-    feature (SCAN_OPS_PER_BIN) in each of its NaN directions
-    (SCAN_OPS_PER_DIRECTION), plus in int8 mode the rescaling multiply of
-    every scanned cell.  Returns (bytes_ms, ops_ms)."""
+    sibling's rows (bin bytes as stored: F, ceil(F/2) packed, 2F uint16;
+    values: 12 bytes f32, 6 bf16, 3 int8; the perm index) and the W parent
+    histograms read once, 2W child histograms and payloads written once,
+    over the memory rate; over the scalar rate, the operations the
+    function needs on this run's data: the siblings' R*F*3 adds, the
+    W*F*B*3 subtractions, and per active child the scan of every in-feature
+    bin of every live feature (SCAN_OPS_PER_BIN) in each of its NaN
+    directions (SCAN_OPS_PER_DIRECTION), plus in int8 mode the rescaling
+    multiply of every scanned cell.  Returns (bytes_ms, ops_ms)."""
     from lightgbm_tpu_torch.ops.wave import PAYLOAD_SCALARS
     meta = inp["meta"].cpu().long()
     b = inp["num_bins"]
@@ -537,7 +559,7 @@ def wave_bound_ms(inp):
     r, w = sum(inp["small_cnt"]), len(inp["small_cnt"])
     hist = f * b * 12
     val_bytes = 3 * inp["vals"].element_size()
-    bin_bytes = inp["bins"].shape[1]
+    bin_bytes = inp["bins"].shape[1] * inp["bins"].element_size()
     nbytes = (r * (bin_bytes + val_bytes + 4) + 3 * w * hist
               + 2 * w * (PAYLOAD_SCALARS + b) * 4)
     live = meta[:, 3] > 0
@@ -630,37 +652,54 @@ def wave_agreement(h, p, hp, pp, rtol=1e-5):
 
 
 def wave_stage_ms(fn, iters=10):
-    """Device milliseconds per call of each of a wave's launches (stage 1,
-    the combine, the scan; ``other``: the segment table's copy and the
-    int8 mode's memset), from the kernel names ``torch.profiler`` records
-    over ``iters`` calls of ``fn`` after one warm-up call."""
+    """Device milliseconds of each of a wave's launches (stage 1, the
+    combine, the scan; ``other``: the segment table's copy and the int8
+    mode's memset, per call), from the kernel names ``torch.profiler``
+    records over ``iters`` calls of ``fn`` after one warm-up call."""
     out = kernel_stage_ms(fn, iters)
     require(out["stage1"] > 0 and out["scan"] > 0,
             "the profiler saw no wave kernel")
     return out
 
 
-def kernel_stage_ms(fn, iters=10):
-    """``wave_stage_ms`` for any call: device ms per call by the
+def kernel_stage_ms(fn, iters=10, attempts=3):
+    """``wave_stage_ms`` for any call: device ms per launch by the
     ``WAVE_STAGES`` part of each kernel's name (a histogram: stage 1 and
-    the combine)."""
+    the combine), the mean over the launches ``torch.profiler`` recorded
+    in ``iters`` calls (each call launches each stage once); ``other``:
+    the device ms per call of the other events.  A session on that card
+    at times records none, or another number, of the launches made (seen
+    after another session, and at 10.5M rows): ``profiler_launches``
+    gives each stage's count, and a session that recorded no stage-1
+    launch is profiled again, up to ``attempts`` times
+    (``profiler_sessions``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    stages = [k for k, _ in WAVE_STAGES]
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = dict.fromkeys([k for k, _ in WAVE_STAGES] + ["other"], 0.0)
-    for ev in prof.events():
-        if "cuda" not in str(getattr(ev, "device_type", "")).lower():
-            continue
-        key = next((k for k, part in WAVE_STAGES if part in ev.name),
-                   "other")
-        out[key] += ev.time_range.end - ev.time_range.start
-    return {k: v / 1e3 / iters for k, v in out.items()}
+    for session in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = dict.fromkeys(stages + ["other"], 0.0)
+        count = dict.fromkeys(stages + ["other"], 0)
+        for ev in prof.events():
+            if "cuda" not in str(getattr(ev, "device_type", "")).lower():
+                continue
+            key = next((k for k, part in WAVE_STAGES if part in ev.name),
+                       "other")
+            total[key] += ev.time_range.end - ev.time_range.start
+            count[key] += 1
+        if count["stage1"]:
+            break
+    out = {k: total[k] / count[k] / 1e3 if count[k] else 0.0
+           for k in stages}
+    return {**out, "other": total["other"] / 1e3 / iters,
+            "profiler_sessions": session,
+            "profiler_launches": {k: count[k] for k in stages}}
 
 
 def profile_phase(params, ds, dev, warmup=3, iters=5):
@@ -976,7 +1015,7 @@ def train_phase(dev, fix, rows, name, extra, ds, hist_mode, wave_mode,
 
 
 def training_phases(seed, dev, smi):
-    """Phases 8-28; returns the histogram and wave entries of the kernels
+    """Phases 8-31; returns the histogram and wave entries of the kernels
     line, every mode."""
     import torch
     import lightgbm_tpu_torch as lgt
@@ -998,6 +1037,7 @@ def training_phases(seed, dev, smi):
     twin_histogram_phase(gen, dev)
     twin_wave_phase(gen, dev)
     u16_err = uint16_histogram_phase(gen, dev)
+    u16_wave_err = uint16_wave_phase(gen, dev)
     fix = load_bench_fixture(root)
     rows = bench_rows(fix)
     Xv = rows[0][fix["data"]["n_train"]:]
@@ -1094,9 +1134,14 @@ def training_phases(seed, dev, smi):
     runs4 = slice4_training(dev, fix, rows, ds)
     timing4 = new_mode_timing(gen, dev, smi)
 
-    # 27-28. max_bin 1023 training through the uint16 modes; their times
-    runs16 = wide_training(dev, fix, rows, ds)
+    # 27-28. max_bin 1023 training on the unfused wave through the uint16
+    # histogram modes; their times
+    runs16, ds_w, unfused16 = wide_training(dev, fix, rows, ds)
     timing16 = uint16_timing(gen, dev, smi)
+    # 30-31. max_bin 1023 training through the fused uint16 wave; its times
+    fused16 = wide_fused_training(dev, fix, rows, ds_w, rec, unfused16)
+    del ds_w
+    timing16w = uint16_wave_timing(gen, dev, smi, fused16)
 
     h = timing[f"histogram/{HIST_TIMING_ROWS[0]}"]
     h8 = timing8[f"histogram_int8/{HIST_TIMING_ROWS[0]}"]
@@ -1119,9 +1164,13 @@ def training_phases(seed, dev, smi):
                   (f"wave_{mode}", WAVE_SOURCE, WAVE_REPLACES, tw,
                    runs4["wave"][mode], tw["max_abs_err"], sum(sizes))]
     for mode in U16_MODES:
-        table.append((f"histogram_{mode}", HIST_SOURCE, HIST_REPLACES,
-                      timing16[f"histogram_{mode}/{rows0}"], runs16[mode],
-                      u16_err[mode], rows0))
+        # launches: phase 27's unfused runs and phase 30's fused ones
+        table += [(f"histogram_{mode}", HIST_SOURCE, HIST_REPLACES,
+                   timing16[f"histogram_{mode}/{rows0}"],
+                   runs16[mode] + fused16[mode][0], u16_err[mode], rows0),
+                  (f"wave_{mode}", WAVE_SOURCE, WAVE_REPLACES,
+                   timing16w[f"wave_{mode}/B={WIDE_MAX_BIN}/{wave_key}"],
+                   fused16[mode][1], u16_wave_err[mode], sum(sizes))]
     entries = []
     for name, src_, rep, t, launches_, err_, nrows in table:
         require(launches_ > 0, f"{name}: no launch on its training path")
@@ -1614,9 +1663,26 @@ U16_MODES = ("f32_uint16", "bf16_uint16", "int8_uint16")
 U16_BINS = (257, 511, 1023, 4095, 65536)
 U16_ROWS = (1, 1000, 200_000)
 U16_LARGE = (10_500_000, 1023)
-#: phase 27's training: the max_bin, and the iterations of each run
+#: phase 27's training (the unfused wave): the max_bin, and the
+#: iterations of each run (f32 at 10, where phase 30's fused run is held
+#: to its AUC)
 WIDE_MAX_BIN = 1023
-WIDE_ITERS = {"f32": 10, "quantized": 10, "bf16": 5, "repeat": 3}
+WIDE_ITERS = {"f32": 10, "quantized": 5, "bf16": 3, "repeat": 3}
+#: phase 29's uint16 waves: the bin counts (the scan tiled from 2,047 at
+#: F = 28), and B = 65,536 at W = 1 over a few hundred rows (stage 1 in
+#: eight bin tiles, the scan in 48)
+U16_WAVE_BINS = (257, 511, 1023, 2047, 4095)
+U16_WAVE_LARGE = ([300], 65536)
+#: phase 30's fused runs: iterations, and the iterations at which fused
+#: and unfused runs are held to one AUC (within FUSED_AUC_TOL) and two
+#: runs to one model text
+FUSED_ITERS = 100
+FUSED_CHECK_ITERS = 10
+FUSED_AUC_TOL = 1e-3
+#: phase 31's timed uint16 waves (W = 16 x 12,500, F = 28): mode and B
+U16_WAVE_TIMING = (("f32_uint16", 1023), ("bf16_uint16", 1023),
+                   ("int8_uint16", 1023), ("f32_uint16", 511),
+                   ("int8_uint16", 2047))
 
 
 def hist_twin(bins, vals, *, num_bins, dtype="f32", packed4=False,
@@ -1705,14 +1771,15 @@ def uint16_histogram_phase(gen, dev):
 
 def wide_training(dev, fix, rows, ds):
     """27. Training at max_bin 1023 on the bench rows, binned once: f32,
-    quantized and bf16, unfused (the uint16 histogram per root and per
-    smaller sibling, no wave kernel); two f32 runs give equal model text,
-    and so do runs with ``histogram_flat`` swapped for its twin (f32 and
-    quantized); the f32 model served through ``Predictor`` (int16 pack)
-    equals the numpy walk bit for bit.  The holdout AUC stands beside the
-    255-bin run's at the same iteration count (no genuine-LightGBM number
-    exists at 1,023 bins: no gate).  Returns the launches of each uint16
-    mode on its training path."""
+    quantized and bf16 with ``tpu_wave_kernel=unfused`` (the uint16
+    histogram per root and per smaller sibling, no wave kernel); two f32
+    runs give equal model text, and so do runs with ``histogram_flat``
+    swapped for its twin (f32 and quantized); the f32 model served
+    through ``Predictor`` (int16 pack) equals the numpy walk bit for bit.
+    The holdout AUC stands beside the 255-bin run's at the same iteration
+    count (no genuine-LightGBM number exists at 1,023 bins: no gate).
+    Returns the launches of each uint16 histogram mode on its training
+    path, the binned rows and each run's record."""
     import torch
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.ops import histogram_flat as HF
@@ -1725,7 +1792,7 @@ def wide_training(dev, fix, rows, ds):
           "bins_dtype": str(binned.bins.dtype), "seconds": binning_s})
     require(binned.bins.dtype == np.uint16, "max_bin 1023 did not bin to "
             "uint16")
-    wide = {"max_bin": WIDE_MAX_BIN}
+    wide = {"max_bin": WIDE_MAX_BIN, "tpu_wave_kernel": "unfused"}
     launches = {}
     runs = {}
     for name, extra, mode in (
@@ -1799,7 +1866,7 @@ def wide_training(dev, fix, rows, ds):
     emit({"phase": "serve_max_bin_1023", "rows": rows_s.shape[0],
           "launches": 1, "raw_bitwise": True,
           "split_bin_max": int(pack["split_bin"].max())})
-    return launches
+    return launches, ds_w, {k: v[2] for k, v in runs.items()}
 
 
 def uint16_timing(gen, dev, smi):
@@ -1844,6 +1911,218 @@ def uint16_timing(gen, dev, smi):
             del bins, vals
         torch.cuda.empty_cache()
     emit({"phase": "training_timing_uint16", "nvidia_smi": smi, "bins": b,
+          "shapes": timing})
+    return timing
+
+
+# ------------------------ slice 8: the fused wave over uint16 bins (B2e)
+def uint16_wave_phase(gen, dev):
+    """29. The wave kernel's uint16 modes (f32, bf16, int8) against their
+    plain version ``wave_plain`` and the chunked twin
+    ``wave_hists_chunked``: at every B of U16_WAVE_BINS, F = 28 and 27, W
+    = 1 and W = 16 with inactive slots, and B = 65,536 at W = 1.  On
+    exact sums (int8: power-of-two scales) child histograms and payloads
+    bit for bit the plain version's; on random values (int8: random
+    scales) child histograms bit for bit the twin's (int8: the plain
+    version's) and payloads within ``wave_agreement``; run-to-run
+    bitwise.  Then a wave with no valid split (all gains -inf: key 0's
+    payload) at B = 2,047.  Returns each mode's largest child-histogram
+    error against the plain version at B = 1,023, F = 28, W = 16, random
+    values."""
+    import torch
+    from lightgbm_tpu_torch.ops import wave as WV
+    from lightgbm_tpu_torch.ops.split import SplitConfig
+    cfg = SplitConfig(min_data_in_leaf=0, min_sum_hessian_in_leaf=1.0,
+                      lambda_l2=0.5, max_cat_to_onehot=4)
+    rand = torch.rand(2, generator=gen, device=dev) * 0.02 + 1e-3
+    random_scales = (float(rand[0]), float(rand[1]), 1.0)
+    out, err = {}, {}
+
+    def check(mode, b, f, name, sizes, inactive, exact, scan_cfg=cfg):
+        kind = mode.split("_")[0]
+        int8 = kind == "int8"
+        scales = (POW2_SCALES if exact else random_scales) if int8 else None
+        inp = wave_case(gen, dev, sizes, exact or int8, f=f, b=b,
+                        inactive=inactive, scales=scales, mode=kind)
+        require(inp["bins"].dtype == torch.uint16, "uint16 wave case "
+                f"holds {inp['bins'].dtype} bins")
+        h1, p1 = WV.fused_wave_call(cfg=scan_cfg, **inp)
+        h2, p2 = WV.fused_wave_call(cfg=scan_cfg, **inp)
+        hp, pp = WV.wave_plain(cfg=scan_cfg, **inp)
+        torch.cuda.synchronize()
+        tag = f"{mode} B={b} F={f} {name} {'exact' if exact else 'random'}"
+        require(torch.equal(h1, h2) and torch.equal(p1, p2),
+                f"wave {tag}: not run-to-run bitwise")
+        for j in inactive:
+            require(bool(torch.isinf(p1[j, :, 0]).all()),
+                    f"wave {tag}: inactive slot {j} has a finite gain")
+        if exact:
+            require(torch.equal(h1, hp) and torch.equal(p1, pp),
+                    f"wave {tag} != plain version")
+        if int8:
+            require(torch.equal(h1, hp), f"wave {tag}: histograms != plain "
+                    "version")
+            h1 = WV.scale_hist(h1, inp["scale3"])
+            hp = WV.scale_hist(hp, inp["scale3"])
+        elif not exact:
+            want = WV.wave_hists_chunked(
+                inp["bins"], inp["vals"], inp["perm"], inp["small_start"],
+                inp["small_cnt"], inp["parent"], inp["stats"], b)
+            torch.cuda.synchronize()
+            require(torch.equal(h1, want), f"wave {tag}: child histograms "
+                    "!= their chunk-ordered twin (off by "
+                    f"{float((h1 - want).abs().max())})")
+        out[tag] = {"slots": len(sizes), "rows": sum(sizes),
+                    "payload_equal": bool(torch.equal(p1, pp)),
+                    **wave_agreement(h1, p1, hp, pp)}
+        return float((h1 - hp).abs().max()), p1
+
+    for mode in U16_MODES:
+        for b in U16_WAVE_BINS:
+            for f in (28, 27):
+                for name, (sizes, inactive) in CHECK_WAVES.items():
+                    for exact in (True, False):
+                        e, _ = check(mode, b, f, name, sizes, inactive,
+                                     exact)
+                        if (b, f, name, exact) == (WIDE_MAX_BIN, 28, "W16",
+                                                   False):
+                            err[mode] = e
+        sizes, b = U16_WAVE_LARGE
+        for exact in (True, False):
+            check(mode, b, 28, "W1", sizes, (), exact)
+    none = SplitConfig(min_data_in_leaf=10 ** 9, min_sum_hessian_in_leaf=1.0,
+                       lambda_l2=0.5, max_cat_to_onehot=4)
+    sizes, inactive = CHECK_WAVES["W16"]
+    for mode in ("f32_uint16", "int8_uint16"):
+        _e, p = check(mode, 2047, 28, "W16 no valid split", sizes, inactive,
+                      True, scan_cfg=none)
+        require(bool(torch.isinf(p[:, :, 0]).all()), "a uint16 child split "
+                "under min_data_in_leaf = 1e9")
+        require(not bool(p[:, :, 1:3].any()), "all -inf uint16 children did "
+                "not select key 0")
+    emit({"phase": "wave_uint16_vs_plain_and_twin", "cases": out})
+    return err
+
+
+def wide_fused_training(dev, fix, rows, ds_w, rec255, unfused):
+    """30. Fused training at max_bin 1023 on phase 27's binned rows,
+    FUSED_ITERS iterations: f32 and quantized under ``auto``, bf16 with
+    ``tpu_histogram_impl=flat_bf16, tpu_wave_kernel=fused`` (``auto``
+    keeps flat_bf16 unfused, as the JAX package does).  Each launches only
+    its ``<mode>_uint16`` wave and one uint16 histogram a tree (the
+    root).  s/iteration and holdout AUC stand beside phase 27's unfused
+    runs (``unfused``: their records) and the 255-bin f32 run's
+    (``rec255``, phase 10); two FUSED_CHECK_ITERS-iteration runs give
+    equal model text (f32, quantized), and the f32 one's holdout AUC is
+    within FUSED_AUC_TOL of the unfused f32 run's at the same iterations.
+    Then phase 13's ``torch.profiler`` split of the fused f32 run.
+    Returns each mode's (histogram, wave) launches."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.metrics import auc
+    nt = fix["data"]["n_train"]
+    Xv, yv = rows[0][nt:], rows[1][nt:]
+    launches, runs = {}, {}
+    for name, extra, mode in (
+            ("f32", {}, "f32_uint16"),
+            ("quantized", {"use_quantized_grad": True}, "int8_uint16"),
+            ("bf16", {"tpu_histogram_impl": "flat_bf16",
+                      "tpu_wave_kernel": "fused"}, "bf16_uint16")):
+        bst, params, rec = train_phase(
+            dev, fix, rows, f"train_max_bin_{WIDE_MAX_BIN}_fused_{name}",
+            dict(extra, max_bin=WIDE_MAX_BIN), ds_w, mode, mode,
+            iters=FUSED_ITERS)
+        del bst
+        require(rec["histogram_launches"] == FUSED_ITERS,
+                f"fused {name}: {rec['histogram_launches']} histogram "
+                f"launches in {FUSED_ITERS} iterations (one root a tree)")
+        launches[mode] = (rec["histogram_launches"], rec["wave_launches"])
+        runs[name] = (params, rec)
+    checks = {}
+    for name in ("f32", "quantized"):
+        prm = runs[name][0]
+        t0 = time.perf_counter()
+        b1 = lgt.train(prm, ds_w, FUSED_CHECK_ITERS, device=dev)
+        text = b1.model_to_string()
+        again = lgt.train(prm, ds_w, FUSED_CHECK_ITERS,
+                          device=dev).model_to_string()
+        require(again == text, f"two {FUSED_CHECK_ITERS}-iteration fused "
+                f"max_bin {WIDE_MAX_BIN} {name} runs gave different model "
+                "text")
+        checks[name] = {"repeat_equal": True, "model_bytes": len(text),
+                        "seconds": time.perf_counter() - t0,
+                        "holdout_auc": auc(yv, b1.predict(Xv,
+                                                          raw_score=True))}
+    gap = checks["f32"]["holdout_auc"] - unfused["f32"]["holdout_auc"]
+    require(unfused["f32"]["iterations"] == FUSED_CHECK_ITERS
+            and abs(gap) <= FUSED_AUC_TOL,
+            f"fused f32 holdout AUC {checks['f32']['holdout_auc']} not "
+            f"within {FUSED_AUC_TOL} of the unfused run's "
+            f"{unfused['f32']['holdout_auc']}")
+    emit({"phase": "fused_max_bin_1023", "iterations": FUSED_ITERS,
+          "s_per_iteration": {k: v[1]["s_per_iteration"]
+                              for k, v in runs.items()},
+          "s_per_iteration_unfused": {
+              k: {"iterations": v["iterations"],
+                  "s": v["s_per_iteration"]} for k, v in unfused.items()},
+          "s_per_iteration_max_bin_255_f32": rec255["s_per_iteration"],
+          "holdout_auc": {k: v[1]["holdout_auc"] for k, v in runs.items()},
+          "holdout_auc_max_bin_255_f32": rec255["holdout_auc"],
+          "iterations_max_bin_255": rec255["iterations"],
+          "check_iterations": FUSED_CHECK_ITERS, "checks": checks,
+          "holdout_auc_unfused_f32": unfused["f32"]["holdout_auc"],
+          "fused_minus_unfused_auc_f32": gap, "auc_tolerance": FUSED_AUC_TOL,
+          "launches": launches})
+    emit({**profile_phase(runs["f32"][0], ds_w, dev),
+          "training": f"max_bin_{WIDE_MAX_BIN}_fused_f32"})
+    return launches
+
+
+def uint16_wave_timing(gen, dev, smi, launches):
+    """31. The uint16 wave modes at W = 16 x 12,500, F = 28
+    (U16_WAVE_TIMING: B = 1,023 in each mode, f32 at 511, int8 at 2,047):
+    kernel ms (CUDA events), the device ms of its launches by name
+    (``wave_stage_ms``), the plain version, the bound (``wave_bound_ms``)
+    and, at B = 1,023, the launches per iteration of phase 30's run.  No
+    single PyTorch call computes a wave."""
+    import torch
+    from lightgbm_tpu_torch.ops import wave as WV
+    from lightgbm_tpu_torch.ops.split import SplitConfig
+    sizes = list(WAVE_TIMING_SIZES)
+    cfg = SplitConfig(min_data_in_leaf=0, min_sum_hessian_in_leaf=100.0,
+                      max_cat_to_onehot=4)
+    timing = {}
+    for mode, b in U16_WAVE_TIMING:
+        kind = mode.split("_")[0]
+        scales = None
+        if kind == "int8":
+            rand = torch.rand(2, generator=gen, device=dev) * 0.02 + 1e-3
+            scales = (float(rand[0]), float(rand[1]), 1.0)
+        inp = wave_case(gen, dev, sizes, exact=scales is not None, b=b,
+                        scales=scales, mode=kind)
+        fn = lambda: WV.fused_wave_call(cfg=cfg, **inp)
+        entry = {"bins": b,
+                 "kernel_ms": cuda_time_ms(fn, iters=20),
+                 "plain_ms": cuda_time_ms(
+                     lambda: WV.wave_plain(cfg=cfg, **inp), iters=3,
+                     warmup=1),
+                 "library_ms": None}
+        h1, p1 = fn()
+        hp, pp = WV.wave_plain(cfg=cfg, **inp)
+        if scales is not None:
+            require(torch.equal(h1, hp), f"{mode} timing wave histograms "
+                    "!= plain")
+            h1 = WV.scale_hist(h1, inp["scale3"])
+            hp = WV.scale_hist(hp, inp["scale3"])
+        entry["max_abs_err"] = float((h1 - hp).abs().max())
+        entry["agreement"] = wave_agreement(h1, p1, hp, pp)
+        entry["bytes_ms"], entry["ops_ms"] = wave_bound_ms(inp)
+        entry["stage_ms"] = wave_stage_ms(fn)
+        if b == WIDE_MAX_BIN:
+            entry["launches_per_iteration"] = launches[mode][1] / FUSED_ITERS
+        timing[f"wave_{mode}/B={b}/{len(sizes)}x{sizes[0]}"] = entry
+        del inp, h1, p1, hp, pp
+        torch.cuda.empty_cache()
+    emit({"phase": "training_timing_uint16_wave", "nvidia_smi": smi,
           "shapes": timing})
     return timing
 

@@ -14,13 +14,12 @@
 
 Bins are the (N, F) uint8 matrix, the (N, F) uint16 one above 256 bins
 (read through ``ops/histogram.py::read_bins``: torch has no uint16
-compares, nor uint16 indexing on CUDA), or, with
-``packed4`` (every feature at <= 16 bins), its (N, ceil(F/2)) 4-bit
-nibble pairs: the partition reads the split feature's nibble, the
-kernels and the histogram impls unpack themselves, and the mask layout
-unpacks once (small data, small cost).  Above 256 bins every wave is
-unfused (``wave_fused_for``): one histogram kernel launch per smaller
-sibling.
+compares, nor uint16 indexing on CUDA; the wave kernel reads them
+itself), or, with ``packed4`` (every feature at <= 16 bins), its (N,
+ceil(F/2)) 4-bit nibble pairs: the partition reads the split feature's
+nibble, the kernels and the histogram impls unpack themselves, and the
+mask layout unpacks once (small data, small cost).  Every one of them
+goes through the fused wave on a CUDA device (``wave_fused_for``).
 Under ``histogram_impl="flat_bf16"`` (f32 training) the channel values
 are rounded to bf16 once per tree, so every histogram and wave runs the
 kernels' bf16 mode on them without a cast of its own.
@@ -59,7 +58,6 @@ from torch.profiler import record_function
 
 from ..ops.histogram import (histogram_from_vals, read_bins, resolve_impl,
                              unpack_bins4)
-from ..ops.histogram_flat import MAX_BINS
 from ..ops.quantize import discretize_gradients, gradient_scales, max_level
 from ..ops.split import (BestSplit, SplitConfig, best_split, best_split_batch,
                          first_argmax, leaf_output, smoothed_output)
@@ -125,21 +123,16 @@ def wave_fused_for(cfg: GrowerConfig, device: torch.device) -> bool:
     """Does wave growth go through the fused wave kernel?  ``fused``
     forces it (its plain version on the CPU); ``auto`` takes it where the
     histogram kernel is the live impl — on a CUDA device, as the JAX
-    package takes it on a TPU.  Above 256 bins the wave kernel is not
-    ported (ROADMAP B2e): ``auto`` keeps the unfused wave on every device
-    and ``fused`` raises, where the JAX package fuses whenever its
-    ``wave_layout`` fits."""
+    package takes it on a TPU — at every bin count and feature count the
+    kernel takes (up to 65,536 bins).  The JAX package fuses only where
+    its TPU VMEM model ``wave_layout`` fits (at F = 28, f32 up to 512
+    bins); that model means nothing for the CUDA kernel, and the trees are
+    the same either way (the unfused step is the fused one's plain
+    version)."""
     if cfg.wave_kernel not in ("auto", "fused", "unfused"):
         raise ValueError(f"wave_kernel={cfg.wave_kernel!r}: expected auto, "
                          "fused or unfused")
     if cfg.wave_kernel == "unfused":
-        return False
-    if cfg.num_bins > MAX_BINS:
-        if cfg.wave_kernel == "fused":
-            raise NotImplementedError(
-                f"wave_kernel=fused over {cfg.num_bins} bins is not ported "
-                "to lightgbm_tpu_torch yet (ROADMAP B2e): at most "
-                f"{MAX_BINS} bins")
         return False
     if cfg.wave_kernel == "fused":
         return True

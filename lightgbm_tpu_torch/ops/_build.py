@@ -108,6 +108,10 @@ SIGNATURES = {
                   + [_F32] * 7 + [_I32] * 5 + [_P] * 4),
     "lgbt_wave_i8": ([_P] * 3 + [_I32] * 2 + [_P] + [_I32] * 3 + [_P] * 4
                      + [_F32] * 7 + [_I32] * 4 + [_P] * 4),
+    "lgbt_wave_u16": ([_P] * 3 + [_I32] * 2 + [_P] + [_I32] * 3 + [_P] * 3
+                      + [_F32] * 7 + [_I32] * 4 + [_P] * 4),
+    "lgbt_wave_i8_u16": ([_P] * 3 + [_I32] * 2 + [_P] + [_I32] * 3
+                         + [_P] * 4 + [_F32] * 7 + [_I32] * 3 + [_P] * 4),
 }
 
 

@@ -72,6 +72,29 @@
 // planes, and the original-order tie-break keys they force, fall away
 // (the scan already breaks ties in original order).  An odd F's phantom
 // high nibble is never read: a lane reads only features below F.
+//
+// uint16 bins (max_bin above 255, up to 65,536 bins; the TPU kernel takes
+// them wherever its VMEM wave_layout fits), in every value type above but
+// packed4: the entry points lgbt_wave_u16 and lgbt_wave_i8_u16, so the
+// uint8 and packed4 entry points keep their code.  Stage 1 is the
+// histogram kernel's uint16 accumulation over the gathered rows
+// (hist_common.cuh, kPerm with kBin = uint16_t: a block stages 2 bytes a
+// feature of each row; its 96 KB of chunk histograms hold 8 features at B
+// = 1,023, one at 8,192, and past that the bin axis is tiled over
+// grid.z); the combines do not depend on B.  The scan is
+// wave_scan_wide_kernel: the scan above with the bin axis cut into tiles
+// where a warp's (B, 3) cells do not fit the block's shared memory (every
+// bin fits up to B = 1,380 at F = 28; 48 tiles at B = 65,536), lanes 0-2
+// carrying the cumulative sums across tiles, so the payload is still the
+// sequential first-max's, bit for bit.  The payload is 16 + B wide and
+// carries the bin id as an f32, exact below 2^24.  What bounds it: stage
+// 1 as at B = 255 plus 4x the shared-memory groups (8 features a block,
+// not 28), and the scan's sequential cumulative sums, B adds in a chain
+// per (child, feature).  Scratch: segment_table (ops/wave.py) keeps the
+// chunk partials under 256 MB, but gives every non-empty sibling a chunk,
+// so the partials of W siblings are at least W * F * B * 12 bytes (352
+// MB at W = 16, F = 28, B = 65,536, past the cap), and the child
+// histograms 2W * F * B * 12 (704 MB there).
 
 #include <climits>
 #include <math_constants.h>
@@ -176,7 +199,8 @@ struct Best {
 };
 
 // Dynamic shared memory of the scan: each warp's Best and the winner's
-// bin, then each warp's (B, 3) cells.
+// bin, then each warp's (B, 3) cells (`nbins`: the bins of one tile in
+// the uint16 scan).
 inline int scan_smem(int warps, int nbins) {
   return lgbt::align16(warps * (int)sizeof(Best) + (int)sizeof(int)) +
          warps * nbins * 3 * (int)sizeof(float);
@@ -328,6 +352,202 @@ wave_scan_kernel(const T* __restrict__ hist,
     pay[kPayloadScalars + b] = b == *s_win_bin ? 1.f : 0.f;
 }
 
+// The uint16 scan's steps below are wave_scan_kernel's arithmetic line
+// for line; wave_scan_kernel keeps its own copy, so the byte modes
+// compile to the SASS of earlier builds (tools/torch_kernel_ab.py
+// compares it).
+
+// A feature as the scan reads it from meta (F, 4) and the config.
+struct Feat {
+  int nb, nanb;
+  bool iscat, fm, sorted_el;
+};
+
+__device__ __forceinline__ Feat read_feat(const int32_t* meta, int feat,
+                                          const ScanCfg& c) {
+  Feat q;
+  q.nb = meta[feat * 4 + 0];
+  q.nanb = meta[feat * 4 + 1];
+  q.iscat = c.has_cat && meta[feat * 4 + 2] != 0;
+  q.fm = meta[feat * 4 + 3] != 0;
+  q.sorted_el = q.iscat && q.nb > c.max_cat_onehot;
+  return q;
+}
+
+// The candidate of bin b of feature `feat` into the lane's best `mine`:
+// `p` is the bin's cells (categorical) or masked cumulative sums, (gn,
+// hn, cn) the NaN bin's cells.  A lane's candidates come in ascending key
+// order, so its first seeds `mine` and a later one must be strictly
+// better.
+__device__ __forceinline__ void scan_bin(Best& mine, const float* p, int b,
+                                         int feat, int nbins, const Feat& q,
+                                         float gn, float hn, float cn,
+                                         float pg, float ph, float pc,
+                                         float pout, float pgain,
+                                         const ScanCfg& c) {
+  const bool in_f = b < q.nb;
+  const bool vm = in_f && b != q.nanb;
+  Cand cand;
+  bool dl = false;
+  float gain;
+  if (q.iscat) {
+    cand = eval_dir(p[0], p[1], p[2], pg, ph, pc, pout, pgain, c);
+    gain = in_f ? cand.gain : -CUDART_INF_F;
+  } else {
+    const Cand mr = eval_dir(p[0], p[1], p[2], pg, ph, pc, pout, pgain, c);
+    cand = mr;
+    gain = mr.gain;
+    if (c.has_nan) {
+      const Cand ml = eval_dir(p[0] + gn, p[1] + hn, p[2] + cn, pg, ph, pc,
+                               pout, pgain, c);
+      const float gml = q.nanb < nbins ? ml.gain : -CUDART_INF_F;
+      gain = fmaxf(mr.gain, gml);
+      dl = gml > mr.gain;
+      if (dl) cand = ml;
+    }
+    if (!vm) gain = -CUDART_INF_F;
+  }
+  if (q.sorted_el || !q.fm) gain = -CUDART_INF_F;
+  if (mine.key == INT_MAX || gain > mine.gain) {
+    mine.gain = gain;
+    mine.key = feat * nbins + b;
+    mine.dl = dl;
+    mine.cat = q.iscat;
+    for (int i = 0; i < 6; ++i) mine.s[i] = cand.s[i];
+  }
+}
+
+// The warp's winner over its lanes' `mine` (maximum gain, lowest key on
+// ties) into its running best (run_gain, run_key) and s_best[warp].
+__device__ __forceinline__ void warp_select(const Best& mine, float& run_gain,
+                                            int& run_key, Best* s_best,
+                                            int warp) {
+  float wg = mine.gain;
+  int wk = mine.key;
+  for (int o = 16; o > 0; o >>= 1) {
+    const float og = __shfl_xor_sync(lgbt::kFullMask, wg, o);
+    const int ok = __shfl_xor_sync(lgbt::kFullMask, wk, o);
+    if (og > wg || (og == wg && ok < wk)) { wg = og; wk = ok; }
+  }
+  if (wg > run_gain || (wg == run_gain && wk < run_key)) {
+    run_gain = wg;
+    run_key = wk;
+    if (mine.key == wk) s_best[warp] = mine;
+  }
+}
+
+// The block's winner over its warps' bests into the child's payload
+// (B = nbins one-hot lanes): thread 0 writes the scalars, every thread
+// the one-hot.
+__device__ __forceinline__ void write_payload(const Best* s_best,
+                                              int* s_win_bin, int nwarps,
+                                              int nbins, bool active,
+                                              float* pay) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int bi = 0;
+    for (int i = 1; i < nwarps; ++i) {
+      const Best& o = s_best[i];
+      if (o.gain > s_best[bi].gain ||
+          (o.gain == s_best[bi].gain && o.key < s_best[bi].key))
+        bi = i;
+    }
+    const Best& win = s_best[bi];
+    pay[0] = active ? win.gain : -CUDART_INF_F;
+    pay[1] = (float)(win.key / nbins);
+    pay[2] = (float)(win.key % nbins);
+    pay[3] = (!win.cat && win.dl) ? 1.f : 0.f;
+    pay[4] = win.cat ? 1.f : 0.f;
+    for (int i = 0; i < 6; ++i) pay[5 + i] = win.s[i];
+    for (int i = 11; i < kPayloadScalars; ++i) pay[i] = 0.f;
+    *s_win_bin = win.cat ? win.key % nbins : -1;
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < nbins; b += blockDim.x)
+    pay[kPayloadScalars + b] = b == *s_win_bin ? 1.f : 0.f;
+}
+
+// The scan over uint16 bins (any B up to 65,536): wave_scan_kernel's
+// arithmetic with the bin axis cut into tiles of `tile` bins (every bin
+// where warps * B * 12 bytes fit kScanSmemBudget: B <= 1,380 at F = 28).
+// Per feature the warp reads the NaN bin's cells from global memory
+// first, then per tile stages its cells, lanes 0-2 carry the running
+// masked cumulative sums from tile to tile (the same adds in the same
+// order as one pass over B), and lane l evaluates bins b0 + l, b0 + l +
+// 32, ...: over the tiles still ascending keys, so the winner is the
+// sequential first-max's, bit for bit.  Keys are feature * B + bin in an
+// int: F * B <= 2^31 - 1 (F < 32,768 at B = 65,536; the entry points
+// check it).
+template <typename T>
+__global__ void __launch_bounds__(lgbt::kMaxWarps * 32)
+wave_scan_wide_kernel(const T* __restrict__ hist,
+                      const float* __restrict__ scale3,
+                      const float* __restrict__ stats,
+                      const int32_t* __restrict__ meta, int f, int nbins,
+                      int tile, ScanCfg c, float* __restrict__ payload) {
+  extern __shared__ __align__(16) unsigned char s_scan[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  Best* s_best = reinterpret_cast<Best*>(s_scan);
+  int* s_win_bin = reinterpret_cast<int*>(s_best + nwarps);
+  float* cells = reinterpret_cast<float*>(
+                     s_scan + lgbt::align16(nwarps * (int)sizeof(Best) +
+                                            (int)sizeof(int))) +
+                 warp * tile * 3;
+  const float scale[3] = {scale3 != nullptr ? scale3[0] : 1.f,
+                          scale3 != nullptr ? scale3[1] : 1.f,
+                          scale3 != nullptr ? scale3[2] : 1.f};
+  const int child = blockIdx.x;         // w * 2 + ci
+  const float* st = stats + (int64_t)child * kStatLanes;
+  const float pg = st[0], ph = st[1], pc = st[2], pout = st[3];
+  const bool active = st[5] > 0.5f;
+  const float pgain = c.path_smooth > 0.f ? gain_given_output(pg, ph, pout, c)
+                                          : leaf_gain(pg, ph, c);
+  const T* h0 = hist + (int64_t)child * f * nbins * 3;
+
+  float run_gain = -CUDART_INF_F;
+  int run_key = INT_MAX;
+  if (lane == 0) s_best[warp] = Best{-CUDART_INF_F, INT_MAX, 0, 0, {}};
+  for (int feat = warp; feat < f; feat += nwarps) {
+    const Feat q = read_feat(meta, feat, c);
+    const T* hf = h0 + (int64_t)feat * nbins * 3;
+    float gn = 0.f, hn = 0.f, cn = 0.f;
+    if (q.nanb < nbins) {
+      gn = cell(hf, q.nanb * 3 + 0, scale[0]);
+      hn = cell(hf, q.nanb * 3 + 1, scale[1]);
+      cn = cell(hf, q.nanb * 3 + 2, scale[2]);
+    }
+    float run = 0.f;                    // lane c < 3: channel c's cumsum
+    Best mine{-CUDART_INF_F, INT_MAX, 0, 0, {}};
+    for (int b0 = 0; b0 < nbins; b0 += tile) {
+      const int tlen = min(tile, nbins - b0);
+      const T* ht = hf + (int64_t)b0 * 3;
+      for (int i = lane; i < tlen * 3; i += 32)
+        cells[i] = cell(ht, i, scale[i % 3]);
+      __syncwarp();
+      if (!q.iscat && lane < 3) {
+        for (int i = 0; i < tlen; ++i) {
+          const int b = b0 + i;
+          const bool vm = b < q.nb && b != q.nanb;
+          float* p = cells + i * 3 + lane;
+          run = run + (vm ? *p : 0.f);
+          *p = run;
+        }
+      }
+      __syncwarp();
+      for (int i = lane; i < tlen; i += 32)
+        scan_bin(mine, cells + i * 3, b0 + i, feat, nbins, q, gn, hn, cn, pg,
+                 ph, pc, pout, pgain, c);
+      __syncwarp();                     // the tile's cells, for the next
+    }
+    warp_select(mine, run_gain, run_key, s_best, warp);
+    __syncwarp();
+  }
+  write_payload(s_best, s_win_bin, nwarps, nbins, active,
+                payload + (int64_t)child * (kPayloadScalars + nbins));
+}
+
 // int8 mode combine: larger sibling = parent - smaller in int32, the pair
 // written as (left, right) by the small_left lane (4) of `stats`.
 // small: (W, cells) int32; parent: (W, cells); out: (W, 2, cells).
@@ -357,6 +577,39 @@ int launch_scan(const T* hist, const float* scale3, const float* stats,
   wave_scan_kernel<T><<<(unsigned)(2 * w), 32 * warps, smem, s>>>(
       hist, scale3, stats, meta, f, nbins, c, payload);
   return (int)cudaGetLastError();
+}
+
+// The uint16 scan's shared memory at most: the opt-in limit of a block.
+constexpr int kScanSmemBudget = 227 * 1024;
+
+// Bins per tile of the uint16 scan: every bin where `warps` warps' (B, 3)
+// cells fit kScanSmemBudget, else the most that fit, a multiple of 32
+// (1,184 at 16 warps).
+inline int scan_tile(int warps, int nbins) {
+  const int per_bin = warps * 3 * (int)sizeof(float);
+  const int tile = (kScanSmemBudget - scan_smem(warps, 0)) / per_bin;
+  return tile >= nbins ? nbins : (tile & ~31);
+}
+
+template <typename T>
+int launch_scan_wide(const T* hist, const float* scale3, const float* stats,
+                     const int32_t* meta, int f, int nbins, int w, ScanCfg c,
+                     float* payload, cudaStream_t s) {
+  const int warps = lgbt::warps_for(f);
+  const int tile = scan_tile(warps, nbins);
+  const int smem = scan_smem(warps, tile);
+  const int err = lgbt::smem_opt_in(wave_scan_wide_kernel<T>, smem);
+  if (err != 0) return err;
+  wave_scan_wide_kernel<T><<<(unsigned)(2 * w), 32 * warps, smem, s>>>(
+      hist, scale3, stats, meta, f, nbins, tile, c, payload);
+  return (int)cudaGetLastError();
+}
+
+// The uint16 entry points' shape check: up to kMaxBinsWide bins, and
+// every key feature * B + bin an int.
+inline bool wide_shape_ok(int f, int nbins, int w, int total_chunks) {
+  return nbins >= 1 && nbins <= lgbt::kMaxBinsWide && f >= 1 && w >= 1 &&
+         total_chunks >= 0 && (int64_t)f * nbins <= INT_MAX;
 }
 
 }  // namespace
@@ -443,4 +696,80 @@ extern "C" int lgbt_wave_i8(const void* bins, const void* vals,
   return launch_scan((const int32_t*)out_hist, (const float*)scale3,
                      (const float*)stats, (const int32_t*)meta, f, nbins, w,
                      c, (float*)payload, s);
+}
+
+// uint16 bins, f32 / bf16 values: lgbt_wave over (N, F) uint16 bins
+// (never packed), up to kMaxBinsWide bins, its scan tiled over the bins
+// (wave_scan_wide_kernel).  `partial` is total_chunks * f * nbins * 3
+// floats, as above.
+extern "C" int lgbt_wave_u16(const void* bins, const void* vals,
+                             const void* perm, int f, int nbins,
+                             const void* seg, int w, int total_chunks,
+                             int chunk_rows, const void* parent,
+                             const void* stats, const void* meta, float l1,
+                             float l2, float min_count, float min_hess,
+                             float gain_thr, float max_delta,
+                             float path_smooth, int has_nan, int has_cat,
+                             int max_cat_onehot, int bf16, void* partial,
+                             void* out_hist, void* payload, void* stream) {
+  if (!wide_shape_ok(f, nbins, w, total_chunks))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (total_chunks > 0) {
+    const int err = lgbt::launch_accumulate<true, uint16_t>(
+        bins, f, vals, false, bf16 != 0, (const int32_t*)perm,
+        (const int32_t*)seg, w, 0, chunk_rows, nbins, total_chunks,
+        (float*)partial, s);
+    if (err != 0) return err;
+  }
+  const int64_t cells = (int64_t)f * nbins * 3;
+  const dim3 cgrid((unsigned)((cells + 255) / 256), (unsigned)w);
+  lgbt::hist_combine_kernel<<<cgrid, 256, 0, s>>>(
+      (const float*)partial, (const int32_t*)seg, w, 0, cells,
+      (const float*)parent, (const float*)stats, (float*)out_hist);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const ScanCfg c{l1, l2, min_count, min_hess, gain_thr, max_delta,
+                  path_smooth, has_nan, has_cat, max_cat_onehot};
+  return launch_scan_wide((const float*)out_hist, nullptr,
+                          (const float*)stats, (const int32_t*)meta, f,
+                          nbins, w, c, (float*)payload, s);
+}
+
+// uint16 bins, int8 values: lgbt_wave_i8 over (N, F) uint16 bins, its
+// scan tiled as in lgbt_wave_u16.
+extern "C" int lgbt_wave_i8_u16(const void* bins, const void* vals,
+                                const void* perm, int f, int nbins,
+                                const void* seg, int w, int total_chunks,
+                                int chunk_rows, const void* parent,
+                                const void* stats, const void* meta,
+                                const void* scale3, float l1, float l2,
+                                float min_count, float min_hess,
+                                float gain_thr, float max_delta,
+                                float path_smooth, int has_nan, int has_cat,
+                                int max_cat_onehot, void* small,
+                                void* out_hist, void* payload, void* stream) {
+  if (!wide_shape_ok(f, nbins, w, total_chunks))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t cells = (int64_t)f * nbins * 3;
+  int err = (int)cudaMemsetAsync(small, 0, (size_t)w * cells * 4, s);
+  if (err != 0) return err;
+  if (total_chunks > 0) {
+    err = lgbt::launch_accumulate_i8<true, uint16_t>(
+        bins, f, vals, false, (const int32_t*)perm, (const int32_t*)seg, w,
+        0, chunk_rows, nbins, total_chunks, (int32_t*)small, s);
+    if (err != 0) return err;
+  }
+  const dim3 cgrid((unsigned)((cells + 255) / 256), (unsigned)w);
+  hist_combine_i8_kernel<<<cgrid, 256, 0, s>>>(
+      (const int32_t*)small, cells, (const int32_t*)parent,
+      (const float*)stats, (int32_t*)out_hist);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const ScanCfg c{l1, l2, min_count, min_hess, gain_thr, max_delta,
+                  path_smooth, has_nan, has_cat, max_cat_onehot};
+  return launch_scan_wide((const int32_t*)out_hist, (const float*)scale3,
+                          (const float*)stats, (const int32_t*)meta, f,
+                          nbins, w, c, (float*)payload, s);
 }

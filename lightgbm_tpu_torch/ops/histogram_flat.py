@@ -26,9 +26,9 @@ import torch
 
 from .histogram import histogram_segment
 
-#: the kernel's modes over uint8 and packed4 bins (the fused wave kernel
-#: has these, ops/wave.py), then over uint16 bins: value type, then the
-#: bin layout
+#: the kernel's modes over uint8 and packed4 bins, then over uint16 bins
+#: (the fused wave kernel has the same nine, ops/wave.py): value type,
+#: then the bin layout
 BYTE_MODES = ("f32", "bf16", "int8", "f32_packed4", "bf16_packed4",
               "int8_packed4")
 MODES = BYTE_MODES + ("f32_uint16", "bf16_uint16", "int8_uint16")

@@ -21,10 +21,11 @@ bf16 mode (``tpu_histogram_impl=flat_bf16``): bf16 values, f32
 histograms; the siblings' sums are f32 sums of the bf16 values.  packed4
 (``packed4=True``): the bins are the (N, ceil(F/2)) nibble pairs of
 ``ops/histogram.py::pack_bins4``, F being the parents' feature count.
-Both combine with the value types above: the six modes of
-``ops/histogram_flat.py::BYTE_MODES``.  uint16 bins (more than 256 bins)
-raise ``NotImplementedError`` here on every device (ROADMAP B2e); the
-grower keeps the unfused wave for them (``wave_plain`` takes any bins).
+uint16 bins (more than 256 bins, up to 65,536): the (N, F) uint16 matrix,
+in each value type (never packed).  The nine modes are those of
+``ops/histogram_flat.py::MODES``; the uint16 ones launch their own entry
+points, whose scan cuts the bin axis into tiles where it does not fit
+the block's shared memory.
 
 The TPU kernel's VMEM layout (``wave_layout``), lane padding, the
 gathered ``(W, S, ct)`` row copy and the packed4 nibble-plane order with
@@ -43,10 +44,9 @@ import torch
 from .histogram import histogram_segment, segment_histograms_chunked
 # MAX_CHUNKS and MIN_CHUNK_ROWS name the wave's chunking too (it is the
 # histogram kernel's)
-from .histogram_flat import (BYTE_MODES, MAX_BINS, MAX_CHUNKS,  # noqa: F401
-                             MIN_CHUNK_ROWS, MIN_CHUNK_ROWS_INT8,
-                             check_int8_rows, check_layout, chunking,
-                             mode_name)
+from .histogram_flat import (MAX_CHUNKS, MIN_CHUNK_ROWS,  # noqa: F401
+                             MIN_CHUNK_ROWS_INT8, MODES, check_int8_rows,
+                             check_layout, chunking, mode_name)
 from .split import BestSplit, SplitConfig, _EPS, scan_tables, select_payload
 
 #: scalar lanes ahead of the cat one-hot in the per-child payload:
@@ -54,10 +54,6 @@ from .split import BestSplit, SplitConfig, _EPS, scan_tables, select_payload
 PAYLOAD_SCALARS = 16
 #: per-child stat lanes: [pg, ph, pc, parent_out, small_left, active, 0, 0]
 STAT_LANES = 8
-
-#: the kernel's modes: those of the histogram kernel over uint8 and
-#: packed4 bins (uint16 bins, more than 256 bins, are ROADMAP B2e)
-MODES = BYTE_MODES
 
 #: kernel launches made by ``fused_wave_call`` (one per wave; plain
 #: ints), per mode
@@ -160,7 +156,10 @@ def segment_table(small_cnt: Sequence[int], f: int, num_bins: int,
     """(chunk_rows, chunk offsets (W + 1,)) for one wave: the histogram
     kernel's ``chunking`` of all its rows (MIN_CHUNK_ROWS_INT8 at least
     in int8 mode, whose blocks each flush a whole shared histogram; in
-    f32 and bf16 modes no more partials than its SCRATCH_BYTES holds)."""
+    f32 and bf16 modes no more partials than its SCRATCH_BYTES holds, but
+    at least one chunk for each non-empty sibling: W * F * B * 12 bytes
+    at least, past SCRATCH_BYTES only at uint16 widths, e.g. 352 MB at W
+    = 16, F = 28, B = 65,536)."""
     total = int(sum(small_cnt))
     if int8:
         chunk_rows, _ = chunking(total, min_rows=MIN_CHUNK_ROWS_INT8)
@@ -197,22 +196,16 @@ def fused_wave_call(bins: torch.Tensor, vals: torch.Tensor,
                     packed4: bool = False, max_level: int = 127):
     """One wave of W leaves -> ``(child_hists, payload)``.
 
-    ``bins`` (N, F) uint8 (at most 256 bins: above that the grower keeps
-    the unfused wave until ROADMAP B2e), or (N, ceil(F/2)) nibble pairs
-    with ``packed4``; ``vals`` (N, 3) f32, bf16 (bf16 mode), or int8
-    levels of at most ``max_level`` with ``scale3``; ``perm`` (>= N,)
-    int32 rows grouped by leaf;
+    ``bins`` (N, F) uint8 (at most 256 bins) or uint16 (at most 65,536),
+    or (N, ceil(F/2)) nibble pairs with ``packed4``; ``vals`` (N, 3) f32,
+    bf16 (bf16 mode), or int8 levels of at most ``max_level`` with
+    ``scale3``; ``perm`` (>= N,) int32 rows grouped by leaf;
     ``small_start``/``small_cnt`` host ints of each smaller sibling's perm
     range; ``parent`` (W, F, B, 3) f32 (int32 in int8 mode); ``stats``
     (W, 2, STAT_LANES) f32; ``meta`` (F, 4) int32 (``wave_meta``);
     ``scale3`` (3,) f32 channel scales, int8 mode only."""
     w = parent.shape[0]
     f = meta.shape[0]
-    if bins.dtype == torch.uint16 or num_bins > MAX_BINS:
-        raise NotImplementedError(
-            f"the fused wave over {num_bins} bins ({bins.dtype} bins) is not "
-            "ported to lightgbm_tpu_torch yet (ROADMAP B2e): at most "
-            f"{MAX_BINS} bins")
     if (parent.shape != (w, f, num_bins, 3) or stats.shape != (w, 2, STAT_LANES)
             or meta.shape != (f, 4) or bins.dim() != 2
             or len(small_start) != w or len(small_cnt) != w
@@ -247,18 +240,20 @@ def _launch(bins, vals, perm, small_start, small_cnt, parent, stats, meta,
     hist_t = torch.int32 if int8 else torch.float32
     val_ok = (vals.dtype == torch.int8 if int8
               else vals.dtype in (torch.float32, torch.bfloat16))
-    if bins.dtype != torch.uint8 or not val_ok \
+    if bins.dtype not in (torch.uint8, torch.uint16) or not val_ok \
             or perm.dtype != torch.int32 or parent.dtype != hist_t \
             or stats.dtype != torch.float32 or meta.dtype != torch.int32 \
             or (int8 and scale3.dtype != torch.float32):
-        raise ValueError("wave kernel dtypes: uint8 bins, f32 or bf16 vals "
-                         "with f32 parent (int8 vals, int32 parent and f32 "
-                         "scale3 in int8 mode), f32 stats, int32 perm/meta")
+        raise ValueError("wave kernel dtypes: uint8 or uint16 bins, f32 or "
+                         "bf16 vals with f32 parent (int8 vals, int32 parent "
+                         "and f32 scale3 in int8 mode), f32 stats, int32 "
+                         "perm/meta")
     lib = load_library()
     w = parent.shape[0]
     f = meta.shape[0]
     dev = bins.device
-    mode = mode_name(vals.dtype, packed4)
+    mode = mode_name(vals.dtype, packed4, bins.dtype)
+    wide = bins.dtype == torch.uint16
     chunk_rows, offs = segment_table(small_cnt, f, num_bins, int8)
     total_chunks = int(offs[-1])
     seg = torch.from_numpy(np.concatenate([
@@ -286,11 +281,14 @@ def _launch(bins, vals, perm, small_start, small_cnt, parent, stats, meta,
     with torch.cuda.device(dev):
         if int8:
             scale3 = scale3.contiguous()
-            err = lib.lgbt_wave_i8(*head, scale3.data_ptr(), *scan,
-                                   int(packed4), *tail)
+            mid = (scale3.data_ptr(), *scan)
+            err = (lib.lgbt_wave_i8_u16(*head, *mid, *tail) if wide
+                   else lib.lgbt_wave_i8(*head, *mid, int(packed4), *tail))
         else:
-            err = lib.lgbt_wave(*head, *scan, int(packed4),
-                                int(vals.dtype == torch.bfloat16), *tail)
+            bf16 = int(vals.dtype == torch.bfloat16)
+            err = (lib.lgbt_wave_u16(*head, *scan, bf16, *tail) if wide
+                   else lib.lgbt_wave(*head, *scan, int(packed4), bf16,
+                                      *tail))
     if err != 0:
         raise RuntimeError(f"wave kernel launch failed ({mode} mode): CUDA "
                            f"error {err}")

@@ -35,16 +35,16 @@ exact-sum gradients, which bf16 represents exactly.
 
 uint16 bins (``max_bin`` 1023: about 1,000 bins a feature): trees and
 ``row_leaf`` bit for bit against JAX ``make_grower`` at leaf_batch 1 and
-16 on exact sums (the port's auto and unfused steps; above 256 bins both
-are unfused, the smaller siblings through the plain histogram), quantized
-on power-of-two scales, and on the mask layout.  ``wave_fused_for``
-keeps the unfused wave above 256 bins and refuses ``fused`` (ROADMAP
-B2e).
+16 on exact sums, the port's auto and unfused steps against JAX's auto
+(unfused on the CPU) and its fused step against JAX's fused kernel
+(interpret mode); quantized on power-of-two scales the same way, and on
+the mask layout.  ``wave_fused_for`` fuses on CUDA at every bin count,
+also where the JAX package's TPU ``wave_layout`` does not fit.
 
 On the card (``cuda`` marker) the grower driven through both CUDA kernels
 gives the CPU plain version's trees bit for bit, f32 and quantized, over
-packed bins, with bf16 values and over uint16 bins, through the matching
-kernel modes."""
+packed bins, with bf16 values and over uint16 bins (fused and unfused),
+through the matching kernel modes."""
 
 import numpy as np
 import pytest
@@ -259,6 +259,10 @@ P1023 = dict(P, max_bin=1023)
 
 @pytest.mark.parametrize("leaf_batch", [1, 16])
 def test_max_bin_1023_bitwise_vs_jax(grown, leaf_batch):
+    """The port's auto and unfused steps against JAX's auto (unfused on
+    the CPU), and its fused step (``fused_wave_call``'s plain version)
+    against JAX's fused kernel (interpret mode; at F = 12 its wave_layout
+    fits 1,023 bins)."""
     X, y, g, h = grown
     want, rl = jax_grow(X, y, P1023, g, h, leaf_batch=leaf_batch)
     assert want["num_leaves"] == 31
@@ -267,10 +271,19 @@ def test_max_bin_1023_bitwise_vs_jax(grown, leaf_batch):
         got, prl = port_grow(X, y, P1023, g, h, leaf_batch=leaf_batch,
                              wave_kernel=kernel)
         assert_same_tree(want, got, rl, prl)
+    want_f, rl_f = jax_grow(X, y, P1023, g, h, leaf_batch=leaf_batch,
+                            wave_kernel="fused")
+    got, prl = port_grow(X, y, P1023, g, h, leaf_batch=leaf_batch,
+                         wave_kernel="fused")
+    assert_same_tree(want_f, got, rl_f, prl)
 
 
-@pytest.mark.parametrize("layout", ["wave", "mask"])
+@pytest.mark.parametrize("layout", ["wave", "mask", "fused_leaf_batch_1",
+                                    "fused_leaf_batch_16"])
 def test_max_bin_1023_quantized_bitwise_vs_jax(quant_data, layout):
+    """Quantized at max_bin 1023: the default step (unfused on the CPU)
+    and the mask layout against JAX's own, and the fused step against
+    JAX's fused kernel (interpret mode) at leaf_batch 1 and 16."""
     X, y, g, h = quant_data
     kw = dict(Q, leaf_batch=16)
     params = P1023
@@ -278,6 +291,9 @@ def test_max_bin_1023_quantized_bitwise_vs_jax(quant_data, layout):
         n = 2000
         X, y, g, h = X[:n], y[:n], g[:n], h[:n]
         params = dict(P1023, min_data_in_leaf=5)
+    elif layout.startswith("fused"):
+        kw = dict(Q, leaf_batch=int(layout.rsplit("_", 1)[1]),
+                  wave_kernel="fused")
     want, rl = jax_grow(X, y, params, g, h, **kw)
     got, prl = port_grow(X, y, params, g, h, **kw)
     assert want["num_leaves"] > 8
@@ -285,19 +301,24 @@ def test_max_bin_1023_quantized_bitwise_vs_jax(quant_data, layout):
 
 
 def test_wave_fused_gate_above_256_bins():
-    """Above 256 bins ``auto`` keeps the unfused wave on every device (the
-    JAX package would fuse where its wave_layout fits) and ``fused``
-    raises naming ROADMAP B2e; 256 bins still fuse on CUDA."""
-    cuda = torch.device("cuda")
-    for b in (257, 511, 1023):
-        cfg = PG.GrowerConfig(num_bins=b)
-        assert not PG.wave_fused_for(cfg, cuda)
+    """``auto`` fuses on CUDA at every bin count the kernel takes (257 to
+    65,536), ``fused`` forces the fused step on the CPU too and
+    ``unfused`` keeps the unfused one.  The deliberate difference from
+    the JAX package, whose gate fuses only where its TPU VMEM model
+    ``wave_layout`` fits: at F = 28 it stays unfused at 1,023 bins, and
+    at F = 64 (f32) even at 256, where the port fuses."""
+    from lightgbm_tpu.ops.pallas_wave import wave_layout
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    for b in (257, 511, 1023, 65536):
+        assert PG.wave_fused_for(PG.GrowerConfig(num_bins=b), cuda)
+        assert not PG.wave_fused_for(PG.GrowerConfig(num_bins=b), cpu)
+        assert PG.wave_fused_for(
+            PG.GrowerConfig(num_bins=b, wave_kernel="fused"), cpu)
         assert not PG.wave_fused_for(
             PG.GrowerConfig(num_bins=b, wave_kernel="unfused"), cuda)
-        with pytest.raises(NotImplementedError, match="B2e"):
-            PG.wave_fused_for(PG.GrowerConfig(num_bins=b,
-                                              wave_kernel="fused"), cuda)
     assert PG.wave_fused_for(PG.GrowerConfig(num_bins=256), cuda)
+    assert not wave_layout(28, 1023, "f32")["fits"]
+    assert not wave_layout(64, 256, "f32")["fits"]
 
 
 @pytest.mark.cuda
@@ -377,23 +398,35 @@ def test_bf16_kernel_path_matches_plain(grown, cuda_device, wave_kernel):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["f32", "int8", "bf16"])
+@pytest.mark.parametrize("mode,wave_kernel", [
+    ("f32", "auto"), ("int8", "auto"), ("bf16", "fused"), ("f32", "unfused"),
+    ("int8", "unfused"), ("bf16", "auto")])
+@pytest.mark.parametrize("leaf_batch", [1, 16])
 def test_uint16_kernel_path_matches_plain(grown, quant_data, cuda_device,
-                                          mode):
-    """Growth over uint16 bins (max_bin 1023) on the card launches only
-    the histogram kernel's uint16 mode of its value type, once per root
-    and smaller sibling, no wave kernel, and gives the CPU plain version's
-    trees bit for bit."""
+                                          mode, wave_kernel, leaf_batch):
+    """Growth over uint16 bins (max_bin 1023) on the card gives the CPU
+    plain version's trees bit for bit.  Fused (``auto`` in f32 and int8,
+    ``fused`` for bf16) it launches the histogram kernel's uint16 mode of
+    its value type once (the root) and the wave kernel's in every wave;
+    unfused (``unfused``, and ``auto`` under flat_bf16) the histogram once
+    per root and smaller sibling and no wave kernel."""
     X, y, g, h = quant_data if mode == "int8" else grown
     kw = dict(Q) if mode == "int8" else {}
     if mode == "bf16":
         kw["histogram_impl"] = "flat_bf16"
-    want, rl = port_grow(X, y, P1023, g, h, leaf_batch=16, **kw)
+    want, rl = port_grow(X, y, P1023, g, h, leaf_batch=leaf_batch, **kw)
     hist0, wave0 = dict(HF.launches), dict(WV.launches)
-    got, prl = port_grow(X, y, P1023, g, h, leaf_batch=16,
-                         device=cuda_device, **kw)
+    got, prl = port_grow(X, y, P1023, g, h, leaf_batch=leaf_batch,
+                         device=cuda_device, wave_kernel=wave_kernel, **kw)
+    key = f"{mode}_uint16"
     hist_new = {k: HF.launches[k] - hist0[k] for k in HF.MODES}
+    wave_new = {k: WV.launches[k] - wave0[k] for k in WV.MODES}
+    fused = wave_kernel == "fused" or (wave_kernel == "auto"
+                                       and mode != "bf16")
     assert hist_new == {**dict.fromkeys(HF.MODES, 0),
-                        f"{mode}_uint16": got["num_leaves"]}
-    assert dict(WV.launches) == wave0
+                        key: 1 if fused else got["num_leaves"]}
+    if fused:
+        assert wave_new[key] > 0 and sum(wave_new.values()) == wave_new[key]
+    else:
+        assert not any(wave_new.values())
     assert_same_tree(want, got, rl, prl)

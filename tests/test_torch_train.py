@@ -43,7 +43,7 @@
   iterations predict within 1e-4 of the JAX package's training on the
   same params, and the model text loads in ``lightgbm_tpu.Booster(
   model_str=...)`` and predicts within 1e-6; ``tpu_wave_kernel=fused``
-  above 256 bins raises ``NotImplementedError`` naming ROADMAP B2e.
+  at max_bin 511 trains and gives the unfused run's model text.
 - Every unsupported param, an EFB-bundled dataset and a sorted
   categorical feature raise ``NotImplementedError``; without ``device``
   on a machine with no card, ``train`` raises.
@@ -361,17 +361,22 @@ def test_max_bin_1023_trains_loads_in_jax_and_tracks_jax(lgb):
                                atol=1e-4)
 
 
-def test_fused_wave_above_256_bins_raises():
-    """The fused wave kernel over uint16 bins is ROADMAP B2e: asking for
-    it raises at the first wave; auto trains (unfused)."""
+def test_fused_wave_above_256_bins_trains():
+    """max_bin 511 with ``tpu_wave_kernel=fused`` trains on the CPU
+    through the fused step's plain version, and gives the unfused run's
+    model text but for the parameter line that records the option."""
     X, y = higgs_like(3000, 6)
     params = {"objective": "binary", "num_leaves": 15, "verbosity": -1,
               "max_bin": 511}
-    with pytest.raises(NotImplementedError, match="B2e"):
-        lgt.train(dict(params, tpu_wave_kernel="fused"),
-                  lgt.Dataset(X, label=y), 1, device="cpu")
-    assert lgt.train(params, lgt.Dataset(X, label=y), 1,
-                     device="cpu").num_trees() == 1
+    texts = {}
+    for kernel in ("fused", "unfused"):
+        bst = lgt.train(dict(params, tpu_wave_kernel=kernel),
+                        lgt.Dataset(X, label=y), 3, device="cpu")
+        assert bst._gbdt.bins_dev.dtype == torch.uint16
+        assert bst.num_trees() == 3
+        texts[kernel] = _drop_param(bst.model_to_string(),
+                                    f"[tpu_wave_kernel: {kernel}]")
+    assert texts["fused"] == texts["unfused"]
 
 
 def test_config_table_matches_jax():

@@ -22,7 +22,16 @@ mode: child histograms bitwise on any levels, payloads bitwise on
 power-of-two scales and within ``wave_agreement`` on random scales.  The
 bf16 and packed4 modes against their plain versions the same way at F =
 28 and 27, and bitwise against the kernel's own f32 launch on the
-bf16-rounded values and unpacked launch on the same rows."""
+bf16-rounded values and unpacked launch on the same rows.
+
+uint16 bins (more than 256 bins): on the CPU ``fused_wave_call`` (its
+plain version) is the JAX ops' step bit for bit at B = 511 in f32, int8
+and bf16; ``wave_plain``'s three uint16 modes are JAX
+``fused_wave_call``'s (interpret mode, F = 7, B = 511) bit for bit on
+exact sums, and so is the chunked twin.  On the card the uint16 kernel
+modes against their plain versions and twins at B from 257 to 4,095
+(the scan tiled from 2,047) and 65,536, W = 1 and 16, F = 28 and 27, and
+a wave with no valid split."""
 
 import pathlib
 import sys
@@ -136,23 +145,26 @@ def test_plain_wave_bitwise_vs_jax_ops(mode):
     _check_wave_vs_jax_ops(mode, 40, WV.fused_wave_call)
 
 
-@pytest.mark.parametrize("mode", ["f32", "int8"])
+@pytest.mark.parametrize("mode", ["f32", "int8", "bf16"])
 def test_uint16_plain_wave_bitwise_vs_jax_ops(mode):
-    """Over uint16 bins (B = 511) the unfused step, ``wave_plain``, is the
-    JAX ops' step bit for bit; the fused wave refuses them (ROADMAP
-    B2e)."""
-    inp = _check_wave_vs_jax_ops(mode, 511, WV.wave_plain)
+    """Over uint16 bins (B = 511) ``fused_wave_call`` on the CPU (its
+    plain version) is the JAX ops' step bit for bit, and so is the
+    unfused step ``wave_plain`` with them; uint8 bins cannot hold 511
+    bins."""
+    inp = _check_wave_vs_jax_ops(mode, 511, WV.fused_wave_call)
     assert inp["bins"].dtype == torch.uint16
-    with pytest.raises(NotImplementedError, match="B2e"):
-        WV.fused_wave_call(cfg=CFG, **inp)
-    with pytest.raises(NotImplementedError, match="B2e"):
+    hist, pay = WV.fused_wave_call(cfg=CFG, **inp)
+    hp, pp = WV.wave_plain(cfg=CFG, **inp)
+    assert torch.equal(hist, hp) and torch.equal(pay, pp)
+    with pytest.raises(ValueError, match="num_bins=511"):
         WV.fused_wave_call(cfg=CFG, **dict(inp, bins=inp["bins"].to(
             torch.uint8)))
 
 
 def _check_wave_vs_jax_ops(mode, b, wave):
     """``wave(cfg, **inputs)`` over ``b`` bins against the step assembled
-    from the JAX package's ops, bit for bit on exact sums; returns the
+    from the JAX package's ops, bit for bit on exact sums (bf16: exact in
+    bf16 too, the JAX ops summing the rounded values in f32); returns the
     inputs."""
     import jax.numpy as jnp
 
@@ -161,7 +173,7 @@ def _check_wave_vs_jax_ops(mode, b, wave):
     sizes = [700, 1, 33, 2048, 5]
     scales = POW2_SCALES if mode == "int8" else None
     inp, (nbpf, nanb, is_cat, fmask, bins, vals, perm) = wave_inputs(
-        9000, 5, b, sizes, seed=1, exact=True, scales=scales)
+        9000, 5, b, sizes, seed=1, exact=True, scales=scales, mode=mode)
     hist, pay = wave(cfg=CFG, **inp)
     assert hist.dtype == (torch.int32 if scales is not None
                           else torch.float32)
@@ -206,12 +218,12 @@ def _check_wave_vs_jax_ops(mode, b, wave):
 NEW_MODES = ["bf16", "f32_packed4", "bf16_packed4", "int8_packed4"]
 
 
-def jax_fused_wave(inp, aux, dtype, scales=None):
+def jax_fused_wave(inp, aux, dtype, scales=None, rows_block=1024):
     """The JAX package's ``fused_wave_call`` (interpret mode) on the same
     wave: each smaller sibling's rows gathered (padded with a zero row),
-    the parents in its flat plane layout, its own ``wave_meta``; outputs
-    mapped back to (W, 2, F, B, 3) original-order histograms and the
-    (W, 2, 16 + B) payload."""
+    the parents in its flat plane layout, its own ``wave_meta``, row
+    blocks of at most ``rows_block``; outputs mapped back to (W, 2, F, B,
+    3) original-order histograms and the (W, 2, 16 + B) payload."""
     import jax.numpy as jnp
 
     from lightgbm_tpu.ops import pallas_wave as PW
@@ -243,7 +255,8 @@ def jax_fused_wave(inp, aux, dtype, scales=None):
     hist, pay = PW.fused_wave_call(
         jnp.asarray(jb[rows]), jnp.transpose(gvals, (0, 2, 1)), parent,
         jnp.asarray(inp["stats"].numpy()), meta, scale3, num_bins=b,
-        features=f, rows_block=min(1024, s), dtype=dtype, packed4=packed4,
+        features=f, rows_block=min(rows_block, s), dtype=dtype,
+        packed4=packed4,
         scfg=jcfg, interpret=True)
     return (np.asarray(PW.hist_from_flat(hist, f, b, lay["b_pad"], inverse)),
             np.asarray(pay))
@@ -272,21 +285,44 @@ def test_new_modes_plain_bitwise_vs_jax_fused_wave_call(mode):
     assert torch.equal(hist, h32) and torch.equal(pay, p32)
 
 
+U16_MODES = ["f32_uint16", "bf16_uint16", "int8_uint16"]
+
+
+@pytest.mark.parametrize("mode", U16_MODES)
+def test_uint16_modes_plain_bitwise_vs_jax_fused_wave_call(mode):
+    """The uint16 modes (B = 511) of ``wave_plain`` against the JAX
+    package's ``fused_wave_call`` itself (interpret mode, F = 7; bf16 at
+    128-row blocks, the only size its CPU path runs): child histograms
+    and payloads bit for bit on exact sums."""
+    kind = mode.split("_")[0]
+    scales = POW2_SCALES if kind == "int8" else None
+    inp, aux = wave_inputs(3000, 7, 511, [300, 1, 33, 200, 5], seed=2,
+                           exact=True, scales=scales, mode=kind)
+    assert inp["bins"].dtype == torch.uint16
+    hist, pay = WV.wave_plain(cfg=CFG, **inp)
+    want_h, want_p = jax_fused_wave(inp, aux, kind, scales,
+                                    rows_block=128 if kind == "bf16" else 1024)
+    np.testing.assert_array_equal(hist.numpy(), want_h)
+    np.testing.assert_array_equal(pay.numpy(), want_p)
+    assert np.isfinite(want_p[:, :, 0]).sum() >= 4   # real splits compared
+    assert int(want_p[:, :, 2].max()) > 255           # past the uint8 range
+
+
 TWIN_MODES = ["f32", "bf16", "f32_packed4", "bf16_packed4"]
 HIST_ARGS = ("bins", "vals", "perm", "small_start", "small_cnt", "parent",
              "stats", "num_bins")
 
 
-@pytest.mark.parametrize("mode", TWIN_MODES)
+@pytest.mark.parametrize("mode", TWIN_MODES + ["f32_uint16", "bf16_uint16"])
 def test_wave_chunked_twin_vs_plain_and_jax(mode):
     """``wave_hists_chunked`` (the plain twin of the kernel's summation
     order: segment_table's chunks, the subtraction, the (left, right)
     order) equals ``wave_plain``'s child histograms and JAX
     ``fused_wave_call``'s bit for bit on exact sums, and the plain
-    version's within 1e-5 relative on random values.  Slot 0's smaller
-    sibling spans two chunks."""
+    version's within 1e-5 relative on random values; over uint16 bins at
+    B = 511.  Slot 0's smaller sibling spans two chunks."""
     packed4 = mode.endswith("packed4")
-    b = 16 if packed4 else 40
+    b = 16 if packed4 else 511 if mode.endswith("uint16") else 40
     for exact in (True, False):
         inp, aux = wave_inputs(3000, 7, b, [1100, 1, 33, 200, 5], seed=5,
                                exact=exact, mode=mode)
@@ -441,8 +477,8 @@ def test_bounds_count_what_the_function_needs():
     """Histogram: N*F*3 adds, so bytes bound it at the bench shape.  Wave:
     the siblings' adds, the subtraction and the scan of this run's live
     features, bins and NaN directions.  The bytes count the bins as
-    stored (packed: ceil(F/2) a row) and the values' own width (bf16: 6
-    bytes a row)."""
+    stored (packed: ceil(F/2) a row; uint16: 2F) and the values' own
+    width (bf16: 6 bytes a row)."""
     cs = _chip_smoke()
     nbytes, ops = cs.hist_bound_ms(200_000, 28, 255)
     assert nbytes == pytest.approx((200_000 * 40 + 28 * 255 * 12)
@@ -470,6 +506,15 @@ def test_bounds_count_what_the_function_needs():
     hist = 7 * 10 * 12
     assert nbytes == pytest.approx((37 * (4 + 6 + 4) + 3 * 2 * hist + 2 * 2
                                     * (WV.PAYLOAD_SCALARS + 10) * 4)
+                                   / cs.HBM_BYTES_PER_S * 1e3)
+    # uint16 bins: two bytes a feature
+    wide = cs.wave_case(gen, torch.device("cpu"), [30, 7], exact=False, f=6,
+                        b=300)
+    assert wide["bins"].dtype == torch.uint16
+    nbytes, _ = cs.wave_bound_ms(wide)
+    hist = 6 * 300 * 12
+    assert nbytes == pytest.approx((37 * (2 * 6 + 12 + 4) + 3 * 2 * hist
+                                    + 2 * 2 * (WV.PAYLOAD_SCALARS + 300) * 4)
                                    / cs.HBM_BYTES_PER_S * 1e3)
 
 
@@ -613,20 +658,86 @@ def test_kernel_wide_features_equal_chunked_twin(cuda_device, f, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["f32", "int8"])
+@pytest.mark.parametrize("mode", ["f32", "int8", "f32_uint16", "int8_uint16"])
 def test_kernel_all_minus_inf_children(cuda_device, mode):
     """No child has a valid split (min_data_in_leaf above every count):
     every gain is -inf and each payload is key 0's candidate (feature 0,
-    bin 0), bit for bit the plain version's."""
+    bin 0), bit for bit the plain version's; uint16 modes at B = 2,047
+    (the scan in two tiles)."""
     none = SplitConfig(min_data_in_leaf=10 ** 9, min_sum_hessian_in_leaf=0.5,
                        lambda_l2=0.25, has_categorical=False)
     sizes = [5000, 1, 33, 2048]
-    inp, _ = wave_inputs(sum(2 * s for s in sizes), 28, 255, sizes, seed=9,
-                         exact=True, device=cuda_device,
-                         scales=POW2_SCALES if mode == "int8" else None)
+    inp, _ = wave_inputs(sum(2 * s for s in sizes), 28,
+                         2047 if mode.endswith("uint16") else 255, sizes,
+                         seed=9, exact=True, device=cuda_device,
+                         scales=POW2_SCALES if mode.startswith("int8")
+                         else None)
     h, p = WV.fused_wave_call(cfg=none, **inp)
     hp, pp = WV.wave_plain(cfg=none, **inp)
     torch.cuda.synchronize()
     assert bool(torch.isinf(p[:, :, 0]).all())
     assert not bool(p[:, :, 1:3].any())
     assert torch.equal(h, hp) and torch.equal(p, pp)
+
+
+#: uint16 waves on the card: W = 1, and W = 16 with slot 2 inactive
+U16_WAVES = {"W1": [20_000],
+             "W16": [1, 5, 1, 2047, 2048, 12_500, 3, 900, 1, 77, 4096, 10,
+                     250, 6, 300, 40]}
+
+
+def _check_uint16_kernel(mode, b, f, sizes, exact, device, seed):
+    """One uint16 wave: run-to-run bitwise; on exact sums (int8: on
+    power-of-two scales) child histograms and payloads bitwise the plain
+    version; on random values child histograms bitwise the chunked twin
+    (int8, random scales: the plain version's) and payloads within
+    ``wave_agreement``."""
+    kind = mode.split("_")[0]
+    scales = None
+    if kind == "int8":
+        scales = POW2_SCALES if exact else RANDOM_SCALES
+    inp, _ = wave_inputs(sum(2 * s for s in sizes), f, b, sizes, seed=seed,
+                         exact=exact or kind == "int8", device=device,
+                         scales=scales, mode=kind)
+    assert inp["bins"].dtype == torch.uint16
+    n0 = WV.launches[mode]
+    h1, p1 = WV.fused_wave_call(cfg=CFG, **inp)
+    h2, p2 = WV.fused_wave_call(cfg=CFG, **inp)
+    hp, pp = WV.wave_plain(cfg=CFG, **inp)
+    torch.cuda.synchronize()
+    assert WV.launches[mode] == n0 + 2
+    assert torch.equal(h1, h2) and torch.equal(p1, p2)
+    if exact:
+        assert torch.equal(h1, hp) and torch.equal(p1, pp)
+    elif kind == "int8":
+        assert torch.equal(h1, hp)
+        scaled = WV.scale_hist(hp, inp["scale3"])
+        _chip_smoke().wave_agreement(scaled, p1, scaled, pp)
+    else:
+        want = WV.wave_hists_chunked(*(inp[k] for k in HIST_ARGS))
+        assert torch.equal(h1, want)
+        _chip_smoke().wave_agreement(h1, p1, hp, pp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [257, 511, 1023, 2047, 4095])
+@pytest.mark.parametrize("mode", U16_MODES)
+def test_uint16_kernel_matches_plain_and_twin(cuda_device, mode, b):
+    """The uint16 modes at F = 28 and 27, W = 1 and 16 (slot 2
+    inactive), exact sums and random values (``_check_uint16_kernel``);
+    from B = 2,047 the scan runs in tiles."""
+    for f in (28, 27):
+        for name, sizes in U16_WAVES.items():
+            for exact in (True, False):
+                _check_uint16_kernel(mode, b, f, sizes, exact, cuda_device,
+                                     seed=b + f + len(sizes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", U16_MODES)
+def test_uint16_kernel_65536_bins(cuda_device, mode):
+    """B = 65,536 at W = 1 and a few hundred rows: stage 1 in eight bin
+    tiles, the scan in 48."""
+    for exact in (True, False):
+        _check_uint16_kernel(mode, 65536, 28, [300], exact, cuda_device,
+                             seed=11)

@@ -8,14 +8,18 @@ Builds the CUDA sources in DIR (another commit's
 variant of this tree's) into a second library with the same C interface,
 then runs both libraries through the same wrappers on the same seeded
 inputs, in every mode of the histogram kernel (``ops/histogram_flat.py``)
-and the fused-wave kernel (``ops/wave.py``):
+and the fused-wave kernel (``ops/wave.py``) that both libraries have
+(uint16 bins at B = 1,023; a wave mode the other library lacks is
+skipped with a line that says so):
 
 - equality: the histograms, the waves' child histograms and payloads,
   bit for bit (or the largest difference), on random values;
 - time: CUDA events, mean of 20 launches (5 at 10.5M rows), in turns
   other, this, this, other, at the shapes of ``chip_smoke.py``'s timing
   phases; and each wave's three launches by kernel name under
-  ``torch.profiler``.
+  ``torch.profiler``;
+- code: where the toolkit has ``cuobjdump``, whether each kernel both
+  libraries hold compiled to the same SASS instructions.
 
 Needs one CUDA card and nvcc.  Prints one JSON line per case.
 """
@@ -26,6 +30,9 @@ import argparse
 import contextlib
 import glob
 import os
+import re
+import shutil
+import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -34,9 +41,11 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 
 #: the modes over uint8 and packed4 bins (the ones every build since the
-#: fifth slice has)
+#: fifth slice has), then over uint16 bins (the histogram's since the
+#: seventh slice, the wave's since the eighth)
 HIST_MODES = ("f32", "bf16", "int8", "f32_packed4", "bf16_packed4",
               "int8_packed4")
+ALL_MODES = HIST_MODES + cs.U16_MODES
 
 
 def build_other(csrc, label):
@@ -81,6 +90,29 @@ def diff(a, b):
     return {"equal": eq, "max_abs_diff": float(d.max()) if d.numel() else 0.0}
 
 
+def sass_by_kernel(lib_path):
+    """Each kernel's SASS instructions in the library at ``lib_path``
+    (``cuobjdump -sass``), keyed by its mangled name less the per-build
+    tag of the anonymous namespace; None without cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    kernels, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}",
+                         "", m.group(1))
+            kernels[cur] = []
+            continue
+        m = re.search(r"\*/\s+(.*?)\s*;", line)
+        if cur is not None and m:
+            kernels[cur].append(m.group(1))
+    return kernels
+
+
 def in_turns(fn, other, iters):
     """Mean ms of ``fn`` with the other library and this one, in turns
     other, this, this, other."""
@@ -107,8 +139,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no-large", action="store_true",
                     help="skip the 10.5M-row histograms")
-    ap.add_argument("--modes", default=",".join(HIST_MODES),
-                    help="comma-separated modes (default: all six)")
+    ap.add_argument("--modes", default=",".join(ALL_MODES),
+                    help="comma-separated modes (default: all nine)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -125,12 +157,30 @@ def main(argv=None):
     cs.emit({"phase": "ab_device", "nvidia_smi": smi,
              "kind": torch.cuda.get_device_name(0), "label": args.label,
              "other_csrc": args.other_csrc})
+    from lightgbm_tpu_torch.ops import _build
+    this_sass = sass_by_kernel(_build.load_library()._name)
+    other_sass = sass_by_kernel(other._name)
+    if this_sass is None or other_sass is None:
+        cs.emit({"phase": "ab_sass", "compared": False,
+                 "reason": "no cuobjdump"})
+    else:
+        both = sorted(set(this_sass) & set(other_sass))
+        cs.emit({"phase": "ab_sass", "compared": True,
+                 "kernels_in_both": len(both),
+                 "same": [k for k in both if this_sass[k] == other_sass[k]],
+                 "differ": [k for k in both
+                            if this_sass[k] != other_sass[k]],
+                 "only_this": sorted(set(this_sass) - set(other_sass))})
     sizes_h = (1, 20_000, 200_000) + (() if args.no_large else (10_500_000,))
     modes = args.modes.split(",")
     for mode in modes:
         packed4 = mode.endswith("packed4")
         for n in sizes_h:
-            bins, b = cs.mode_bins(gen, n, 28, mode, dev)
+            if mode.endswith("uint16"):
+                b = cs.WIDE_MAX_BIN
+                bins = cs.device_bins(gen, n, 28, b, dev)
+            else:
+                bins, b = cs.mode_bins(gen, n, 28, mode, dev)
             vals = cs.mode_vals(gen, n, mode, dev, exact=False)
             kw = dict(num_bins=b, packed4=packed4, features=28 if packed4
                       else 0)
@@ -152,14 +202,21 @@ def main(argv=None):
     waves = dict(cs.CHECK_WAVES, timing=(list(cs.WAVE_TIMING_SIZES), ()))
     for mode in modes:
         packed4 = mode.endswith("packed4")
+        wide = mode.endswith("uint16")
+        if wide and not hasattr(other, "lgbt_wave_u16"):
+            cs.emit({"phase": "ab_wave", "mode": mode, "skipped":
+                     "the other library has no uint16 wave"})
+            continue
         scales = None
         if mode.startswith("int8"):
             r = torch.rand(2, generator=gen, device=dev) * 0.02 + 1e-3
             scales = (float(r[0]), float(r[1]), 1.0)
         for name, (sizes, inactive) in waves.items():
             inp = cs.wave_case(gen, dev, sizes, exact=False,
-                               b=16 if packed4 else 255, inactive=inactive,
-                               scales=scales, mode=mode)
+                               b=(cs.WIDE_MAX_BIN if wide else
+                                  16 if packed4 else 255),
+                               inactive=inactive, scales=scales,
+                               mode=mode.split("_")[0] if wide else mode)
             fn = lambda: WV.fused_wave_call(cfg=cfg, **inp)
             with using(other):
                 h0, p0 = fn()
