@@ -155,7 +155,11 @@ modes, so max_bin above 255 trains through the fused wave:
     child histograms and payloads bit for bit on exact sums (int8:
     power-of-two scales); on random values child histograms bit for bit
     the twin's (int8: the plain version's) and payloads within
-    ``wave_agreement``; a wave with no valid split at B = 2,047;
+    ``wave_agreement``; the same at B = 1,023, W = 16 on bins that push
+    the redesigned kernels (slice 9): every row of a feature in one bin,
+    runs of 32 rows and pairs on one bin; an exact gain tie across two
+    scan blocks (features 1 and 25 at B = 257 and 1,023) that must select
+    the lower key; a wave with no valid split at B = 2,047;
 30. fused training at max_bin 1023, 100 iterations: f32 and quantized
     under ``auto``, bf16 with ``flat_bf16`` and ``tpu_wave_kernel=fused``;
     only the ``<mode>_uint16`` wave launches, plus one uint16 histogram a
@@ -165,8 +169,14 @@ modes, so max_bin above 255 trains through the fused wave:
     is within 1e-3 of the unfused run's; the ``torch.profiler`` split of
     phase 13 for the fused f32 run;
 31. timing of the three uint16 wave modes at W = 16 x 12,500, F = 28, B =
-    1,023 (and f32 at 511, int8 at 2,047): kernel, device ms by launch,
-    plain version, bound, launches per iteration.
+    1,023 (and f32 at 511, int8 at 2,047, and f32 at B = 1,023 over W = 4
+    and W = 1 siblings of 12,500 rows, where the scan has the fewest
+    blocks): kernel, device ms by launch, plain version, bound, launches
+    per iteration.
+
+Slice 9 redesigned the uint16 accumulation (both kernels' stage 1) and
+the uint16 split scan for Hopper, bit for bit the earlier sums: phases
+26, 28, 29 and 31 hold and time them.
 
 Each wave timing (phases 14, 18, 23, 31) also gives its three launches'
 device times by kernel name under ``torch.profiler`` (``wave_stage_ms``):
@@ -477,7 +487,7 @@ def hist_bound_ms(n, f, b, val_bytes=12, bin_bytes=None):
 
 
 def wave_case(gen, dev, sizes, exact, f=28, b=255, inactive=(),
-              scales=None, mode="f32"):
+              scales=None, mode="f32", edit=None):
     """One wave over a random permutation on the card: slot w's parent is
     the next 2 * sizes[w] perm positions, its smaller sibling the first
     (even w) or last (odd w) sizes[w] of them.  Feature 3 is a one-hot
@@ -485,13 +495,14 @@ def wave_case(gen, dev, sizes, exact, f=28, b=255, inactive=(),
     ``scales`` (3 channel scales) the wave is in int8 mode: int8 levels,
     int32 parents, stats from the scaled sums.  A ``mode`` starting with
     bf16 passes the values rounded to bf16 (parents and stats from the
-    rounded values); one ending in packed4 packs the bins (b <= 16)."""
+    rounded values); one ending in packed4 packs the bins (b <= 16).
+    ``edit(bins, perm)`` (int64 copies) returns other bins for the wave,
+    drawn after the permutation (``lane_pattern``)."""
     import torch
     from lightgbm_tpu_torch.ops import wave as WV
     from lightgbm_tpu_torch.ops.histogram import histogram_segment, pack_bins4
     n = sum(2 * s for s in sizes)
     bins = device_bins(gen, n, f, b, dev)
-    bins[:, 3] = (bins[:, 3].long() % 4).to(bins.dtype)
     if scales is None:
         vals = device_vals(gen, n, dev, exact)
         if mode.startswith("bf16"):
@@ -502,6 +513,9 @@ def wave_case(gen, dev, sizes, exact, f=28, b=255, inactive=(),
         scale3 = torch.tensor(scales, dtype=torch.float32, device=dev)
         sums = lambda v: v.long().sum(dim=0).float() * scale3
     perm = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+    if edit is not None:
+        bins = edit(bins.long(), perm.long()).to(bins.dtype)
+    bins[:, 3] = (bins[:, 3].long() % 4).to(bins.dtype)
     starts, cnts, parents, stats = [], [], [], []
     pos = 0
     for j, s in enumerate(sizes):
@@ -1679,10 +1693,47 @@ U16_WAVE_LARGE = ([300], 65536)
 FUSED_ITERS = 100
 FUSED_CHECK_ITERS = 10
 FUSED_AUC_TOL = 1e-3
-#: phase 31's timed uint16 waves (W = 16 x 12,500, F = 28): mode and B
-U16_WAVE_TIMING = (("f32_uint16", 1023), ("bf16_uint16", 1023),
-                   ("int8_uint16", 1023), ("f32_uint16", 511),
-                   ("int8_uint16", 2047))
+#: phase 29's waves whose bins push the uint16 kernels: lane patterns of
+#: the accumulation's grouping at B = 1,023 (``lane_pattern``), and an
+#: exact gain tie between features 1 and 25, which the scan puts in
+#: different blocks, at B = 257 and 1,023
+U16_LANE_PATTERNS = ("one_bin", "runs_of_32", "pairs")
+U16_TIE = ((1, 25), (257, 1023))
+#: phase 31's timed uint16 waves (F = 28): mode, B and slots (W = 16 x
+#: 12,500, and W = 1 and 4 at B = 1,023 in f32, the scan's fewest blocks)
+U16_WAVE_TIMING = (("f32_uint16", 1023, 16), ("bf16_uint16", 1023, 16),
+                   ("int8_uint16", 1023, 16), ("f32_uint16", 511, 16),
+                   ("int8_uint16", 2047, 16), ("f32_uint16", 1023, 4),
+                   ("f32_uint16", 1023, 1))
+
+
+def lane_pattern(pattern, b, tie=(1, 25)):
+    """A ``wave_case`` edit: bins that push the uint16 kernels.  Along the
+    permutation (the order the wave's stage 1 reads rows in): ``one_bin``
+    every row of a feature in one bin (each step's 32 lanes one group),
+    ``runs_of_32`` each 32 rows on one bin, ``pairs`` rows 2k and 2k + 1
+    on one bin (16 groups of two a step); ``tie`` features ``tie`` hold the
+    same bins and every other feature bin 0 (no valid split), so their
+    gains tie exactly."""
+    import torch
+
+    def edit(bins, perm):
+        n, f = bins.shape
+        if pattern == "tie":
+            a, z = tie
+            keep = bins[:, a].clone()
+            bins.zero_()
+            bins[:, a] = keep
+            bins[:, z] = keep
+            return bins
+        if pattern == "one_bin":
+            return ((torch.arange(f, device=bins.device) * 37 + b // 2)
+                    % b).expand(n, f).contiguous()
+        run = {"runs_of_32": 32, "pairs": 2}[pattern]
+        out = torch.empty_like(bins)
+        out[perm] = bins[perm[::run]].repeat_interleave(run, dim=0)[:n]
+        return out
+    return edit
 
 
 def hist_twin(bins, vals, *, num_bins, dtype="f32", packed4=False,
@@ -1925,7 +1976,12 @@ def uint16_wave_phase(gen, dev):
     bit for bit the plain version's; on random values (int8: random
     scales) child histograms bit for bit the twin's (int8: the plain
     version's) and payloads within ``wave_agreement``; run-to-run
-    bitwise.  Then a wave with no valid split (all gains -inf: key 0's
+    bitwise.  Waves whose bins push the kernels at B = 1,023, W = 16
+    (``lane_pattern``: every row of a feature in one bin, runs of 32 rows
+    and pairs on one bin, along the permutation) the same way, and an
+    exact gain tie between features 1 and 25 (different scan blocks) at B
+    = 257 and 1,023 that must select feature 1, bit for bit the plain
+    version.  Then a wave with no valid split (all gains -inf: key 0's
     payload) at B = 2,047.  Returns each mode's largest child-histogram
     error against the plain version at B = 1,023, F = 28, W = 16, random
     values."""
@@ -1938,12 +1994,14 @@ def uint16_wave_phase(gen, dev):
     random_scales = (float(rand[0]), float(rand[1]), 1.0)
     out, err = {}, {}
 
-    def check(mode, b, f, name, sizes, inactive, exact, scan_cfg=cfg):
+    def check(mode, b, f, name, sizes, inactive, exact, scan_cfg=cfg,
+              edit=None):
         kind = mode.split("_")[0]
         int8 = kind == "int8"
         scales = (POW2_SCALES if exact else random_scales) if int8 else None
         inp = wave_case(gen, dev, sizes, exact or int8, f=f, b=b,
-                        inactive=inactive, scales=scales, mode=kind)
+                        inactive=inactive, scales=scales, mode=kind,
+                        edit=edit)
         require(inp["bins"].dtype == torch.uint16, "uint16 wave case "
                 f"holds {inp['bins'].dtype} bins")
         h1, p1 = WV.fused_wave_call(cfg=scan_cfg, **inp)
@@ -1990,6 +2048,21 @@ def uint16_wave_phase(gen, dev):
         sizes, b = U16_WAVE_LARGE
         for exact in (True, False):
             check(mode, b, 28, "W1", sizes, (), exact)
+        sizes, inactive = CHECK_WAVES["W16"]
+        for pattern in U16_LANE_PATTERNS:
+            for exact in (True, False):
+                check(mode, WIDE_MAX_BIN, 28, f"W16 {pattern}", sizes,
+                      inactive, exact, edit=lane_pattern(pattern,
+                                                         WIDE_MAX_BIN))
+        pair, tie_bins = U16_TIE
+        for b in tie_bins:
+            _e, p = check(mode, b, 28, f"W16 tie {pair}", sizes, inactive,
+                          True, edit=lane_pattern("tie", b, pair))
+            fin = torch.isfinite(p[..., 0])
+            require(bool(fin.any()) and bool((p[..., 1][fin] ==
+                                              pair[0]).all()),
+                    f"{mode} B={b}: an exact gain tie between features "
+                    f"{pair} did not select feature {pair[0]}")
     none = SplitConfig(min_data_in_leaf=10 ** 9, min_sum_hessian_in_leaf=1.0,
                        lambda_l2=0.5, max_cat_to_onehot=4)
     sizes, inactive = CHECK_WAVES["W16"]
@@ -2079,7 +2152,8 @@ def wide_fused_training(dev, fix, rows, ds_w, rec255, unfused):
 
 def uint16_wave_timing(gen, dev, smi, launches):
     """31. The uint16 wave modes at W = 16 x 12,500, F = 28
-    (U16_WAVE_TIMING: B = 1,023 in each mode, f32 at 511, int8 at 2,047):
+    (U16_WAVE_TIMING: B = 1,023 in each mode, f32 at 511, int8 at 2,047,
+    and f32 at B = 1,023 over W = 4 and 1 siblings of 12,500 rows):
     kernel ms (CUDA events), the device ms of its launches by name
     (``wave_stage_ms``), the plain version, the bound (``wave_bound_ms``)
     and, at B = 1,023, the launches per iteration of phase 30's run.  No
@@ -2087,11 +2161,11 @@ def uint16_wave_timing(gen, dev, smi, launches):
     import torch
     from lightgbm_tpu_torch.ops import wave as WV
     from lightgbm_tpu_torch.ops.split import SplitConfig
-    sizes = list(WAVE_TIMING_SIZES)
     cfg = SplitConfig(min_data_in_leaf=0, min_sum_hessian_in_leaf=100.0,
                       max_cat_to_onehot=4)
     timing = {}
-    for mode, b in U16_WAVE_TIMING:
+    for mode, b, w in U16_WAVE_TIMING:
+        sizes = [WAVE_TIMING_SIZES[0]] * w
         kind = mode.split("_")[0]
         scales = None
         if kind == "int8":
@@ -2117,7 +2191,7 @@ def uint16_wave_timing(gen, dev, smi, launches):
         entry["agreement"] = wave_agreement(h1, p1, hp, pp)
         entry["bytes_ms"], entry["ops_ms"] = wave_bound_ms(inp)
         entry["stage_ms"] = wave_stage_ms(fn)
-        if b == WIDE_MAX_BIN:
+        if b == WIDE_MAX_BIN and w == len(WAVE_TIMING_SIZES):
             entry["launches_per_iteration"] = launches[mode][1] / FUSED_ITERS
         timing[f"wave_{mode}/B={b}/{len(sizes)}x{sizes[0]}"] = entry
         del inp, h1, p1, hp, pp

@@ -49,18 +49,35 @@
 // a block-private int32 histogram in shared memory with atomicAdd and
 // flushes it with one global atomicAdd per nonzero cell.
 //
-// uint16 bins (kBin = uint16_t; more than 256 bins, up to 65,536): the
-// same accumulation over 2-byte bin ids.  One feature's f32 chunk
-// histogram is B * 12 bytes (12 KB at B = 1,023, so acc_shape puts 8
-// features in a block); past B = 8,192 it no longer fits the budget, and
-// the bin axis is cut into equal tiles over grid.z (bin_tile): a lane
-// whose bin lies outside its block's tile adds nothing there, and every
-// cell is still summed in row order by one lane.  Lanes are grouped by
-// the ceil(log2 T) bits of their bin's offset in the tile of T bins
-// (same_tile_lanes: 10 ballots at B = 1,023, 13 at a tile of 8,192).
-// The int8 kernel tiles its int32 histogram the same way.  The uint8
-// instantiations take none of these branches (if constexpr): their code
-// is the uint8 kernels'.
+// uint16 bins (more than 256 bins, up to 65,536), f32 / bf16 values:
+// hist_accumulate_wide_kernel, the same sums add for add.  What bounds it
+// on an H100: one feature's f32 chunk histogram is B * 12 bytes (12 KB at
+// B = 1,023), so shared memory, not warps, caps an SM at 16 features (two
+// blocks of 8) and 16 warps, a third of the warps the byte kernel keeps
+// in flight; each 32-row step is a chain of shared-memory round trips
+// (the bin id, 11 ballots, the cell, the values) that those few warps
+// cannot hide.  Then the fixed per-chunk work: at B = 1,023 a block zeroes
+// and flushes as many cells as it adds (the partials, 67 MB at 200,000
+// rows, are the chunk layout's and stay).  What the design does: the rows
+// of the next tile are loaded into registers while a tile is summed (the
+// byte kernel's gather path waits for them tile by tile), a group's
+// lowest lane loads its own values beside the cell, the bin ids are
+// staged as words at an odd stride (no bank conflicts), and over gathered
+// rows the lanes are grouped with one __match_any_sync (over rows in
+// storage order, the ballots).  Past B = 8,192 the bin axis is cut into
+// equal tiles over grid.z (bin_tile): a lane whose bin lies outside its
+// block's tile adds nothing there.  Timed on an H100 80GB HBM3 at 700 W
+// (tools/torch_kernel_ab.py against the earlier build, 200,000 rows x 28
+// x 1,023 and a wave of 16 x 12,500): stage 1 0.112 -> 0.079 ms
+// (histogram) and 0.182 -> 0.125 ms (wave), bit for bit; ballots over the
+// gathered rows 0.133 ms (0.038 against 0.033 at W = 1; at B = 511 they
+// win, 0.079 against 0.084), __match_any_sync over rows in storage order
+// 0.088 ms.  Blocks held resident to walk several units (the flush
+// overlapping the next unit's loads) and cp.async staging were tried in
+// design builds and not kept: no faster at both shapes.
+// int8 values take hist_accumulate_i8_kernel over uint16 ids, its int32
+// histogram tiled the same way.  The uint8 instantiations of both kernels
+// keep the code of earlier builds (tools/torch_kernel_ab.py compares it).
 //
 // bf16 values (kVal = __nv_bfloat16) and 4-bit bins (kPacked) are
 // template parameters.  A bf16 value is widened to f32 as the lane reads
@@ -141,9 +158,9 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// Bins per tile of one feature's chunk histogram (12 bytes a bin: three
-// f32 or int32 sums) within `budget`: every bin (always for uint8 bins,
-// up to B = 8,192 at 96 KB), else the fewest equal tiles that fit.
+// Bins per tile of one feature's chunk histogram over uint16 bins (12
+// bytes a bin: three f32 or int32 sums) within `budget`: every bin (up to
+// B = 8,192 at 96 KB), else the fewest equal tiles that fit.
 __host__ __device__ inline int bin_tile(int nbins, int budget) {
   const int tiles = (nbins * 12 + budget - 1) / budget;
   return (nbins + tiles - 1) / tiles;
@@ -156,27 +173,23 @@ __host__ __device__ inline int warps_for(int nf) {
   return (nf + per - 1) / per;
 }
 
-// f32 / bf16 mode: bins per tile and tiles (uint16 bins past 8,192: the
-// grid's z), features per block (every feature when its chunk
-// histograms fit kHistSmemBudget and it has at most kMaxFeatPerBlock, or
-// kMaxFeatPerGather under `perm`; otherwise the most that do, even under
-// packed bins), warps per block
-// (each warp owns the same number of features, at most kMaxWarps warps)
-// and the dynamic shared memory: the histograms, then two stages of
-// kTileRows rows (bin bytes, then values, each with 32 bytes of slack for
-// the 16-byte alignment of cp.async).  `bin_bytes` is 1 or 2 (uint16).
+// f32 / bf16 mode over uint8 bins: features per block (every feature
+// when its chunk histograms fit kHistSmemBudget and it has at most
+// kMaxFeatPerBlock, or kMaxFeatPerGather under `perm`; otherwise the most
+// that do, even under packed bins), warps per block (each warp owns the
+// same number of features, at most kMaxWarps warps) and the dynamic
+// shared memory: the histograms, then two stages of kTileRows rows (bin
+// bytes, then values, each with 32 bytes of slack for the 16-byte
+// alignment of cp.async).
 struct AccShape {
-  int tile, tiles, fpb, groups, warps, row_stride, bin_stage, stage, smem;
+  int fpb, groups, warps, row_stride, bin_stage, stage, smem;
 };
 
 __host__ __device__ inline AccShape acc_shape(int f, int nbins, bool packed,
-                                              int val_bytes, bool perm,
-                                              int bin_bytes = 1) {
+                                              int val_bytes, bool perm) {
   AccShape a;
-  a.tile = bin_bytes == 1 ? nbins : bin_tile(nbins, kHistSmemBudget);
-  a.tiles = (nbins + a.tile - 1) / a.tile;
   const int most = perm ? kMaxFeatPerGather : kMaxFeatPerBlock;
-  int fit = kHistSmemBudget / (a.tile * 3 * (int)sizeof(float));
+  int fit = kHistSmemBudget / (nbins * 3 * (int)sizeof(float));
   fit = fit < most ? fit : most;
   if (fit >= f) a.fpb = f;
   else if (packed) a.fpb = fit < 2 ? 2 : (fit & ~1);
@@ -185,11 +198,11 @@ __host__ __device__ inline AccShape acc_shape(int f, int nbins, bool packed,
   a.warps = warps_for(a.fpb);
   // one group stages whole rows (contiguous in storage order); several
   // stage their own bytes of each row
-  a.row_stride = (a.groups == 1 ? feat_bytes(f, packed)
-                                : feat_bytes(a.fpb, packed)) * bin_bytes;
+  a.row_stride = a.groups == 1 ? feat_bytes(f, packed)
+                               : feat_bytes(a.fpb, packed);
   a.bin_stage = align16(kTileRows * a.row_stride + 32);
   a.stage = a.bin_stage + align16(kTileRows * val_bytes + 32);
-  a.smem = align16(a.fpb * a.tile * 3 * (int)sizeof(float)) + 2 * a.stage;
+  a.smem = align16(a.fpb * nbins * 3 * (int)sizeof(float)) + 2 * a.stage;
   return a;
 }
 
@@ -253,12 +266,13 @@ __device__ __forceinline__ unsigned same_tile_lanes(unsigned act, bool mine,
 //   seg[2W + w]     its first chunk; seg[3W] is the total chunk count.
 // With seg == nullptr there is one segment: rows [0, single_cnt) in
 // storage order (no perm).  `f` is the real feature count; kVal is float
-// or __nv_bfloat16; kBin uint8_t or uint16_t.  Grid (chunks, feature
-// groups, bin tiles), acc_shape's warps and shared memory; `partial` is
-// (chunks, f, nbins, 3) f32.  A bin id >= nbins is dropped.  Packed bins
-// keep three blocks on an SM (at most 42 registers a thread; an H100
-// timed it 8-20% faster there, and the byte-bin kernels slower under the
-// same cap).
+// or __nv_bfloat16; bins are uint8 (kBin stays a parameter so the kernel
+// keeps the name tools/torch_kernel_ab.py holds its code to).  Grid
+// (chunks, feature groups), acc_shape's warps and shared memory;
+// `partial` is (chunks, f, nbins, 3) f32.  A bin id >= nbins is dropped.
+// Packed bins keep three blocks on an SM (at most 42 registers a thread;
+// an H100 timed it 8-20% faster there, and the byte-bin kernels slower
+// under the same cap).
 template <bool kPerm, bool kPacked, typename kVal, typename kBin = uint8_t>
 __global__ void __launch_bounds__(kMaxWarps * 32, kPacked ? 3 : 1)
 hist_accumulate_kernel(const uint8_t* __restrict__ bins, int f,
@@ -269,9 +283,7 @@ hist_accumulate_kernel(const uint8_t* __restrict__ bins, int f,
                        float* __restrict__ partial) {
   extern __shared__ __align__(16) unsigned char s_acc[];
   constexpr int kValBytes = 3 * (int)sizeof(kVal);
-  constexpr bool kWide = sizeof(kBin) == 2;
-  const AccShape a = acc_shape(f, nbins, kPacked, kValBytes, kPerm,
-                               (int)sizeof(kBin));
+  const AccShape a = acc_shape(f, nbins, kPacked, kValBytes, kPerm);
   const int chunk = blockIdx.x;
   int64_t start = 0;
   int64_t cnt = single_cnt;
@@ -286,22 +298,17 @@ hist_accumulate_kernel(const uint8_t* __restrict__ bins, int f,
   const int64_t r1 = min(cnt, r0 + (int64_t)chunk_rows);
   const int f0 = blockIdx.y * a.fpb;
   const int nf = min(a.fpb, f - f0);
-  // this block's bins [bin0, bin0 + tlen) (every bin for uint8 bins), and
-  // the ballots that group lanes on one of them
-  const int bin0 = kWide ? (int)blockIdx.z * a.tile : 0;
-  const int tlen = kWide ? min(a.tile, nbins - bin0) : nbins;
-  const int bits = 32 - __clz(tlen - 1);
-  const int row_bytes = feat_bytes(f, kPacked) * (int)sizeof(kBin);
-  const int group_bytes = feat_bytes(nf, kPacked) * (int)sizeof(kBin);
-  const int fb0 = (kPacked ? f0 >> 1 : f0) * (int)sizeof(kBin);
+  const int row_bytes = feat_bytes(f, kPacked);
+  const int group_bytes = feat_bytes(nf, kPacked);
+  const int fb0 = kPacked ? f0 >> 1 : f0;
   const bool contiguous = !kPerm && a.groups == 1;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   float* hist = reinterpret_cast<float*>(s_acc);
   unsigned char* stages =
-      s_acc + align16(a.fpb * a.tile * 3 * (int)sizeof(float));
-  const int cells = nf * tlen * 3;
+      s_acc + align16(a.fpb * nbins * 3 * (int)sizeof(float));
+  const int cells = nf * nbins * 3;
   for (int i = threadIdx.x; i < cells; i += blockDim.x) hist[i] = 0.f;
 
   // Stage tile k into buffer k & 1 and commit it as one cp.async group
@@ -377,33 +384,17 @@ hist_accumulate_kernel(const uint8_t* __restrict__ bins, int f,
         cell[0] = g; cell[1] = h; cell[2] = c;
       };
       for (int j = warp; j < nf; j += nwarps) {
-        const int b = bin_at<kPacked, kBin>(rb, j);
-        if constexpr (kWide) {
-          const int lb = b - bin0;
-          const bool mine = (unsigned)lb < (unsigned)tlen;
-          const unsigned grp = same_tile_lanes(act, mine, lb, bits);
-          if (mine && lane == __ffs(grp) - 1)
-            add_group(hist + (j * tlen + lb) * 3, grp);
-        } else {
-          const unsigned grp = same_bin_lanes<kPacked ? 4 : 8>(act, b);
-          if (b < nbins && lane == __ffs(grp) - 1)
-            add_group(hist + (j * nbins + b) * 3, grp);
-        }
+        const int b = bin_at<kPacked>(rb, j);
+        const unsigned grp = same_bin_lanes<kPacked ? 4 : 8>(act, b);
+        if (b < nbins && lane == __ffs(grp) - 1)
+          add_group(hist + (j * nbins + b) * 3, grp);
         __syncwarp(act);                   // the cell, for the next step
       }
     }
     __syncthreads();                       // buffer k & 1 is free again
   }
   float* dst = partial + ((int64_t)chunk * f + f0) * nbins * 3;
-  if constexpr (kWide) {                   // each feature's tile in place
-    const int span = tlen * 3;
-    for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-      const int j = i / span;
-      dst[(int64_t)j * nbins * 3 + bin0 * 3 + (i - j * span)] = hist[i];
-    }
-  } else {
-    for (int i = threadIdx.x; i < cells; i += blockDim.x) dst[i] = hist[i];
-  }
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) dst[i] = hist[i];
 }
 
 // Raises the dynamic shared-memory limit of `kernel` to `smem` where it
@@ -415,39 +406,260 @@ inline int smem_opt_in(Kernel kernel, int smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-// Launches the f32 / bf16 accumulation of `packed` or unpacked bins of
-// type kBin (uint16_t: never packed): grid (nchunks, feature groups, bin
-// tiles).  Returns the first CUDA error.
-template <bool kPerm, typename kBin = uint8_t>
+// Launches the f32 / bf16 accumulation of `packed` or unpacked uint8
+// bins: grid (nchunks, feature groups).  Returns the first CUDA error.
+template <bool kPerm>
 inline int launch_accumulate(const void* bins, int f, const void* vals,
                              bool packed, bool bf16, const int32_t* perm,
                              const int32_t* seg, int w_count,
                              int64_t single_cnt, int chunk_rows, int nbins,
                              int nchunks, float* partial, cudaStream_t s) {
-  const AccShape a = acc_shape(f, nbins, packed, bf16 ? 6 : 12, kPerm,
-                               (int)sizeof(kBin));
-  const dim3 grid((unsigned)nchunks, (unsigned)a.groups, (unsigned)a.tiles);
+  const AccShape a = acc_shape(f, nbins, packed, bf16 ? 6 : 12, kPerm);
+  const dim3 grid((unsigned)nchunks, (unsigned)a.groups);
   const uint8_t* b = (const uint8_t*)bins;
   int err = 0;
 #define LGBT_ACC(P, V)                                                    \
   do {                                                                    \
-    err = smem_opt_in(hist_accumulate_kernel<kPerm, P, V, kBin>, a.smem); \
+    err = smem_opt_in(hist_accumulate_kernel<kPerm, P, V>, a.smem);       \
     if (err != 0) return err;                                             \
-    hist_accumulate_kernel<kPerm, P, V, kBin>                             \
+    hist_accumulate_kernel<kPerm, P, V>                                   \
         <<<grid, 32 * a.warps, a.smem, s>>>(b, f, (const V*)vals, perm,   \
                                             seg, w_count, single_cnt,     \
                                             chunk_rows, nbins, partial);  \
   } while (0)
-  if constexpr (sizeof(kBin) == 2) {
-    if (bf16) LGBT_ACC(false, __nv_bfloat16);
-    else LGBT_ACC(false, float);
-  } else {
-    if (packed && bf16) LGBT_ACC(true, __nv_bfloat16);
-    else if (packed) LGBT_ACC(true, float);
-    else if (bf16) LGBT_ACC(false, __nv_bfloat16);
-    else LGBT_ACC(false, float);
-  }
+  if (packed && bf16) LGBT_ACC(true, __nv_bfloat16);
+  else if (packed) LGBT_ACC(true, float);
+  else if (bf16) LGBT_ACC(false, __nv_bfloat16);
+  else LGBT_ACC(false, float);
 #undef LGBT_ACC
+  return (int)cudaGetLastError();
+}
+
+// uint16 bins, f32 / bf16 values (hist_accumulate_wide_kernel): bins per
+// tile and tiles (the grid's z past 8,192 bins, as acc_shape), then the
+// most features a block (at most kMaxFeatPerBlock, or kMaxFeatPerGather
+// under `perm`) whose block fits kWideSmemBudget, two blocks an SM (8 at
+// B = 1,023), else one feature; warps (one row a thread per staged tile:
+// at least kTileRows / 32) and the dynamic shared memory: the histograms
+// and two stages of kTileRows rows (the group's bin ids as 32-bit words at
+// an odd stride, so lanes reading consecutive rows meet no bank conflict,
+// then the values).
+constexpr int kWideMinWarps = kTileRows / 32;
+constexpr int kWideSmemBudget = 112 * 1024;
+
+struct WideShape {
+  int tile, tiles, fpb, groups, warps, stride, bin_stage, stage, smem;
+};
+
+__host__ __device__ inline WideShape wide_fit(int tile, int fpb,
+                                              int val_bytes) {
+  WideShape a;
+  a.tile = tile;
+  a.fpb = fpb;
+  const int w = warps_for(fpb);
+  a.warps = w > kWideMinWarps ? w : kWideMinWarps;
+  a.stride = ((fpb + 1) >> 1) | 1;
+  a.bin_stage = align16(kTileRows * a.stride * 4);
+  a.stage = a.bin_stage + align16(kTileRows * val_bytes);
+  a.smem = align16(fpb * tile * 3 * (int)sizeof(float)) + 2 * a.stage;
+  return a;
+}
+
+__host__ __device__ inline WideShape wide_shape(int f, int nbins, bool perm,
+                                                int val_bytes) {
+  const int tile = bin_tile(nbins, kHistSmemBudget);
+  const int most = perm ? kMaxFeatPerGather : kMaxFeatPerBlock;
+  int fpb = f < most ? f : most;
+  WideShape a = wide_fit(tile, fpb, val_bytes);
+  while (fpb > 1 && a.smem > kWideSmemBudget)
+    a = wide_fit(tile, --fpb, val_bytes);
+  a.tiles = (nbins + tile - 1) / tile;
+  a.groups = (f + fpb - 1) / fpb;
+  return a;
+}
+
+// The f32 / bf16 accumulation over uint16 bin ids (the note at the top of
+// this file): a block per (chunk, feature group, bin tile), a warp per
+// feature's shared-memory chunk histogram, 32 staged rows a step; the
+// lanes of one bin are grouped (__match_any_sync over gathered rows, a
+// ballot per bit over rows in storage order: each timed the faster on its
+// path), and the group's lowest lane adds its own value and then each
+// peer's in lane (= row) order.  Rows of tile k + 1 are loaded into
+// registers (the permutation index one tile earlier still) while tile k
+// is summed.  wide_shape's warps and shared memory; arguments as
+// hist_accumulate_kernel's.
+template <bool kPerm, typename kVal>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+hist_accumulate_wide_kernel(const uint16_t* __restrict__ bins, int f,
+                            const kVal* __restrict__ vals,
+                            const int32_t* __restrict__ perm,
+                            const int32_t* __restrict__ seg, int w_count,
+                            int64_t single_cnt, int chunk_rows, int nbins,
+                            float* __restrict__ partial) {
+  extern __shared__ __align__(16) unsigned char s_acc[];
+  constexpr int kValBytes = 3 * (int)sizeof(kVal);
+  constexpr int kMaxWords = (kMaxFeatPerBlock + 1) / 2;
+  const WideShape a = wide_shape(f, nbins, kPerm, kValBytes);
+  const int chunk = blockIdx.x;
+  int64_t start = 0;
+  int64_t cnt = single_cnt;
+  int local = chunk;
+  if (seg != nullptr) {
+    const int lo = segment_of(seg, w_count, chunk);
+    start = seg[lo];
+    cnt = seg[w_count + lo];
+    local = chunk - seg[2 * w_count + lo];
+  }
+  const int64_t r0 = (int64_t)local * chunk_rows;
+  const int64_t r1 = min(cnt, r0 + (int64_t)chunk_rows);
+  const int f0 = blockIdx.y * a.fpb;
+  const int nf = min(a.fpb, f - f0);
+  const int bin0 = (int)blockIdx.z * a.tile;
+  const int tlen = min(a.tile, nbins - bin0);
+  const int bits = 32 - __clz(tlen - 1);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  float* hist = reinterpret_cast<float*>(s_acc);
+  unsigned char* stages =
+      s_acc + align16(a.fpb * a.tile * 3 * (int)sizeof(float));
+  const int cells = nf * tlen * 3;
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) hist[i] = 0.f;
+
+  // A thread's row of a tile: its group's bin ids, as whole 32-bit words
+  // where every group starts on an even id of an even-width row (else id
+  // by id), and its values.
+  const bool by_word = ((f | f0) & 1) == 0 && ((uintptr_t)bins & 3) == 0;
+  const int nwords = (nf + 1) >> 1;
+  const int ntiles = (int)((r1 - r0 + kTileRows - 1) / kTileRows);
+  const int tr = threadIdx.x;               // the thread's row in a tile
+  uint32_t w[kMaxWords];
+  kVal v[3];
+  auto rows_of = [&](int k) {
+    return (int)min((int64_t)kTileRows, r1 - (r0 + (int64_t)k * kTileRows));
+  };
+  auto row_at = [&](int k) -> int64_t {     // -1: no row
+    if (k >= ntiles || tr >= rows_of(k)) return -1;
+    const int64_t pos = start + r0 + (int64_t)k * kTileRows + tr;
+    return kPerm ? (int64_t)perm[pos] : pos;
+  };
+  auto load = [&](int64_t row) {
+    if (row < 0) return;
+    const uint16_t* src = bins + row * f + f0;
+    if (by_word) {
+      const uint32_t* s32 = reinterpret_cast<const uint32_t*>(src);
+#pragma unroll
+      for (int i = 0; i < kMaxWords; ++i)
+        if (i < nwords) w[i] = s32[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < kMaxWords; ++i) {
+        if (2 * i < nf) {
+          const uint32_t lo = src[2 * i];
+          const uint32_t hi = 2 * i + 1 < nf ? src[2 * i + 1] : 0u;
+          w[i] = lo | (hi << 16);
+        }
+      }
+    }
+    v[0] = vals[row * 3 + 0];
+    v[1] = vals[row * 3 + 1];
+    v[2] = vals[row * 3 + 2];
+  };
+  auto store = [&](int64_t row, int k) {
+    if (row < 0) return;
+    unsigned char* buf = stages + (k & 1) * a.stage;
+    uint32_t* dw = reinterpret_cast<uint32_t*>(buf) + tr * a.stride;
+#pragma unroll
+    for (int i = 0; i < kMaxWords; ++i)
+      if (i < nwords) dw[i] = w[i];
+    kVal* dv = reinterpret_cast<kVal*>(buf + a.bin_stage) + tr * 3;
+    dv[0] = v[0]; dv[1] = v[1]; dv[2] = v[2];
+  };
+
+  // The tile in stage k & 1: each warp's features, 32 rows a step.
+  auto sum_tile = [&](int k) {
+    const unsigned char* buf = stages + (k & 1) * a.stage;
+    const uint16_t* tb = reinterpret_cast<const uint16_t*>(buf);
+    const kVal* tv = reinterpret_cast<const kVal*>(buf + a.bin_stage);
+    const int rows = rows_of(k);
+    for (int j = warp; j < nf; j += nwarps) {
+      float* hj = hist + j * tlen * 3;
+      for (int s0 = 0; s0 < rows; s0 += 32) {
+        const int r = s0 + lane;
+        const int b = r < rows ? (int)tb[r * a.stride * 2 + j] - bin0 : -1;
+        const bool mine = (unsigned)b < (unsigned)tlen;
+        unsigned grp;
+        if constexpr (kPerm)
+          grp = __match_any_sync(kFullMask, mine ? b : 0x10000 + lane);
+        else
+          grp = same_tile_lanes(kFullMask, mine, b, bits);
+        if (mine && lane == __ffs(grp) - 1) {
+          const kVal* own = tv + r * 3;
+          const float g0 = to_f32(own[0]), h0 = to_f32(own[1]),
+                      c0 = to_f32(own[2]);
+          float* cell = hj + b * 3;
+          float g = cell[0] + g0, h = cell[1] + h0, c = cell[2] + c0;
+          for (unsigned m = grp & (grp - 1); m != 0; m &= m - 1) {
+            const kVal* pv = tv + (s0 + __ffs(m) - 1) * 3;
+            g += to_f32(pv[0]);
+            h += to_f32(pv[1]);
+            c += to_f32(pv[2]);
+          }
+          cell[0] = g; cell[1] = h; cell[2] = c;
+        }
+        __syncwarp();                       // the cells, for the next step
+      }
+    }
+  };
+
+  int64_t row = row_at(0);
+  load(row);
+  store(row, 0);
+  int64_t next = row_at(1);                 // tile 1's row, loaded below
+  __syncthreads();                          // tile 0 and the zeros
+  for (int k = 0; k < ntiles; ++k) {
+    const int64_t cur = next;
+    load(cur);                              // tile k + 1, in flight
+    next = row_at(k + 2);
+    sum_tile(k);
+    store(cur, k + 1);                      // stage (k + 1) & 1 is free
+    __syncthreads();
+  }
+  // each feature's tile in place: (chunk, f, nbins, 3)
+  const int span = tlen * 3;
+  float* dst = partial + (((int64_t)chunk * f + f0) * nbins + bin0) * 3;
+  for (int j = 0; j < nf; ++j) {
+    const float* src = hist + j * span;
+    float* dj = dst + (int64_t)j * nbins * 3;
+    for (int i = threadIdx.x; i < span; i += blockDim.x) dj[i] = src[i];
+  }
+}
+
+// Launches the f32 / bf16 accumulation over (N, F) uint16 bins: grid
+// (nchunks, feature groups, bin tiles).  Returns the first CUDA error.
+template <bool kPerm>
+inline int launch_accumulate_wide(const void* bins, int f, const void* vals,
+                                  bool bf16, const int32_t* perm,
+                                  const int32_t* seg, int w_count,
+                                  int64_t single_cnt, int chunk_rows,
+                                  int nbins, int nchunks, float* partial,
+                                  cudaStream_t s) {
+  const WideShape a = wide_shape(f, nbins, kPerm, bf16 ? 6 : 12);
+  const dim3 grid((unsigned)nchunks, (unsigned)a.groups, (unsigned)a.tiles);
+  const uint16_t* b = (const uint16_t*)bins;
+  int err = 0;
+#define LGBT_ACC_WIDE(V)                                                   \
+  do {                                                                     \
+    err = smem_opt_in(hist_accumulate_wide_kernel<kPerm, V>, a.smem);      \
+    if (err != 0) return err;                                              \
+    hist_accumulate_wide_kernel<kPerm, V>                                  \
+        <<<grid, 32 * a.warps, a.smem, s>>>(b, f, (const V*)vals, perm,    \
+                                            seg, w_count, single_cnt,      \
+                                            chunk_rows, nbins, partial);   \
+  } while (0)
+  if (bf16) LGBT_ACC_WIDE(__nv_bfloat16);
+  else LGBT_ACC_WIDE(float);
+#undef LGBT_ACC_WIDE
   return (int)cudaGetLastError();
 }
 

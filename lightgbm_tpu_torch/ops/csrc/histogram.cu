@@ -57,17 +57,18 @@
 // for Mosaic's lane rules only: this kernel writes original feature order.
 
 // uint16 bins (max_bin above 255; the TPU kernel takes (N, F) uint16 bins
-// at a 128-multiple padded B): every value type above, through the same
-// accumulation with 2-byte bin ids (hist_common.cuh, kBin = uint16_t).
-// At F = 28 and B = 1,023 a feature's chunk histogram is 12 KB, so a
-// block covers 8 features (4 groups, each staging its own 16 bytes of a
-// row); lanes are grouped with 10 ballots (8 for uint8); past B = 8,192
-// the bin axis is tiled over the grid.  What bounds it is what bounds the
-// uint8 kernel, plus the partials: F * B * 12 bytes a chunk (344 KB at B =
-// 1,023), so the chunking caps them at 256 MB
+// at a 128-multiple padded B): every value type above.  f32 and bf16 run
+// hist_accumulate_wide_kernel (hist_common.cuh), the same sums add for
+// add with the work laid out for large B: at F = 28 and B = 1,023 a
+// feature's chunk histogram is 12 KB, so a block covers 8 features (4
+// groups), the next tile's rows are loaded while a tile is summed, and
+// past B = 8,192 the bin axis is tiled over the grid.  What bounds it is
+// the warps shared memory leaves an SM (16) against each step's chain of
+// shared-memory round trips, plus the partials: F * B * 12 bytes a chunk
+// (344 KB at B = 1,023), so the chunking caps them at 256 MB
 // (ops/histogram_flat.py::chunking).  int8 values take the int8 kernel
-// over uint16 ids, its int32 histogram tiled the same way.  The uint8
-// and packed4 entry points below are the uint8 kernels, untouched.
+// over uint16 ids, its int32 histogram tiled the same way.  The uint8 and
+// packed4 entry points below are the uint8 kernels, untouched.
 
 #include "hist_common.cuh"
 
@@ -125,9 +126,9 @@ extern "C" int lgbt_histogram_u16(const void* bins, const void* vals,
       n < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err = lgbt::launch_accumulate<false, uint16_t>(
-      bins, f, vals, false, bf16 != 0, nullptr, nullptr, 1, n, chunk_rows,
-      nbins, nchunks, (float*)partial, s);
+  int err = lgbt::launch_accumulate_wide<false>(
+      bins, f, vals, bf16 != 0, nullptr, nullptr, 1, n, chunk_rows, nbins,
+      nchunks, (float*)partial, s);
   if (err != 0) return err;
   const int64_t cells = (int64_t)f * nbins * 3;
   const dim3 cgrid((unsigned)((cells + 255) / 256), 1);

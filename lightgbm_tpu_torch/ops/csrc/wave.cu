@@ -48,7 +48,7 @@
 //     version's separate torch ops round.
 // Later work: fuse the combine into the scan (the child histogram read
 // once from the partials), and spread a child's features over more than
-// one SM for small waves.
+// one SM for small waves (the uint16 scan below does).
 //
 // int8 mode (quantized training; the TPU kernel with dtype="int8" and its
 // scale3 operand), the same three launches: stage 1 accumulates each
@@ -78,23 +78,34 @@
 // packed4: the entry points lgbt_wave_u16 and lgbt_wave_i8_u16, so the
 // uint8 and packed4 entry points keep their code.  Stage 1 is the
 // histogram kernel's uint16 accumulation over the gathered rows
-// (hist_common.cuh, kPerm with kBin = uint16_t: a block stages 2 bytes a
-// feature of each row; its 96 KB of chunk histograms hold 8 features at B
-// = 1,023, one at 8,192, and past that the bin axis is tiled over
-// grid.z); the combines do not depend on B.  The scan is
-// wave_scan_wide_kernel: the scan above with the bin axis cut into tiles
-// where a warp's (B, 3) cells do not fit the block's shared memory (every
-// bin fits up to B = 1,380 at F = 28; 48 tiles at B = 65,536), lanes 0-2
-// carrying the cumulative sums across tiles, so the payload is still the
-// sequential first-max's, bit for bit.  The payload is 16 + B wide and
-// carries the bin id as an f32, exact below 2^24.  What bounds it: stage
-// 1 as at B = 255 plus 4x the shared-memory groups (8 features a block,
-// not 28), and the scan's sequential cumulative sums, B adds in a chain
-// per (child, feature).  Scratch: segment_table (ops/wave.py) keeps the
-// chunk partials under 256 MB, but gives every non-empty sibling a chunk,
-// so the partials of W siblings are at least W * F * B * 12 bytes (352
-// MB at W = 16, F = 28, B = 65,536, past the cap), and the child
-// histograms 2W * F * B * 12 (704 MB there).
+// (hist_common.cuh, hist_accumulate_wide_kernel with kPerm; int8:
+// hist_accumulate_i8_kernel over uint16 ids); the combines do not depend
+// on B.  The scan is wave_scan_wide_kernel.  What bounds it on an H100:
+// per (child, feature) a chain of B dependent adds per channel (the
+// cumulative sums, which must stay in sequence) and B candidates of ~40
+// flops with IEEE divisions; a block per child (the byte scan's design)
+// puts a W = 1 wave's 56 (feature, child) chains on 2 SMs, two chains a
+// warp back to back, each add waiting on a shared-memory round trip (the
+// B = 1,023 scan took 0.079-0.086 ms at any W).  What the design does: a
+// block per (child, feature) (fewer features a block only where B / 12
+// slots cannot hold a block's best a feature), so a W = 1 wave fills 56
+// SMs; threads 0-2 run the chains with the next 16 cells in registers
+// ahead of the adds, every thread of the block evaluates candidates; the
+// blocks of a child leave their bests in its payload's one-hot lanes,
+// count in through an integer counter, and the last reads the bests in
+// block order (maximum gain, lowest key: the sequential first-max, bit
+// for bit) and writes the payload.  Tiles of 4,096 bins keep a block's
+// staging at 48 KB up to B = 65,536 (16 tiles).  Timed on an H100 80GB
+// HBM3 at 700 W (tools/torch_kernel_ab.py against the earlier build, F =
+// 28, B = 1,023): the f32 scan of a 16 x 12,500 wave 0.086 -> 0.022 ms,
+// of a W = 1 wave 0.079 -> 0.015 ms, bit for bit; with 8 cells ahead in
+// place of 16, 0.0245 and 0.0175 ms.  The payload is 16 + B wide and
+// carries the bin id as an f32, exact below 2^24.
+// Scratch: segment_table (ops/wave.py) keeps the chunk partials under 256
+// MB, but gives every non-empty sibling a chunk, so the partials of W
+// siblings are at least W * F * B * 12 bytes (352 MB at W = 16, F = 28, B
+// = 65,536, past the cap), and the child histograms 2W * F * B * 12 (704
+// MB there).
 
 #include <climits>
 #include <math_constants.h>
@@ -199,8 +210,7 @@ struct Best {
 };
 
 // Dynamic shared memory of the scan: each warp's Best and the winner's
-// bin, then each warp's (B, 3) cells (`nbins`: the bins of one tile in
-// the uint16 scan).
+// bin, then each warp's (B, 3) cells.
 inline int scan_smem(int warps, int nbins) {
   return lgbt::align16(warps * (int)sizeof(Best) + (int)sizeof(int)) +
          warps * nbins * 3 * (int)sizeof(float);
@@ -374,10 +384,10 @@ __device__ __forceinline__ Feat read_feat(const int32_t* meta, int feat,
   return q;
 }
 
-// The candidate of bin b of feature `feat` into the lane's best `mine`:
+// The candidate of bin b of feature `feat` into the thread's best `mine`:
 // `p` is the bin's cells (categorical) or masked cumulative sums, (gn,
-// hn, cn) the NaN bin's cells.  A lane's candidates come in ascending key
-// order, so its first seeds `mine` and a later one must be strictly
+// hn, cn) the NaN bin's cells.  A thread's candidates come in ascending
+// key order, so its first seeds `mine` and a later one must be strictly
 // better.
 __device__ __forceinline__ void scan_bin(Best& mine, const float* p, int b,
                                          int feat, int nbins, const Feat& q,
@@ -436,65 +446,164 @@ __device__ __forceinline__ void warp_select(const Best& mine, float& run_gain,
   }
 }
 
-// The block's winner over its warps' bests into the child's payload
-// (B = nbins one-hot lanes): thread 0 writes the scalars, every thread
-// the one-hot.
-__device__ __forceinline__ void write_payload(const Best* s_best,
-                                              int* s_win_bin, int nwarps,
-                                              int nbins, bool active,
-                                              float* pay) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int bi = 0;
-    for (int i = 1; i < nwarps; ++i) {
-      const Best& o = s_best[i];
-      if (o.gain > s_best[bi].gain ||
-          (o.gain == s_best[bi].gain && o.key < s_best[bi].key))
-        bi = i;
+// The index of the best of `n` candidates (gain, key) read through
+// `at`: the maximum gain, the lowest key on ties (the sequential
+// first-max, whatever order the candidates come in).
+template <typename At>
+__device__ __forceinline__ int pick_best(int n, At at) {
+  int bi = 0;
+  Best b = at(0);
+  for (int i = 1; i < n; ++i) {
+    const Best o = at(i);
+    if (o.gain > b.gain || (o.gain == b.gain && o.key < b.key)) {
+      bi = i;
+      b = o;
     }
-    const Best& win = s_best[bi];
-    pay[0] = active ? win.gain : -CUDART_INF_F;
-    pay[1] = (float)(win.key / nbins);
-    pay[2] = (float)(win.key % nbins);
-    pay[3] = (!win.cat && win.dl) ? 1.f : 0.f;
-    pay[4] = win.cat ? 1.f : 0.f;
-    for (int i = 0; i < 6; ++i) pay[5 + i] = win.s[i];
-    for (int i = 11; i < kPayloadScalars; ++i) pay[i] = 0.f;
-    *s_win_bin = win.cat ? win.key % nbins : -1;
   }
-  __syncthreads();
-  for (int b = threadIdx.x; b < nbins; b += blockDim.x)
-    pay[kPayloadScalars + b] = b == *s_win_bin ? 1.f : 0.f;
+  return bi;
 }
 
-// The scan over uint16 bins (any B up to 65,536): wave_scan_kernel's
-// arithmetic with the bin axis cut into tiles of `tile` bins (every bin
-// where warps * B * 12 bytes fit kScanSmemBudget: B <= 1,380 at F = 28).
-// Per feature the warp reads the NaN bin's cells from global memory
-// first, then per tile stages its cells, lanes 0-2 carry the running
-// masked cumulative sums from tile to tile (the same adds in the same
-// order as one pass over B), and lane l evaluates bins b0 + l, b0 + l +
-// 32, ...: over the tiles still ascending keys, so the winner is the
-// sequential first-max's, bit for bit.  Keys are feature * B + bin in an
-// int: F * B <= 2^31 - 1 (F < 32,768 at B = 65,536; the entry points
-// check it).
+// Thread 0 writes the winner's scalars into `pay` (nbins one-hot lanes
+// follow them) and its bin, if categorical, into *s_win_bin.
+__device__ __forceinline__ void write_scalars(const Best& win, int nbins,
+                                              bool active, float* pay,
+                                              int* s_win_bin) {
+  pay[0] = active ? win.gain : -CUDART_INF_F;
+  pay[1] = (float)(win.key / nbins);
+  pay[2] = (float)(win.key % nbins);
+  pay[3] = (!win.cat && win.dl) ? 1.f : 0.f;
+  pay[4] = win.cat ? 1.f : 0.f;
+  for (int i = 0; i < 6; ++i) pay[5 + i] = win.s[i];
+  for (int i = 11; i < kPayloadScalars; ++i) pay[i] = 0.f;
+  *s_win_bin = win.cat ? win.key % nbins : -1;
+}
+
+// The uint16 scan's geometry (any B up to 65,536): a block per (child,
+// group of `fpb` features), its warps on one feature at a time, the bin
+// axis staged in tiles of `tile` bins.  A child's blocks leave their bests
+// in its payload's one-hot lanes (kBestFloats each, so at most B /
+// kBestFloats blocks), and the last to finish picks the winner.
+constexpr int kScanWideWarps = 4;
+constexpr int kScanWideTile = 4096;
+constexpr int kBestFloats = 12;
+
+struct ScanGeom {
+  int blocks, fpb, tile, smem;
+};
+
+inline ScanGeom scan_geom(int f, int nbins) {
+  ScanGeom g;
+  g.tile = nbins < kScanWideTile ? nbins : kScanWideTile;
+  const int slots = nbins / kBestFloats;
+  int blocks = f < slots ? f : slots;
+  blocks = blocks < 1 ? 1 : blocks;
+  g.fpb = (f + blocks - 1) / blocks;
+  g.blocks = (f + g.fpb - 1) / g.fpb;
+  g.smem = lgbt::align16(kScanWideWarps * (int)sizeof(Best) +
+                         2 * (int)sizeof(int)) +
+           lgbt::align16(g.tile * 3 * (int)sizeof(float) + 32);
+  return g;
+}
+
+// Thread c < 3 of a block turns channel c of a staged tile (`p` = its
+// first cell, stride 3; bins b0 .. b0 + tlen) into the masked cumulative
+// sums, carrying `run` on from the previous tile: run = run + (bin counted
+// ? cell : 0), bin by bin, as one pass over B adds.  The next kCumAhead
+// cells are loaded before the current ones are added, so the chain waits
+// on the adds, not on a shared-memory round trip; a run of kCumAhead bins
+// below the feature's last bin and clear of its NaN bin (all but one or
+// two runs) loads and adds without a mask.
+constexpr int kCumAhead = 16;
+
+__device__ __forceinline__ void cumsum_tile(float* p, int tlen, int b0,
+                                            const Feat& q, float& run) {
+  const int lim = min(tlen, q.nb - b0);  // bins below: in the feature
+  auto load = [&](float (&x)[kCumAhead], int i) {
+    if (i + kCumAhead <= lim && (unsigned)(q.nanb - b0 - i) >= kCumAhead) {
+#pragma unroll
+      for (int u = 0; u < kCumAhead; ++u) x[u] = p[(i + u) * 3];
+    } else {
+#pragma unroll
+      for (int u = 0; u < kCumAhead; ++u) {
+        const int k = i + u;
+        x[u] = (k < lim && b0 + k != q.nanb) ? p[k * 3] : 0.f;
+      }
+    }
+  };
+  float x[kCumAhead];
+  load(x, 0);
+  for (int i = 0; i < tlen; i += kCumAhead) {
+    float y[kCumAhead];
+    load(y, i + kCumAhead);
+    if (i + kCumAhead <= tlen) {
+#pragma unroll
+      for (int u = 0; u < kCumAhead; ++u) {
+        run = run + x[u];
+        p[(i + u) * 3] = run;
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < kCumAhead; ++u) {
+        if (i + u < tlen) {
+          run = run + x[u];
+          p[(i + u) * 3] = run;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kCumAhead; ++u) x[u] = y[u];
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// A staged tile of `n` cells as the scan reads them: f32 as stored; int32
+// (int8 mode) rescaled in place, float(h) * scale[channel] (cell()).
+__device__ __forceinline__ void rescale_tile(const float*, float*, int,
+                                             const float*) {}
+__device__ __forceinline__ void rescale_tile(const int32_t*, float* cells,
+                                             int n, const float* scale) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    cells[i] = (float)__float_as_int(cells[i]) * scale[i % 3];
+  __syncthreads();
+}
+
+// The scan over uint16 bins: wave_scan_kernel's arithmetic, each child's
+// features spread over gridDim.y blocks (scan_geom), a block's threads on
+// one feature at a time.  Per feature and tile the block copies the cells
+// to shared memory with cp.async (int8: then times the channel's scale),
+// threads 0-2 turn them into the masked cumulative sums, carried from tile
+// to tile (cumsum_tile: the adds of one sequential pass; the NaN bin's
+// cells come from global memory first), and thread t evaluates bins b0 +
+// t, b0 + t + blockDim.x, ...: each thread meets its candidates in
+// ascending key order, so its first seeds its best and a later one must be
+// strictly better.  The winner is the maximum gain with the lowest key on
+// ties, reduced across threads, warps, then blocks: an order-free rule, so
+// the payload is the sequential first-max scan's, bit for bit, and an all
+// -inf child selects key 0.  Blocks meet through an integer counter in
+// payload lane 15 (zeroed by the launcher): each leaves its best in the
+// one-hot lanes, and the last block reads them in block order and writes
+// the payload.  Keys are feature * B + bin in an int: F * B <= 2^31 - 1 (F
+// < 32,768 at B = 65,536; the entry points check it).
 template <typename T>
-__global__ void __launch_bounds__(lgbt::kMaxWarps * 32)
+__global__ void __launch_bounds__(kScanWideWarps * 32)
 wave_scan_wide_kernel(const T* __restrict__ hist,
                       const float* __restrict__ scale3,
                       const float* __restrict__ stats,
                       const int32_t* __restrict__ meta, int f, int nbins,
-                      int tile, ScanCfg c, float* __restrict__ payload) {
+                      int fpb, int tile, ScanCfg c,
+                      float* __restrict__ payload) {
   extern __shared__ __align__(16) unsigned char s_scan[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   Best* s_best = reinterpret_cast<Best*>(s_scan);
   int* s_win_bin = reinterpret_cast<int*>(s_best + nwarps);
-  float* cells = reinterpret_cast<float*>(
-                     s_scan + lgbt::align16(nwarps * (int)sizeof(Best) +
-                                            (int)sizeof(int))) +
-                 warp * tile * 3;
+  int* s_last = s_win_bin + 1;
+  unsigned char* stage = s_scan + lgbt::align16(nwarps * (int)sizeof(Best) +
+                                                2 * (int)sizeof(int));
   const float scale[3] = {scale3 != nullptr ? scale3[0] : 1.f,
                           scale3 != nullptr ? scale3[1] : 1.f,
                           scale3 != nullptr ? scale3[2] : 1.f};
@@ -505,11 +614,12 @@ wave_scan_wide_kernel(const T* __restrict__ hist,
   const float pgain = c.path_smooth > 0.f ? gain_given_output(pg, ph, pout, c)
                                           : leaf_gain(pg, ph, c);
   const T* h0 = hist + (int64_t)child * f * nbins * 3;
+  const int f0 = blockIdx.y * fpb;
+  const int f1 = min(f, f0 + fpb);
 
-  float run_gain = -CUDART_INF_F;
-  int run_key = INT_MAX;
   if (lane == 0) s_best[warp] = Best{-CUDART_INF_F, INT_MAX, 0, 0, {}};
-  for (int feat = warp; feat < f; feat += nwarps) {
+  Best mine{-CUDART_INF_F, INT_MAX, 0, 0, {}};
+  for (int feat = f0; feat < f1; ++feat) {
     const Feat q = read_feat(meta, feat, c);
     const T* hf = h0 + (int64_t)feat * nbins * 3;
     float gn = 0.f, hn = 0.f, cn = 0.f;
@@ -518,34 +628,82 @@ wave_scan_wide_kernel(const T* __restrict__ hist,
       hn = cell(hf, q.nanb * 3 + 1, scale[1]);
       cn = cell(hf, q.nanb * 3 + 2, scale[2]);
     }
-    float run = 0.f;                    // lane c < 3: channel c's cumsum
-    Best mine{-CUDART_INF_F, INT_MAX, 0, 0, {}};
+    float run = 0.f;                    // thread c < 3: channel c's cumsum
     for (int b0 = 0; b0 < nbins; b0 += tile) {
       const int tlen = min(tile, nbins - b0);
       const T* ht = hf + (int64_t)b0 * 3;
-      for (int i = lane; i < tlen * 3; i += 32)
-        cells[i] = cell(ht, i, scale[i % 3]);
-      __syncwarp();
-      if (!q.iscat && lane < 3) {
-        for (int i = 0; i < tlen; ++i) {
-          const int b = b0 + i;
-          const bool vm = b < q.nb && b != q.nanb;
-          float* p = cells + i * 3 + lane;
-          run = run + (vm ? *p : 0.f);
-          *p = run;
-        }
-      }
-      __syncwarp();
-      for (int i = lane; i < tlen; i += 32)
+      const int off = lgbt::copy_async16(
+          stage, reinterpret_cast<const unsigned char*>(ht), 0,
+          (int64_t)tlen * 3 * (int64_t)sizeof(T));
+      lgbt::cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      float* cells = reinterpret_cast<float*>(stage + off);
+      rescale_tile(ht, cells, tlen * 3, scale);
+      if (!q.iscat && threadIdx.x < 3)
+        cumsum_tile(cells + threadIdx.x, tlen, b0, q, run);
+      __syncthreads();
+      for (int i = threadIdx.x; i < tlen; i += blockDim.x)
         scan_bin(mine, cells + i * 3, b0 + i, feat, nbins, q, gn, hn, cn, pg,
                  ph, pc, pout, pgain, c);
-      __syncwarp();                     // the tile's cells, for the next
+      __syncthreads();                  // the stage, for the next tile
     }
-    warp_select(mine, run_gain, run_key, s_best, warp);
-    __syncwarp();
   }
-  write_payload(s_best, s_win_bin, nwarps, nbins, active,
-                payload + (int64_t)child * (kPayloadScalars + nbins));
+  float run_gain = -CUDART_INF_F;
+  int run_key = INT_MAX;
+  warp_select(mine, run_gain, run_key, s_best, warp);
+  __syncthreads();
+  float* pay = payload + (int64_t)child * (kPayloadScalars + nbins);
+  auto warp_best = [&](int i) { return s_best[i]; };
+  if (gridDim.y > 1) {                  // leave this block's best, count in
+    if (threadIdx.x == 0) {
+      const Best& b = s_best[pick_best(nwarps, warp_best)];
+      float* slot = pay + kPayloadScalars + blockIdx.y * kBestFloats;
+      slot[0] = b.gain;
+      slot[1] = __int_as_float(b.key);
+      slot[2] = __int_as_float(b.dl);
+      slot[3] = __int_as_float(b.cat);
+      for (int i = 0; i < 6; ++i) slot[4 + i] = b.s[i];
+      __threadfence();
+      const unsigned done = atomicAdd(
+          reinterpret_cast<unsigned*>(pay + kPayloadScalars - 1), 1u);
+      *s_last = done == gridDim.y - 1;
+    }
+    __syncthreads();
+    if (!*s_last) return;
+    // every block's best: thread t reads blocks t, t + blockDim.x, ...
+    __threadfence();
+    auto block_best = [&](int i) {
+      const float* slot = pay + kPayloadScalars + i * kBestFloats;
+      Best b;
+      b.gain = __ldcg(slot + 0);
+      b.key = __float_as_int(__ldcg(slot + 1));
+      b.dl = __float_as_int(__ldcg(slot + 2));
+      b.cat = __float_as_int(__ldcg(slot + 3));
+      for (int k = 0; k < 6; ++k) b.s[k] = __ldcg(slot + 4 + k);
+      return b;
+    };
+    Best mb{-CUDART_INF_F, INT_MAX, 0, 0, {}};
+    for (int i = threadIdx.x; i < (int)gridDim.y; i += blockDim.x) {
+      const Best o = block_best(i);
+      if (o.gain > mb.gain || (o.gain == mb.gain && o.key < mb.key)) mb = o;
+    }
+    float rg = -CUDART_INF_F;
+    int rk = INT_MAX;
+    if (lane == 0) s_best[warp] = Best{-CUDART_INF_F, INT_MAX, 0, 0, {}};
+    __syncwarp();
+    warp_select(mb, rg, rk, s_best, warp);
+    __syncthreads();
+    if (threadIdx.x == 0)
+      write_scalars(s_best[pick_best(nwarps, warp_best)], nbins, active, pay,
+                    s_win_bin);
+  } else if (threadIdx.x == 0) {
+    write_scalars(s_best[pick_best(nwarps, warp_best)], nbins, active, pay,
+                  s_win_bin);
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < nbins; b += blockDim.x)
+    pay[kPayloadScalars + b] = b == *s_win_bin ? 1.f : 0.f;
 }
 
 // int8 mode combine: larger sibling = parent - smaller in int32, the pair
@@ -579,29 +737,25 @@ int launch_scan(const T* hist, const float* scale3, const float* stats,
   return (int)cudaGetLastError();
 }
 
-// The uint16 scan's shared memory at most: the opt-in limit of a block.
-constexpr int kScanSmemBudget = 227 * 1024;
-
-// Bins per tile of the uint16 scan: every bin where `warps` warps' (B, 3)
-// cells fit kScanSmemBudget, else the most that fit, a multiple of 32
-// (1,184 at 16 warps).
-inline int scan_tile(int warps, int nbins) {
-  const int per_bin = warps * 3 * (int)sizeof(float);
-  const int tile = (kScanSmemBudget - scan_smem(warps, 0)) / per_bin;
-  return tile >= nbins ? nbins : (tile & ~31);
-}
-
+// The uint16 scan: a memset of the blocks' counters (payload lane 15 of
+// each child) where a child has more than one block, then the scan.
 template <typename T>
 int launch_scan_wide(const T* hist, const float* scale3, const float* stats,
                      const int32_t* meta, int f, int nbins, int w, ScanCfg c,
                      float* payload, cudaStream_t s) {
-  const int warps = lgbt::warps_for(f);
-  const int tile = scan_tile(warps, nbins);
-  const int smem = scan_smem(warps, tile);
-  const int err = lgbt::smem_opt_in(wave_scan_wide_kernel<T>, smem);
+  const ScanGeom g = scan_geom(f, nbins);
+  const size_t pitch = (size_t)(kPayloadScalars + nbins) * sizeof(float);
+  int err = 0;
+  if (g.blocks > 1) {
+    err = (int)cudaMemset2DAsync(payload + kPayloadScalars - 1, pitch, 0,
+                                 sizeof(float), (size_t)(2 * w), s);
+    if (err != 0) return err;
+  }
+  err = lgbt::smem_opt_in(wave_scan_wide_kernel<T>, g.smem);
   if (err != 0) return err;
-  wave_scan_wide_kernel<T><<<(unsigned)(2 * w), 32 * warps, smem, s>>>(
-      hist, scale3, stats, meta, f, nbins, tile, c, payload);
+  const dim3 grid((unsigned)(2 * w), (unsigned)g.blocks);
+  wave_scan_wide_kernel<T><<<grid, 32 * kScanWideWarps, g.smem, s>>>(
+      hist, scale3, stats, meta, f, nbins, g.fpb, g.tile, c, payload);
   return (int)cudaGetLastError();
 }
 
@@ -716,10 +870,9 @@ extern "C" int lgbt_wave_u16(const void* bins, const void* vals,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (total_chunks > 0) {
-    const int err = lgbt::launch_accumulate<true, uint16_t>(
-        bins, f, vals, false, bf16 != 0, (const int32_t*)perm,
-        (const int32_t*)seg, w, 0, chunk_rows, nbins, total_chunks,
-        (float*)partial, s);
+    const int err = lgbt::launch_accumulate_wide<true>(
+        bins, f, vals, bf16 != 0, (const int32_t*)perm, (const int32_t*)seg,
+        w, 0, chunk_rows, nbins, total_chunks, (float*)partial, s);
     if (err != 0) return err;
   }
   const int64_t cells = (int64_t)f * nbins * 3;

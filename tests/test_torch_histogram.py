@@ -32,7 +32,10 @@ values, and stays within 1e-5 relative of the plain version there; its
 int8 mode equals its plain version bitwise at N in {1, 1,000, 200,000}.
 Its bf16 and packed4 modes equal their plain versions the same way (F =
 28 and 27), and bitwise the kernel's own f32 launch on the bf16-rounded
-values and unpacked launch on the same rows."""
+values and unpacked launch on the same rows.  Its uint16 modes equal
+their twins on random values, and their plain versions on exact sums on
+bins that push the lane grouping (a bin per feature, runs of 32 rows and
+pairs on one bin, the edges of the bin tiles), B from 257 to 65,536."""
 
 import numpy as np
 import pytest
@@ -674,3 +677,66 @@ def test_uint16_kernel_equals_twin(cuda_device, mode, b):
             torch.cuda.synchronize()
             assert HF.launches[key] == launches + 1
             assert torch.equal(got, want), (mode, b, n)
+
+
+def _bin_tile(b, budget=96 * 1024):
+    """``hist_common.cuh::bin_tile``: the uint16 accumulation's bins per
+    block (12 bytes a bin within 96 KB: every bin up to B = 8,192)."""
+    tiles = -(-b * 12 // budget)
+    return -(-b // tiles)
+
+
+def _lane_pattern_bins(pattern, n, f, b, rng):
+    """(n, f) uint16 bins that push the uint16 accumulation's lane
+    grouping: ``one_bin`` every row of a feature in one bin (each step's
+    32 lanes one group); ``runs_of_32`` each 32-row step on one bin;
+    ``pairs`` rows 2k and 2k + 1 on one bin (16 groups of two a step);
+    ``tile_edges`` only the first and last bins of the accumulation's bin
+    tiles (``_bin_tile``), of the scan's tiles of 4,096 and of B."""
+    if pattern == "one_bin":
+        bins = np.broadcast_to((np.arange(f) * 37 + b // 2) % b, (n, f))
+    elif pattern == "runs_of_32":
+        bins = rng.randint(0, b, (-(-n // 32), f)).repeat(32, axis=0)[:n]
+    elif pattern == "pairs":
+        bins = rng.randint(0, b, (-(-n // 2), f)).repeat(2, axis=0)[:n]
+    else:
+        edges = {0, b - 1}
+        for t in (_bin_tile(b), 4096):
+            for k in range(t, b, t):
+                edges |= {k - 1, k}
+        bins = rng.choice(sorted(edges), (n, f))
+    return np.ascontiguousarray(bins, dtype=np.uint16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["one_bin", "runs_of_32", "pairs",
+                                     "tile_edges"])
+@pytest.mark.parametrize("b", [257, 511, 1023, 2047, 4095, 8192, 8193,
+                               65536])
+def test_uint16_accumulation_lane_patterns(cuda_device, b, pattern):
+    """The uint16 accumulation on bins that push its lane grouping and bin
+    tiles, F = 28 (9 past B = 8,192), rows in storage order and through a
+    permutation: f32, bf16 and int8 bit for bit the plain version on exact
+    sums (k/256 values, exact in bf16 and in every f32 order), f32 and bf16
+    bit for bit the chunk-ordered twin on random values."""
+    n, f = 5000, 28 if b <= 8192 else 9
+    rng = np.random.RandomState(b + len(pattern))
+    bins = torch.from_numpy(_lane_pattern_bins(pattern, n, f, b,
+                                               rng)).to(cuda_device)
+    perm = torch.from_numpy(rng.permutation(n)).to(cuda_device)
+    exact = np.stack([rng.randint(-255, 256, n) / 256.0,
+                      rng.randint(1, 256, n) / 256.0, np.ones(n)],
+                     axis=1).astype(np.float32)
+    cases = [("int8", _int8_vals(n, seed=b), histogram_segment)]
+    for kind in ("f32", "bf16"):
+        cases += [(kind, exact, histogram_segment),
+                  (kind, order_sensitive_vals(n, seed=b), histogram_chunked)]
+    for kind, vals, want_fn in cases:
+        tv = torch.from_numpy(vals).to(cuda_device)
+        if kind == "bf16":
+            tv = tv.to(torch.bfloat16)
+        for tb, v in ((bins, tv), (bins.index_select(0, perm), tv[perm])):
+            got = HF.histogram_flat(tb, v, num_bins=b)
+            want = want_fn(tb, v, num_bins=b)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (kind, want_fn.__name__)

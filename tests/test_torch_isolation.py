@@ -70,13 +70,19 @@ def _code(text: str) -> str:
 
 def test_kernel_sources_use_no_atomics():
     """The histogram and wave kernels' f32 modes reduce in a fixed order
-    (chunk partials, then a combine in chunk order): no atomics at all, so
+    (chunk partials, then a combine in chunk order): no float atomics, so
     a repeated run gives the same bits.  Their int8 modes sum int32, which
     is exact in any order: the only atomics in the sources are the integer
-    atomicAdds of the int8 accumulation kernel, into int32 cells."""
+    atomicAdds of the int8 accumulation kernel, into int32 cells, and the
+    uint16 scan's one unsigned counter, by which the last of a child's
+    blocks learns it is last (it then reads every block's best in block
+    order: the count orders nothing that is summed)."""
     csrc = PORT / "ops" / "csrc"
-    for name in ("histogram.cu", "wave.cu"):
-        assert "atomic" not in _code((csrc / name).read_text()).lower(), name
+    assert "atomic" not in _code((csrc / "histogram.cu").read_text()).lower()
+    wave = re.sub(r"\s+", " ", _code((csrc / "wave.cu").read_text()))
+    assert re.findall(r"atomic\w*", wave, re.IGNORECASE) == ["atomicAdd"]
+    assert ("atomicAdd( reinterpret_cast<unsigned*>(pay + kPayloadScalars - "
+            "1), 1u)") in wave
     common = _code((csrc / "hist_common.cuh").read_text())
     start = common.index("hist_accumulate_i8_kernel(")
     end = common.index("\n}\n", start)

@@ -29,9 +29,11 @@ plain version) is the JAX ops' step bit for bit at B = 511 in f32, int8
 and bf16; ``wave_plain``'s three uint16 modes are JAX
 ``fused_wave_call``'s (interpret mode, F = 7, B = 511) bit for bit on
 exact sums, and so is the chunked twin.  On the card the uint16 kernel
-modes against their plain versions and twins at B from 257 to 4,095
-(the scan tiled from 2,047) and 65,536, W = 1 and 16, F = 28 and 27, and
-a wave with no valid split."""
+modes against their plain versions and twins at B from 257 to 8,193 and
+65,536, W = 1, 4 and 16, F = 28 and 27; an exact gain tie across two of
+the scan's blocks, which must select the lower key; and waves with no
+valid split.  On the CPU, the chunk layout the uint16 kernels' sums
+depend on."""
 
 import pathlib
 import sys
@@ -56,7 +58,7 @@ RANDOM_SCALES = np.array([0.0123, 0.00391, 1.0], np.float32)
 
 
 def wave_inputs(n, f, b, sizes, seed, exact, device="cpu", scales=None,
-                mode="f32"):
+                mode="f32", edit=None):
     """A wave over a random permutation: slot w's parent is the perm range
     [start_w, start_w + 2 * size_w) (clipped to n), its smaller sibling the
     first ``size_w`` positions (or the last, for odd w); slot 2 is
@@ -64,12 +66,16 @@ def wave_inputs(n, f, b, sizes, seed, exact, device="cpu", scales=None,
     parents int32 and the stats the scaled sums.  A ``mode`` starting with
     bf16 rounds the values to bf16 (exact ones are k/256, exact in bf16
     and in every f32 sum) and passes them as bf16; one ending in packed4
-    packs the bins (``aux`` keeps them unpacked)."""
+    packs the bins (``aux`` keeps them unpacked).  ``edit(bins,
+    nan_feats)`` may change the bins and which features have a NaN bin, in
+    place, before the parents are summed."""
     rng = np.random.RandomState(seed)
     bins = rng.randint(0, b, (n, f)).astype(np.uint8 if b <= 256
                                             else np.uint16)
     nan_feats = rng.rand(f) < 0.5
     bins[(rng.rand(n, f) < 0.05) & nan_feats[None, :]] = b - 1
+    if edit is not None:
+        edit(bins, nan_feats)
     if scales is not None:
         g = rng.randint(-127, 128, n)
         h = rng.randint(0, 128, n)
@@ -658,30 +664,33 @@ def test_kernel_wide_features_equal_chunked_twin(cuda_device, f, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["f32", "int8", "f32_uint16", "int8_uint16"])
+@pytest.mark.parametrize("mode", ["f32", "int8", "f32_uint16", "bf16_uint16",
+                                  "int8_uint16"])
 def test_kernel_all_minus_inf_children(cuda_device, mode):
     """No child has a valid split (min_data_in_leaf above every count):
     every gain is -inf and each payload is key 0's candidate (feature 0,
-    bin 0), bit for bit the plain version's; uint16 modes at B = 2,047
-    (the scan in two tiles)."""
+    bin 0), bit for bit the plain version's; uint16 modes at B = 1,023,
+    2,047 and 65,536 (a child's features spread over the scan's blocks,
+    whose bests tie at -inf)."""
     none = SplitConfig(min_data_in_leaf=10 ** 9, min_sum_hessian_in_leaf=0.5,
                        lambda_l2=0.25, has_categorical=False)
     sizes = [5000, 1, 33, 2048]
-    inp, _ = wave_inputs(sum(2 * s for s in sizes), 28,
-                         2047 if mode.endswith("uint16") else 255, sizes,
-                         seed=9, exact=True, device=cuda_device,
-                         scales=POW2_SCALES if mode.startswith("int8")
-                         else None)
-    h, p = WV.fused_wave_call(cfg=none, **inp)
-    hp, pp = WV.wave_plain(cfg=none, **inp)
-    torch.cuda.synchronize()
-    assert bool(torch.isinf(p[:, :, 0]).all())
-    assert not bool(p[:, :, 1:3].any())
-    assert torch.equal(h, hp) and torch.equal(p, pp)
+    kind = mode.split("_")[0]
+    for b in (1023, 2047, 65536) if mode.endswith("uint16") else (255,):
+        inp, _ = wave_inputs(sum(2 * s for s in sizes), 28, b, sizes,
+                             seed=9, exact=True, device=cuda_device,
+                             scales=POW2_SCALES if kind == "int8" else None,
+                             mode=kind)
+        h, p = WV.fused_wave_call(cfg=none, **inp)
+        hp, pp = WV.wave_plain(cfg=none, **inp)
+        torch.cuda.synchronize()
+        assert bool(torch.isinf(p[:, :, 0]).all())
+        assert not bool(p[:, :, 1:3].any())
+        assert torch.equal(h, hp) and torch.equal(p, pp)
 
 
-#: uint16 waves on the card: W = 1, and W = 16 with slot 2 inactive
-U16_WAVES = {"W1": [20_000],
+#: uint16 waves on the card: W = 1, and W = 4 and 16 with slot 2 inactive
+U16_WAVES = {"W1": [20_000], "W4": [2000, 1, 700, 1500],
              "W16": [1, 5, 1, 2047, 2048, 12_500, 3, 900, 1, 77, 4096, 10,
                      250, 6, 300, 40]}
 
@@ -720,12 +729,13 @@ def _check_uint16_kernel(mode, b, f, sizes, exact, device, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [257, 511, 1023, 2047, 4095])
+@pytest.mark.parametrize("b", [257, 511, 1023, 2047, 4095, 8192, 8193])
 @pytest.mark.parametrize("mode", U16_MODES)
 def test_uint16_kernel_matches_plain_and_twin(cuda_device, mode, b):
-    """The uint16 modes at F = 28 and 27, W = 1 and 16 (slot 2
+    """The uint16 modes at F = 28 and 27, W = 1, 4 and 16 (slot 2
     inactive), exact sums and random values (``_check_uint16_kernel``);
-    from B = 2,047 the scan runs in tiles."""
+    past B = 4,096 the scan runs in tiles, at 8,193 stage 1 in two bin
+    tiles."""
     for f in (28, 27):
         for name, sizes in U16_WAVES.items():
             for exact in (True, False):
@@ -741,3 +751,86 @@ def test_uint16_kernel_65536_bins(cuda_device, mode):
     for exact in (True, False):
         _check_uint16_kernel(mode, 65536, 28, [300], exact, cuda_device,
                              seed=11)
+
+
+def _tie_edit(a, z):
+    """Features ``a`` and ``z`` hold the same bins and NaN bin; every other
+    feature one bin (no valid split)."""
+    def edit(bins, nan_feats):
+        keep = bins[:, a].copy()
+        bins[:] = 0
+        bins[:, a] = bins[:, z] = keep
+        nan_feats[z] = nan_feats[a]
+    return edit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [257, 1023, 4095])
+@pytest.mark.parametrize("mode", U16_MODES)
+def test_uint16_scan_tie_across_blocks(cuda_device, mode, b):
+    """An exact gain tie between features 1 and 25, which the uint16 scan
+    puts in different blocks (a block per feature at F = 28 from B = 336;
+    two features a block at 257): every splitting child selects feature 1,
+    the lower key, bit for bit the plain version (exact sums, W = 1, 4 and
+    16)."""
+    kind = mode.split("_")[0]
+    for name, sizes in U16_WAVES.items():
+        inp, _ = wave_inputs(sum(2 * s for s in sizes), 28, b, sizes,
+                             seed=b + len(sizes), exact=True,
+                             device=cuda_device,
+                             scales=POW2_SCALES if kind == "int8" else None,
+                             mode=kind, edit=_tie_edit(1, 25))
+        h, p = WV.fused_wave_call(cfg=CFG, **inp)
+        hp, pp = WV.wave_plain(cfg=CFG, **inp)
+        torch.cuda.synchronize()
+        assert torch.equal(h, hp) and torch.equal(p, pp)
+        split = torch.isfinite(p[..., 0])
+        assert bool(split.any())
+        assert bool((p[..., 1][split] == 1).all())
+
+
+@pytest.mark.parametrize("pattern", ["one_bin", "runs_of_32", "pairs", "tie"])
+def test_smoke_lane_patterns(pattern):
+    """``chip_smoke.py``'s phase-29 waves that push the uint16 kernels:
+    along the permutation every row of a feature in one bin, runs of 32
+    rows or pairs on one bin; or features 1 and 25 tied, whose plain
+    payloads then select feature 1 in every splitting child.  The
+    categorical feature keeps its 4 bins."""
+    cs = _chip_smoke()
+    gen = torch.Generator().manual_seed(3)
+    inp = cs.wave_case(gen, torch.device("cpu"), [700, 40, 300], exact=True,
+                       f=28, b=1023, inactive=(1,), mode="f32",
+                       edit=cs.lane_pattern(pattern, 1023))
+    bins, perm = inp["bins"].long(), inp["perm"].long()
+    along = bins[perm]
+    assert bool((bins[:, 3] < 4).all())
+    if pattern == "one_bin":
+        assert bool((bins == bins[0]).all())
+    elif pattern == "runs_of_32":
+        runs = along[: len(along) // 32 * 32].reshape(-1, 32, 28)
+        assert bool((runs == runs[:, :1]).all())
+    elif pattern == "pairs":
+        assert torch.equal(along[0::2], along[1::2])
+    else:
+        assert torch.equal(bins[:, 1], bins[:, 25])
+        _h, p = WV.fused_wave_call(cfg=CFG, **inp)
+        split = torch.isfinite(p[..., 0])
+        assert bool(split.any()) and bool((p[..., 1][split] == 1).all())
+
+
+@pytest.mark.parametrize("sizes,f,b,rows,chunks", [
+    ([12_500] * 16, 28, 1023, 1024, [13] * 16),
+    ([100_000], 28, 1023, 1024, [98]),
+    ([1] * 16, 28, 65536, 1024, [1] * 16),
+    ([200_000, 0, 5], 28, 1023, 1024, [196, 0, 1]),
+])
+def test_uint16_chunk_layout(sizes, f, b, rows, chunks):
+    """The chunk layout the uint16 kernels' f32 sums depend on (each cell
+    summed in row order within a chunk, then the chunks in order): the
+    wave's ``segment_table`` at the bench wave (W = 16 x 12,500, F = 28, B
+    = 1,023: chunks of 1,024 rows, 13 a sibling) and the histogram's
+    ``chunking`` of 200,000 rows (196 chunks) stay as they are."""
+    chunk_rows, offs = WV.segment_table(sizes, f, b)
+    assert chunk_rows == rows
+    assert np.diff(offs).tolist() == chunks
+    assert WV.chunking(200_000, 28 * 1023) == (1024, 196)

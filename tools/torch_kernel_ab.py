@@ -16,8 +16,9 @@ skipped with a line that says so):
   bit for bit (or the largest difference), on random values;
 - time: CUDA events, mean of 20 launches (5 at 10.5M rows), in turns
   other, this, this, other, at the shapes of ``chip_smoke.py``'s timing
-  phases; and each wave's three launches by kernel name under
-  ``torch.profiler``;
+  phases (uint16 waves also at W = 1 x 12,500, the scan's fewest blocks,
+  f32 at B = 511 and int8 at B = 2,047); and each wave's three launches
+  by kernel name under ``torch.profiler``;
 - code: where the toolkit has ``cuobjdump``, whether each kernel both
   libraries hold compiled to the same SASS instructions.
 
@@ -199,7 +200,7 @@ def main(argv=None):
         torch.cuda.empty_cache()
     cfg = SplitConfig(min_data_in_leaf=0, min_sum_hessian_in_leaf=1.0,
                       lambda_l2=0.5, max_cat_to_onehot=4)
-    waves = dict(cs.CHECK_WAVES, timing=(list(cs.WAVE_TIMING_SIZES), ()))
+    timing = list(cs.WAVE_TIMING_SIZES)
     for mode in modes:
         packed4 = mode.endswith("packed4")
         wide = mode.endswith("uint16")
@@ -211,10 +212,18 @@ def main(argv=None):
         if mode.startswith("int8"):
             r = torch.rand(2, generator=gen, device=dev) * 0.02 + 1e-3
             scales = (float(r[0]), float(r[1]), 1.0)
-        for name, (sizes, inactive) in waves.items():
-            inp = cs.wave_case(gen, dev, sizes, exact=False,
-                               b=(cs.WIDE_MAX_BIN if wide else
-                                  16 if packed4 else 255),
+        b = cs.WIDE_MAX_BIN if wide else 16 if packed4 else 255
+        # name: (sizes, inactive slots, bins, timed)
+        waves = {k: (sizes, inactive, b, False)
+                 for k, (sizes, inactive) in cs.CHECK_WAVES.items()}
+        waves["timing"] = (timing, (), b, True)
+        if wide:
+            waves["timing_W1"] = (timing[:1], (), b, True)
+            extra = {"f32_uint16": 511, "int8_uint16": 2047}.get(mode)
+            if extra:
+                waves[f"timing_B{extra}"] = (timing, (), extra, True)
+        for name, (sizes, inactive, b, timed) in waves.items():
+            inp = cs.wave_case(gen, dev, sizes, exact=False, b=b,
                                inactive=inactive, scales=scales,
                                mode=mode.split("_")[0] if wide else mode)
             fn = lambda: WV.fused_wave_call(cfg=cfg, **inp)
@@ -223,9 +232,9 @@ def main(argv=None):
             h1, p1 = fn()
             torch.cuda.synchronize()
             rec = {"phase": "ab_wave", "mode": mode, "wave": name,
-                   "slots": len(sizes), "rows": sum(sizes),
+                   "slots": len(sizes), "rows": sum(sizes), "bins": b,
                    "hist": diff(h1, h0), "payload": diff(p1, p0)}
-            if name == "timing":
+            if timed:
                 rec["ms"] = in_turns(fn, other, 20)
                 rec["stage_ms"] = stage_ms_pair(fn, other)
             cs.emit(rec)
