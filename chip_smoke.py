@@ -19,14 +19,19 @@ the seed):
 3. model: a higgs-like matrix binned by the port, 500 random trees, int16
    and int8 packs; and a small categorical model;
 4. traversal kernel vs its plain version, bitwise, for both models and
-   both packs at N in {1, 33, 4096, 65536};
+   both packs at N in {1, 33, 4096, 65536}; and (slice 10) on packs of
+   edge-case trees (``edge_case_trees``: categorical nodes, single-leaf
+   and chain trees; 21 x 255 and 3 x 5,000 leaves), with the rows' bins
+   staged in shared memory and read from global memory;
 5. device binning vs the port's host binning, bitwise, on 65,536 rows with
    NaN, zero-as-missing and categorical edge values;
 6. serving: Predictor requests of 1, 7, 256, 4096 and 65,536 rows, each
    equal bit for bit to a vectorized numpy walk of the same pack, one
    transformed request within 1e-6 of the float32 sigmoid, and exactly one
    kernel launch per request;
-7. timing: traversal kernel and plain-version times with CUDA events.
+7. timing: traversal kernel (CUDA events, and device ms a launch by
+   kernel name) at 1, 4,096, 65,536 and 1,048,576 rows, int16 and int8
+   packs, its bound, and the plain version's time.
 
 Training (slice 2) — binary GBDT through the hand-written CUDA histogram
 and fused-wave kernels:
@@ -178,6 +183,15 @@ Slice 9 redesigned the uint16 accumulation (both kernels' stage 1) and
 the uint16 split scan for Hopper, bit for bit the earlier sums: phases
 26, 28, 29 and 31 hold and time them.
 
+Slice 10 redesigned the int8 accumulation (both kernels' stage 1 in the
+int8 modes: blocks of 8 features, int32 chunk partials summed by the
+int8 combine) and the traversal kernel (a node record a step, the rows'
+bins in shared memory), bit for bit the earlier results: phases 15, 16,
+26 and 29 also hold the int8 modes on hot-bin rows (``I8_HOT_PATTERNS``:
+one bin a feature, runs of 32 rows, half the rows in the NaN bin) and at
+W = 1 and 4 (``I8_SMALL_WAVES``); phases 18, 28 and 31 time them there;
+phases 4 and 7 hold and time the traversal.
+
 Each wave timing (phases 14, 18, 23, 31) also gives its three launches'
 device times by kernel name under ``torch.profiler`` (``wave_stage_ms``):
 stage 1, the combine and the scan.
@@ -207,6 +221,10 @@ HIST_REPLACES = "lightgbm_tpu/ops/pallas_histogram.py:166 (histogram_flat)"
 HIST_SOURCE = "lightgbm_tpu_torch/ops/csrc/histogram.cu"
 WAVE_REPLACES = "lightgbm_tpu/ops/pallas_wave.py:331 (fused_wave_call)"
 WAVE_SOURCE = "lightgbm_tpu_torch/ops/csrc/wave.cu"
+#: the traversal's timed request sizes (phase 7), and phase 4's packs of
+#: edge-case trees (``edge_case_trees``): trees x leaves
+TRAVERSE_TIMING_ROWS = (1, 4096, 65_536, 1_048_576)
+EDGE_PACKS = ((21, 255), (3, 5000))
 #: int8 mode channel scales: powers of two (every scaled sum exact)
 POW2_SCALES = (2.0 ** -6, 2.0 ** -9, 1.0)
 BENCH_FIXTURE = os.path.join("tests", "fixtures", "bench_auc.json")
@@ -289,6 +307,50 @@ def random_tree(rng, num_leaves, num_bins, cat_features, max_bins):
             "num_leaves": num_leaves}
 
 
+def chain_tree(rng, num_leaves, num_bins, max_bins):
+    """A tree whose node k sends its left rows to leaf k and its right rows
+    to node k + 1: depth num_leaves - 1, the longest a tree of that many
+    leaves has.  Numerical splits on random features and bins."""
+    m = num_leaves - 1
+    sf = rng.randint(len(num_bins), size=m).astype(np.int32)
+    sb = np.array([rng.randint(max(int(num_bins[j]) - 1, 1)) for j in sf],
+                  np.int32)
+    rc = np.arange(1, m + 1, dtype=np.int32)
+    rc[-1] = ~m
+    return {"split_feature": sf, "split_bin": sb,
+            "default_left": rng.rand(m) < 0.5, "is_cat": np.zeros(m, bool),
+            "cat_mask": np.zeros((m, max_bins), bool),
+            "left_child": ~np.arange(m, dtype=np.int32), "right_child": rc,
+            "leaf_value": rng.normal(0, 0.1, num_leaves),
+            "num_leaves": num_leaves}
+
+
+def edge_case_trees(rng, num_bins, max_bins, cat_features, num_trees,
+                    num_leaves):
+    """Trees that push the traversal kernel, as the port's ``Tree``s:
+    leaf-wise random trees with categorical nodes on ``cat_features``,
+    and every fifth tree from the second a single leaf (the pack's
+    sentinel children), every fifth from the fourth a chain tree
+    (``chain_tree``)."""
+    from lightgbm_tpu_torch.models.tree import Tree
+    trees = []
+    for k in range(num_trees):
+        if k % 5 == 1:
+            z = np.zeros(0, np.int32)
+            d = {"split_feature": z, "split_bin": z,
+                 "default_left": z.astype(bool), "is_cat": z.astype(bool),
+                 "cat_mask": np.zeros((0, max_bins), bool),
+                 "left_child": z, "right_child": z,
+                 "leaf_value": rng.normal(0, 0.1, 1), "num_leaves": 1}
+        elif k % 5 == 3:
+            d = chain_tree(rng, num_leaves, num_bins, max_bins)
+        else:
+            d = random_tree(rng, num_leaves, num_bins, set(cat_features),
+                            max_bins)
+        trees.append(Tree(**d))
+    return trees
+
+
 def random_model_state(rng, binned, num_trees, num_leaves, cat_features=()):
     from lightgbm_tpu_torch.binning import mappers_to_arrays
     trees = [random_tree(rng, num_leaves, binned.num_bins_per_feature,
@@ -341,6 +403,16 @@ def walk_pack_numpy(pack, bins, nan_bins):
             acc[rows[leaf]] += lq[ti, ~nxt[leaf]]
             rows, node = rows[~leaf], nxt[~leaf]
     return acc, visits
+
+
+def traverse_bytes(pack, bins):
+    """The bytes a traversal launch must move: the rows' int32 bins and the
+    walk table read once, the categorical masks of its categorical nodes,
+    the (N,) int32 sums written once."""
+    n, f = bins.shape
+    cats = int(pack["is_cat"].sum()) * pack["cat_bits"].shape[2]
+    table = pack["walk_table"]
+    return n * f * 4 + table.numel() * 4 + cats + n * 4
 
 
 def device_binning_rows(binned, X, rng, n):
@@ -716,6 +788,28 @@ def kernel_stage_ms(fn, iters=10, attempts=3):
             "profiler_launches": {k: count[k] for k in stages}}
 
 
+def named_kernel_ms(fn, part, iters=10):
+    """Device ms per launch of the kernels whose name holds ``part``, and
+    their launches, over ``iters`` calls of ``fn`` under
+    ``torch.profiler`` after one warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.events():
+        if ("cuda" in str(getattr(ev, "device_type", "")).lower()
+                and part in ev.name):
+            total += ev.time_range.end - ev.time_range.start
+            count += 1
+    return {"ms": total / count / 1e3 if count else 0.0, "launches": count}
+
+
 def profile_phase(params, ds, dev, warmup=3, iters=5):
     """13. Train ``warmup`` iterations of a fresh booster, then ``iters``
     more under ``torch.profiler``.  Host time per iteration in each of the
@@ -873,8 +967,10 @@ def histogram_int8_phase(gen, dev):
                 f"int8 histogram kernel != plain version, N={n}")
         cases.append({"rows": n, "bitwise": True,
                       "max_abs_err": int((got - want).abs().max())})
+    hot = {**int8_hot_histograms(gen, dev, "int8", 255),
+           **int8_hot_histograms(gen, dev, "int8_packed4", 16)}
     emit({"phase": "histogram_int8_vs_plain", "features": 28, "bins": 255,
-          "cases": cases})
+          "cases": cases, "hot_bins": hot})
     return cases[-1]["max_abs_err"]
 
 
@@ -916,6 +1012,8 @@ def wave_int8_phase(gen, dev):
                 "hist_bitwise": True,
                 "payload_equal": bool(torch.equal(p1, pp)),
                 **wave_agreement(sh, p1, sh, pp)}
+    out.update(int8_wave_checks(gen, dev, "int8", 255, cfg))
+    out.update(int8_wave_checks(gen, dev, "int8_packed4", 16, cfg))
     emit({"phase": "wave_int8_vs_plain", "features": 28, "bins": 255,
           "cases": out})
 
@@ -1230,11 +1328,38 @@ def int8_timing(gen, dev, smi):
             entry["plain_ms"] = cuda_time_ms(
                 lambda: histogram_segment(bins, levels, num_bins=255),
                 iters=20)
+            entry["stage_ms"] = kernel_stage_ms(
+                lambda: HF.histogram_flat(bins, levels, num_bins=255))
         entry["bytes_ms"], entry["ops_ms"] = hist_bound_ms(n, 28, 255,
                                                            val_bytes=3)
         timing[f"histogram_int8/{n}"] = entry
         del bins, levels
+    # slice 10: every row of a feature in one bin (the first int8 design's
+    # lanes met 32-fold on each cell)
+    n = HIST_TIMING_ROWS[0]
+    bins = hot_bins(device_bins(gen, n, 28, 255, dev), "one_bin", 255)
+    levels = device_levels(gen, n, dev)
+    fn = lambda: HF.histogram_flat(bins, levels, num_bins=255)
+    timing[f"histogram_int8/{n}/one_bin"] = {
+        "kernel_ms": cuda_time_ms(fn, iters=20),
+        "stage_ms": kernel_stage_ms(fn)}
+    del bins, levels
     torch.cuda.empty_cache()
+    cfg8 = SplitConfig(min_data_in_leaf=0, min_sum_hessian_in_leaf=100.0,
+                       max_cat_to_onehot=4)
+    rand = torch.rand(2, generator=gen, device=dev) * 0.02 + 1e-3
+    for sizes, pattern in ([(list(s), None) for s in I8_SMALL_WAVES]
+                           + [(list(WAVE_TIMING_SIZES), "one_bin")]):
+        inp = wave_case(gen, dev, sizes, True,
+                        scales=(float(rand[0]), float(rand[1]), 1.0),
+                        edit=lane_pattern(pattern, 255) if pattern else None)
+        fn = lambda: WV.fused_wave_call(cfg=cfg8, **inp)
+        entry = {"kernel_ms": cuda_time_ms(fn, iters=20),
+                 "stage_ms": wave_stage_ms(fn)}
+        entry["bytes_ms"], entry["ops_ms"] = wave_bound_ms(inp)
+        timing[f"wave_int8/{len(sizes)}x{sizes[0]}"
+               + (f"/{pattern}" if pattern else "")] = entry
+        del inp
     sizes = list(WAVE_TIMING_SIZES)
     rand = torch.rand(2, generator=gen, device=dev) * 0.02 + 1e-3
     inp = wave_case(gen, dev, sizes, True,
@@ -1698,13 +1823,22 @@ FUSED_AUC_TOL = 1e-3
 #: exact gain tie between features 1 and 25, which the scan puts in
 #: different blocks, at B = 257 and 1,023
 U16_LANE_PATTERNS = ("one_bin", "runs_of_32", "pairs")
+#: the int8 accumulation's hot-bin patterns (slice 10: one 64-bit shared
+#: atomic a row-feature, so lanes on one cell serialize): lane_pattern's,
+#: and half the rows in the NaN bin
+I8_HOT_PATTERNS = ("one_bin", "runs_of_32", "nan_half")
+#: slice 10's int8 waves: W = 1 and 4 smaller siblings of 12,500 rows
+#: (where the first int8 design put 7 and 28 blocks on the card)
+I8_SMALL_WAVES = ((12_500,), (12_500,) * 4)
 U16_TIE = ((1, 25), (257, 1023))
 #: phase 31's timed uint16 waves (F = 28): mode, B and slots (W = 16 x
-#: 12,500, and W = 1 and 4 at B = 1,023 in f32, the scan's fewest blocks)
+#: 12,500, and W = 1 and 4 at B = 1,023 in f32, the scan's fewest blocks,
+#: and in int8, the int8 stage 1's)
 U16_WAVE_TIMING = (("f32_uint16", 1023, 16), ("bf16_uint16", 1023, 16),
                    ("int8_uint16", 1023, 16), ("f32_uint16", 511, 16),
                    ("int8_uint16", 2047, 16), ("f32_uint16", 1023, 4),
-                   ("f32_uint16", 1023, 1))
+                   ("f32_uint16", 1023, 1), ("int8_uint16", 1023, 4),
+                   ("int8_uint16", 1023, 1))
 
 
 def lane_pattern(pattern, b, tie=(1, 25)):
@@ -1712,13 +1846,19 @@ def lane_pattern(pattern, b, tie=(1, 25)):
     permutation (the order the wave's stage 1 reads rows in): ``one_bin``
     every row of a feature in one bin (each step's 32 lanes one group),
     ``runs_of_32`` each 32 rows on one bin, ``pairs`` rows 2k and 2k + 1
-    on one bin (16 groups of two a step); ``tie`` features ``tie`` hold the
-    same bins and every other feature bin 0 (no valid split), so their
-    gains tie exactly."""
+    on one bin (16 groups of two a step), ``nan_half`` every other row in
+    bin b - 1 (the NaN bin of ``device_bins``) in every feature; ``tie``
+    features ``tie`` hold the same bins and every other feature bin 0 (no
+    valid split), so their gains tie exactly.  ``hot_bins`` applies one
+    to rows in storage order."""
     import torch
 
     def edit(bins, perm):
         n, f = bins.shape
+        if pattern == "nan_half":
+            out = bins.clone()
+            out[perm[::2]] = b - 1
+            return out
         if pattern == "tie":
             a, z = tie
             keep = bins[:, a].clone()
@@ -1734,6 +1874,72 @@ def lane_pattern(pattern, b, tie=(1, 25)):
         out[perm] = bins[perm[::run]].repeat_interleave(run, dim=0)[:n]
         return out
     return edit
+
+
+def hot_bins(bins, pattern, b):
+    """``bins`` (on the card, uint8 or uint16) with ``lane_pattern``'s
+    ``pattern`` applied to the rows in storage order."""
+    import torch
+    n = bins.shape[0]
+    out = lane_pattern(pattern, b)(bins.long(), torch.arange(
+        n, device=bins.device))
+    return out.to(bins.dtype).contiguous()
+
+
+def int8_hot_histograms(gen, dev, mode, b, n=200_000):
+    """The int8 accumulation (slice 10) of ``mode`` at B = ``b`` against
+    the plain int32 histogram on hot-bin rows (I8_HOT_PATTERNS), in
+    storage order and permuted, bit for bit.  Returns the cases."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram_flat as HF
+    from lightgbm_tpu_torch.ops.histogram import (histogram_segment,
+                                                  pack_bins4)
+    packed4 = mode.endswith("packed4")
+    cases = {}
+    for pattern in I8_HOT_PATTERNS:
+        bins = hot_bins(device_bins(gen, n, 28, b, dev), pattern, b)
+        vals = device_levels(gen, n, dev)
+        perm = torch.randperm(n, generator=gen, device=dev)
+        for order, bb, vv in (("storage", bins, vals),
+                              ("permuted", bins.index_select(0, perm),
+                               vals[perm])):
+            want = histogram_segment(bb, vv, num_bins=b)
+            got = HF.histogram_flat(pack_bins4(bb) if packed4 else bb, vv,
+                                    num_bins=b, packed4=packed4,
+                                    features=28 if packed4 else 0)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want), f"{mode} histogram on {pattern} "
+                    f"rows ({order}) != plain version")
+        cases[f"{mode} {pattern}"] = {"rows": n, "bins": b, "bitwise": True}
+        del bins, vals, perm
+    return cases
+
+
+def int8_wave_checks(gen, dev, mode, b, cfg):
+    """The int8 wave (slice 10's stage 1) of ``mode`` at B = ``b`` against
+    ``wave_plain`` at W = 1 and 4 (I8_SMALL_WAVES) and on hot-bin rows
+    along the permutation at W = 16 x 12,500 (``lane_pattern`` of each
+    I8_HOT_PATTERNS), power-of-two scales: child histograms and payloads
+    bit for bit.  Returns the cases."""
+    import torch
+    from lightgbm_tpu_torch.ops import wave as WV
+    kind = "int8" if mode.endswith("uint16") else mode
+    waves = [(f"W{len(s)}", list(s), None) for s in I8_SMALL_WAVES]
+    waves += [(f"W16 {p}", list(WAVE_TIMING_SIZES), lane_pattern(p, b))
+              for p in I8_HOT_PATTERNS]
+    cases = {}
+    for name, sizes, edit in waves:
+        inp = wave_case(gen, dev, sizes, True, b=b, scales=POW2_SCALES,
+                        mode=kind, edit=edit)
+        h, p = WV.fused_wave_call(cfg=cfg, **inp)
+        hp, pp = WV.wave_plain(cfg=cfg, **inp)
+        torch.cuda.synchronize()
+        require(torch.equal(h, hp) and torch.equal(p, pp),
+                f"{mode} wave {name} B={b} != plain version")
+        cases[f"{mode} {name}"] = {"slots": len(sizes), "rows": sum(sizes),
+                                   "bins": b, "bitwise": True}
+        del inp, h, p, hp, pp
+    return cases
 
 
 def hist_twin(bins, vals, *, num_bins, dtype="f32", packed4=False,
@@ -1815,6 +2021,9 @@ def uint16_histogram_phase(gen, dev):
         out[f"{mode} unfused wave W16"] = {
             "hist_bitwise": True, "payload_bitwise": True,
             "slots": len(sizes), "rows": sum(sizes), "bins": WIDE_MAX_BIN}
+    out.update(int8_hot_histograms(gen, dev, "int8_uint16", WIDE_MAX_BIN))
+    out.update(int8_hot_histograms(gen, dev, "int8_uint16", 65536,
+                                   n=20_000))
     emit({"phase": "histogram_uint16_vs_twin", "random_values": True,
           "features": 28, "cases": out})
     return err_200k
@@ -1961,6 +2170,15 @@ def uint16_timing(gen, dev, smi):
             timing[f"histogram_{mode}/{n}"] = entry
             del bins, vals
         torch.cuda.empty_cache()
+    # slice 10: the int8 accumulation with every row of a feature in one bin
+    n = HIST_TIMING_ROWS[0]
+    bins = hot_bins(device_bins(gen, n, f, b, dev), "one_bin", b)
+    vals = device_levels(gen, n, dev)
+    fn = lambda: HF.histogram_flat(bins, vals, num_bins=b)
+    timing[f"histogram_int8_uint16/{n}/one_bin"] = {
+        "kernel_ms": cuda_time_ms(fn, iters=20),
+        "stage_ms": kernel_stage_ms(fn)}
+    del bins, vals
     emit({"phase": "training_timing_uint16", "nvidia_smi": smi, "bins": b,
           "shapes": timing})
     return timing
@@ -2073,6 +2291,7 @@ def uint16_wave_phase(gen, dev):
                 "under min_data_in_leaf = 1e9")
         require(not bool(p[:, :, 1:3].any()), "all -inf uint16 children did "
                 "not select key 0")
+    out.update(int8_wave_checks(gen, dev, "int8_uint16", WIDE_MAX_BIN, cfg))
     emit({"phase": "wave_uint16_vs_plain_and_twin", "cases": out})
     return err
 
@@ -2284,6 +2503,33 @@ def main(argv=None) -> int:
             require(torch.equal(got, want),
                     f"kernel != plain version: {name} {mode} N={n}")
             checks.append(f"{name}/{mode}/{n}")
+    # slice 10: trees that push the redesigned kernel (categorical nodes,
+    # single-leaf and chain trees, 5,000-leaf trees), rows staged in
+    # shared memory and read from global memory
+    nanb = torch.as_tensor(binned.nan_bins, dtype=torch.int32, device=dev)
+    min_trees = traverse.ROW_STAGE_MIN_TREES
+    for trees_n, leaves in EDGE_PACKS:
+        trees = edge_case_trees(rng, binned.num_bins_per_feature,
+                                binned.max_num_bins, (1, 4), trees_n,
+                                leaves)
+        for mode in ("int16", "int8"):
+            pack = quantize_stack_trees(trees, leaves, binned.max_num_bins,
+                                        mode, dev)
+            for stage in (True, False):
+                traverse.ROW_STAGE_MIN_TREES = 1 if stage else 10 ** 9
+                for n in (1, 33, 4096, 65536):
+                    idx = rng.randint(0, X.shape[0], n)
+                    bins = torch.from_numpy(binned.apply(X[idx]).astype(
+                        np.int32)).to(dev)
+                    got = traverse.fused_class_sums(pack, bins, nanb)
+                    want = _ensemble_sum_q(pack, bins, nanb)
+                    torch.cuda.synchronize()
+                    tag = (f"edge {trees_n}x{leaves}/{mode}/"
+                           f"{'staged' if stage else 'global'}/{n}")
+                    require(torch.equal(got, want),
+                            f"kernel != plain version: {tag}")
+                    checks.append(tag)
+    traverse.ROW_STAGE_MIN_TREES = min_trees
     emit({"phase": "kernel_vs_plain", "bitwise": True, "cases": checks})
 
     # 5. device binning vs host binning, bitwise
@@ -2345,31 +2591,35 @@ def main(argv=None) -> int:
           "raw_bitwise": True, "prob_max_abs_err": err_p,
           "metrics": pred.metrics_snapshot()})
 
-    # 7. timing at the serving shape
+    # 7. timing at the serving shape: int16 and int8 packs, 1 row to bulk
     timing = {}
     pack_bytes = pack_nbytes(full16)
     nanb = torch.as_tensor(nan_bins, dtype=torch.int32, device=dev)
     host_bins = binned.apply(X).astype(np.int32)
-    for n in (65_536, 1_048_576):
-        idx = rng.randint(0, X.shape[0], n)
-        bins = torch.from_numpy(host_bins[idx]).to(dev)
-        ms = cuda_time_ms(lambda: traverse.fused_class_sums(full16, bins,
-                                                            nanb),
-                          iters=20 if n <= 65_536 else 5)
-        nbytes = bins.numel() * 4 + pack_bytes + n * 4
-        entry = {"kernel_ms": ms, "bytes": nbytes,
-                 "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3}
-        if n <= 65_536:
-            _acc, visits = walk_pack_numpy(full16, host_bins[idx], nan_bins)
-            entry["node_visits"] = visits
-            entry["ops_ms"] = visits / SCALAR_OPS_PER_S * 1e3
-            entry["plain_ms"] = cuda_time_ms(
-                lambda: _ensemble_sum_q(full16, bins, nanb), iters=2,
-                warmup=1)
-            entry["max_abs_err"] = int((traverse.fused_class_sums(
-                full16, bins, nanb) - _ensemble_sum_q(
-                    full16, bins, nanb)).abs().max())
-        timing[str(n)] = entry
+    for mode in ("int16", "int8"):
+        pack = packs["full", mode]
+        for n in TRAVERSE_TIMING_ROWS:
+            idx = rng.randint(0, X.shape[0], n)
+            bins = torch.from_numpy(host_bins[idx]).to(dev)
+            fn = lambda: traverse.fused_class_sums(pack, bins, nanb)
+            nbytes = traverse_bytes(pack, bins)
+            entry = {"kernel_ms": cuda_time_ms(
+                fn, iters=20 if n <= 65_536 else 5), "bytes": nbytes,
+                "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "device_ms": named_kernel_ms(
+                    fn, "traverse", iters=10 if n <= 65_536 else 3)}
+            if n <= 65_536:
+                _acc, visits = walk_pack_numpy(pack, host_bins[idx],
+                                               nan_bins)
+                entry["node_visits"] = visits
+                entry["ops_ms"] = visits / SCALAR_OPS_PER_S * 1e3
+            if n == 65_536:
+                entry["plain_ms"] = cuda_time_ms(
+                    lambda: _ensemble_sum_q(pack, bins, nanb), iters=2,
+                    warmup=1)
+                entry["max_abs_err"] = int((fn() - _ensemble_sum_q(
+                    pack, bins, nanb)).abs().max())
+            timing[str(n) if mode == "int16" else f"{mode}/{n}"] = entry
     emit({"phase": "timing", "trees": 500, "leaves": 255, "features": 28,
           "pack_bytes": pack_bytes, "launches_per_request": 1,
           "nvidia_smi": smi, "shapes": timing,

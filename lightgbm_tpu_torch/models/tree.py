@@ -262,12 +262,63 @@ def quantize_stack_trees(trees: List[Tree], max_leaves: int, num_bins: int,
                         -qmax, qmax)
             out["leaf_q"][i, : tr.num_leaves] = q.astype(leaf_dt)
     pack = {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+    # the CUDA traversal kernel's layout of the same trees, built once
+    pack["walk_table"] = torch.from_numpy(walk_table(out)).to(device)
     # host metadata, never device operands
     pack["scale"] = float(scale)
     pack["bits"] = 8 if mode == "int8" else 16
     pack["depth"] = int(depth)
     pack["num_bins"] = int(num_bins)
     return pack
+
+
+def table_nodes(m: int) -> int:
+    """Node records a tree's walk table holds for m nodes: m rounded up
+    to even, so each tree's table is a whole number of 16-byte blocks."""
+    return m + (m & 1)
+
+
+def walk_table(arrays) -> np.ndarray:
+    """The quantized pack's trees as the CUDA traversal kernel walks them
+    (``ops/csrc/traverse.cu``): (T, words) int32, per tree its
+    ``table_nodes(M)`` node records of two words each, then its leaf
+    quanta widened to int32 (int16 and int8 packs alike), ``words`` a
+    multiple of 4.  A node's record is
+
+    - word 0: ``split_feature | default_left << 15 | split_bin << 16 |
+      is_cat << 31`` (feature and bin are at most QUANT_INDEX_MAX, 15
+      bits; a categorical node's split bin is not read and is stored 0);
+    - word 1: ``left_child & 0xFFFF | right_child << 16`` (the int16
+      children, leaves as ~leaf).
+
+    ``arrays`` holds the pack's node arrays and ``leaf_q`` (numpy arrays
+    or tensors)."""
+    a = {k: np.asarray(arrays[k].cpu() if torch.is_tensor(arrays[k])
+                       else arrays[k]) for k in
+         ("split_feature", "split_bin", "default_left", "is_cat",
+          "left_child", "right_child", "leaf_q")}
+    t, m = a["split_feature"].shape
+    sf = a["split_feature"].astype(np.int64)
+    sb = a["split_bin"].astype(np.int64)
+    ic = a["is_cat"].astype(bool)
+    if ((sf < 0) | (sf > QUANT_INDEX_MAX)).any() or (
+            ~ic & ((sb < 0) | (sb > QUANT_INDEX_MAX))).any():
+        raise ValueError("walk_table: split features and numerical split "
+                         f"bins must lie in [0, {QUANT_INDEX_MAX}]")
+    sb = np.where(ic, 0, sb)
+    w0 = (sf | a["default_left"].astype(np.int64) << 15 | sb << 16
+          | ic.astype(np.int64) << 31)
+    w1 = ((a["left_child"].astype(np.int64) & 0xFFFF)
+          | (a["right_child"].astype(np.int64) & 0xFFFF) << 16)
+    mp = table_nodes(m)
+    leaves = a["leaf_q"].shape[1]
+    words = -(-(2 * mp + leaves) // 4) * 4
+    table = np.zeros((t, words), np.uint32)
+    table[:, 0:2 * m:2] = w0
+    table[:, 1:2 * m:2] = w1
+    table[:, 2 * mp:2 * mp + leaves] = (a["leaf_q"].astype(np.int64)
+                                        & 0xFFFFFFFF)
+    return table.view(np.int32)
 
 
 def quantize_error_bound(pack) -> float:
@@ -278,8 +329,9 @@ def quantize_error_bound(pack) -> float:
 
 
 def pack_nbytes(pack) -> int:
-    """Device bytes of one pack's arrays."""
-    return sum(pack[k].numel() * pack[k].element_size() for k in _QPACK_ARRAYS)
+    """Device bytes of one pack's arrays (its walk table included)."""
+    keys = _QPACK_ARRAYS + (("walk_table",) if "walk_table" in pack else ())
+    return sum(pack[k].numel() * pack[k].element_size() for k in keys)
 
 
 def _tree_walk_q(tree: dict, bins: torch.Tensor,

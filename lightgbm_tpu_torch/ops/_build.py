@@ -99,18 +99,18 @@ _P, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                         ctypes.c_float)
 #: every C entry point's argument types (all return an int CUDA error)
 SIGNATURES = {
-    "lgbt_traverse_sums": [_P] * 10 + [_I32, _P, _I64] + [_I32] * 8 + [_P],
+    "lgbt_traverse_table": [_P] * 5 + [_I64] + [_I32] * 9 + [_P],
     "lgbt_histogram": [_P, _P, _I64] + [_I32] * 6 + [_P] * 3,
-    "lgbt_histogram_i8": [_P, _P, _I64] + [_I32] * 5 + [_P] * 2,
+    "lgbt_histogram_i8": [_P, _P, _I64] + [_I32] * 7 + [_P] * 3,
     "lgbt_histogram_u16": [_P, _P, _I64] + [_I32] * 5 + [_P] * 3,
-    "lgbt_histogram_i8_u16": [_P, _P, _I64] + [_I32] * 4 + [_P] * 2,
+    "lgbt_histogram_i8_u16": [_P, _P, _I64] + [_I32] * 6 + [_P] * 3,
     "lgbt_wave": ([_P] * 3 + [_I32] * 2 + [_P] + [_I32] * 3 + [_P] * 3
                   + [_F32] * 7 + [_I32] * 5 + [_P] * 4),
-    "lgbt_wave_i8": ([_P] * 3 + [_I32] * 2 + [_P] + [_I32] * 3 + [_P] * 4
+    "lgbt_wave_i8": ([_P] * 3 + [_I32] * 2 + [_P] + [_I32] * 5 + [_P] * 4
                      + [_F32] * 7 + [_I32] * 4 + [_P] * 4),
     "lgbt_wave_u16": ([_P] * 3 + [_I32] * 2 + [_P] + [_I32] * 3 + [_P] * 3
                       + [_F32] * 7 + [_I32] * 4 + [_P] * 4),
-    "lgbt_wave_i8_u16": ([_P] * 3 + [_I32] * 2 + [_P] + [_I32] * 3
+    "lgbt_wave_i8_u16": ([_P] * 3 + [_I32] * 2 + [_P] + [_I32] * 5
                          + [_P] * 4 + [_F32] * 7 + [_I32] * 3 + [_P] * 4),
 }
 

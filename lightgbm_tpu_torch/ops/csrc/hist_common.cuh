@@ -44,10 +44,31 @@
 // order, so the sums would neither equal the plain twin's nor keep the
 // bf16 launch equal to the f32 launch on the rounded values.
 //
-// int8 mode (quantized training): int8 values, int32 sums.  Integer sums
-// do not depend on their order, so each block accumulates its chunk into
-// a block-private int32 histogram in shared memory with atomicAdd and
-// flushes it with one global atomicAdd per nonzero cell.
+// int8 mode (quantized training): int8 values, int32 sums, exact in any
+// order, so the chunk layout is free (hist_accumulate_i8_kernel).  What
+// bounded the first design on an H100 (a block per chunk of at least
+// 2,048 rows over every feature, a thread per row reading its bins byte
+// by byte, three shared atomics a row-feature, one global atomic a
+// nonzero cell): too few blocks (98 for a 200,000-row histogram, 7 for a
+// wave of one 12,500-row sibling), and lanes on one bin serializing
+// 32-fold (a bin per feature took 3.2x the time).  What this design does:
+// blocks of 8 features (4 over uint16 bins, whose cells then take 48 KB)
+// and chunks sized to put 528 blocks on the card (four an SM); a thread
+// per row with four rows' loads in flight, the group's bins read as
+// 32-bit words; each lane visits its row's features from lane % 8 on
+// (lane % 4 over uint16 bins), so the lanes of a step spread over the
+// features and meet at most 4-fold on a cell (8-fold over uint16 bins);
+// each block writes its int32 chunk partial with plain stores and
+// hist_combine_i8_kernel sums the chunks (no global atomics, no memset).
+// Timed on an H100 80GB HBM3 at 700 W (tools/torch_kernel_ab.py against
+// the first design, device ms of all launches): a 200,000 x 28 x 255
+// histogram 0.0275 -> 0.0206 ms, one bin a feature 0.0854 -> 0.0215; a
+// wave of 16 x 12,500 rows' stage 1 + combine 0.0504 -> 0.0376, of 1 x
+// 12,500 0.0453 -> 0.0104; uint16 (B = 1,023) 0.0423 -> 0.0339; slower at
+// 10.5M rows (0.512 -> 0.611: each row's levels read once a group, where
+// the first design read them once).  Packing a cell's three sums into one
+// 64-bit shared atomic was tried and dropped: sm_90a compiles it to a
+// compare-and-swap loop (ATOMS.CAST.SPIN.64), slower than three adds.
 //
 // uint16 bins (more than 256 bins, up to 65,536), f32 / bf16 values:
 // hist_accumulate_wide_kernel, the same sums add for add.  What bounds it
@@ -76,8 +97,9 @@
 // overlapping the next unit's loads) and cp.async staging were tried in
 // design builds and not kept: no faster at both shapes.
 // int8 values take hist_accumulate_i8_kernel over uint16 ids, its int32
-// histogram tiled the same way.  The uint8 instantiations of both kernels
-// keep the code of earlier builds (tools/torch_kernel_ab.py compares it).
+// cells tiled the same way.  The uint8 instantiations of the f32 / bf16
+// kernels keep the code of earlier builds (tools/torch_kernel_ab.py
+// compares it).
 //
 // bf16 values (kVal = __nv_bfloat16) and 4-bit bins (kPacked) are
 // template parameters.  A bf16 value is widened to f32 as the lane reads
@@ -137,15 +159,6 @@ template <bool kPacked, typename kBin = uint8_t>
 __device__ __forceinline__ int bin_at(const uint8_t* row, int j) {
   if (kPacked) return (row[j >> 1] >> ((j & 1) << 2)) & 15;
   return reinterpret_cast<const kBin*>(row)[j];
-}
-
-// The start of feature f0's group in row `row` of the bin matrix.
-template <bool kPacked, typename kBin = uint8_t>
-__device__ __forceinline__ const uint8_t* group_row(const uint8_t* bins,
-                                                    int64_t row, int f,
-                                                    int f0) {
-  if (kPacked) return bins + row * ((f + 1) >> 1) + (f0 >> 1);
-  return bins + (row * f + f0) * (int64_t)sizeof(kBin);
 }
 
 // Bytes that hold `nf` features (a group starting on an even feature).
@@ -663,16 +676,83 @@ inline int launch_accumulate_wide(const void* bins, int f, const void* vals,
   return (int)cudaGetLastError();
 }
 
-// int8 mode, threads per block, and the shared memory its int32
-// histogram may take (above 48 KB a block must opt in: smem_opt_in).
-constexpr int kI8Threads = 512;
-constexpr int kI8SmemBudget = 96 * 1024;
+// int8 mode (hist_accumulate_i8_kernel): threads a block, rows a thread
+// loads before it adds them, and the widest feature group a thread's two
+// 32-bit words of bin ids hold (8 nibbles or bytes, 4 uint16 ids).  The
+// block layout itself (features a group, bins a tile) is the wrapper's,
+// ops/histogram_flat.py::int8_shape; the launcher checks it against these.
+constexpr int kI8Threads = 256;
+constexpr int kI8Batch = 4;
+constexpr int kI8Group = 8;
+constexpr int kI8GroupWide = 4;
 
-// int8 mode accumulation.  Grid (chunks, feature groups of
-// `feat_per_block`, even under kPacked; bin tiles of bin_tile(nbins,
-// kI8SmemBudget) bins for uint16 kBin); dynamic shared memory of
-// feat_per_block * tile * 3 int32.  `vals` is (N, 3) int8; `out` is
-// (segments, f, nbins, 3) int32, zeroed by the caller.  A bin >= nbins
+// The `nbytes` bytes at `p` (a feature group of one row) as kWords
+// 32-bit words, read as the aligned words that hold them (up to 3 bytes
+// before and after, in the same words: memory the row's allocation owns)
+// and shifted into place.
+template <int kWords>
+__device__ __forceinline__ void i8_row_words(const uint8_t* p, int nbytes,
+                                             uint32_t (&a)[kWords]) {
+  const uintptr_t addr = (uintptr_t)p;
+  const uint32_t* base =
+      reinterpret_cast<const uint32_t*>(addr & ~(uintptr_t)3);
+  const int off = (int)(addr & 3);
+  const int nw = (off + nbytes + 3) >> 2;
+  uint32_t w[kWords + 1];
+#pragma unroll
+  for (int i = 0; i <= kWords; ++i) w[i] = i < nw ? __ldg(base + i) : 0u;
+#pragma unroll
+  for (int i = 0; i < kWords; ++i)
+    a[i] = __funnelshift_r(w[i], w[i + 1], 8 * off);
+}
+
+// Bin id of local feature k (below the group's width) of a row group's
+// words: nibbles, bytes or uint16 ids (a group of kI8Group nibbles or
+// bytes, or kI8GroupWide uint16 ids).
+template <bool kPacked, typename kBin, int kWords>
+__device__ __forceinline__ int i8_bin(const uint32_t (&a)[kWords], int k) {
+  static_assert(kWords == (kPacked ? 1 : 2), "a group is 4 or 8 bytes");
+  if constexpr (kPacked) {
+    return (a[0] >> (k * 4)) & 15;
+  } else if constexpr (sizeof(kBin) == 2) {
+    return ((k & 2 ? a[1] : a[0]) >> ((k & 1) * 16)) & 0xffff;
+  } else {
+    return ((k & 4 ? a[1] : a[0]) >> ((k & 3) * 8)) & 0xff;
+  }
+}
+
+// A full group's words rotated by r features (0 <= r < the group's
+// width), so that feature (r + j) mod width sits where feature j sat.
+template <bool kPacked, typename kBin, int kWords>
+__device__ __forceinline__ void i8_rotate(const uint32_t (&a)[kWords], int r,
+                                          uint32_t (&x)[kWords]) {
+  if constexpr (kPacked) {
+    x[0] = __funnelshift_r(a[0], a[0], 4 * r);
+  } else {
+    // 8 bytes: r bytes, or r uint16 ids (2r bytes)
+    const int bytes = sizeof(kBin) == 2 ? 2 * r : r;
+    const bool swap = (bytes & 4) != 0;
+    const uint32_t lo = swap ? a[1] : a[0];
+    const uint32_t hi = swap ? a[0] : a[1];
+    x[0] = __funnelshift_r(lo, hi, 8 * (bytes & 3));
+    x[1] = __funnelshift_r(hi, lo, 8 * (bytes & 3));
+  }
+}
+
+// int8 mode accumulation: grid (chunks, ceil(f / fpb) feature groups,
+// ceil(nbins / tile) bin tiles), kI8Threads threads and fpb * tile * 12
+// bytes of shared memory.  A block adds its chunk's rows into int32 cells
+// of its group's features and tile's bins with shared-memory integer
+// atomicAdd, a thread per row, kI8Batch rows' loads (the perm index, the
+// levels, the group's bin bytes as words) in flight before their adds; a
+// level of 0 adds nothing.  A
+// lane visits its row's features starting at lane % nf, so the 32 lanes
+// of a step spread over the features: rows that all hold one bin meet at
+// most ceil(32 / nf)-fold on a cell, not 32-fold.  In a full group (nf
+// the group's width) the lane rotates its row's words once and reads the
+// features at fixed offsets.  Then the block writes
+// its cells (zeros too) to its chunk's partial, `partial` being (chunks,
+// f, nbins, 3) int32; hist_combine_i8_kernel sums them.  A bin >= nbins
 // is dropped.
 template <bool kPerm, bool kPacked, typename kBin = uint8_t>
 __global__ void __launch_bounds__(kI8Threads)
@@ -681,115 +761,200 @@ hist_accumulate_i8_kernel(const uint8_t* __restrict__ bins, int f,
                           const int32_t* __restrict__ perm,
                           const int32_t* __restrict__ seg, int w_count,
                           int64_t single_cnt, int chunk_rows, int nbins,
-                          int feat_per_block, int32_t* __restrict__ out) {
-  extern __shared__ int32_t s_hist[];
+                          int fpb, int tile, int32_t* __restrict__ partial) {
+  extern __shared__ __align__(16) int32_t s_i8[];
+  constexpr bool kWide = sizeof(kBin) == 2;
+  constexpr int kGroupBytes = kPacked ? kI8Group / 2
+                              : kWide ? kI8GroupWide * 2
+                                      : kI8Group;
+  constexpr int kWords = (kGroupBytes + 3) / 4;
   const int chunk = blockIdx.x;
   int64_t start = 0;
   int64_t cnt = single_cnt;
   int local = chunk;
-  int w = 0;
   if (seg != nullptr) {
-    w = segment_of(seg, w_count, chunk);
+    const int w = segment_of(seg, w_count, chunk);
     start = seg[w];
     cnt = seg[w_count + w];
     local = chunk - seg[2 * w_count + w];
   }
   const int64_t r0 = (int64_t)local * chunk_rows;
   const int64_t r1 = min(cnt, r0 + (int64_t)chunk_rows);
-  constexpr bool kWide = sizeof(kBin) == 2;
-  const int f0 = blockIdx.y * feat_per_block;
-  const int nf = min(feat_per_block, f - f0);
-  // this block's bins [bin0, bin0 + tlen): every bin for uint8 bins
-  const int tile = kWide ? bin_tile(nbins, kI8SmemBudget) : nbins;
-  const int bin0 = kWide ? (int)blockIdx.z * tile : 0;
+  const int f0 = blockIdx.y * fpb;
+  const int nf = min(fpb, f - f0);
+  const int bin0 = (int)blockIdx.z * tile;
   const int tlen = min(tile, nbins - bin0);
   const int cells = nf * tlen * 3;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) s_hist[i] = 0;
+  for (int i = threadIdx.x; i < cells; i += kI8Threads) s_i8[i] = 0;
   __syncthreads();
-  for (int64_t i = r0 + threadIdx.x; i < r1; i += blockDim.x) {
-    const int64_t pos = start + i;
-    const int64_t row = kPerm ? (int64_t)perm[pos] : pos;
-    const int8_t* v = vals + row * 3;
-    const int g = v[0], h = v[1], c = v[2];
-    if ((g | h | c) == 0) continue;
-    const uint8_t* src = group_row<kPacked, kBin>(bins, row, f, f0);
-    for (int j = 0; j < nf; ++j) {
-      const int b = bin_at<kPacked, kBin>(src, j) - bin0;
-      if ((unsigned)b >= (unsigned)tlen) continue;
-      int32_t* cell = s_hist + (j * tlen + b) * 3;
-      if (g != 0) atomicAdd(cell + 0, g);
-      if (h != 0) atomicAdd(cell + 1, h);
-      if (c != 0) atomicAdd(cell + 2, c);
-    }
-  }
-  __syncthreads();
-  if constexpr (kWide) {                   // each feature's tile in place
-    const int span = tlen * 3;
-    for (int j = 0; j < nf; ++j) {
-      int32_t* dst = out + (((int64_t)w * f + f0 + j) * nbins + bin0) * 3;
-      for (int i = threadIdx.x; i < span; i += blockDim.x) {
-        const int32_t v = s_hist[j * span + i];
-        if (v != 0) atomicAdd(dst + i, v);
+  const int row_bytes = kPacked ? (f + 1) >> 1 : f * (int)sizeof(kBin);
+  const int fb0 = kPacked ? f0 >> 1 : f0 * (int)sizeof(kBin);
+  const int nbytes = kPacked ? (nf + 1) >> 1 : nf * (int)sizeof(kBin);
+  constexpr int kWidth = kWide ? kI8GroupWide : kI8Group;
+  const bool full = nf == kWidth;
+  const int k0 = (threadIdx.x & 31) % nf;   // this lane's first feature
+  for (int64_t i0 = r0 + threadIdx.x; i0 < r1;
+       i0 += (int64_t)kI8Batch * kI8Threads) {
+    uint32_t words[kI8Batch][kWords];
+    int g[kI8Batch], h[kI8Batch], c[kI8Batch];
+#pragma unroll
+    for (int u = 0; u < kI8Batch; ++u) {
+      const int64_t i = i0 + (int64_t)u * kI8Threads;
+      g[u] = h[u] = c[u] = 0;
+      if (i < r1) {
+        const int64_t pos = start + i;
+        const int64_t row = kPerm ? (int64_t)__ldg(perm + pos) : pos;
+        const int8_t* v = vals + row * 3;
+        g[u] = __ldg(v);
+        h[u] = __ldg(v + 1);
+        c[u] = __ldg(v + 2);
+        i8_row_words(bins + row * row_bytes + fb0, nbytes, words[u]);
       }
     }
-  } else {
-    int32_t* dst = out + ((int64_t)w * f + f0) * nbins * 3;
-    for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-      const int32_t v = s_hist[i];
-      if (v != 0) atomicAdd(dst + i, v);
+#pragma unroll
+    for (int u = 0; u < kI8Batch; ++u) {
+      if ((g[u] | h[u] | c[u]) == 0) continue;
+      auto add = [&](int32_t* cell) {
+        if (g[u] != 0) atomicAdd(cell + 0, g[u]);
+        if (h[u] != 0) atomicAdd(cell + 1, h[u]);
+        if (c[u] != 0) atomicAdd(cell + 2, c[u]);
+      };
+      if (full) {
+        uint32_t x[kWords];
+        i8_rotate<kPacked, kBin>(words[u], k0, x);
+#pragma unroll
+        for (int j = 0; j < kWidth; ++j) {
+          const int b = i8_bin<kPacked, kBin>(x, j) - bin0;
+          if ((unsigned)b < (unsigned)tlen)
+            add(s_i8 + (((k0 + j) & (kWidth - 1)) * tlen + b) * 3);
+        }
+      } else {
+        int k = k0;
+        for (int j = 0; j < nf; ++j) {
+          const int b = i8_bin<kPacked, kBin>(words[u], k) - bin0;
+          if ((unsigned)b < (unsigned)tlen) add(s_i8 + (k * tlen + b) * 3);
+          k = k + 1 == nf ? 0 : k + 1;
+        }
+      }
     }
   }
-}
-
-// Under packed bins a group must start on an even feature (a byte holds
-// features 2j and 2j + 1), so a group that does not cover every feature
-// is rounded down to even.  `tile` is the bins of one block's tile.
-inline int i8_feat_per_block(int f, int tile, bool packed) {
-  const int fit = kI8SmemBudget / (tile * 3 * (int)sizeof(int32_t));
-  if (fit >= f) return f;
-  if (!packed) return fit < 1 ? 1 : fit;
-  return fit < 2 ? 2 : (fit & ~1);
+  __syncthreads();
+  // each feature's tile in place: (chunk, f, nbins, 3)
+  const int span = tlen * 3;
+  int32_t* dst = partial + (((int64_t)chunk * f + f0) * nbins + bin0) * 3;
+  for (int j = 0; j < nf; ++j) {
+    const int32_t* src = s_i8 + j * span;
+    int32_t* dj = dst + (int64_t)j * nbins * 3;
+    for (int i = threadIdx.x; i < span; i += kI8Threads) dj[i] = src[i];
+  }
 }
 
 // Launches the int8 accumulation of `packed` or unpacked bins of type
-// kBin (uint16_t: never packed) into `out` (zeroed by the caller).
-// Returns the first CUDA error.
+// kBin (uint16_t: never packed) into the chunk partials `partial`
+// (nchunks * f * nbins * 3 int32), in blocks of `fpb` features (at most
+// kI8Group, kI8GroupWide over uint16 bins) and `tile` bins.  Returns the
+// first CUDA error.
 template <bool kPerm, typename kBin = uint8_t>
 inline int launch_accumulate_i8(const void* bins, int f, const void* vals,
                                 bool packed, const int32_t* perm,
                                 const int32_t* seg, int w_count,
                                 int64_t single_cnt, int chunk_rows,
-                                int nbins, int nchunks, int32_t* out,
-                                cudaStream_t s) {
-  const int tile =
-      sizeof(kBin) == 2 ? bin_tile(nbins, kI8SmemBudget) : nbins;
-  const int fpb = i8_feat_per_block(f, tile, packed);
-  const int smem = fpb * tile * 3 * (int)sizeof(int32_t);
+                                int nbins, int fpb, int tile, int nchunks,
+                                int32_t* partial, cudaStream_t s) {
+  const int widest = sizeof(kBin) == 2 ? kI8GroupWide : kI8Group;
+  if (fpb < 1 || fpb > widest || tile < 1 || tile > nbins)
+    return (int)cudaErrorInvalidValue;
+  const int smem = fpb * tile * 12;
   const dim3 grid((unsigned)nchunks, (unsigned)((f + fpb - 1) / fpb),
                   (unsigned)((nbins + tile - 1) / tile));
   const uint8_t* b = (const uint8_t*)bins;
   const int8_t* v = (const int8_t*)vals;
-  int err;
-  if constexpr (sizeof(kBin) == 2) {
-    err = smem_opt_in(hist_accumulate_i8_kernel<kPerm, false, kBin>, smem);
-    if (err != 0) return err;
-    hist_accumulate_i8_kernel<kPerm, false, kBin>
-        <<<grid, kI8Threads, smem, s>>>(b, f, v, perm, seg, w_count,
-                                        single_cnt, chunk_rows, nbins, fpb,
-                                        out);
-  } else if (packed) {
-    err = smem_opt_in(hist_accumulate_i8_kernel<kPerm, true>, smem);
-    if (err != 0) return err;
-    hist_accumulate_i8_kernel<kPerm, true><<<grid, kI8Threads, smem, s>>>(
-        b, f, v, perm, seg, w_count, single_cnt, chunk_rows, nbins, fpb,
-        out);
-  } else {
-    err = smem_opt_in(hist_accumulate_i8_kernel<kPerm, false>, smem);
-    if (err != 0) return err;
-    hist_accumulate_i8_kernel<kPerm, false><<<grid, kI8Threads, smem, s>>>(
-        b, f, v, perm, seg, w_count, single_cnt, chunk_rows, nbins, fpb,
-        out);
+  int err = 0;
+#define LGBT_ACC_I8(P, B)                                                  \
+  do {                                                                     \
+    err = smem_opt_in(hist_accumulate_i8_kernel<kPerm, P, B>, smem);       \
+    if (err != 0) return err;                                              \
+    hist_accumulate_i8_kernel<kPerm, P, B>                                 \
+        <<<grid, kI8Threads, smem, s>>>(b, f, v, perm, seg, w_count,       \
+                                        single_cnt, chunk_rows, nbins, fpb, \
+                                        tile, partial);                    \
+  } while (0)
+  if constexpr (sizeof(kBin) == 2) LGBT_ACC_I8(false, kBin);
+  else if (packed) LGBT_ACC_I8(true, uint8_t);
+  else LGBT_ACC_I8(false, uint8_t);
+#undef LGBT_ACC_I8
+  return (int)cudaGetLastError();
+}
+
+// int8 mode combine: each cell's chunk partials summed in int32 (exact in
+// any order).  A block of kI8CombineThreads threads takes kI8CombineThreads
+// / `lanes` consecutive cells, and lane k of a cell sums chunks k, k +
+// lanes, ... of its range (each a coalesced row of cells); the lanes' sums
+// meet in shared memory.  `lanes` is 1 or a power of two up to 8: many
+// lanes where a range holds many chunks (a histogram's), one where it
+// holds a few (a wave sibling's), so each thread reads the parent and
+// writes the pair itself.  Without `parent` (the histogram kernel) the sum
+// is written to `out` (cells); with it (the wave kernel) the sum is slot
+// w's smaller sibling, the larger is parent - smaller in int32, and the
+// pair is written as (left, right) by the small_left lane (4) of `stats`,
+// `out` being (W, 2, cells).  Grid (ceil(cells * lanes /
+// kI8CombineThreads), W); `seg` as the accumulation's (nullptr: chunks [0,
+// single_chunks)).
+constexpr int kI8CombineThreads = 256;
+
+__global__ void __launch_bounds__(kI8CombineThreads)
+hist_combine_i8_kernel(const int32_t* __restrict__ partial,
+                       const int32_t* __restrict__ seg, int w_count,
+                       int single_chunks, int64_t cells, int lanes,
+                       const int32_t* __restrict__ parent,
+                       const float* __restrict__ stats,
+                       int32_t* __restrict__ out) {
+  __shared__ int32_t s_sum[kI8CombineThreads];
+  const int w = blockIdx.y;
+  const int width = kI8CombineThreads / lanes;
+  const int lane = threadIdx.x / width;
+  const int64_t cell =
+      (int64_t)blockIdx.x * width + (threadIdx.x - lane * width);
+  int c0 = 0, c1 = single_chunks;
+  if (seg != nullptr) {
+    c0 = seg[2 * w_count + w];
+    c1 = seg[2 * w_count + w + 1];
   }
+  int32_t s = 0;
+  if (cell < cells)
+    for (int k = c0 + lane; k < c1; k += lanes)
+      s += partial[(int64_t)k * cells + cell];
+  if (lanes > 1) {
+    s_sum[threadIdx.x] = s;
+    __syncthreads();
+    if (lane != 0) return;
+    for (int k = 1; k < lanes; ++k) s += s_sum[k * width + threadIdx.x];
+  }
+  if (cell >= cells) return;
+  if (parent == nullptr) {
+    out[cell] = s;
+    return;
+  }
+  const int32_t big = parent[(int64_t)w * cells + cell] - s;
+  const bool small_left = stats[(int64_t)w * 16 + 4] > 0.5f;
+  out[((int64_t)w * 2 + 0) * cells + cell] = small_left ? s : big;
+  out[((int64_t)w * 2 + 1) * cells + cell] = small_left ? big : s;
+}
+
+// Launches hist_combine_i8_kernel over `w_count` slots of `cells` cells,
+// with 8 lanes a cell where a slot's range averages 32 chunks or more.
+inline int launch_combine_i8(const int32_t* partial, const int32_t* seg,
+                             int w_count, int single_chunks, int64_t cells,
+                             int total_chunks, const int32_t* parent,
+                             const float* stats, int32_t* out,
+                             cudaStream_t s) {
+  const int lanes = total_chunks >= 32 * w_count ? 8 : 1;
+  const int width = kI8CombineThreads / lanes;
+  const dim3 grid((unsigned)((cells + width - 1) / width),
+                  (unsigned)w_count);
+  hist_combine_i8_kernel<<<grid, kI8CombineThreads, 0, s>>>(
+      partial, seg, w_count, single_chunks, cells, lanes, parent, stats,
+      out);
   return (int)cudaGetLastError();
 }
 

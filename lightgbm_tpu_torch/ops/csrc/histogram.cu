@@ -29,14 +29,15 @@
 // int8 mode (quantized training; the TPU kernel's dtype="int8", s8 x s8 ->
 // s32 on the MXU): (N, 3) int8 values (grad and hess levels, in-bag 0/1),
 // out (F, B, 3) int32.  Bound by bytes (N * (F + 3) + F * B * 12: ~6.2
-// MB at N = 200k, F = 28, ~1.9 us).  Integer sums are exact in any order,
-// so each block owns a row chunk and a feature group whose int32
-// histogram fits 96 KB of shared memory (all 28 features at B = 255, 86
-// KB, with the dynamic shared-memory opt-in), one thread per row adds its
-// three levels with shared-memory atomicAdd (zero levels skipped), and the
-// block flushes each nonzero cell with one global atomicAdd into the
-// zeroed output (hist_common.cuh).  The result is the same bits on every
-// run.
+// MB at N = 200k, F = 28, ~1.9 us); what holds it back is issue of the
+// shared-memory atomics and, in the first design, blocks too few to fill
+// the card.  Integer sums are exact in any order, so each block owns a
+// row chunk and a group of 8 features (4 over uint16 bins), one thread
+// per row adds its three levels with shared-memory atomicAdd (zero levels
+// skipped; lanes start at different features, so rows on one bin meet at
+// most 4-fold, 8-fold over uint16 bins), and writes its int32 chunk
+// partial; the combine sums the chunks (hist_common.cuh).  The result is
+// the same bits on every run.
 //
 // bf16 mode (the TPU kernel's dtype="bf16": bf16 operands, f32
 // accumulation): (N, 3) __nv_bfloat16 values, f32 sums.  The kernel reads
@@ -67,8 +68,10 @@
 // shared-memory round trips, plus the partials: F * B * 12 bytes a chunk
 // (344 KB at B = 1,023), so the chunking caps them at 256 MB
 // (ops/histogram_flat.py::chunking).  int8 values take the int8 kernel
-// over uint16 ids, its int32 histogram tiled the same way.  The uint8 and
-// packed4 entry points below are the uint8 kernels, untouched.
+// over uint16 ids, its int32 cells tiled the same way, its partials
+// capped at 16 MB (ops/histogram_flat.py::int8_chunk_rows).  The f32 /
+// bf16 uint8 and packed4 entry points below are the uint8 kernels,
+// untouched.
 
 #include "hist_common.cuh"
 
@@ -97,23 +100,26 @@ extern "C" int lgbt_histogram(const void* bins, const void* vals, int64_t n,
   return (int)cudaGetLastError();
 }
 
-// int8 mode.  `vals` (N, 3) int8, `out` (F, B, 3) int32 (zeroed here);
-// `bins` as above.  Launches on `stream`, does not synchronise, returns
-// the first CUDA error.
+// int8 mode.  `vals` (N, 3) int8, `out` (F, B, 3) int32; `bins` as above;
+// `partial` scratch of nchunks * f * nbins * 3 int32; blocks of `fpb`
+// features and `tile` bins (ops/histogram_flat.py::int8_shape).  Two
+// launches on `stream` (accumulate, combine); does not synchronise;
+// returns the first CUDA error.
 extern "C" int lgbt_histogram_i8(const void* bins, const void* vals,
                                  int64_t n, int f, int nbins, int chunk_rows,
-                                 int nchunks, int packed4, void* out,
-                                 void* stream) {
+                                 int nchunks, int fpb, int tile, int packed4,
+                                 void* partial, void* out, void* stream) {
   if (nbins < 1 || nbins > lgbt::kMaxBins || f < 1 || nchunks < 1 || n < 1 ||
       (packed4 && nbins > 16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err = (int)cudaMemsetAsync(
-      out, 0, (size_t)f * nbins * 3 * sizeof(int32_t), s);
-  if (err != 0) return err;
-  return lgbt::launch_accumulate_i8<false>(
+  const int err = lgbt::launch_accumulate_i8<false>(
       bins, f, vals, packed4 != 0, nullptr, nullptr, 1, n, chunk_rows, nbins,
-      nchunks, (int32_t*)out, s);
+      fpb, tile, nchunks, (int32_t*)partial, s);
+  if (err != 0) return err;
+  return lgbt::launch_combine_i8((const int32_t*)partial, nullptr, 1,
+                                 nchunks, (int64_t)f * nbins * 3, nchunks,
+                                 nullptr, nullptr, (int32_t*)out, s);
 }
 
 // uint16 bins, f32 / bf16 values: lgbt_histogram over (N, F) uint16 bins
@@ -141,16 +147,18 @@ extern "C" int lgbt_histogram_u16(const void* bins, const void* vals,
 // uint16 bins, int8 values: lgbt_histogram_i8 over (N, F) uint16 bins.
 extern "C" int lgbt_histogram_i8_u16(const void* bins, const void* vals,
                                      int64_t n, int f, int nbins,
-                                     int chunk_rows, int nchunks, void* out,
+                                     int chunk_rows, int nchunks, int fpb,
+                                     int tile, void* partial, void* out,
                                      void* stream) {
   if (nbins < 1 || nbins > lgbt::kMaxBinsWide || f < 1 || nchunks < 1 ||
       n < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err = (int)cudaMemsetAsync(
-      out, 0, (size_t)f * nbins * 3 * sizeof(int32_t), s);
+  const int err = lgbt::launch_accumulate_i8<false, uint16_t>(
+      bins, f, vals, false, nullptr, nullptr, 1, n, chunk_rows, nbins, fpb,
+      tile, nchunks, (int32_t*)partial, s);
   if (err != 0) return err;
-  return lgbt::launch_accumulate_i8<false, uint16_t>(
-      bins, f, vals, false, nullptr, nullptr, 1, n, chunk_rows, nbins,
-      nchunks, (int32_t*)out, s);
+  return lgbt::launch_combine_i8((const int32_t*)partial, nullptr, 1,
+                                 nchunks, (int64_t)f * nbins * 3, nchunks,
+                                 nullptr, nullptr, (int32_t*)out, s);
 }

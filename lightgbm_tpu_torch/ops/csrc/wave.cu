@@ -51,15 +51,17 @@
 // one SM for small waves (the uint16 scan below does).
 //
 // int8 mode (quantized training; the TPU kernel with dtype="int8" and its
-// scale3 operand), the same three launches: stage 1 accumulates each
-// smaller sibling's int8 levels into an int32 histogram (the histogram
-// kernel's privatized shared-memory design, flushed with integer atomics:
-// exact in any order); the combine computes parent - smaller in int32 and
-// orders the pair; the child histograms come out int32, as the grower
-// stores them; the scan stages each cell as float(h) * scale[c] (one
-// multiply, as the JAX package's _scale_hist and _wave_kernel do), then
-// runs the f32 scan unchanged.  The scales stay on the device (a pointer),
-// so quantized growth adds no device-to-host copy.
+// scale3 operand), the same three launches: stage 1 is the histogram
+// kernel's int8 accumulation over the smaller siblings' rows gathered
+// through `perm` (hist_common.cuh: blocks of 8 features over chunks of
+// all the siblings' rows together, sized to put 528 blocks on the card
+// whatever W, int32 chunk partials; exact in any order); the combine sums
+// each sibling's chunks, computes parent - smaller in int32 and orders the
+// pair; the child histograms come out int32, as the grower stores them;
+// the scan stages each cell as float(h) * scale[c] (one multiply, as the
+// JAX package's _scale_hist and _wave_kernel do), then runs the f32 scan
+// unchanged.  The scales stay on the device (a pointer), so quantized
+// growth adds no device-to-host copy.
 //
 // bf16 and packed4 modes: stage 1 runs the histogram kernel's bf16 and
 // packed4 forms (hist_common.cuh): bf16 values are widened to f32 as the
@@ -706,24 +708,6 @@ wave_scan_wide_kernel(const T* __restrict__ hist,
     pay[kPayloadScalars + b] = b == *s_win_bin ? 1.f : 0.f;
 }
 
-// int8 mode combine: larger sibling = parent - smaller in int32, the pair
-// written as (left, right) by the small_left lane (4) of `stats`.
-// small: (W, cells) int32; parent: (W, cells); out: (W, 2, cells).
-__global__ void hist_combine_i8_kernel(const int32_t* __restrict__ small,
-                                       int64_t cells,
-                                       const int32_t* __restrict__ parent,
-                                       const float* __restrict__ stats,
-                                       int32_t* __restrict__ out) {
-  const int w = blockIdx.y;
-  const int64_t cell_i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (cell_i >= cells) return;
-  const int32_t s = small[(int64_t)w * cells + cell_i];
-  const int32_t big = parent[(int64_t)w * cells + cell_i] - s;
-  const bool small_left = stats[(int64_t)w * 16 + 4] > 0.5f;
-  out[((int64_t)w * 2 + 0) * cells + cell_i] = small_left ? s : big;
-  out[((int64_t)w * 2 + 1) * cells + cell_i] = small_left ? big : s;
-}
-
 template <typename T>
 int launch_scan(const T* hist, const float* scale3, const float* stats,
                 const int32_t* meta, int f, int nbins, int w, ScanCfg c,
@@ -810,40 +794,41 @@ extern "C" int lgbt_wave(const void* bins, const void* vals, const void* perm,
 }
 
 // int8 mode: `vals` (N, 3) int8, `parent` (W, F, B, 3) int32, `scale3` 3
-// device f32 channel scales, `small` scratch of W * F * B * 3 int32 (zeroed
-// here), `out_hist` (W, 2, F, B, 3) int32; `bins` as above.  Three
-// launches on `stream` (accumulate, combine, scan); does not synchronise;
-// returns the first CUDA error.
+// device f32 channel scales, `partial` scratch of the chunk partials,
+// total_chunks * F * B * 3 int32, `out_hist` (W, 2, F, B, 3) int32; `bins`
+// as above; blocks of `fpb` features and `tile` bins
+// (ops/histogram_flat.py::int8_shape).  Three launches on `stream`
+// (accumulate, combine, scan); does not synchronise; returns the first
+// CUDA error.
 extern "C" int lgbt_wave_i8(const void* bins, const void* vals,
                             const void* perm, int f, int nbins,
                             const void* seg, int w, int total_chunks,
-                            int chunk_rows, const void* parent,
+                            int chunk_rows, int fpb, int tile,
+                            const void* parent,
                             const void* stats, const void* meta,
                             const void* scale3, float l1, float l2,
                             float min_count, float min_hess, float gain_thr,
                             float max_delta, float path_smooth, int has_nan,
                             int has_cat, int max_cat_onehot, int packed4,
-                            void* small, void* out_hist, void* payload,
+                            void* partial, void* out_hist, void* payload,
                             void* stream) {
   if (nbins < 1 || nbins > lgbt::kMaxBins || f < 1 || w < 1 ||
       total_chunks < 0 || (packed4 && nbins > 16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t cells = (int64_t)f * nbins * 3;
-  int err = (int)cudaMemsetAsync(small, 0, (size_t)w * cells * 4, s);
-  if (err != 0) return err;
+  int err = 0;
   if (total_chunks > 0) {
     err = lgbt::launch_accumulate_i8<true>(
         bins, f, vals, packed4 != 0, (const int32_t*)perm,
-        (const int32_t*)seg, w, 0, chunk_rows, nbins, total_chunks,
-        (int32_t*)small, s);
+        (const int32_t*)seg, w, 0, chunk_rows, nbins, fpb, tile,
+        total_chunks, (int32_t*)partial, s);
     if (err != 0) return err;
   }
-  const dim3 cgrid((unsigned)((cells + 255) / 256), (unsigned)w);
-  hist_combine_i8_kernel<<<cgrid, 256, 0, s>>>(
-      (const int32_t*)small, cells, (const int32_t*)parent,
-      (const float*)stats, (int32_t*)out_hist);
-  err = (int)cudaGetLastError();
+  err = lgbt::launch_combine_i8((const int32_t*)partial, (const int32_t*)seg,
+                                w, 0, cells, total_chunks,
+                                (const int32_t*)parent, (const float*)stats,
+                                (int32_t*)out_hist, s);
   if (err != 0) return err;
   const ScanCfg c{l1, l2, min_count, min_hess, gain_thr, max_delta,
                   path_smooth, has_nan, has_cat, max_cat_onehot};
@@ -894,31 +879,30 @@ extern "C" int lgbt_wave_u16(const void* bins, const void* vals,
 extern "C" int lgbt_wave_i8_u16(const void* bins, const void* vals,
                                 const void* perm, int f, int nbins,
                                 const void* seg, int w, int total_chunks,
-                                int chunk_rows, const void* parent,
+                                int chunk_rows, int fpb, int tile,
+                                const void* parent,
                                 const void* stats, const void* meta,
                                 const void* scale3, float l1, float l2,
                                 float min_count, float min_hess,
                                 float gain_thr, float max_delta,
                                 float path_smooth, int has_nan, int has_cat,
-                                int max_cat_onehot, void* small,
+                                int max_cat_onehot, void* partial,
                                 void* out_hist, void* payload, void* stream) {
   if (!wide_shape_ok(f, nbins, w, total_chunks))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t cells = (int64_t)f * nbins * 3;
-  int err = (int)cudaMemsetAsync(small, 0, (size_t)w * cells * 4, s);
-  if (err != 0) return err;
+  int err = 0;
   if (total_chunks > 0) {
     err = lgbt::launch_accumulate_i8<true, uint16_t>(
         bins, f, vals, false, (const int32_t*)perm, (const int32_t*)seg, w,
-        0, chunk_rows, nbins, total_chunks, (int32_t*)small, s);
+        0, chunk_rows, nbins, fpb, tile, total_chunks, (int32_t*)partial, s);
     if (err != 0) return err;
   }
-  const dim3 cgrid((unsigned)((cells + 255) / 256), (unsigned)w);
-  hist_combine_i8_kernel<<<cgrid, 256, 0, s>>>(
-      (const int32_t*)small, cells, (const int32_t*)parent,
-      (const float*)stats, (int32_t*)out_hist);
-  err = (int)cudaGetLastError();
+  err = lgbt::launch_combine_i8((const int32_t*)partial, (const int32_t*)seg,
+                                w, 0, cells, total_chunks,
+                                (const int32_t*)parent, (const float*)stats,
+                                (int32_t*)out_hist, s);
   if (err != 0) return err;
   const ScanCfg c{l1, l2, min_count, min_hess, gain_thr, max_delta,
                   path_smooth, has_nan, has_cat, max_cat_onehot};

@@ -50,10 +50,23 @@ MAX_BINS_UINT16 = 65536
 MAX_BINS_PACKED4 = 16
 
 
-#: int8 mode: rows per block at least (each block flushes its shared
-#: histogram with up to F * B * 3 global atomics) and blocks at most
-MIN_CHUNK_ROWS_INT8 = 2048
-MAX_CHUNKS_INT8 = 264
+#: int8 mode (``ops/csrc/hist_common.cuh``, hist_accumulate_i8_kernel),
+#: whose block layout is set here and passed to the kernel: features a
+#: block over byte or nibble bins and over uint16 bins (the widest group
+#: the kernel takes, kI8Group / kI8GroupWide, which its launcher checks;
+#: over uint16 bins the cells at B = 1,023 then take 48 KB, four blocks
+#: an SM), and the shared memory a block's int32 cells may take
+INT8_GROUP = 8
+INT8_GROUP_UINT16 = 4
+INT8_SMEM_BUDGET = 96 * 1024
+#: int8 mode: blocks a launch aims for (four an SM of an H100), in chunks
+#: of at least MIN_CHUNK_ROWS_INT8 rows whose int32 partials (F * B * 12
+#: bytes a chunk, summed by the int8 combine) take at most
+#: INT8_PARTIAL_BYTES (L2-resident) unless every sibling of a wave needs
+#: its own chunk
+INT8_BLOCKS = 528
+MIN_CHUNK_ROWS_INT8 = 512
+INT8_PARTIAL_BYTES = 16 << 20
 #: the largest int32 sum a histogram cell may hold exactly
 INT32_MAX = 2 ** 31 - 1
 
@@ -81,6 +94,33 @@ def chunking(n: int, feature_bins: int = 0, *,
                                 SCRATCH_BYTES // (feature_bins * 12)))
     chunk_rows = max(min_rows, -(-n // max_chunks))
     return chunk_rows, -(-n // chunk_rows)
+
+
+def int8_shape(f: int, num_bins: int, wide: bool = False):
+    """(features a block, feature groups, bins a tile, bin tiles) of the
+    int8 accumulation, whose wrappers pass the first and third to the
+    kernel (``hist_common.cuh::launch_accumulate_i8``): groups of
+    INT8_GROUP features (INT8_GROUP_UINT16 over uint16 bins, ``wide``);
+    every bin in one tile where the block's int32 cells (12 bytes a bin)
+    fit INT8_SMEM_BUDGET, else the fewest equal tiles that fit."""
+    fpb = min(f, INT8_GROUP_UINT16 if wide else INT8_GROUP)
+    fit = INT8_SMEM_BUDGET // (fpb * 12)
+    tile = -(-num_bins // -(-num_bins // fit))
+    return fpb, -(-f // fpb), tile, -(-num_bins // tile)
+
+
+def int8_chunk_rows(rows: int, f: int, num_bins: int,
+                    wide: bool = False) -> int:
+    """Rows a chunk of the int8 accumulation over ``rows`` rows (one
+    histogram's, or all the smaller siblings' of one wave): chunks enough
+    to put INT8_BLOCKS blocks on the card across ``int8_shape``'s feature
+    groups and bin tiles, but no more partials than INT8_PARTIAL_BYTES,
+    and at least MIN_CHUNK_ROWS_INT8 rows.  Integer sums do not depend on
+    it."""
+    _, groups, _, tiles = int8_shape(f, num_bins, wide)
+    chunks = -(-INT8_BLOCKS // (groups * tiles))
+    chunks = max(1, min(chunks, INT8_PARTIAL_BYTES // (f * num_bins * 12)))
+    return max(MIN_CHUNK_ROWS_INT8, -(-rows // chunks))
 
 
 def check_int8_rows(n: int, max_level: int = 127) -> None:
@@ -175,17 +215,19 @@ def _launch(bins: torch.Tensor, vals: torch.Tensor, num_bins: int,
     stream = torch.cuda.current_stream(bins.device).cuda_stream
     out = torch.empty(f, num_bins, 3, dtype=out_dtype, device=bins.device)
     if int8:
-        chunk_rows, nchunks = chunking(n, min_rows=MIN_CHUNK_ROWS_INT8,
-                                       max_chunks=MAX_CHUNKS_INT8)
+        chunk_rows = int8_chunk_rows(n, f, num_bins, wide)
+        nchunks = -(-n // chunk_rows)
+        partial = torch.empty(nchunks, f, num_bins, 3, dtype=torch.int32,
+                              device=bins.device)
+        fpb, _, tile, _ = int8_shape(f, num_bins, wide)
         head = (bins.data_ptr(), vals.data_ptr(), n, f, num_bins, chunk_rows,
-                nchunks)
+                nchunks, fpb, tile)
+        tail = (partial.data_ptr(), out.data_ptr(), stream)
         with torch.cuda.device(bins.device):
             if wide:
-                err = lib.lgbt_histogram_i8_u16(*head, out.data_ptr(),
-                                                stream)
+                err = lib.lgbt_histogram_i8_u16(*head, *tail)
             else:
-                err = lib.lgbt_histogram_i8(*head, int(packed4),
-                                            out.data_ptr(), stream)
+                err = lib.lgbt_histogram_i8(*head, int(packed4), *tail)
     else:
         chunk_rows, nchunks = chunking(n, f * num_bins)
         partial = torch.empty(nchunks, f, num_bins, 3, dtype=torch.float32,

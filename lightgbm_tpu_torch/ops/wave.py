@@ -46,7 +46,8 @@ from .histogram import histogram_segment, segment_histograms_chunked
 # histogram kernel's)
 from .histogram_flat import (MAX_CHUNKS, MIN_CHUNK_ROWS,  # noqa: F401
                              MIN_CHUNK_ROWS_INT8, MODES, check_int8_rows,
-                             check_layout, chunking, mode_name)
+                             check_layout, chunking, int8_chunk_rows,
+                             int8_shape, mode_name)
 from .split import BestSplit, SplitConfig, _EPS, scan_tables, select_payload
 
 #: scalar lanes ahead of the cat one-hot in the per-child payload:
@@ -152,17 +153,18 @@ def wave_plain(bins, vals, perm, small_start: Sequence[int],
 
 
 def segment_table(small_cnt: Sequence[int], f: int, num_bins: int,
-                  int8: bool = False):
-    """(chunk_rows, chunk offsets (W + 1,)) for one wave: the histogram
-    kernel's ``chunking`` of all its rows (MIN_CHUNK_ROWS_INT8 at least
-    in int8 mode, whose blocks each flush a whole shared histogram; in
-    f32 and bf16 modes no more partials than its SCRATCH_BYTES holds, but
-    at least one chunk for each non-empty sibling: W * F * B * 12 bytes
-    at least, past SCRATCH_BYTES only at uint16 widths, e.g. 352 MB at W
-    = 16, F = 28, B = 65,536)."""
+                  int8: bool = False, wide: bool = False):
+    """(chunk_rows, chunk offsets (W + 1,)) for one wave: in int8 mode
+    the histogram kernel's ``int8_chunk_rows`` of all its rows (blocks
+    enough to fill the card whatever W; ``wide``: over uint16 bins;
+    integer sums do not depend on it); in f32 and bf16 modes the
+    histogram kernel's ``chunking`` of all its rows, no more partials than
+    its SCRATCH_BYTES holds, but at least one chunk for each non-empty
+    sibling: W * F * B * 12 bytes at least, past SCRATCH_BYTES only at
+    uint16 widths, e.g. 352 MB at W = 16, F = 28, B = 65,536."""
     total = int(sum(small_cnt))
     if int8:
-        chunk_rows, _ = chunking(total, min_rows=MIN_CHUNK_ROWS_INT8)
+        chunk_rows = int8_chunk_rows(total, f, num_bins, wide)
     else:
         chunk_rows, _ = chunking(total, f * num_bins)
     per = [-(-int(c) // chunk_rows) for c in small_cnt]
@@ -254,15 +256,14 @@ def _launch(bins, vals, perm, small_start, small_cnt, parent, stats, meta,
     dev = bins.device
     mode = mode_name(vals.dtype, packed4, bins.dtype)
     wide = bins.dtype == torch.uint16
-    chunk_rows, offs = segment_table(small_cnt, f, num_bins, int8)
+    chunk_rows, offs = segment_table(small_cnt, f, num_bins, int8, wide)
     total_chunks = int(offs[-1])
     seg = torch.from_numpy(np.concatenate([
         np.asarray(small_start, np.int64), np.asarray(small_cnt, np.int64),
         offs]).astype(np.int32)).to(dev)
-    # f32 / bf16: chunk partials; int8: the W smaller siblings' int32
-    # histograms
-    scratch = torch.empty((w if int8 else max(total_chunks, 1)), f, num_bins,
-                          3, dtype=hist_t, device=dev)
+    # the chunk partials (f32, or int32 in int8 mode)
+    scratch = torch.empty(max(total_chunks, 1), f, num_bins, 3, dtype=hist_t,
+                          device=dev)
     out_hist = torch.empty(w, 2, f, num_bins, 3, dtype=hist_t, device=dev)
     payload = torch.empty(w, 2, PAYLOAD_SCALARS + num_bins,
                           dtype=torch.float32, device=dev)
@@ -280,6 +281,8 @@ def _launch(bins, vals, perm, small_start, small_cnt, parent, stats, meta,
             torch.cuda.current_stream(dev).cuda_stream)
     with torch.cuda.device(dev):
         if int8:
+            fpb, _, tile, _ = int8_shape(f, num_bins, wide)
+            head = (*head[:9], fpb, tile, *head[9:])
             scale3 = scale3.contiguous()
             mid = (scale3.data_ptr(), *scan)
             err = (lib.lgbt_wave_i8_u16(*head, *mid, *tail) if wide

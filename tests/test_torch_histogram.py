@@ -740,3 +740,146 @@ def test_uint16_accumulation_lane_patterns(cuda_device, b, pattern):
             want = want_fn(tb, v, num_bins=b)
             torch.cuda.synchronize()
             assert torch.equal(got, want), (kind, want_fn.__name__)
+
+
+# ------------------------------------------- the int8 accumulation (B1d)
+def test_int8_block_layout():
+    """The int8 accumulation's blocks: groups of 8 features over byte and
+    nibble bins (an odd F's last group shorter, packed4 groups starting
+    on even features), of 4 over uint16 bins; every bin in one tile of
+    int32 cells (12 bytes a bin in 96 KB) up to B = 2,048 over uint16
+    bins, equal tiles past it."""
+    assert HF.int8_shape(28, 255) == (8, 4, 255, 1)
+    assert HF.int8_shape(27, 16) == (8, 4, 16, 1)
+    assert HF.int8_shape(5, 255) == (5, 1, 255, 1)
+    assert HF.int8_shape(28, 1023, wide=True) == (4, 7, 1023, 1)
+    assert HF.int8_shape(28, 2048, wide=True) == (4, 7, 2048, 1)
+    assert HF.int8_shape(28, 2049, wide=True) == (4, 7, 1025, 2)
+    assert HF.int8_shape(28, 65536, wide=True) == (4, 7, 2048, 32)
+    assert HF.int8_shape(3, 65536, wide=True) == (3, 1, 2622, 25)
+
+
+@pytest.mark.parametrize("n,f,b,rows,blocks", [
+    (200_000, 28, 255, 1516, 528),
+    (10_500_000, 28, 255, 79_546, 528),
+    (1000, 28, 255, 512, 8),
+    (200_000, 28, 1023, 4167, 336),
+    (200_000, 3, 255, 512, 391),
+])
+def test_int8_chunk_layout(n, f, b, rows, blocks):
+    """The int8 histogram's blocks from its shape alone: chunks of
+    ``int8_chunk_rows`` (INT8_BLOCKS blocks across the feature groups and
+    bin tiles, no more than INT8_PARTIAL_BYTES of int32 partials, at
+    least MIN_CHUNK_ROWS_INT8 rows) times the groups and tiles (B = 1,023:
+    uint16 bins).  The first design ran 98 blocks at 200,000 rows, 264 at
+    10,500,000."""
+    chunk_rows = HF.int8_chunk_rows(n, f, b, b > 256)
+    _, groups, _, tiles = HF.int8_shape(f, b, b > 256)
+    assert chunk_rows == rows
+    assert -(-n // chunk_rows) * groups * tiles == blocks
+
+
+def _hot_int8(pattern, n, f, b, rng):
+    """(n, f) bins on which the int8 accumulation's lanes meet on one
+    cell: ``one_bin`` every row of a feature in one bin, ``nan_bin``
+    every other row in the NaN bin b - 1, ``runs_of_32`` each 32 rows on
+    one bin, ``random`` none in particular; and int8 levels at the field
+    limit's edge (+-127 and 0/1 counts)."""
+    if pattern == "one_bin":
+        bins = np.broadcast_to((np.arange(f) * 37 + b // 2) % b, (n, f))
+    elif pattern == "runs_of_32":
+        bins = rng.randint(0, b, (-(-n // 32), f)).repeat(32, axis=0)[:n]
+    else:
+        bins = rng.randint(0, b, (n, f))
+        if pattern == "nan_bin":
+            bins[::2] = b - 1
+    bins = np.ascontiguousarray(bins, np.uint16 if b > 256 else np.uint8)
+    vals = _int8_vals(n, seed=n + b)
+    vals[rng.rand(n) < 0.3, 0] = rng.choice([-127, 127])
+    return bins, vals
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["one_bin", "nan_bin", "runs_of_32",
+                                     "random"])
+@pytest.mark.parametrize("b", [16, 255, 1023, 65536])
+def test_int8_accumulation_hot_bins(cuda_device, b, pattern):
+    """The int8 accumulation on bins whose lanes meet on one cell, F = 28
+    and 27, rows in storage order and through a permutation, at B = 16
+    (also packed4), 255, 1,023 and 65,536 (43 bin tiles): bit for bit the
+    plain int32 histogram."""
+    rng = np.random.RandomState(b + len(pattern))
+    for f in (28, 27):
+        n = 5000 if b == 65536 else 30_000
+        bins, vals = _hot_int8(pattern, n, f, b, rng)
+        tb = torch.from_numpy(bins).to(cuda_device)
+        tv = torch.from_numpy(vals).to(cuda_device)
+        perm = torch.from_numpy(rng.permutation(n)).to(cuda_device)
+        for pb, pv in ((tb, tv), (tb.index_select(0, perm), tv[perm])):
+            want = histogram_segment(pb, pv, num_bins=b)
+            got = HF.histogram_flat(pb, pv, num_bins=b)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (f, "perm" if pb is not tb
+                                            else "storage")
+            if b == 16:
+                p4 = pack_bins4(pb)
+                got4 = HF.histogram_flat(p4, pv, num_bins=b, packed4=True,
+                                         features=f)
+                torch.cuda.synchronize()
+                assert torch.equal(got4, want), (f, "packed4")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [255, 1023])
+def test_int8_accumulation_extreme_levels(cuda_device, b):
+    """1,100,000 rows of every feature in one bin with levels +-127: each
+    block's int32 cells and chunk partials, and the combine's sums, reach
+    1,100,000 * 127 * 6/7 without wrapping: bit for bit the plain
+    version."""
+    n, f = 1_100_000, 28
+    bins = np.ascontiguousarray(np.broadcast_to(
+        (np.arange(f) * 37 + b // 2) % b, (n, f)),
+        np.uint16 if b > 256 else np.uint8)
+    vals = np.tile(np.array([[127, -127, 1]], np.int8), (n, 1))
+    vals[::7] = (-127, 127, 0)
+    tb = torch.from_numpy(bins).to(cuda_device)
+    tv = torch.from_numpy(vals).to(cuda_device)
+    got = HF.histogram_flat(tb, tv, num_bins=b)
+    want = histogram_segment(tb, tv, num_bins=b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [255, 1023])
+def test_int8_launcher_checks_block_layout(cuda_device, b):
+    """The int8 block layout is the wrapper's (``int8_shape``), passed to
+    the kernel: the launcher takes it, and refuses with
+    cudaErrorInvalidValue (1) a group wider than the kernel's words hold
+    (8 features over byte bins, 4 over uint16 bins), an empty group, and
+    a tile wider than the bins."""
+    from lightgbm_tpu_torch.ops._build import load_library
+    n, f = 4096, 28
+    wide = b > 256
+    bins = torch.zeros(n, f, dtype=torch.uint16 if wide else torch.uint8,
+                       device=cuda_device)
+    vals = torch.ones(n, 3, dtype=torch.int8, device=cuda_device)
+    partial = torch.empty(1, f, b, 3, dtype=torch.int32, device=cuda_device)
+    out = torch.empty(f, b, 3, dtype=torch.int32, device=cuda_device)
+    lib = load_library()
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+
+    def launch(fpb, tile):
+        head = (bins.data_ptr(), vals.data_ptr(), n, f, b, n, 1, fpb, tile)
+        tail = (partial.data_ptr(), out.data_ptr(), stream)
+        if wide:
+            return lib.lgbt_histogram_i8_u16(*head, *tail)
+        return lib.lgbt_histogram_i8(*head, 0, *tail)
+
+    fpb, _, tile, _ = HF.int8_shape(f, b, wide)
+    assert launch(fpb, tile) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, histogram_segment(bins, vals, num_bins=b))
+    widest = HF.INT8_GROUP_UINT16 if wide else HF.INT8_GROUP
+    for bad in ((widest + 1, tile), (0, tile), (fpb, b + 1), (fpb, 0)):
+        assert launch(*bad) == 1, bad

@@ -71,12 +71,16 @@ def _code(text: str) -> str:
 def test_kernel_sources_use_no_atomics():
     """The histogram and wave kernels' f32 modes reduce in a fixed order
     (chunk partials, then a combine in chunk order): no float atomics, so
-    a repeated run gives the same bits.  Their int8 modes sum int32, which
-    is exact in any order: the only atomics in the sources are the integer
-    atomicAdds of the int8 accumulation kernel, into int32 cells, and the
-    uint16 scan's one unsigned counter, by which the last of a child's
-    blocks learns it is last (it then reads every block's best in block
-    order: the count orders nothing that is summed)."""
+    a repeated run gives the same bits.  Their int8 modes sum integers,
+    exact in any order: the only atomics in those sources are the int8
+    accumulation kernel's integer atomicAdds into a block's int32 cells
+    in shared memory (its chunk partial then goes out with plain stores,
+    summed by the int8 combine: no global atomics), and the uint16 scan's
+    one unsigned counter, by which the last of a child's blocks learns it
+    is last (it then reads every block's best in block order: the count
+    orders nothing that is summed).  The traversal kernel's only atomic
+    adds a block's int32 partial sum into a row's output, where the tree
+    axis is split."""
     csrc = PORT / "ops" / "csrc"
     assert "atomic" not in _code((csrc / "histogram.cu").read_text()).lower()
     wave = re.sub(r"\s+", " ", _code((csrc / "wave.cu").read_text()))
@@ -89,10 +93,13 @@ def test_kernel_sources_use_no_atomics():
     body = common[start:end]
     assert "atomic" not in (common[:start] + common[end:]).lower()
     targets = re.findall(r"atomicAdd\(([^,]+),", body)
-    assert sorted(set(targets)) == ["cell + 0", "cell + 1", "cell + 2",
-                                    "dst + i"]
-    assert "int32_t* cell =" in body and "int32_t* dst =" in body
+    assert sorted(set(targets)) == ["cell + 0", "cell + 1", "cell + 2"]
+    assert "int32_t s_i8[];" in body and "add(s_i8 +" in body
+    assert "auto add = [&](int32_t* cell)" in body
     assert "float" not in body
+    trav = _code((csrc / "traverse.cu").read_text())
+    assert re.findall(r"atomic\w*\(([^,]+),", trav) == ["out + row"]
+    assert "int32_t* __restrict__ out" in trav and "float" not in trav
 
 
 @pytest.mark.parametrize("path", _port_files(),

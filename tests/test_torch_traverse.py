@@ -6,8 +6,16 @@ models/tree.py and ops/traverse.py) against the JAX package.
 - the plain walk ``_ensemble_sum_q`` equals JAX's ``_ensemble_sum_q`` and
   its interpret-mode Pallas ``fused_class_sums`` bit for bit, degenerate
   trees and multiclass included;
+- the CUDA kernel's layout of a pack, ``walk_table`` (one 8-byte record a
+  node, then the leaves), walked by a plain torch twin of the kernel's
+  step, equals the plain walk and JAX's interpret-mode Pallas kernel bit
+  for bit (int16 and int8 packs, categorical nodes, NaN rows,
+  multiclass, degenerate and chain trees);
 - on the card (``cuda`` marker), the CUDA kernel equals the plain walk at
-  the full serving width (500 trees x 255 leaves x 28 features).
+  the full serving width (500 trees x 255 leaves x 28 features), and on
+  the edge cases: degenerate and chain trees, categorical nodes, NaN
+  rows, a tree axis split into blocks of unequal length, one row, int8
+  leaves, 5,000-leaf trees, rows staged in shared memory and not.
 
 The JAX package is imported inside fixtures, so the file collects on the
 card too."""
@@ -152,6 +160,139 @@ def test_plain_walk_matches_jax_walk_and_pallas_kernel(boosters, kind):
         np.testing.assert_array_equal(got.numpy(), kern)
 
 
+def _walk_table_twin(pack, bins, nan_bins):
+    """The CUDA kernel's walk in plain torch over the pack's walk table:
+    per tree and step, one node record (word 0: feature, default_left at
+    bit 15, split bin at 16, is_cat at 31; word 1: the int16 children),
+    the row's bin and the feature's NaN bin, then the leaf quantum stored
+    after the tree's records."""
+    table = pack["walk_table"].long()
+    t, m = pack["split_feature"].shape
+    mp = tt.table_nodes(m)
+    cats = pack["cat_bits"].long()
+    bb = cats.shape[2]
+    n = bins.shape[0]
+    rows = torch.arange(n)
+    acc = torch.zeros(n, dtype=torch.int32)
+    for ti in range(t):
+        tab = table[ti]
+        node = torch.zeros(n, dtype=torch.long)
+        leaf = torch.zeros(n, dtype=torch.long)
+        walking = torch.ones(n, dtype=torch.bool)
+        for _ in range(int(pack["depth"])):
+            w0, w1 = tab[2 * node], tab[2 * node + 1]
+            feat = w0 & 0x7FFF
+            col = bins[rows, feat].long()
+            byte = cats[ti, node, torch.clamp(col >> 3, max=bb - 1)]
+            go_left = torch.where(
+                w0 < 0, ((byte >> (col & 7)) & 1) > 0,
+                torch.where(col == nan_bins[feat].long(), (w0 >> 15) & 1 > 0,
+                            col <= (w0 >> 16) & 0x7FFF))
+            nxt = torch.where(go_left, ((w1 & 0xFFFF) ^ 0x8000) - 0x8000,
+                              w1 >> 16)
+            leaf = torch.where(walking & (nxt < 0), ~nxt, leaf)
+            walking = walking & (nxt >= 0)
+            node = torch.where(walking, nxt, node)
+        acc += tab[2 * mp + leaf].to(torch.int32)
+    return acc
+
+
+def _with_chain_tree(bst):
+    """The booster's trees and a chain tree of ``num_leaves`` leaves (depth
+    num_leaves - 1), as JAX ``Tree``s and as the port's."""
+    import chip_smoke as cs
+    from lightgbm_tpu.models.tree import Tree as JTree
+    g = bst._gbdt
+    binned = g.train_data.binned
+    trees = g.host_trees()[0]
+    chain = cs.chain_tree(np.random.RandomState(3), g.cfg.num_leaves,
+                          binned.num_bins_per_feature,
+                          trees[0].cat_mask.shape[1])
+    m, leaves = chain["num_leaves"] - 1, chain["num_leaves"]
+    jchain = JTree(threshold=np.zeros(m), split_gain=np.zeros(m, np.float32),
+                   internal_value=np.zeros(m, np.float32),
+                   internal_count=np.zeros(m, np.float32),
+                   leaf_count=np.ones(leaves, np.float32),
+                   leaf_weight=np.ones(leaves, np.float32), **chain)
+    state = state_from_booster(bst)
+    one = {k: np.asarray(getattr(jchain, k)) for k in state["trees"][0][0]}
+    one["num_leaves"] = leaves
+    state["trees"] = [state["trees"][0] + [one]]
+    return trees + [jchain], model_from_arrays(state).host_trees()[0]
+
+
+@pytest.mark.parametrize("mode", ["int16", "int8"])
+@pytest.mark.parametrize("kind", ["binary", "multiclass", "degenerate",
+                                  "chain"])
+def test_walk_table_twin_matches_plain_walk_and_jax(boosters, kind, mode):
+    """``walk_table`` walked by the kernel's plain twin == the port's plain
+    walk == JAX's interpret-mode Pallas kernel, as integers, for every
+    class pack: categorical nodes (feature 4) and NaN rows (binary),
+    three classes, sentinel single-leaf trees, and a chain tree whose
+    depth is num_leaves - 1."""
+    import jax.numpy as jnp
+    from lightgbm_tpu.models.tree import \
+        quantize_stack_trees as jax_quantize
+    from lightgbm_tpu.ops.pallas_traverse import fused_class_sums
+
+    bst, X = boosters["multiclass" if kind == "multiclass" else "binary"]
+    binned = bst._gbdt.train_data.binned
+    bins = binned.apply(X[:300]).astype(np.int32)
+    nan_bins = np.asarray(binned.nan_bins, np.int32)
+    if kind in ("degenerate", "chain"):
+        jtrees, ttrees = (_with_degenerate_trees(bst) if kind == "degenerate"
+                          else _with_chain_tree(bst))
+        args = (bst._gbdt.cfg.num_leaves, binned.max_num_bins, mode)
+        jpacks = [jax_quantize(jtrees, *args)]
+        tpacks = [tt.quantize_stack_trees(ttrees, *args)]
+        if kind == "chain":
+            assert tpacks[0]["depth"] == bst._gbdt.cfg.num_leaves - 1
+    else:
+        model = model_from_arrays(state_from_booster(bst))
+        jpacks = _jax_packs(bst, mode)
+        tpacks = _port_packs(model, mode)
+    for jp, tp in zip(jpacks, tpacks):
+        tb, tn = torch.from_numpy(bins), torch.from_numpy(nan_bins)
+        got = _walk_table_twin(tp, tb, tn)
+        kern = np.asarray(fused_class_sums(jp, jnp.asarray(bins),
+                                           jnp.asarray(nan_bins),
+                                           interpret=True))
+        np.testing.assert_array_equal(got.numpy(), kern)
+        np.testing.assert_array_equal(
+            got.numpy(), tt._ensemble_sum_q(tp, tb, tn).numpy())
+
+
+def test_walk_table_layout():
+    """One tree's records and leaves where the kernel reads them: the
+    flags in the spare high bits of feature and split bin, the children
+    as int16 halves, a categorical node's split bin stored as 0, the
+    leaves widened to int32 after the records (node count rounded up to
+    even, the row to a multiple of 4 words); a numerical split bin past
+    15 bits is refused."""
+    tr = tt.Tree(split_feature=np.array([3, 32767], np.int32),
+                 split_bin=np.array([5, 9], np.int32),
+                 default_left=np.array([True, False]),
+                 is_cat=np.array([False, True]),
+                 cat_mask=np.zeros((2, 16), bool),
+                 left_child=np.array([1, ~0], np.int32),
+                 right_child=np.array([~2, ~1], np.int32),
+                 leaf_value=np.array([0.5, -1.0, 2.0]), num_leaves=3)
+    pack = tt.quantize_stack_trees([tr], 4, 16, "int8")
+    table = pack["walk_table"].numpy().view(np.uint32)
+    assert table.shape == (1, 12) and tt.table_nodes(3) == 4
+    assert table[0, 0] == 3 | 1 << 15 | 5 << 16
+    assert table[0, 1] == 1 | (~2 & 0xFFFF) << 16
+    assert table[0, 2] == 32767 | 1 << 31
+    assert table[0, 3] == (~0 & 0xFFFF) | (~1 & 0xFFFF) << 16
+    assert table[0, 4:8].tolist() == [0, 0, 0, 0]
+    np.testing.assert_array_equal(table[0, 8:11].view(np.int32),
+                                  pack["leaf_q"][0, :3].numpy())
+    bad = {k: v.clone() for k, v in pack.items() if torch.is_tensor(v)}
+    bad["split_bin"][0, 0] = -1
+    with pytest.raises(ValueError, match="split bins"):
+        tt.walk_table(bad)
+
+
 def test_degenerate_tree_pack_walks_to_leaf_zero():
     """A tree with one leaf is encoded with sentinel children and sums its
     single quantum for every row, in the plain walk and the wrapper."""
@@ -218,3 +359,50 @@ def test_kernel_matches_plain_full_width(cuda_device, mode):
         torch.cuda.synchronize()
         assert torch.equal(got, want), n
     assert traverse.launches == before + 3
+
+
+def _edge_pack(device, mode, num_trees, num_leaves, seed):
+    """``chip_smoke.edge_case_trees`` over 12 features (3 and 7
+    categorical, up to 64 bins, some features with a NaN bin), their pack,
+    rows binned at random with a fifth of each NaN feature's rows in its
+    NaN bin, and the NaN bins."""
+    import chip_smoke as cs
+    rng = np.random.RandomState(seed)
+    f, b = 12, 64
+    nbpf = rng.randint(8, b + 1, f)
+    trees = cs.edge_case_trees(rng, nbpf, b, (3, 7), num_trees, num_leaves)
+    pack = tt.quantize_stack_trees(trees, num_leaves, b, mode, device)
+    nan_bins = np.where(rng.rand(f) < 0.5, nbpf - 1, b).astype(np.int32)
+
+    def rows(n):
+        bins = (rng.rand(n, f) * nbpf).astype(np.int32)
+        nan = (rng.rand(n, f) < 0.2) & (nan_bins < b)
+        bins[nan] = np.broadcast_to(nan_bins, (n, f))[nan]
+        return torch.from_numpy(bins).to(device)
+    return pack, rows, torch.from_numpy(nan_bins).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int16", "int8"])
+@pytest.mark.parametrize("num_trees,num_leaves", [(21, 255), (3, 5000)])
+def test_kernel_edge_cases(cuda_device, mode, num_trees, num_leaves,
+                           monkeypatch):
+    """The traversal kernel == the plain walk on categorical nodes, NaN
+    rows, single-leaf and chain trees (depth num_leaves - 1), 5,000-leaf
+    trees, at N = 1, 33, 4,096 and 70,000 (at 70,000 rows and T = 21 the
+    tree axis is split into blocks of 2 trees, the last of 1), with the
+    rows' bins staged in shared memory (every launch, here) and read
+    from global memory."""
+    pack, rows, nanb = _edge_pack(cuda_device, mode, num_trees, num_leaves,
+                                  seed=num_leaves)
+    assert traverse.launch_shape(70_000, 21, 12, 132) == (2, False)
+    for stage in (True, False):
+        monkeypatch.setattr(traverse, "ROW_STAGE_MIN_TREES",
+                            1 if stage else 10 ** 9)
+        assert traverse.launch_shape(1, num_trees, 12, 132)[1] == stage
+        for n in (1, 33, 4096, 70_000):
+            bins = rows(n)
+            got = traverse.fused_class_sums(pack, bins, nanb)
+            want = tt._ensemble_sum_q(pack, bins, nanb)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (n, stage)

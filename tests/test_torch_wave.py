@@ -834,3 +834,63 @@ def test_uint16_chunk_layout(sizes, f, b, rows, chunks):
     assert chunk_rows == rows
     assert np.diff(offs).tolist() == chunks
     assert WV.chunking(200_000, 28 * 1023) == (1024, 196)
+
+
+def _int8_hot_edit(pattern, b):
+    """A ``wave_inputs`` edit on which the int8 stage 1's lanes meet on
+    one cell: ``one_bin`` every row of a feature in one bin, ``nan_bin``
+    every other row in the NaN bin b - 1 of every feature."""
+    def edit(bins, nan_feats):
+        if pattern == "one_bin":
+            bins[:] = (np.arange(bins.shape[1]) * 37 + b // 2) % b
+        else:
+            bins[::2] = b - 1
+            nan_feats[:] = True
+    return edit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["one_bin", "nan_bin"])
+@pytest.mark.parametrize("mode,b,w", [
+    ("int8", 255, 1), ("int8", 255, 4), ("int8", 255, 16),
+    ("int8_packed4", 16, 1), ("int8_packed4", 16, 16),
+    ("int8", 1023, 1), ("int8", 1023, 16), ("int8", 65536, 1)])
+def test_int8_stage1_hot_bins(cuda_device, mode, b, w, pattern):
+    """The int8 wave's stage 1 (the int8 accumulation through the
+    permutation) on bins whose lanes meet on one cell, at W = 1, 4 and
+    16 siblings of 3,000 rows (300 at B = 65,536), F = 28 (27 packed):
+    child histograms bit for bit the plain version's, payloads too on
+    power-of-two scales."""
+    sizes = [300 if b == 65536 else 3000] * w
+    f = 27 if mode.endswith("packed4") else 28
+    inp, _ = wave_inputs(sum(2 * s for s in sizes), f, b, sizes, seed=w + b,
+                         exact=True, device=cuda_device, scales=POW2_SCALES,
+                         mode=mode, edit=_int8_hot_edit(pattern, b))
+    h1, p1 = WV.fused_wave_call(cfg=CFG, **inp)
+    hp, pp = WV.wave_plain(cfg=CFG, **inp)
+    torch.cuda.synchronize()
+    assert h1.dtype == torch.int32 and torch.equal(h1, hp)
+    assert torch.equal(p1, pp)
+
+
+@pytest.mark.parametrize("sizes,b,rows,chunks,blocks", [
+    ([12_500] * 16, 255, 1516, [9] * 16, 576),
+    ([12_500] * 4, 255, 512, [25] * 4, 400),
+    ([12_500], 255, 512, [25], 100),
+    ([12_500] * 16, 1023, 4167, [3] * 16, 336),
+    ([1, 0, 100_000], 255, 758, [1, 0, 132], 532),
+])
+def test_int8_chunk_layout(sizes, b, rows, chunks, blocks):
+    """The int8 wave's stage-1 blocks from shapes alone (F = 28): the
+    smaller siblings' rows together in ``int8_chunk_rows`` chunks (one
+    block per chunk, feature group and bin tile; at B = 1,023, uint16
+    bins in groups of 4 features, the int32 partials cap the chunks), so
+    a wave of W = 1, 4 or 16 siblings of 12,500 rows puts 100, 400 or 576
+    blocks on the card (the first design's 2,048-row chunks over every
+    feature: 7, 28 and 112)."""
+    chunk_rows, offs = WV.segment_table(sizes, 28, b, int8=True,
+                                        wide=b > 256)
+    assert chunk_rows == rows
+    assert np.diff(offs).tolist() == chunks
+    _, groups, _, tiles = WV.int8_shape(28, b, b > 256)
+    assert int(offs[-1]) * groups * tiles == blocks
