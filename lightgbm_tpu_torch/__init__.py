@@ -5,7 +5,10 @@ kernel (``ops/csrc/traverse.cu``, int16/int8 packs) and, since slice 2,
 the fp32 pack.  Slice 2 trains binary-logloss GBDT: ``train`` ->
 binning -> gradients -> leaf-wise wave growth through the hand-written
 CUDA histogram and fused-wave kernels (``ops/csrc/histogram.cu``,
-``ops/csrc/wave.cu``) -> model text.  A config it does not train raises
+``ops/csrc/wave.cu``) -> model text.  Slice 11 trains every non-ranking
+objective (regression family, multiclass softmax / one-vs-all, cross
+entropy; K trees an iteration for multiclass) through the same kernels,
+and scores valid sets with metrics, callbacks and early stopping.  A config it does not train raises
 ``NotImplementedError`` naming its ROADMAP item.
 
 Entry points run on the CUDA device unless the caller passes
@@ -14,14 +17,17 @@ package imports ``torch`` and never ``jax`` or ``lightgbm_tpu``.
 """
 
 from .basic import Booster, Dataset
+from .callback import (EarlyStopException, early_stopping, log_evaluation,
+                       record_evaluation, reset_parameter)
 from .binning import bin_dataset, mappers_from_arrays, mappers_to_arrays
 from .config import Config
 from .convert import model_from_arrays
-from .engine import train
+from .engine import cv, train
 from .models import GBDT, Tree
 from .serve import BucketLadder, PredictPlan, Predictor
 
-__all__ = ["Booster", "BucketLadder", "Config", "Dataset", "GBDT",
-           "PredictPlan", "Predictor", "Tree", "bin_dataset",
+__all__ = ["Booster", "BucketLadder", "Config", "Dataset",
+           "EarlyStopException", "GBDT", "PredictPlan", "Predictor", "Tree",
+           "bin_dataset", "cv", "early_stopping", "log_evaluation",
            "mappers_from_arrays", "mappers_to_arrays", "model_from_arrays",
-           "train"]
+           "record_evaluation", "reset_parameter", "train"]

@@ -1,7 +1,8 @@
 """Typed configuration with LightGBM-compatible parameter names and aliases.
 
 The port's slice of the JAX package's ``config.py``: the keys the serving
-and binary-training slices read, with the JAX package's names, defaults,
+and training slices read (the objectives, metrics and early stopping
+included), with the JAX package's names, defaults,
 aliases and bounds, plus the keys whose non-default values the port
 refuses (``models/gbdt.py::check_supported``).  Alias resolution follows
 ``ParameterAlias::KeyAliasTransform`` semantics (first write wins, aliases
@@ -56,6 +57,8 @@ _PARAMS: List[Tuple[str, Any, Any, Tuple[str, ...], Optional[Tuple[Any, Any]]]] 
     ("extra_trees", bool, False, ("extra_tree",), None),
     ("early_stopping_round", int, 0,
      ("early_stopping_rounds", "early_stopping", "n_iter_no_change"), None),
+    ("early_stopping_min_delta", float, 0.0, (), (0.0, None)),
+    ("first_metric_only", bool, False, (), None),
     ("max_delta_step", float, 0.0,
      ("max_tree_output", "max_leaf_output"), None),
     ("lambda_l1", float, 0.0, ("reg_alpha", "l1_regularization"),
@@ -106,8 +109,18 @@ _PARAMS: List[Tuple[str, Any, Any, Tuple[str, ...], Optional[Tuple[Any, Any]]]] 
     ("scale_pos_weight", float, 1.0, (), (0.0, None)),
     ("sigmoid", float, 1.0, (), (0.0, None)),
     ("boost_from_average", bool, True, (), None),
+    ("reg_sqrt", bool, False, (), None),
+    ("alpha", float, 0.9, (), (0.0, None)),
+    ("fair_c", float, 1.0, (), (0.0, None)),
+    ("poisson_max_delta_step", float, 0.7, (), (0.0, None)),
+    ("tweedie_variance_power", float, 1.5, (), (1.0, 2.0)),
     # ---- metric
     ("metric", "list_str", None, ("metrics", "metric_types"), None),
+    ("metric_freq", int, 1, ("output_freq",), (1, None)),
+    ("is_provide_training_metric", bool, False,
+     ("training_metric", "is_training_metric", "train_metric"), None),
+    ("multi_error_top_k", int, 1, (), (1, None)),
+    ("auc_mu_weights", "list_float", None, (), None),
     ("num_machines", int, 1, ("num_machine",), (1, None)),
     # ---- the JAX package's device knobs
     ("tpu_histogram_impl", str, "auto", (), None),
@@ -235,6 +248,9 @@ class Config:
         obj = self.objective
         if obj in _OBJECTIVE_ALIASES:
             object.__setattr__(self, "objective", _OBJECTIVE_ALIASES[obj])
+        elif obj.startswith("quantile:") or obj.startswith("alpha:"):
+            object.__setattr__(self, "alpha", float(obj.split(":")[1]))
+            object.__setattr__(self, "objective", "quantile")
         if self.boosting in ("gbrt", "gbdt"):
             object.__setattr__(self, "boosting", "gbdt")
         elif self.boosting in ("rf", "random_forest"):
@@ -247,3 +263,11 @@ class Config:
             raise ValueError("num_class must be >1 for multiclass objectives")
         if self.is_unbalance and self.scale_pos_weight != 1.0:
             raise ValueError("is_unbalance and scale_pos_weight cannot both be set")
+
+    @property
+    def num_model_per_iteration(self) -> int:
+        """Trees an iteration: ``num_class`` for the multiclass objectives
+        (and ``custom``, as the reference's null objective), else 1."""
+        if self.objective in ("multiclass", "multiclassova", "custom"):
+            return self.num_class
+        return 1

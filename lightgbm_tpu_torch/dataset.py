@@ -5,7 +5,9 @@ The port of the JAX package's ``dataset.py::TrainData``: ``build`` checks
 the label and weights, bins the matrix on the host with the port's
 ``bin_dataset`` (the JAX package's mappers byte for byte), and
 ``bins_device`` / ``feature_meta_device`` put the bins and the
-per-feature metadata on a device.  The bins are the (N, F) uint8 matrix
+per-feature metadata on a device.  A valid set is built with
+``reference=`` the training data: its rows are binned with the training
+mappers, as in the JAX package.  The bins are the (N, F) uint8 matrix
 (uint16 above 256 bins, as the JAX package stores them), or with
 ``packed4`` (every feature at <= 16 bins) its (N, ceil(F/2))
 4-bit nibble pairs (``ops/histogram.py::pack_bins4``, packed on the
@@ -50,19 +52,25 @@ class TrainData:
     @classmethod
     def build(cls, X, label, cfg: Config, *, weight=None, init_score=None,
               categorical_features: Sequence[int] = (),
-              feature_names: Optional[List[str]] = None) -> "TrainData":
+              feature_names: Optional[List[str]] = None,
+              reference: Optional["TrainData"] = None) -> "TrainData":
         if not _is_sparse(X):
             X = np.asarray(X)
         _check_finite(np.asarray(label, np.float64).ravel(), "label")
         if weight is not None:
             _check_finite(np.asarray(weight, np.float64).ravel(),
                           "sample weight")
-        binned = bin_dataset(
-            X, max_bin=cfg.max_bin, min_data_in_bin=cfg.min_data_in_bin,
-            categorical_features=categorical_features,
-            use_missing=cfg.use_missing, zero_as_missing=cfg.zero_as_missing,
-            sample_cnt=cfg.bin_construct_sample_cnt,
-            random_state=cfg.data_random_seed)
+        if reference is not None:
+            binned = dataclasses.replace(
+                reference.binned, bins=reference.binned.apply(X))
+        else:
+            binned = bin_dataset(
+                X, max_bin=cfg.max_bin, min_data_in_bin=cfg.min_data_in_bin,
+                categorical_features=categorical_features,
+                use_missing=cfg.use_missing,
+                zero_as_missing=cfg.zero_as_missing,
+                sample_cnt=cfg.bin_construct_sample_cnt,
+                random_state=cfg.data_random_seed)
         return cls(
             binned=binned, label=np.asarray(label),
             weight=None if weight is None else np.asarray(weight, np.float32),

@@ -1,39 +1,116 @@
-"""Training entry point: ``train``.
+"""Training entry points: ``train`` (and ``cv``, not ported yet).
 
-The port of the JAX package's ``engine.py::train`` for the binary
-training slice: ``params``, ``train_set``, ``num_boost_round`` and the
-port's ``device``.  ``num_iterations`` / ``num_boost_round`` in
-``params`` win over the argument, as in the JAX package.  Valid sets,
-callbacks, early stopping, ``feval``, ``init_model`` and checkpoints are
-later work (ROADMAP A5c, A8.9, A11): passing any of them raises.
+The port of the JAX package's ``engine.py::train`` (reference
+``python-package/lightgbm/engine.py``): ``params``, ``train_set``,
+``num_boost_round``, ``valid_sets`` / ``valid_names``, ``feval``,
+``callbacks`` and the port's ``device``.  ``num_iterations`` /
+``num_boost_round`` in ``params`` win over the argument; the
+early-stopping params (``early_stopping_round`` and its aliases,
+``first_metric_only``, ``early_stopping_min_delta``) add an
+``early_stopping`` callback when there is a valid set, as in the JAX
+package.  Metrics are computed only on rounds a callback consumes
+(``eval_period``), and an early stop sets ``best_iteration`` and
+``best_score``.  A callable ``objective`` trains through
+``Booster.update(fobj=...)``.  ``init_model`` (ROADMAP A8.9),
+``resume_from`` (A11) and ``cv`` (A5d) are later work and raise.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
+from . import callback as callback_mod
 from .basic import Booster, Dataset
+from .callback import CallbackEnv, EarlyStopException
 
 
 def train(params: Dict[str, Any], train_set: Dataset,
-          num_boost_round: int = 100, *, device=None, **kwargs) -> Booster:
+          num_boost_round: int = 100,
+          valid_sets: Optional[Sequence[Dataset]] = None,
+          valid_names: Optional[Sequence[str]] = None,
+          feval: Optional[Callable] = None,
+          init_model=None, keep_training_booster: bool = False,
+          callbacks: Optional[List[Callable]] = None,
+          resume_from: Optional[str] = None, *, device=None) -> Booster:
     """Train a booster on ``device`` (the CUDA card unless ``"cpu"``)."""
-    given = sorted(k for k, v in kwargs.items() if v is not None)
-    if given:
+    if init_model is not None:
         raise NotImplementedError(
-            f"train options {given} are not ported to lightgbm_tpu_torch "
-            "yet (ROADMAP A5c: valid sets, callbacks, early stopping)")
+            "init_model (continued training) is not ported to "
+            "lightgbm_tpu_torch yet (ROADMAP A8.9; it needs A5b)")
+    if resume_from is not None:
+        raise NotImplementedError(
+            "resume_from (checkpoints) is not ported to lightgbm_tpu_torch "
+            "yet (ROADMAP A11)")
+    fobj = None
     if callable(params.get("objective")):
-        raise NotImplementedError(
-            "a callable objective is not ported yet; pass fobj to "
-            "Booster.update")
+        fobj = params["objective"]
+        params = {**params, "objective": "custom"}
     params = copy.deepcopy(params)
     if "num_iterations" in params or "num_boost_round" in params:
         num_boost_round = int(params.pop("num_boost_round",
                               params.pop("num_iterations", num_boost_round)))
-    booster = Booster(params=params, train_set=train_set, device=device)
-    for _ in range(num_boost_round):
-        if booster.update():
+    early_stopping_rounds = None
+    for alias in ("early_stopping_round", "early_stopping_rounds",
+                  "early_stopping", "n_iter_no_change"):
+        if params.get(alias):
+            early_stopping_rounds = int(params[alias])
+    first_metric_only = bool(params.get("first_metric_only", False))
+    es_min_delta = float(params.get("early_stopping_min_delta", 0.0))
+
+    names = list(valid_names or [])
+    valid_pairs = []
+    for i, vs in enumerate(valid_sets or []):
+        if vs is train_set:
+            continue
+        valid_pairs.append((names[i] if i < len(names) else f"valid_{i}",
+                            vs))
+    booster = Booster(params=params, train_set=train_set,
+                      valid_sets=valid_pairs, device=device)
+
+    cbs = list(callbacks or [])
+    if early_stopping_rounds is not None and valid_pairs:
+        cbs.append(callback_mod.early_stopping(
+            early_stopping_rounds, first_metric_only=first_metric_only,
+            verbose=params.get("verbosity", 1) > 0, min_delta=es_min_delta))
+    cbs_before = sorted((cb for cb in cbs
+                         if getattr(cb, "before_iteration", False)),
+                        key=lambda cb: getattr(cb, "order", 0))
+    cbs_after = sorted((cb for cb in cbs
+                        if not getattr(cb, "before_iteration", False)),
+                       key=lambda cb: getattr(cb, "order", 0))
+    # eval cadence: metrics only on rounds a callback (or feval) consumes;
+    # eval_period <= 0 marks a callback that consumes none
+    periods = [p for p in (int(getattr(cb, "eval_period", 1))
+                           for cb in cbs_after) if p > 0]
+    if feval is not None:
+        periods.append(1)
+
+    def fire_after(it: int) -> bool:
+        """Metrics and after-callbacks of round ``it``; True = stop."""
+        if not any((it + 1) % p == 0 for p in periods):
+            return False
+        evals = booster._evals(feval)
+        try:
+            for cb in cbs_after:
+                cb(CallbackEnv(booster, params, it, 0, num_boost_round,
+                               evals))
+        except EarlyStopException as e:
+            booster.best_iteration = e.best_iteration + 1
+            booster.best_score = e.best_score
+            return True
+        return False
+
+    for it in range(num_boost_round):
+        for cb in cbs_before:
+            cb(CallbackEnv(booster, params, it, 0, num_boost_round, None))
+        finished = booster.update(fobj=fobj)
+        if fire_after(it) or finished:
             break
     return booster
+
+
+def cv(*args, **kwargs):
+    """Cross-validation: not ported yet."""
+    raise NotImplementedError(
+        "cv is not ported to lightgbm_tpu_torch yet (ROADMAP A5d)")

@@ -2,12 +2,20 @@
 
 The port of the single-device training half of the JAX package's
 ``models/gbdt.py::GBDT`` (reference ``GBDT::TrainOneIter``): boost from
-average, then per iteration binary gradients -> leaf-wise growth
-(``models/grower.py``) -> shrinkage -> the score update, with the JAX
-package's rounding rule (the shrunk leaf values are materialized, then
-one add per row).  Under ``use_quantized_grad`` each iteration's
-stochastic rounding draws from its own ``torch.Generator`` seeded from
-``(seed, iteration)`` (``ops/quantize.py::quant_generator``).  With every
+average, then per iteration the objective's gradients -> for each of the
+K trees of the iteration (K = the objective's
+``num_model_per_iteration``; scores are (N, K) for the multiclass
+objectives, (N,) otherwise) leaf-wise growth (``models/grower.py``) on
+the class's gradient column -> the objective's percentile leaf renewal
+where it has one (host numpy, as in the JAX package) -> shrinkage -> the
+score update, with the JAX package's rounding rule (the shrunk leaf
+values are materialized, then one add per row).  Each stored tree also
+adds its f32 prediction to every valid set's scores (a one-tree fp32
+walk over the valid bins, kept on the device), and ``eval_set`` scores
+the training and valid sets with the config's metrics on the host.
+Under ``use_quantized_grad`` each tree's stochastic rounding draws from
+its own ``torch.Generator`` seeded from ``(seed, iteration)``, and the
+class too when K > 1 (``ops/quantize.py::quant_generator``).  With every
 feature at <= 16 bins and ``tpu_4bit_bins`` on (the default) the bins
 are stored as 4-bit nibble pairs (``GrowerConfig.packed4``).  Scores,
 bins and gradients live on the device; each grown tree becomes a host
@@ -33,12 +41,13 @@ from torch.profiler import record_function
 from ..binning import BinnedData, build_bundles
 from ..config import Config, _CANONICAL
 from ..dataset import TrainData
-from ..objectives import create_objective
+from ..metrics import metrics_for_config
+from ..objectives import RANKING, create_objective
 from ..ops.quantize import quant_generator
 from ..ops.split import SplitConfig
 from ..utils.device import resolve_device
 from .grower import GrowerConfig, make_grower
-from .tree import Tree
+from .tree import Tree, tree_scores
 
 #: histogram impls the port trains with
 _HIST_IMPLS = ("auto", "pallas", "flat", "flat_bf16", "segment", "onehot")
@@ -51,16 +60,17 @@ def _todo(what: str, item: str) -> NotImplementedError:
 
 def check_supported(cfg: Config, train: Optional[TrainData] = None) -> None:
     """Raise ``NotImplementedError`` (naming the ROADMAP item) for every
-    param value, and every dataset, that the binary-training slice does
-    not train."""
+    param value, and every dataset, that the port does not train yet."""
     unknown = sorted(k for k in cfg.raw_params if k not in _CANONICAL)
+    ops = [k for k in unknown if k.startswith("checkpoint")
+           or k in ("snapshot_freq", "save_period")]
+    if ops:
+        raise _todo(f"checkpoint param(s) {ops}", "A11")
     if unknown:
         raise _todo(f"param(s) {unknown}", "queue A: the rest of the "
                     "param table, A1")
-    if cfg.objective != "binary":
-        raise _todo(f"training objective={cfg.objective}", "A8.1/A8.2")
-    if cfg.num_class != 1:
-        raise _todo("num_class > 1", "A8.1")
+    if cfg.objective in RANKING:
+        raise _todo(f"training objective={cfg.objective}", "A8.2")
     if cfg.boosting != "gbdt":
         raise _todo(f"boosting={cfg.boosting}", "A8.9")
     if (cfg.data_sample_strategy != "bagging" or cfg.bagging_fraction < 1.0
@@ -89,8 +99,6 @@ def check_supported(cfg: Config, train: Optional[TrainData] = None) -> None:
     if cfg.tree_learner != "serial" or cfg.num_machines > 1:
         raise _todo(f"tree_learner={cfg.tree_learner} / num_machines",
                     "A10")
-    if cfg.early_stopping_round > 0:
-        raise _todo("early stopping", "A5c")
     if cfg.tpu_iter_pack > 0:
         raise _todo("iteration packing (tpu_iter_pack)", "A8.11")
     if cfg.max_bin_by_feature or cfg.forcedbins_filename:
@@ -137,18 +145,23 @@ def _split_config(cfg: Config, train: Optional[TrainData] = None
 
 class GBDT:
     """A boosted ensemble: ``models[k][i]`` is class ``k``'s tree of
-    iteration ``i``.  ``GBDT(cfg, train, device=...)`` trains;
-    :meth:`from_trees` wraps trees carried across for serving."""
+    iteration ``i``.  ``GBDT(cfg, train, valids, device=...)`` trains
+    (``valids``: ``(name, TrainData)`` pairs binned with the training
+    mappers); :meth:`from_trees` wraps trees carried across for
+    serving."""
 
-    def __init__(self, cfg: Config, train: TrainData, device=None):
+    def __init__(self, cfg: Config, train: TrainData, valids=(),
+                 device=None):
         check_supported(cfg, train)
         self.cfg = cfg
         self.train_data = train
         self.device = resolve_device(device)
-        self.num_class = 1
-        self.models: List[List[Tree]] = [[]]
+        self.num_class = cfg.num_model_per_iteration
+        self.models: List[List[Tree]] = [[] for _ in range(self.num_class)]
         self.objective = create_objective(cfg)
-        self.objective.init(train.label, train.weight, self.device)
+        if self.objective is not None:
+            self.objective.init(train.label, train.weight, self.device)
+        self.metrics = metrics_for_config(cfg)
         # 4-bit bin storage (reference DenseBin IS_4BIT; the JAX package's
         # gate without its EFB and feature-parallel exclusions, which the
         # port refuses or lacks): every feature at <= 16 bins.
@@ -168,10 +181,19 @@ class GBDT:
         self.grow = make_grower(self.grower_cfg)
         self.bins_dev = train.bins_device(self.device, packed4=packed4)
         self.meta_dev = train.feature_meta_device(self.device)
-        self.init_scores = np.zeros(1, np.float64)
-        if cfg.boost_from_average and train.init_score is None:
-            self.init_scores[0] = self.objective.boost_from_score(0)
+        self.init_scores = np.zeros(self.num_class, np.float64)
+        # reference gbdt.cpp:319: boost from average only when the data
+        # carries no init score
+        if (cfg.boost_from_average and self.objective is not None
+                and train.init_score is None):
+            for k in range(self.num_class):
+                self.init_scores[k] = self.objective.boost_from_score(k)
+        # (N, K) scores: config refuses a multiclass objective at K = 1
+        self._shape_k = self.num_class > 1
         self.scores = self._init_scores_array(train)
+        self.valids, self.valid_bins, self.valid_scores = [], [], []
+        for name, data in valids:
+            self.add_valid(name, data)
         n, f = train.num_data, train.num_features
         self._full_mask = torch.ones(n, dtype=torch.float32,
                                      device=self.device)
@@ -198,54 +220,171 @@ class GBDT:
 
     # ---------------------------------------------------------- training
     def _init_scores_array(self, data: TrainData) -> torch.Tensor:
-        """(N,) f32 start scores: the init score in f32, plus the data's
-        own init_score (added in f32, as the JAX package adds them)."""
+        """(N,) or (N, K) f32 start scores: the init scores in f32, plus
+        the data's own init_score (added in f32, as the JAX package adds
+        them)."""
         n = data.num_data
         base = np.tile(self.init_scores[None, :], (n, 1)).astype(np.float32)
         if data.init_score is not None:
             base = base + np.asarray(data.init_score, np.float32).reshape(
                 n, -1)
-        return torch.from_numpy(np.ascontiguousarray(base[:, 0])).to(
-            self.device)
+        if self.num_class == 1:
+            base = base[:, 0]
+        return torch.from_numpy(np.ascontiguousarray(base)).to(self.device)
 
-    def _grow_apply(self, grad, hess, shrink: float):
-        """``grow_apply``: grow one tree, shrink it, and add its leaf
-        values to the scores."""
+    def _grow(self, grad, hess, iteration: int, class_id: Optional[int]):
+        """Grow one tree of ``iteration`` on (N,) gradients; ``class_id``
+        seeds its own stochastic rounding when the iteration grows K
+        trees."""
         meta = self.meta_dev
-        qgen = (quant_generator(self.cfg.seed, self.iter_, self.device)
+        qgen = (quant_generator(self.cfg.seed, iteration, self.device,
+                                class_id)
                 if self.cfg.use_quantized_grad else None)
         with record_function("gbdt/grow"):
-            arrays, row_leaf = self.grow(
+            return self.grow(
                 self.bins_dev, grad, hess, self._full_mask, self._fmask,
                 meta["num_bins_per_feature"], meta["nan_bins"],
                 meta["is_categorical"], quant_generator=qgen)
+
+    def _shrink(self, arrays, shrink: float):
+        """Shrunk leaf values (zero for a stump) and internal values."""
+        s = torch.tensor(np.float32(shrink))
+        lv = (arrays.leaf_value * s if arrays.num_leaves > 1
+              else torch.zeros_like(arrays.leaf_value))
+        return arrays._replace(leaf_value=lv,
+                               internal_value=arrays.internal_value * s)
+
+    def _renew_and_shrink(self, arrays, row_leaf, scores_k, shrink: float):
+        """Host percentile leaf renewal (reference ``RenewTreeOutput``:
+        L1, Huber, Quantile, MAPE), then shrinkage: ``row_leaf`` and the
+        class's scores go to the host, as in the JAX package."""
+        nl = int(arrays.num_leaves)
+        if nl <= 1:
+            return arrays._replace(
+                leaf_value=torch.zeros_like(arrays.leaf_value))
+        with record_function("gbdt/renew"):
+            rl = row_leaf.cpu().numpy()
+            sc = scores_k.cpu().numpy()
+            renewed = self.objective.renew_leaf_values(sc, rl, nl)
+        lv = np.zeros(arrays.leaf_value.shape[0], np.float32)
+        lv[:nl] = renewed * shrink
+        return arrays._replace(
+            leaf_value=torch.from_numpy(lv),
+            internal_value=arrays.internal_value
+            * torch.tensor(np.float32(shrink)))
+
+    def _grow_apply(self, grad, hess, shrink: float, iteration: int,
+                    class_id: Optional[int] = None):
+        """``grow_apply``: grow one tree, shrink it (renewing its leaves
+        first where the objective refits them), and add its leaf values
+        to the scores (column ``class_id`` of (N, K) scores)."""
+        arrays, row_leaf = self._grow(grad, hess, iteration, class_id)
+        k = 0 if class_id is None else class_id
+        scores_k = self.scores[:, k] if self._shape_k else self.scores
+        renew = (self.objective is not None
+                 and self.objective.need_renew_tree_output)
+        if renew:
+            arrays = self._renew_and_shrink(arrays, row_leaf, scores_k,
+                                            shrink)
         with record_function("gbdt/score_update"):
-            s = torch.tensor(np.float32(shrink))
-            lv = (arrays.leaf_value * s if arrays.num_leaves > 1
-                  else torch.zeros_like(arrays.leaf_value))
-            arrays = arrays._replace(leaf_value=lv,
-                                     internal_value=arrays.internal_value * s)
-            lv_dev = lv.to(self.device)
-            self.scores = self.scores + lv_dev[row_leaf.long()]
+            if not renew:
+                arrays = self._shrink(arrays, shrink)
+            new_k = scores_k + arrays.leaf_value.to(self.device)[
+                row_leaf.long()]
+            if self._shape_k:
+                self.scores[:, k] = new_k
+            else:
+                self.scores = new_k
         return arrays
 
+    def _add_to_valid(self, i: int, k: int, tree: Tree) -> None:
+        """Add ``tree``'s f32 prediction to column ``k`` of valid set
+        ``i``'s scores."""
+        pred = tree_scores(tree, self.valid_bins[i], self.meta_dev["nan_bins"],
+                           self.cfg.num_leaves,
+                           self.train_data.binned.max_num_bins)
+        if self._shape_k:
+            self.valid_scores[i][:, k] += pred
+        else:
+            self.valid_scores[i] = self.valid_scores[i] + pred
+
+    def add_valid(self, name: str, data: TrainData) -> None:
+        """Score ``data`` (binned with the training mappers) as a valid
+        set: its bins go to the device as (N, F) int32 (the fp32 walk's
+        input), and its scores start at the model's so far, every tree
+        added in training order."""
+        self.valids.append((name, data))
+        self.valid_bins.append(torch.from_numpy(
+            data.binned.bins.astype(np.int32)).to(self.device))
+        self.valid_scores.append(self._init_scores_array(data))
+        i = len(self.valids) - 1
+        for it in range(self.iter_):
+            for k in range(self.num_class):
+                self._add_to_valid(i, k, self.models[k][it])
+
+    def _store_tree(self, k: int, arrays) -> None:
+        """Keep class ``k``'s new tree on the host and add its f32
+        prediction to every valid set's scores."""
+        with record_function("gbdt/host_tree"):
+            tree = Tree.from_arrays(
+                arrays, self.train_data.binned.upper_bounds_padded)
+            self.models[k].append(tree)
+        if self.valids:
+            with record_function("gbdt/valid_scores"):
+                for i in range(len(self.valids)):
+                    self._add_to_valid(i, k, tree)
+
     def train_one_iter(self, grad=None, hess=None) -> bool:
-        """One boosting iteration; ``grad``/``hess`` (N,) override the
-        objective's.  Returns True when the tree could not split (the
-        caller stops)."""
+        """One boosting iteration; ``grad``/``hess`` (N,) or (N, K)
+        override the objective's.  Returns True when no tree of the
+        iteration could split (the caller stops)."""
         with record_function("gbdt/gradients"):
             if grad is None:
+                if self.objective is None:
+                    raise ValueError(
+                        "objective='custom' needs gradients: call "
+                        "update(fobj=...)")
                 grad, hess = self.objective.get_gradients(self.scores)
             else:
+                shape = self.scores.shape
                 grad = torch.as_tensor(np.asarray(grad, np.float32),
-                                       device=self.device).reshape(-1)
+                                       device=self.device).reshape(shape)
                 hess = torch.as_tensor(np.asarray(hess, np.float32),
-                                       device=self.device).reshape(-1)
-        arrays = self._grow_apply(grad, hess, self.cfg.learning_rate)
-        with record_function("gbdt/host_tree"):
-            self.models[0].append(Tree.from_arrays(
-                arrays, self.train_data.binned.upper_bounds_padded))
-        return arrays.num_leaves <= 1
+                                       device=self.device).reshape(shape)
+        it, lr = self.iter_, self.cfg.learning_rate
+        leaves = []
+        for k in range(self.num_class):
+            if self._shape_k:
+                arrays = self._grow_apply(grad[:, k], hess[:, k], lr, it, k)
+            else:
+                arrays = self._grow_apply(grad, hess, lr, it)
+            self._store_tree(k, arrays)
+            leaves.append(arrays.num_leaves)
+        return all(nl <= 1 for nl in leaves)
+
+    # -------------------------------------------------------- evaluation
+    def eval_set(self):
+        """``[(data name, metric name, value, higher_better)]`` for the
+        valid sets, and the training set under
+        ``is_provide_training_metric`` (reference ``GBDT::OutputMetric``)."""
+        out = []
+        datasets = [("training", self.train_data, self.scores)]
+        datasets += [(name, data, self.valid_scores[i])
+                     for i, (name, data) in enumerate(self.valids)]
+        for name, data, scores in datasets:
+            if (name == "training"
+                    and not self.cfg.is_provide_training_metric):
+                continue
+            with record_function("gbdt/eval"):
+                sc = scores.cpu().numpy().astype(np.float64)
+                for m in self.metrics:
+                    out.append((name, m.name,
+                                m(data.label, sc, data.weight, None),
+                                m.higher_better))
+        return out
+
+    def eval_valid(self):
+        return [e for e in self.eval_set() if e[0] != "training"]
 
     # ---------------------------------------------------- model surface
     @property

@@ -179,6 +179,17 @@ def forest_scores(packs_by_class, bins: torch.Tensor,
     return torch.stack(cols, dim=1)
 
 
+def tree_scores(tree: Tree, bins: torch.Tensor, nan_bins: torch.Tensor,
+                max_leaves: int, num_bins: int) -> torch.Tensor:
+    """(N,) f32 leaf values of one tree over (N, F) int32 bins on their
+    device: the fp32 walk of a one-tree pack (the JAX package's
+    ``predict_tree_bins_device``, which adds each new tree to the valid
+    sets' scores)."""
+    pack = stack_trees([tree], max_leaves, num_bins, bins.device)
+    return _tree_walk({k: pack[k][0] for k in _PACK_ARRAYS}, bins, nan_bins,
+                      pack["num_leaves"][0], pack["depth"][0])
+
+
 def fp32_pack_nbytes(pack) -> int:
     """Device bytes of one fp32 pack's arrays."""
     return sum(pack[k].numel() * pack[k].element_size() for k in _PACK_ARRAYS)

@@ -72,18 +72,26 @@ def discretize_gradients(grad: torch.Tensor, hess: torch.Tensor,
     return gq, hq
 
 
-def quant_generator(seed: int, iteration: int,
-                    device: torch.device) -> torch.Generator:
-    """The generator of one boosting iteration's stochastic rounding: a
-    ``torch.Generator`` on ``device`` seeded from ``(seed, iteration)``
-    (the JAX package folds the iteration into ``PRNGKey(seed)``)."""
-    x = ((int(seed) & 0xFFFFFFFF) << 32 | (int(iteration) & 0xFFFFFFFF))
-    # splitmix64 finalizer: neighbouring (seed, iteration) pairs get
-    # unrelated seeds
+def _splitmix64(x: int) -> int:
+    """splitmix64's finalizer: neighbouring inputs get unrelated outputs."""
     x = (x + 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
     x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
     x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
-    x ^= x >> 31
+    return x ^ (x >> 31)
+
+
+def quant_generator(seed: int, iteration: int, device: torch.device,
+                    class_id: Optional[int] = None) -> torch.Generator:
+    """The generator of one boosting iteration's stochastic rounding: a
+    ``torch.Generator`` on ``device`` seeded from ``(seed, iteration)``
+    (the JAX package folds the iteration into ``PRNGKey(seed)``).  With K
+    trees an iteration each class ``class_id`` draws from its own stream,
+    seeded from ``(seed, iteration, class_id)`` (the JAX package folds the
+    class in as well); ``class_id=None`` keeps the one-tree stream."""
+    x = _splitmix64((int(seed) & 0xFFFFFFFF) << 32
+                    | (int(iteration) & 0xFFFFFFFF))
+    if class_id is not None:
+        x = _splitmix64(x ^ (int(class_id) & 0xFFFFFFFF))
     gen = torch.Generator(device=device)
     gen.manual_seed(x)
     return gen

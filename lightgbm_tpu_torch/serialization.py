@@ -79,12 +79,22 @@ def _tree_to_string(tree, index: int, mappers, bias: float = 0.0) -> str:
     return "\n".join(lines)
 
 
-def _objective_to_string(cfg) -> str:
-    """Reference ``ObjectiveFunction::ToString`` parameter suffixes (the
-    port trains ``binary`` only)."""
-    if cfg.objective == "binary":
+def _objective_to_string(cfg, num_class: int) -> str:
+    """Reference ``ObjectiveFunction::ToString`` parameter suffixes, which
+    the reference binary needs to reload the model."""
+    name = cfg.objective
+    if name == "binary":
         return f"binary sigmoid:{cfg.sigmoid:g}"
-    return cfg.objective
+    if name == "multiclass":
+        return f"multiclass num_class:{num_class}"
+    if name == "multiclassova":
+        return (f"multiclassova num_class:{num_class} "
+                f"sigmoid:{cfg.sigmoid:g}")
+    if name == "regression" and cfg.reg_sqrt:
+        return "regression sqrt"
+    if name == "quantile":
+        return f"quantile alpha:{cfg.alpha:g}"
+    return name
 
 
 def _feature_info(m) -> str:
@@ -114,7 +124,7 @@ def model_to_string(gbdt, num_iteration: Optional[int] = None,
            f"num_tree_per_iteration={gbdt.num_class}",
            "label_index=0",
            f"max_feature_idx={td.num_features - 1}",
-           f"objective={_objective_to_string(cfg)}",
+           f"objective={_objective_to_string(cfg, gbdt.num_class)}",
            "feature_names=" + " ".join(names),
            "feature_infos=" + " ".join(_feature_info(m) for m in mappers),
            "init_scores=" + _fmt_arr(

@@ -44,9 +44,10 @@
   same params, and the model text loads in ``lightgbm_tpu.Booster(
   model_str=...)`` and predicts within 1e-6; ``tpu_wave_kernel=fused``
   at max_bin 511 trains and gives the unfused run's model text.
-- Every unsupported param, an EFB-bundled dataset and a sorted
-  categorical feature raise ``NotImplementedError``; without ``device``
-  on a machine with no card, ``train`` raises.
+- Every unsupported param, an EFB-bundled dataset, a sorted
+  categorical feature, ``init_model``, ``resume_from`` and ``cv`` raise
+  ``NotImplementedError``; without ``device`` on a machine with no card,
+  ``train`` raises.
 
 On the card (``cuda`` marker), one exact-sum iteration gives the CPU
 model text byte for byte, f32 and quantized (deterministic rounding),
@@ -393,15 +394,26 @@ def test_config_table_matches_jax():
               "objective": "xentropy", "boosting_type": "GBRT",
               "tpu_wave_kernel": "FUSED", "use_quantized_grad": "true",
               "num_grad_quant_bins": 8, "stochastic_rounding": "false",
-              "quant_train_renew_leaf": 1}
-    jc, pc = JC.Config(params), PC.Config(params)
-    for name in PC._CANONICAL:
-        assert getattr(pc, name) == getattr(jc, name), name
-    assert pc.raw_params == jc.raw_params
+              "quant_train_renew_leaf": 1, "n_iter_no_change": 4,
+              "early_stopping_min_delta": 0.01, "first_metric_only": "true",
+              "reg_sqrt": True, "alpha": 0.3, "fair_c": 2.0,
+              "poisson_max_delta_step": 0.5, "tweedie_variance_power": 1.2,
+              "output_freq": 5, "train_metric": True,
+              "multi_error_top_k": 2, "auc_mu_weights": "0,1,1,0",
+              "metrics": "l2,auc"}
+    for extra in ({}, {"objective": "quantile:0.25"},
+                  {"objective": "softmax", "num_classes": 5},
+                  {"objective": "ova", "num_class": 3}):
+        jc, pc = JC.Config(dict(params, **extra)), PC.Config(
+            dict(params, **extra))
+        for name in PC._CANONICAL:
+            assert getattr(pc, name) == getattr(jc, name), name
+        assert pc.raw_params == jc.raw_params
+        assert pc.num_model_per_iteration == jc.num_model_per_iteration
 
 
 UNSUPPORTED = [
-    {"objective": "regression"},
+    {"objective": "lambdarank"},
     {"boosting": "dart"},
     {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
     {"bagging_fraction": 0.5, "bagging_freq": 1},
@@ -416,7 +428,7 @@ UNSUPPORTED = [
     {"feature_contri": [1.0, 0.5, 1.0, 1.0]},
     {"linear_tree": True},
     {"tree_learner": "data"},
-    {"early_stopping_round": 5},
+    {"checkpoint_interval": 5},
     {"tpu_iter_pack": 4},
     {"max_bin_by_feature": [16, 16, 16, 16]},
     {"input_model": "model.txt"},
@@ -455,14 +467,13 @@ def test_unsupported_datasets_and_options_raise():
     with pytest.raises(NotImplementedError, match="A8.4"):
         lgt.train(dict(params, categorical_feature="0"),
                   lgt.Dataset(Xc, label=y), 1, device="cpu")
-    for option in ({"valid_sets": [lgt.Dataset(X, label=y)]},
-                   {"callbacks": [lambda env: None]},
-                   {"init_model": "model.txt"}):
-        with pytest.raises(NotImplementedError, match="A5c"):
+    for option, item in (({"init_model": "model.txt"}, "A8.9"),
+                         ({"resume_from": "ckpt"}, "A11")):
+        with pytest.raises(NotImplementedError, match=item):
             lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu",
                       **option)
-    with pytest.raises(NotImplementedError, match="A5c"):
-        lgt.Dataset(X, label=y, reference=lgt.Dataset(X, label=y))
+    with pytest.raises(NotImplementedError, match="A5d"):
+        lgt.cv(params, lgt.Dataset(X, label=y), 2)
     with pytest.raises(NotImplementedError, match="A5b"):
         lgt.Booster(model_str="tree\n")
     with pytest.raises(ValueError, match="labels in"):
