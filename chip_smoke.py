@@ -6,7 +6,9 @@
 Drives the port's main paths (serving, training, quantized training,
 bf16 and 4-bit-bin training, training at max_bin 1023 over uint16 bins,
 unfused and through the fused wave; the regression, multiclass and other
-objectives with a valid set, metrics and early stopping) at full width and holds every kernel against its plain PyTorch version
+objectives with a valid set, metrics and early stopping; text-file input,
+model text loading, continued training and per-feature bins) at full
+width and holds every kernel against its plain PyTorch version
 and every result against an independent reference.
 
 Serving (slice 1) — quantized serving through the hand-written CUDA
@@ -234,6 +236,39 @@ that only the expected modes launched, one root histogram a tree:
     negative log-likelihood, the metric plus the mean(log(y!)) it
     leaves out, since the metric itself is near zero), and two runs give
     equal model text.
+
+Text-file input, model text and continued training (slice 12), at the
+bench width through the histogram and fused-wave kernels (data files in
+a temporary directory):
+
+38. file input: phase 10's 200,000 training rows written as TSV (label in
+    column 0, ``%.17g``, so the text round trip is exact) and read by
+    ``Dataset(path)`` at the bench params: ``mappers_to_arrays`` and the
+    bin matrix byte for byte phase 10's array dataset's; 10 iterations
+    through the fused wave give the first 10 ``Tree=`` blocks of phase
+    10's model byte for byte; the parse and binning seconds;
+39. genuine LightGBM's model text (``tests/fixtures/ref_model.txt``)
+    loaded on the card: ``ref_rows.tsv`` predicted within 1e-6 of the
+    genuine binary's ``ref_preds_50.txt``; the re-serialized text reloads
+    to the same raw scores bit for bit;
+40. phase 10's 100 x 255-leaf model saved and loaded in the port: the
+    50,000 holdout rows' raw scores within 1e-6 plus the fp32 pack's own
+    summation bound of the trained booster's, holdout AUC equal within
+    1e-6; the load seconds and the predict's milliseconds;
+41. continued training: phase 10's model cut to 50 iterations, continued
+    50 with ``init_model=`` on phase 10's binned rows (kept: only the
+    init score changes): one f32 root histogram a tree and the f32 wave
+    launches counted, holdout AUC within 1e-3 of phase 10's and of
+    genuine LightGBM's, the saved text's first 50 ``Tree=`` blocks the
+    base text's (but for the leaf_weight / leaf_count lines a loaded tree
+    does not keep), the text reloading to the combined booster's raw
+    scores; the fold seconds and s/iteration;
+42. ``max_bin_by_feature`` cycling 15, 63, 255 and 1,023 over the 28
+    features with a forced-bins file on two: uint16 bins, each feature
+    within its budget, the forced bounds in the mappers; 10 iterations
+    through the fused wave's uint16 mode (holdout AUC recorded, no
+    gate); one exact-sum iteration on the kernels gives the model text of
+    the same run on their plain versions.
 
 Each wave timing (phases 14, 18, 23, 31) also gives its three launches'
 device times by kernel name under ``torch.profiler`` (``wave_stage_ms``):
@@ -1170,7 +1205,7 @@ def train_phase(dev, fix, rows, name, extra, ds, hist_mode, wave_mode,
 
 
 def training_phases(seed, dev, smi):
-    """Phases 8-37; returns the histogram and wave entries of the kernels
+    """Phases 8-42; returns the histogram and wave entries of the kernels
     line, every mode, and phase 35's serving record."""
     import torch
     import lightgbm_tpu_torch as lgt
@@ -1301,6 +1336,9 @@ def training_phases(seed, dev, smi):
     # and early stopping (slice 11)
     obj_launches, obj_serve = objective_phases(dev, fix, rows, ds, binning_s,
                                                seed)
+    # 38-42. text-file input, model text, continued training and
+    # per-feature bins (slice 12)
+    s12_launches = slice12_phases(dev, fix, rows, ds, bst, rec)
 
     h = timing[f"histogram/{HIST_TIMING_ROWS[0]}"]
     h8 = timing8[f"histogram_int8/{HIST_TIMING_ROWS[0]}"]
@@ -1333,9 +1371,19 @@ def training_phases(seed, dev, smi):
     entries = []
     obj_modes = {"histogram": "f32", "histogram_int8": "int8", "wave": "f32",
                  "wave_int8": "int8"}
+    s12_modes = {"histogram": ("f32", "histogram"), "wave": ("f32", "wave"),
+                 "histogram_f32_uint16": ("f32_uint16", "histogram"),
+                 "wave_f32_uint16": ("f32_uint16", "wave")}
     for name, src_, rep, t, launches_, err_, nrows in table:
         require(launches_ > 0, f"{name}: no launch on its training path")
         extra = {}
+        if name in s12_modes:
+            # launches on phases 38-42's paths (files, continued training,
+            # per-feature bins)
+            mode, kernel = s12_modes[name]
+            extra["slice12_launches"] = s12_launches[mode][kernel]
+            require(extra["slice12_launches"] > 0,
+                    f"{name}: no launch on the slice-12 paths")
         if name in obj_modes:
             # launches on phases 32-37's paths (objectives, valid sets)
             kernel = name.split("_")[0]
@@ -2827,6 +2875,336 @@ def objective_phases(dev, fix, rows, ds, binning_s, seed):
               "launches_per_request"] * 2})
     ds.set_label(rows[1][:nt])
     return totals, serve
+
+
+# ------------------------------------------ slice 12: files, model text
+FILE_ITERS = 10
+CONTINUE_BASE_ITERS = 50
+CONTINUE_ITERS = 50
+CONTINUE_AUC_TOL = 1e-3
+#: a loaded model's raw scores (float64 walk) against a trained booster's
+#: (its fp32 pack summed in float32): 1e-6 plus the fp32 sum's own
+#: rounding bound, ``fp32_sum_bound``
+LOAD_RAW_TOL = 1e-6
+BY_FEATURE_CYCLE = (15, 63, 255, 1023)
+BY_FEATURE_ITERS = 10
+#: forced bounds on two features (feature 0's budget is 15, 5's is 63)
+FORCED_BINS = [{"feature": 0, "bin_upper_bound": [-1.0, -0.25, 1.0]},
+               {"feature": 5, "bin_upper_bound": [-0.5, 0.5]}]
+REF_MODEL = os.path.join("tests", "fixtures", "ref_model.txt")
+REF_ROWS = os.path.join("tests", "fixtures", "ref_rows.tsv")
+REF_PREDS = os.path.join("tests", "fixtures", "ref_preds_50.txt")
+
+
+def tree_blocks(text):
+    """The ``Tree=`` blocks of model text, in order."""
+    body = text.split("end of trees")[0]
+    return ["Tree=" + b for b in body.split("Tree=")[1:]]
+
+
+def drop_unloaded_lines(block):
+    """A tree block without the lines a loaded tree does not keep
+    (``leaf_weight``, ``leaf_count``: the JAX package's loader and the
+    port's drop them), so it compares with the block written back."""
+    return "\n".join(ln for ln in block.split("\n")
+                     if not ln.startswith(("leaf_weight=", "leaf_count=")))
+
+
+def fp32_sum_bound(trees, raw):
+    """The rounding bound of summing ``trees`` leaf values in float32 to
+    scores of at most ``max|raw|``: half an ulp an add."""
+    return trees * 2.0 ** -24 * float(np.abs(raw).max())
+
+
+def timed(name):
+    """Seconds the port's ``utils/timer`` spans of ``name`` took."""
+    from lightgbm_tpu_torch.utils.timer import global_timer
+    return global_timer.durations.get(name, 0.0)
+
+
+def file_input_phase(dev, fix, rows, ds, text100, tmp):
+    """38. The bench training rows written as TSV (label in column 0,
+    ``%.17g``: the text round trip is exact), read by ``Dataset(path)``
+    at the bench params: mappers and bins byte for byte phase 10's array
+    dataset's; 10 iterations through the fused wave give the first 10
+    ``Tree=`` blocks of phase 10's model byte for byte.  Returns the
+    dataset's launches of each kernel mode."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.binning import mappers_to_arrays
+    from lightgbm_tpu_torch.utils.timer import global_timer
+    X, y = rows
+    nt = fix["data"]["n_train"]
+    path = os.path.join(tmp, "bench_train.tsv")
+    t0 = time.perf_counter()
+    np.savetxt(path, np.column_stack([y[:nt], X[:nt]]), delimiter="\t",
+               fmt="%.17g")
+    write_s = time.perf_counter() - t0
+    params = dict(fix["params"])
+    params.pop("num_iterations")
+    global_timer.reset()
+    dsf = lgt.Dataset(path)
+    tdf = dsf.construct(params)
+    parse_s, bin_s = timed("io/parse"), timed("dataset/bin")
+    want = ds.construct()
+    a, b = (mappers_to_arrays(tdf.binned.mappers),
+            mappers_to_arrays(want.binned.mappers))
+    same = all(a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes()
+               for k in b)
+    require(same and a.keys() == b.keys(), "file input: mappers != the "
+            "array dataset's")
+    require(tdf.binned.bins.dtype == want.binned.bins.dtype
+            and np.array_equal(tdf.binned.bins, want.binned.bins),
+            "file input: bins != the array dataset's")
+    require(np.array_equal(dsf.get_label(), y[:nt]), "file input: labels")
+    bst, _p, rec = train_phase(dev, fix, rows, "train_file_input", {}, dsf,
+                               "f32", "f32", iters=FILE_ITERS)
+    got = tree_blocks(bst.model_to_string())
+    require(got == tree_blocks(text100)[:FILE_ITERS],
+            f"file input: the {FILE_ITERS} trees != phase 10's first "
+            f"{FILE_ITERS}")
+    emit({"phase": "file_input", "rows": nt, "features": X.shape[1],
+          "file_bytes": os.path.getsize(path), "write_s": write_s,
+          "parse_s": parse_s, "binning_s": bin_s,
+          "mappers_bitwise": True, "bins_bitwise": True,
+          "iterations": FILE_ITERS, "trees_equal_phase_10": True,
+          "s_per_iteration": rec["s_per_iteration"]})
+    os.remove(path)
+    return {"histogram": rec["histogram_launches"],
+            "wave": rec["wave_launches"]}
+
+
+def genuine_model_phase(dev, root):
+    """39. Genuine LightGBM's model text (``tests/fixtures/ref_model.txt``)
+    loaded on the card: its predictions on ``ref_rows.tsv`` within 1e-6
+    of the genuine binary's own, and the re-serialized text loads to the
+    same raw scores bit for bit."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    t0 = time.perf_counter()
+    ref = lgt.Booster(model_file=os.path.join(root, REF_MODEL), device=dev)
+    load_s = time.perf_counter() - t0
+    data = np.loadtxt(os.path.join(root, REF_ROWS), delimiter="\t")
+    Xr = data[:, 1:]
+    want = np.loadtxt(os.path.join(root, REF_PREDS))
+    prob = ref.predict(Xr)
+    err = float(np.abs(prob - want).max())
+    require(err <= 1e-6, f"genuine model: predictions off by {err}")
+    raw = ref.predict(Xr, raw_score=True)
+    again = lgt.Booster(model_str=ref.model_to_string(), device=dev)
+    require(np.array_equal(again.predict(Xr, raw_score=True), raw),
+            "genuine model: the re-serialized text predicts other bits")
+    torch.cuda.synchronize()
+    emit({"phase": "genuine_model", "trees": ref.num_trees(),
+          "features": ref.num_feature(), "rows": Xr.shape[0],
+          "max_abs_err_vs_genuine": err, "reload_bitwise": True,
+          "load_s": load_s})
+
+
+def round_trip_phase(dev, fix, rows, bst, rec, tmp):
+    """40. Phase 10's 100 x 255-leaf model saved and loaded in the port:
+    holdout raw scores within LOAD_RAW_TOL plus ``fp32_sum_bound`` of the
+    trained booster's (the loaded walk compares float64 thresholds and
+    sums in float64; the trained booster sums its fp32 pack in float32)
+    and the same holdout AUC within 1e-6; load seconds and the
+    50,000-row predict's milliseconds."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.metrics import auc
+    X, y = rows
+    nt = fix["data"]["n_train"]
+    Xv, yv = X[nt:], y[nt:]
+    path = os.path.join(tmp, "model_100.txt")
+    bst.save_model(path)
+    t0 = time.perf_counter()
+    loaded = lgt.Booster(model_file=path, device=dev)
+    load_s = time.perf_counter() - t0
+    loaded.predict(Xv[:1000], raw_score=True)     # builds the tree stack
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw = loaded.predict(Xv, raw_score=True)
+    predict_ms = (time.perf_counter() - t0) * 1e3
+    want = bst.predict(Xv, raw_score=True)
+    err = float(np.abs(raw - want).max())
+    bar = LOAD_RAW_TOL + fp32_sum_bound(bst.num_trees(), want)
+    require(err <= bar, f"loaded model: holdout raw scores off by {err} "
+            f"(bar {bar})")
+    got_auc = auc(yv, raw)
+    require(abs(got_auc - rec["holdout_auc"]) <= 1e-6, f"loaded model: "
+            f"holdout AUC {got_auc} != the trained {rec['holdout_auc']}")
+    emit({"phase": "model_round_trip", "trees": loaded.num_trees(),
+          "leaves": 255, "model_bytes": os.path.getsize(path),
+          "load_s": load_s, "predict_rows": len(yv),
+          "predict_ms": predict_ms, "max_abs_err": err, "bar": bar,
+          "within_1e-6": err <= LOAD_RAW_TOL, "holdout_auc": got_auc, "trained_holdout_auc": rec["holdout_auc"]})
+    os.remove(path)
+
+
+def continuation_phase(dev, fix, rows, ds, bst, rec, tmp):
+    """41. Phase 10's model cut to 50 iterations (``model_to_string(
+    num_iteration=50)``) continued 50 iterations with ``init_model=`` at
+    the bench params on phase 10's binned rows (their bins kept): only
+    the f32 histogram (one root a tree) and wave kernels launch; holdout
+    AUC within 1e-3 of phase 10's and of genuine LightGBM's; the saved
+    text's first 50 ``Tree=`` blocks are the base text's (but for the
+    lines a loaded tree does not keep), and it reloads to the combined
+    booster's raw scores within LOAD_RAW_TOL.  Returns the launches."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.metrics import auc
+    from lightgbm_tpu_torch.utils.timer import global_timer
+    X, y = rows
+    nt = fix["data"]["n_train"]
+    Xv, yv = X[nt:], y[nt:]
+    base_text = bst.model_to_string(num_iteration=CONTINUE_BASE_ITERS)
+    base_path = os.path.join(tmp, "base_50.txt")
+    with open(base_path, "w") as fh:
+        fh.write(base_text)
+    params = dict(fix["params"])
+    params.pop("num_iterations")
+    params["tpu_leaf_batch"] = 16
+    global_timer.reset()
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cont = lgt.train(params, ds, CONTINUE_ITERS, init_model=base_path,
+                     device=dev)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = _read_launches()
+    fold_s = timed("train/fold_init_score")
+    for kernel in ("histogram", "wave"):
+        ran = {k for k, v in launches[kernel].items() if v}
+        require(ran == {"f32"}, f"continuation: {kernel} kernel launched "
+                f"{launches[kernel]}, expected f32 only")
+    hist_n, wave_n = launches["histogram"]["f32"], launches["wave"]["f32"]
+    require(hist_n == CONTINUE_ITERS, f"continuation: {hist_n} histogram "
+            f"launches in {CONTINUE_ITERS} iterations (one root a tree)")
+    total = CONTINUE_BASE_ITERS + CONTINUE_ITERS
+    require(cont.num_trees() == total and cont.current_iteration == total,
+            f"continuation: {cont.num_trees()} trees")
+    require(ds.init_score is None, "continuation changed the caller's "
+            "init score")
+    raw = cont.predict(Xv, raw_score=True)
+    require(np.isfinite(raw).all(), "continuation: raw scores not finite")
+    got_auc = auc(yv, raw)
+    for what, ref_auc in (("phase 10", rec["holdout_auc"]),
+                          ("genuine LightGBM", fix["ref_auc"])):
+        require(abs(got_auc - ref_auc) <= CONTINUE_AUC_TOL, f"continuation:"
+                f" holdout AUC {got_auc} not within {CONTINUE_AUC_TOL} of "
+                f"{what}'s {ref_auc}")
+    text = cont.model_to_string()
+    base_blocks = [drop_unloaded_lines(b) for b in tree_blocks(base_text)]
+    require(tree_blocks(text)[:CONTINUE_BASE_ITERS] == base_blocks,
+            "continuation: the saved base trees != the base text's")
+    reloaded = lgt.Booster(model_str=text, device=dev)
+    err = float(np.abs(reloaded.predict(Xv, raw_score=True) - raw).max())
+    bar = LOAD_RAW_TOL + fp32_sum_bound(CONTINUE_ITERS, raw)
+    require(err <= bar, f"continuation: the reloaded text's raw scores off "
+            f"by {err} (bar {bar})")
+    emit({"phase": "continued_training", "base_iterations":
+          CONTINUE_BASE_ITERS, "iterations": CONTINUE_ITERS,
+          "fold_s": fold_s, "boosting_s": total_s - fold_s,
+          "s_per_iteration": (total_s - fold_s) / CONTINUE_ITERS,
+          "histogram_launches": hist_n, "wave_launches": wave_n,
+          "wave_launches_per_iteration": wave_n / CONTINUE_ITERS,
+          "holdout_auc": got_auc, "phase_10_holdout_auc": rec["holdout_auc"],
+          "ref_auc": fix["ref_auc"], "base_trees_equal": True,
+          "reload_max_abs_err": err, "reload_bar": bar,
+          "reload_within_1e-6": err <= LOAD_RAW_TOL})
+    os.remove(base_path)
+    return {"histogram": hist_n, "wave": wave_n}
+
+
+def plain_wave(*args, scale3=None, packed4=False, max_level=127, **kw):
+    """``fused_wave_call``'s plain version, call for call."""
+    from lightgbm_tpu_torch.ops import wave as WV
+    return WV.wave_plain(*args, scale3=scale3, packed4=packed4, **kw)
+
+
+def by_feature_phase(dev, fix, rows, tmp):
+    """42. ``max_bin_by_feature`` cycling 15, 63, 255 and 1,023 over the
+    28 features with a forced-bins file on two of them: the bench rows
+    binned (uint16 bins, each feature within its budget, the forced
+    bounds in the mappers), 10 iterations through the fused wave's
+    uint16 mode (holdout AUC recorded: no genuine number exists for this
+    config); one exact-sum iteration (``boost_from_average=false``) on
+    the kernels gives the model text of the same run on their plain
+    versions.  Returns the kernels' launches in the 10 iterations."""
+    import lightgbm_tpu_torch as lgt
+    import lightgbm_tpu_torch.models.grower as G
+    from lightgbm_tpu_torch.ops import histogram_flat as HF
+    X, y = rows
+    nt, f = fix["data"]["n_train"], fix["data"]["n_features"]
+    budgets = [BY_FEATURE_CYCLE[j % len(BY_FEATURE_CYCLE)] for j in range(f)]
+    forced_path = os.path.join(tmp, "forced_bins.json")
+    with open(forced_path, "w") as fh:
+        json.dump(FORCED_BINS, fh)
+    extra = {"max_bin_by_feature": budgets, "forcedbins_filename": forced_path}
+    params = dict(fix["params"], **extra)
+    params.pop("num_iterations")
+    t0 = time.perf_counter()
+    dsb = lgt.Dataset(X[:nt], label=y[:nt])
+    binned = dsb.construct(params).binned
+    binning_s = time.perf_counter() - t0
+    nb = binned.num_bins_per_feature
+    require(binned.bins.dtype == np.uint16, "by-feature bins not uint16")
+    require(all(int(n) <= b for n, b in zip(nb, budgets)), f"by-feature: "
+            f"bins {nb.tolist()} over budgets {budgets}")
+    for spec in FORCED_BINS:
+        ub = binned.mappers[spec["feature"]].upper_bounds.tolist()
+        require(set(spec["bin_upper_bound"]) <= set(ub), f"forced bounds "
+                f"{spec} not in feature {spec['feature']}'s mapper")
+    _b, prm, rec = train_phase(dev, fix, rows, "train_max_bin_by_feature",
+                               extra, dsb, "f32_uint16", "f32_uint16",
+                               iters=BY_FEATURE_ITERS)
+    del _b
+    exact = dict(prm, boost_from_average=False)
+    _zero_launches()
+    kernel_text = lgt.train(exact, dsb, 1, device=dev).model_to_string()
+    kernel_launches = _read_launches()
+    saved = HF.histogram_flat, G.fused_wave_call
+    HF.histogram_flat, G.fused_wave_call = hist_twin, plain_wave
+    try:
+        _zero_launches()
+        plain_text = lgt.train(exact, dsb, 1, device=dev).model_to_string()
+        plain_launches = _read_launches()
+    finally:
+        HF.histogram_flat, G.fused_wave_call = saved
+    require(kernel_launches["wave"]["f32_uint16"] > 0, "by-feature exact "
+            "iteration: no wave launch")
+    require(not any(v for c in plain_launches.values() for v in c.values()),
+            "by-feature: the plain run launched a kernel")
+    require(kernel_text == plain_text, "by-feature: the kernels' model text "
+            "!= the plain versions'")
+    emit({"phase": "max_bin_by_feature", "budgets": budgets,
+          "num_bins_per_feature": nb.tolist(), "forced_bins": FORCED_BINS,
+          "binning_s": binning_s, "iterations": BY_FEATURE_ITERS,
+          "holdout_auc": rec["holdout_auc"],
+          "s_per_iteration": rec["s_per_iteration"],
+          "exact_iteration_equals_plain": True,
+          "exact_iteration_wave_launches":
+              kernel_launches["wave"]["f32_uint16"]})
+    os.remove(forced_path)
+    return {"histogram": rec["histogram_launches"],
+            "wave": rec["wave_launches"]}
+
+
+def slice12_phases(dev, fix, rows, ds, bst, rec):
+    """38-42: text-file input, genuine and round-tripped model text,
+    continued training and per-feature bins, at the bench width; data
+    files go to a temporary directory.  Returns the launches of each
+    kernel mode on these paths."""
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    text100 = bst.model_to_string()
+    with tempfile.TemporaryDirectory() as tmp:
+        file_l = file_input_phase(dev, fix, rows, ds, text100, tmp)
+        genuine_model_phase(dev, root)
+        round_trip_phase(dev, fix, rows, bst, rec, tmp)
+        cont_l = continuation_phase(dev, fix, rows, ds, bst, rec, tmp)
+        wide_l = by_feature_phase(dev, fix, rows, tmp)
+    return {"f32": {k: file_l[k] + cont_l[k] for k in file_l},
+            "f32_uint16": wide_l}
 
 
 # -------------------------------------------------------------------- main

@@ -8,7 +8,11 @@ CUDA histogram and fused-wave kernels (``ops/csrc/histogram.cu``,
 ``ops/csrc/wave.cu``) -> model text.  Slice 11 trains every non-ranking
 objective (regression family, multiclass softmax / one-vs-all, cross
 entropy; K trees an iteration for multiclass) through the same kernels,
-and scores valid sets with metrics, callbacks and early stopping.  A config it does not train raises
+and scores valid sets with metrics, callbacks and early stopping.
+Slice 12 reads CSV / TSV / LibSVM files (``Dataset(path)``), bins each
+feature to its own budget with forced bounds, loads model text
+(``Booster(model_file=...)``) and continues training from it
+(``train(init_model=...)``).  A config it does not train raises
 ``NotImplementedError`` naming its ROADMAP item.
 
 Entry points run on the CUDA device unless the caller passes
@@ -19,15 +23,18 @@ package imports ``torch`` and never ``jax`` or ``lightgbm_tpu``.
 from .basic import Booster, Dataset
 from .callback import (EarlyStopException, early_stopping, log_evaluation,
                        record_evaluation, reset_parameter)
-from .binning import bin_dataset, mappers_from_arrays, mappers_to_arrays
+from .binning import (bin_dataset, load_forced_bins, mappers_from_arrays,
+                      mappers_to_arrays)
 from .config import Config
 from .convert import model_from_arrays
 from .engine import cv, train
 from .models import GBDT, Tree
+from .serialization import LoadedModel, load_model_string
 from .serve import BucketLadder, PredictPlan, Predictor
 
 __all__ = ["Booster", "BucketLadder", "Config", "Dataset",
-           "EarlyStopException", "GBDT", "PredictPlan", "Predictor", "Tree",
-           "bin_dataset", "cv", "early_stopping", "log_evaluation",
+           "EarlyStopException", "GBDT", "LoadedModel", "PredictPlan",
+           "Predictor", "Tree", "bin_dataset", "cv", "early_stopping",
+           "load_forced_bins", "load_model_string", "log_evaluation",
            "mappers_from_arrays", "mappers_to_arrays", "model_from_arrays",
            "record_evaluation", "reset_parameter", "train"]

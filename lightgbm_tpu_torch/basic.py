@@ -1,22 +1,31 @@
 """The Python training API: :class:`Dataset` and :class:`Booster`.
 
 The port of the JAX package's ``basic.py`` surface: a lazily constructed
-``Dataset`` over numpy or scipy sparse rows (categorical columns by index
-or name, feature names, weights, an init score; a valid set binned with
-its ``reference``'s mappers), and a ``Booster`` that trains one iteration
+``Dataset`` over numpy or scipy sparse rows, or over a CSV / TSV / LibSVM
+text file parsed at ``construct`` with the merged params' ``header``,
+``label_column`` and column specs (categorical columns by index or name,
+feature names, weights, an init score; a valid set binned with its
+``reference``'s mappers), and a ``Booster`` that trains one iteration
 per ``update``, scores its valid sets with the config's metrics
 (``eval_train`` / ``eval_valid`` / ``eval``), predicts through the fp32
 pack (up to ``best_iteration`` once early stopping has set it), writes
-model text and hands out the serving ``Predictor``.  Query groups,
-``pred_leaf`` / ``pred_contrib`` and loading model text are later work
-and raise ``NotImplementedError`` naming their ROADMAP item.
+model text and hands out the serving ``Predictor``.  ``Booster(
+model_file=...)`` / ``Booster(model_str=...)`` loads model text (a
+genuine LightGBM file, a JAX package file or the port's own) into a
+:class:`~.serialization.LoadedModel` that predicts, evaluates and saves.
+Query groups (ROADMAP A8.2), binary dataset caches (A1c), refit (A8.9)
+and ``pred_leaf`` / ``pred_contrib`` (A8.10) raise
+``NotImplementedError`` naming their item.
 
 Entry points run on the CUDA card unless ``device="cpu"`` is passed.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import os
+import zipfile
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -25,8 +34,11 @@ import torch
 from .binning import _is_sparse
 from .config import Config
 from .dataset import TrainData, _check_finite
+from .metrics import metrics_for_config
 from .models.gbdt import GBDT
+from .serialization import LoadedModel, load_model_string
 from .utils.device import resolve_device
+from .utils.timer import FunctionTimer
 
 _CAT_KEYS = ("categorical_feature", "cat_feature", "categorical_column",
              "cat_column", "categorical_features")
@@ -48,10 +60,18 @@ class Dataset:
         if group is not None:
             raise NotImplementedError(
                 "query groups (ranking) are not ported yet (ROADMAP A8.2)")
+        self._text_path = None
         if isinstance(data, str):
-            raise NotImplementedError(
-                "loading rows from a file is not ported yet (ROADMAP A1: "
-                "io/parser.py); pass a numpy array")
+            if not os.path.exists(data):
+                raise FileNotFoundError(f"no such data file: {data!r}")
+            if zipfile.is_zipfile(data):
+                raise NotImplementedError(
+                    f"{data!r} is a binary dataset cache (a zip file): "
+                    "binary caches are not ported to lightgbm_tpu_torch yet "
+                    "(ROADMAP A1c); pass the text file or arrays")
+            # parsed in construct(), with the params train() passes
+            self._text_path = data
+            data = np.zeros((0, 0))
         self.data = data.tocsr() if _is_sparse(data) else _as_2d(data)
         self.label = None if label is None else np.asarray(label)
         self.reference = reference
@@ -69,13 +89,49 @@ class Dataset:
             return list(self.feature_name)
         return [f"Column_{i}" for i in range(self.data.shape[1])]
 
+    def load_rows(self, params: Optional[Dict[str, Any]] = None) -> None:
+        """Parse a text file's rows (once) with the merged params' column
+        specs, without binning them; the file's labels, weights and header
+        names fill what the caller did not pass."""
+        if self._text_path is None:
+            return
+        from .io.parser import load_data_file
+        merged = dict(self.params)
+        merged.update(params or {})
+        cfg = Config(merged)
+        path = self._text_path
+        if os.path.exists(path + ".position"):
+            raise NotImplementedError(
+                f"{path}.position: positions belong to ranking, not ported "
+                "to lightgbm_tpu_torch yet (ROADMAP A8.2)")
+        with FunctionTimer("io/parse"):
+            X, fy, fw, fg, names = load_data_file(
+                path, cfg.label_column, cfg.header,
+                weight_column=cfg.weight_column,
+                group_column=cfg.group_column,
+                ignore_column=cfg.ignore_column, with_feature_names=True)
+        if fg is not None:
+            raise NotImplementedError(
+                "query groups (group_column or a .query file) are not "
+                "ported to lightgbm_tpu_torch yet (ROADMAP A8.2)")
+        self.data = X
+        self._text_path = None
+        if self.label is None:
+            self.label = fy
+        if self.weight is None and fw is not None:
+            self.weight = np.asarray(fw, np.float64)
+        if self.feature_name == "auto" and names:
+            self.feature_name = names
+
     def construct(self, params: Optional[Dict[str, Any]] = None
                   ) -> TrainData:
-        """Bin the rows (once) with the merged params."""
+        """Bin the rows (once) with the merged params; a text file is
+        parsed first."""
         if self._train_data is not None:
             return self._train_data
         merged = dict(self.params)
         merged.update(params or {})
+        self.load_rows(params)
         cat_param = None
         for key in _CAT_KEYS:
             if key in merged:
@@ -109,20 +165,34 @@ class Dataset:
                  else np.zeros(self.data.shape[0]))
         ref_td = (self.reference.construct(params)
                   if self.reference is not None else None)
-        self._train_data = TrainData.build(
-            self.data, label, cfg, weight=self.weight,
-            init_score=self.init_score, categorical_features=cats,
-            feature_names=self._feature_names(), reference=ref_td)
+        with FunctionTimer("dataset/bin"):
+            self._train_data = TrainData.build(
+                self.data, label, cfg, weight=self.weight,
+                init_score=self.init_score, categorical_features=cats,
+                feature_names=self._feature_names(), reference=ref_td)
         return self._train_data
 
     def num_data(self) -> int:
+        self.load_rows()
         return self.data.shape[0]
 
     def num_feature(self) -> int:
+        self.load_rows()
         return self.data.shape[1]
 
     def get_label(self):
         return self.label
+
+    def with_init_score(self, init_score) -> "Dataset":
+        """A shallow copy whose rows start from ``init_score``: a
+        constructed copy keeps the bins and device copies (binning does
+        not read the init score), and this dataset keeps its own."""
+        out = copy.copy(self)
+        out.init_score = np.asarray(init_score)
+        if self._train_data is not None:
+            out._train_data = dataclasses.replace(self._train_data,
+                                                  init_score=out.init_score)
+        return out
 
     def get_weight(self):
         return self.weight
@@ -162,36 +232,54 @@ class Dataset:
 class Booster:
     """A model handle (reference ``Booster``): trains on its Dataset on
     ``device`` (the CUDA card by default) and scores ``valid_sets``, a
-    sequence of ``(name, Dataset)`` pairs."""
+    sequence of ``(name, Dataset)`` pairs; or, from ``model_file`` /
+    ``model_str``, a loaded model that predicts, evaluates and saves on
+    ``device``.  ``base_model`` (a :class:`~.serialization.LoadedModel`)
+    continues training from it: the caller has folded its raw scores into
+    the datasets' init scores (``engine.train(init_model=...)``)."""
 
     def __init__(self, params: Optional[Dict[str, Any]] = None,
                  train_set: Optional[Dataset] = None, model_file=None,
                  model_str=None,
                  valid_sets: Sequence[Tuple[str, Dataset]] = (),
-                 device=None):
-        if model_file is not None or model_str is not None:
-            raise NotImplementedError(
-                "loading model text into the port is not ported yet "
-                "(ROADMAP A5b); lightgbm_tpu.Booster(model_str=...) loads "
-                "the port's models")
-        if train_set is None:
-            raise ValueError("Booster needs a train_set")
+                 device=None, base_model: Optional[LoadedModel] = None):
         self.params = dict(params or {})
         self.best_iteration = -1
         self.best_score: Any = {}
-        self.cfg = Config(self.params)
         dev = resolve_device(device)
+        self.train_set = train_set
+        if model_file is not None or model_str is not None:
+            if model_file is not None:
+                with open(model_file) as fh:
+                    model_str = fh.read()
+            self._gbdt = load_model_string(model_str, device=dev)
+            self.cfg = self._gbdt.cfg
+            return
+        if train_set is None:
+            raise ValueError("Booster needs a train_set or a model")
+        self.cfg = Config(self.params)
         td = train_set.construct(self.params)
         valid_td = [(nm, _valid_data(ds, train_set, self.params))
                     for nm, ds in valid_sets]
-        self._gbdt = GBDT(self.cfg, td, valid_td, device=dev)
-        self.train_set = train_set
+        self._gbdt = GBDT(self.cfg, td, valid_td, device=dev,
+                          base_model=base_model)
+
+    @property
+    def _loaded(self) -> bool:
+        return isinstance(self._gbdt, LoadedModel)
+
+    def _trained(self, what: str) -> GBDT:
+        if self._loaded:
+            raise ValueError(f"{what} needs a trained booster; a loaded "
+                             "model only predicts, evaluates and saves")
+        return self._gbdt
 
     # ------------------------------------------------------------- train
     def update(self, train_set=None, fobj=None) -> bool:
         """One boosting iteration; True when training should stop.
         ``fobj(raw_scores, train_set) -> (grad, hess)`` replaces the
         objective's gradients ((N,) or (N, K), like the scores)."""
+        self._trained("update")
         if train_set is not None and train_set is not self.train_set:
             raise NotImplementedError(
                 "switching the training set is not ported yet")
@@ -203,6 +291,7 @@ class Booster:
         return self._gbdt.train_one_iter()
 
     def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
+        self._trained("reset_parameter")
         self.params.update(params)
         self._gbdt.cfg.update(params)
         return self
@@ -211,6 +300,7 @@ class Booster:
     def add_valid(self, data: Dataset, name: str) -> "Booster":
         """Score ``data`` as a valid set from now on: its scores start at
         the current model's."""
+        self._trained("add_valid")
         self._gbdt.add_valid(name, _valid_data(data, self.train_set,
                                                self.params))
         return self
@@ -220,7 +310,7 @@ class Booster:
         ``is_provide_training_metric``), then ``feval``'s on every set:
         ``feval(raw_scores, data)`` returns ``(name, value,
         higher_better)`` or a list of them."""
-        g = self._gbdt
+        g = self._trained("eval_train / eval_valid")
         res = g.eval_set()
         if feval is not None:
             sets = [("training", g.train_data)] + list(g.valids)
@@ -236,10 +326,14 @@ class Booster:
 
     def eval(self, data: Dataset, name: str, feval=None):
         """Evaluate the current model on ``data`` (reference
-        ``Booster.eval``): its raw scores are recomputed by each call."""
+        ``Booster.eval``): its raw scores are recomputed by each call; a
+        loaded model scores with its config's metrics."""
+        data.load_rows(self.params)
         raw = np.asarray(self._gbdt.predict_raw(data.data), np.float64)
+        metrics = (metrics_for_config(self.cfg) if self._loaded
+                   else self._gbdt.metrics)
         out = [(name, m.name, m(data.label, raw, data.weight, None),
-                m.higher_better) for m in self._gbdt.metrics]
+                m.higher_better) for m in metrics]
         if feval is not None:
             res = feval(raw, data)
             if res is not None:
@@ -259,45 +353,83 @@ class Booster:
     def predict(self, data, start_iteration: int = 0,
                 num_iteration: Optional[int] = None,
                 raw_score: bool = False, **kwargs) -> np.ndarray:
-        """Scores through the fp32 pack, up to ``best_iteration`` unless
-        ``num_iteration`` is given; transformed by the objective unless
-        ``raw_score`` (f64 raw -> float32 -> the transform in float32, as
-        the JAX package computes them)."""
-        if kwargs.get("pred_leaf") or kwargs.get("pred_contrib"):
+        """Scores up to ``best_iteration`` unless ``num_iteration`` is
+        given, transformed by the objective unless ``raw_score`` (f64 raw
+        -> float32 -> the transform in float32, as the JAX package computes
+        them): a trained booster's through the fp32 pack (a continuation's
+        base trees through its loaded walk), a loaded model's through that
+        walk, which also takes ``pred_early_stop`` (with
+        ``pred_early_stop_freq`` / ``_margin``), as the JAX package's
+        does.  ``predict_disable_shape_check`` drops extra columns and pads
+        missing ones with NaN."""
+        if kwargs.pop("pred_leaf", False) or kwargs.pop("pred_contrib",
+                                                        False):
             raise NotImplementedError(
-                "pred_leaf / pred_contrib are not ported yet (ROADMAP "
-                "A8.10)")
-        other = [k for k, v in kwargs.items()
-                 if k not in ("pred_leaf", "pred_contrib") and v]
+                "pred_leaf / pred_contrib are not ported to "
+                "lightgbm_tpu_torch yet (ROADMAP A8.10)")
+        shape_check = not kwargs.pop("predict_disable_shape_check", False)
+        early = ({k: kwargs.pop(k) for k in list(kwargs)
+                  if k.startswith("pred_early_stop")} if self._loaded
+                 else {})
+        other = [k for k, v in kwargs.items() if v]
         if other:
             raise NotImplementedError(f"predict options {other} are not "
-                                      "ported yet")
+                                      "ported to lightgbm_tpu_torch yet")
         if not _is_sparse(data):
             data = _as_2d(data)
         nf = self.num_feature()
         if data.shape[1] != nf:
-            raise ValueError(f"data has {data.shape[1]} features, model "
-                             f"expects {nf}")
+            if shape_check:
+                raise ValueError(
+                    f"data has {data.shape[1]} features, model expects "
+                    f"{nf}; pass predict_disable_shape_check=True to "
+                    "override")
+            if data.shape[1] > nf:
+                data = data[:, :nf]
+            else:
+                if _is_sparse(data):
+                    data = np.asarray(data.todense(), np.float64)
+                pad = np.full((data.shape[0], nf - data.shape[1]), np.nan)
+                data = np.concatenate([data, pad], axis=1)
         if num_iteration is None and self.best_iteration > 0:
             num_iteration = self.best_iteration
-        raw = self._gbdt.predict_raw(data, num_iteration, start_iteration)
-        if raw_score or self._gbdt.objective is None:
+        g = self._gbdt
+        if self._loaded:
+            return g.predict(data, raw_score=raw_score,
+                             num_iteration=num_iteration,
+                             start_iteration=start_iteration, **early)
+        raw = g.predict_raw(data, num_iteration, start_iteration)
+        if raw_score or g.objective is None:
             return raw
         score = torch.from_numpy(np.asarray(raw)).to(torch.float32).to(
-            self._gbdt.device)
-        return self._gbdt.objective.convert_output(score).cpu().numpy()
+            g.device)
+        return g.objective.convert_output(score).cpu().numpy()
 
     def serving_predictor(self, **kwargs):
         """A long-lived :class:`~.serve.Predictor` over this booster (on
-        the training device unless ``device`` is given)."""
+        the training device unless ``device`` is given).  A loaded model
+        has no bin mappers, and a continuation's base trees walk raw
+        values: both raise ``ValueError``, as in the JAX package."""
         from .serve import Predictor
+        if self._loaded:
+            raise ValueError(
+                "serving_predictor needs a trained booster: a text-loaded "
+                "model carries no bin mappers; use Booster.predict")
         kwargs.setdefault("device", self._gbdt.device)
         return Predictor(self._gbdt, **kwargs)
+
+    def refit(self, *args, **kwargs):
+        raise NotImplementedError(
+            "refit is not ported to lightgbm_tpu_torch yet (ROADMAP A8.9)")
 
     # -------------------------------------------------------------- misc
     @property
     def current_iteration(self) -> int:
-        return self._gbdt.iter_
+        """Iterations of the combined model (a continuation's base
+        model's included)."""
+        g = self._gbdt
+        base = getattr(g, "base_model", None)
+        return g.iter_ + (base.iter_ if base is not None else 0)
 
     def num_trees(self) -> int:
         return self._gbdt.num_trees
@@ -306,9 +438,13 @@ class Booster:
         return self._gbdt.num_class
 
     def num_feature(self) -> int:
+        if self._loaded:
+            return int(self._gbdt.num_features)
         return self._gbdt.train_data.num_features
 
     def feature_name(self) -> List[str]:
+        if self._loaded:
+            return list(self._gbdt.feature_names)
         td = self._gbdt.train_data
         return td.feature_names or [f"Column_{i}"
                                     for i in range(td.num_features)]
@@ -320,6 +456,9 @@ class Booster:
     def model_to_string(self, num_iteration: Optional[int] = None,
                         start_iteration: int = 0) -> str:
         from .serialization import model_to_string
+        if self._loaded:
+            return self._gbdt.to_string(num_iteration=num_iteration,
+                                        start_iteration=start_iteration)
         return model_to_string(self._gbdt, num_iteration=num_iteration,
                                start_iteration=start_iteration)
 

@@ -3,9 +3,11 @@
 The port's copy of the JAX package's ``binning.py`` numpy path: the
 greedy equal-count boundary search, the per-feature ``BinMapper``, sampled
 ``bin_dataset``, dense and CSC ingestion, and the flat-array mapper
-encoding.  Mappers and bin matrices are byte-for-byte those of the JAX
-package (pinned by tests/test_torch_binning.py).  The JAX package's
-threaded C++ fast path (``native``) and forced bins are not ported yet.
+encoding, per-feature bin budgets (``max_bin_by_feature``) and forced
+bin bounds (``forcedbins_filename``, :func:`load_forced_bins`).  Mappers
+and bin matrices are byte-for-byte those of the JAX package (pinned by
+tests/test_torch_binning.py).  The JAX package's threaded C++ fast path
+(``native``) is not ported (ROADMAP A1b).
 
 Conventions kept from the JAX package: bins are dense ``uint8``/``uint16``;
 the NaN bin, when present, is the LAST bin of a feature; categorical bins
@@ -122,6 +124,74 @@ def _greedy_find_boundaries(
     return bounds
 
 
+def load_forced_bins(path: str, num_features: int,
+                     categorical: Sequence[int] = ()) -> Optional[dict]:
+    """Parse a forcedbins_filename JSON file into {feature: [bounds]}
+    (reference ``DatasetLoader::GetForcedBins``, dataset_loader.cpp:1493:
+    array of {"feature": i, "bin_upper_bound": [...]}; categorical
+    features are warned and skipped; missing file warns and is ignored)."""
+    if not path:
+        return None
+    import json
+    try:
+        with open(path) as fh:
+            spec = json.load(fh)
+    except OSError:
+        Log.warning(f"Could not open {path}. Will ignore.")
+        return None
+    cats = set(int(c) for c in categorical)
+    out: dict = {}
+    for entry in spec:
+        fi = int(entry["feature"])
+        if fi >= num_features:
+            raise ValueError(
+                f"forced bins feature {fi} out of range ({num_features})")
+        if fi in cats:
+            Log.warning(f"Feature {fi} is categorical. Will ignore forced "
+                        "bins for this feature.")
+            continue
+        out[fi] = [float(b) for b in entry["bin_upper_bound"]]
+    return out or None
+
+
+def _bounds_with_forced(distinct, counts, max_bins, total_cnt,
+                        min_data_in_bin, forced) -> List[float]:
+    """Bin boundaries honoring user-forced upper bounds (reference
+    ``FindBinWithPredefinedBin``, bin.cpp:157): the forced bounds become
+    boundaries first, then each segment between them gets a greedy-
+    equal-count refill proportional to its sample mass, the last segment
+    absorbing the remaining budget.
+
+    Forced bounds within ``kZeroThreshold`` (1e-35) of zero are dropped,
+    as the reference skips any ``|bound| <= kZeroThreshold``.  As in the
+    JAX package (and its ``_greedy_find_boundaries``), the reference's own
+    implicit boundaries at +-kZeroThreshold are not added."""
+    forced = sorted({float(b) for b in forced
+                     if np.isfinite(b) and not (_KZERO_LO <= b <= _KZERO_HI)})
+    bounds = forced[: max(max_bins - 1, 0)] + [np.inf]
+    free_bins = max_bins - len(bounds)
+    to_add: List[float] = []
+    vi = 0
+    for i, ub in enumerate(bounds):
+        seg_start = vi
+        cnt_in_bin = 0
+        while vi < len(distinct) and distinct[vi] < ub:
+            cnt_in_bin += int(counts[vi])
+            vi += 1
+        remaining = free_bins - len(to_add)
+        if i == len(bounds) - 1:
+            num_sub = remaining + 1
+        else:
+            num_sub = min(int(round(cnt_in_bin * free_bins
+                                    / max(total_cnt, 1))), remaining) + 1
+        if num_sub > 1 and vi > seg_start:
+            sub = _greedy_find_boundaries(
+                distinct[seg_start:vi], counts[seg_start:vi], num_sub,
+                cnt_in_bin, min_data_in_bin)
+            to_add.extend(sub[:-1])   # last sub-bound is +inf
+    return sorted(bounds[:-1] + to_add) + [np.inf]
+
+
 def find_bin(
     sample_values: np.ndarray,
     max_bin: int,
@@ -131,8 +201,11 @@ def find_bin(
     use_missing: bool = True,
     zero_as_missing: bool = False,
     min_data_per_category: int = 1,
+    forced_upper_bounds: Optional[Sequence[float]] = None,
 ) -> BinMapper:
-    """Construct a :class:`BinMapper` from sampled values (reference ``FindBin``)."""
+    """Construct a :class:`BinMapper` from sampled values (reference
+    ``FindBin``); ``forced_upper_bounds`` are kept as boundaries
+    (``forcedbins_filename``)."""
     v = np.asarray(sample_values, dtype=np.float64).ravel()
     na_mask = np.isnan(v)
     if zero_as_missing:
@@ -170,8 +243,13 @@ def find_bin(
     has_nan_bin = missing_type != MISSING_NONE
     max_value_bins = max_bin - (1 if has_nan_bin else 0)
     distinct, counts = np.unique(vv, return_counts=True)
-    bounds = _greedy_find_boundaries(distinct, counts, max_value_bins,
-                                     len(vv), min_data_in_bin)
+    if forced_upper_bounds:
+        bounds = _bounds_with_forced(distinct, counts, max_value_bins,
+                                     len(vv), min_data_in_bin,
+                                     forced_upper_bounds)
+    else:
+        bounds = _greedy_find_boundaries(distinct, counts, max_value_bins,
+                                         len(vv), min_data_in_bin)
     num_bins = len(bounds) + (1 if has_nan_bin else 0)
     trivial = num_bins <= 1 or (len(distinct) <= 1 and not has_nan_bin)
     ub = np.asarray(bounds, dtype=np.float64)
@@ -200,11 +278,15 @@ def bin_dataset(
     zero_as_missing: bool = False,
     sample_cnt: int = 200000,
     random_state: int = 1,
+    max_bin_by_feature: Optional[Sequence[int]] = None,
+    forced_bins: Optional[dict] = None,
 ) -> "BinnedData":
     """Bin a full feature matrix: bin boundaries come from a row subsample
     (reference ``DatasetLoader::SampleTextDataFromFile``), then the full
     matrix is discretized.  scipy sparse inputs are binned column-wise
-    straight from CSC, never densified."""
+    straight from CSC, never densified.  ``max_bin_by_feature`` gives each
+    feature its own bin budget; ``forced_bins`` ({feature: bounds}, from
+    :func:`load_forced_bins`) its forced upper bounds."""
     sparse = _is_sparse(X)
     if not sparse:
         X = np.asarray(X)
@@ -218,10 +300,20 @@ def bin_dataset(
     if sparse:
         sample = sample.tocsc()
     cat_set = set(int(c) for c in categorical_features)
+    if max_bin_by_feature is not None:
+        # reference CHECKs length == num features and every value > 1
+        if len(max_bin_by_feature) != f:
+            raise ValueError(
+                f"max_bin_by_feature has {len(max_bin_by_feature)} entries "
+                f"for {f} features (reference requires an exact match)")
+        if any(int(v) <= 1 for v in max_bin_by_feature):
+            raise ValueError("max_bin_by_feature values must be > 1")
     mappers: List[BinMapper] = []
     s = sample.shape[0]
     all_nan_cols: List[int] = []
     for j in range(f):
+        mb = (max_bin if max_bin_by_feature is None
+              else int(max_bin_by_feature[j]))
         if sparse:
             nz = np.asarray(sample.data[sample.indptr[j]:
                                         sample.indptr[j + 1]], np.float64)
@@ -233,8 +325,9 @@ def bin_dataset(
                 and bool(np.isnan(np.asarray(col, np.float64)).all())):
             all_nan_cols.append(j)
         mappers.append(find_bin(
-            col, max_bin, min_data_in_bin, is_categorical=(j in cat_set),
-            use_missing=use_missing, zero_as_missing=zero_as_missing))
+            col, mb, min_data_in_bin, is_categorical=(j in cat_set),
+            use_missing=use_missing, zero_as_missing=zero_as_missing,
+            forced_upper_bounds=(forced_bins or {}).get(j)))
     const_cols = [j for j, m in enumerate(mappers)
                   if m.is_trivial and j not in all_nan_cols]
     if all_nan_cols:

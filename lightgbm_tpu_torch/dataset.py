@@ -5,7 +5,10 @@ The port of the JAX package's ``dataset.py::TrainData``: ``build`` checks
 the label and weights, bins the matrix on the host with the port's
 ``bin_dataset`` (the JAX package's mappers byte for byte), and
 ``bins_device`` / ``feature_meta_device`` put the bins and the
-per-feature metadata on a device.  A valid set is built with
+per-feature metadata on a device.  Each feature is binned to its own
+budget under ``max_bin_by_feature`` and keeps the forced bounds of
+``forcedbins_filename``; the matrix is uint16 when any feature passes 256
+bins, and packs to 4 bits only when every feature stays at or below 16.  A valid set is built with
 ``reference=`` the training data: its rows are binned with the training
 mappers, as in the JAX package.  The bins are the (N, F) uint8 matrix
 (uint16 above 256 bins, as the JAX package stores them), or with
@@ -24,7 +27,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .binning import BinnedData, _is_sparse, bin_dataset
+from .binning import BinnedData, _is_sparse, bin_dataset, load_forced_bins
 from .config import Config
 from .ops.histogram import pack_bins4
 
@@ -70,7 +73,11 @@ class TrainData:
                 use_missing=cfg.use_missing,
                 zero_as_missing=cfg.zero_as_missing,
                 sample_cnt=cfg.bin_construct_sample_cnt,
-                random_state=cfg.data_random_seed)
+                random_state=cfg.data_random_seed,
+                max_bin_by_feature=cfg.max_bin_by_feature,
+                forced_bins=load_forced_bins(cfg.forcedbins_filename,
+                                             X.shape[1],
+                                             categorical_features))
         return cls(
             binned=binned, label=np.asarray(label),
             weight=None if weight is None else np.asarray(weight, np.float32),

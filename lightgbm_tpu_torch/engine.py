@@ -11,8 +11,13 @@ early-stopping params (``early_stopping_round`` and its aliases,
 package.  Metrics are computed only on rounds a callback consumes
 (``eval_period``), and an early stop sets ``best_iteration`` and
 ``best_score``.  A callable ``objective`` trains through
-``Booster.update(fobj=...)``.  ``init_model`` (ROADMAP A8.9),
-``resume_from`` (A11) and ``cv`` (A5d) are later work and raise.
+``Booster.update(fobj=...)``.  ``init_model`` (a model file's path, a
+``Booster`` or a ``LoadedModel``) continues training: the base model's
+raw scores are folded into every dataset's init score, on shallow copies
+that keep the constructed bins (the caller's datasets keep their own),
+and its trees come first in the new booster's predictions and model
+text.  ``resume_from`` (ROADMAP A11) and ``cv`` (A5d) are later work and
+raise.
 """
 
 from __future__ import annotations
@@ -20,9 +25,38 @@ from __future__ import annotations
 import copy
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
+import numpy as np
+
 from . import callback as callback_mod
 from .basic import Booster, Dataset
 from .callback import CallbackEnv, EarlyStopException
+from .serialization import LoadedModel, load_model_string
+from .utils.device import resolve_device
+from .utils.timer import FunctionTimer
+
+
+def _base_model(init_model, device) -> LoadedModel:
+    """``init_model`` as a :class:`LoadedModel` on ``device``."""
+    if isinstance(init_model, LoadedModel):
+        return init_model
+    if isinstance(init_model, Booster):
+        text = init_model.model_to_string()
+    else:
+        with open(init_model) as fh:
+            text = fh.read()
+    return load_model_string(text, device=device)
+
+
+def _fold_init_score(ds: Dataset, base: LoadedModel,
+                     params: Dict[str, Any]) -> Dataset:
+    """A shallow copy of ``ds`` whose init score adds the base model's raw
+    scores (f64) to its own; a constructed dataset's bins are kept."""
+    ds.load_rows(params)
+    pred = np.asarray(base.predict_raw(ds.data), np.float64)
+    if ds.init_score is not None:
+        pred = pred + np.asarray(ds.init_score,
+                                 np.float64).reshape(pred.shape)
+    return ds.with_init_score(pred)
 
 
 def train(params: Dict[str, Any], train_set: Dataset,
@@ -34,10 +68,6 @@ def train(params: Dict[str, Any], train_set: Dataset,
           callbacks: Optional[List[Callable]] = None,
           resume_from: Optional[str] = None, *, device=None) -> Booster:
     """Train a booster on ``device`` (the CUDA card unless ``"cpu"``)."""
-    if init_model is not None:
-        raise NotImplementedError(
-            "init_model (continued training) is not ported to "
-            "lightgbm_tpu_torch yet (ROADMAP A8.9; it needs A5b)")
     if resume_from is not None:
         raise NotImplementedError(
             "resume_from (checkpoints) is not ported to lightgbm_tpu_torch "
@@ -65,8 +95,23 @@ def train(params: Dict[str, Any], train_set: Dataset,
             continue
         valid_pairs.append((names[i] if i < len(names) else f"valid_{i}",
                             vs))
+    base = None
+    if init_model is not None:
+        with FunctionTimer("train/fold_init_score"):
+            base = _base_model(init_model, resolve_device(device))
+            folded = _fold_init_score(train_set, base, params)
+            pairs = []
+            for nm, vs in valid_pairs:
+                vc = _fold_init_score(vs, base, params)
+                if vc.reference is train_set:
+                    vc.reference = folded
+                pairs.append((nm, vc))
+        train_set, valid_pairs = folded, pairs
     booster = Booster(params=params, train_set=train_set,
-                      valid_sets=valid_pairs, device=device)
+                      valid_sets=valid_pairs, device=device,
+                      base_model=base)
+    # best_iteration counts the combined model's iterations
+    n_base = base.iter_ if base is not None else 0
 
     cbs = list(callbacks or [])
     if early_stopping_rounds is not None and valid_pairs:
@@ -96,7 +141,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
                 cb(CallbackEnv(booster, params, it, 0, num_boost_round,
                                evals))
         except EarlyStopException as e:
-            booster.best_iteration = e.best_iteration + 1
+            booster.best_iteration = e.best_iteration + 1 + n_base
             booster.best_score = e.best_score
             return True
         return False

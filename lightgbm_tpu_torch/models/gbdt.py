@@ -24,10 +24,20 @@ bins and gradients live on the device; each grown tree becomes a host
 ``gbdt/host_tree``) mark an iteration's steps.  ``predict_raw`` walks the
 fp32 pack (``models/tree.py::forest_scores``) through the serving plan.
 
-A config the slice does not train raises ``NotImplementedError`` naming
-its ROADMAP item (``check_supported``); nothing is silently ignored.
-``GBDT.from_trees`` builds the serving-only model a JAX booster is
-carried across into (``convert.model_from_arrays``).
+Continued training: ``base_model`` (a loaded model text,
+``serialization.LoadedModel``) whose raw scores the caller folded into
+the datasets' init scores (so boost-from-average stays off); its trees
+come first in ``predict_raw``'s iterations, ``num_trees``, the feature
+importances and the model text, while ``iter_``, the stump rule and early
+stopping count the booster's own iterations.
+
+``check_supported`` refuses by value: a key at its default trains, the
+keys of ``_NO_OP_KEYS`` (which change nothing the port trains) train at
+any value, and a config the port does not train raises
+``NotImplementedError`` naming its ROADMAP item; nothing that would change
+the JAX package's result is silently ignored.  ``GBDT.from_trees`` builds
+the serving-only model a JAX booster is carried across into
+(``convert.model_from_arrays``).
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ from ..objectives import RANKING, create_objective
 from ..ops.quantize import quant_generator
 from ..ops.split import SplitConfig
 from ..utils.device import resolve_device
+from ..utils.log import Log
 from .grower import GrowerConfig, make_grower
 from .tree import Tree, tree_scores
 
@@ -58,17 +69,68 @@ def _todo(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported to lightgbm_tpu_torch yet (ROADMAP {item})")
 
 
+#: keys that change nothing the port trains, accepted at any value: host
+#: threading and layout hints, the device choice (the port's comes from
+#: its ``device`` argument), the predict-time keys, and keys that tune
+#: only a feature the port refuses by that feature's own key
+_NO_OP_KEYS = frozenset((
+    "num_threads", "deterministic", "force_col_wise", "force_row_wise",
+    "is_enable_sparse", "feature_pre_filter", "gpu_platform_id",
+    "gpu_device_id", "gpu_use_dp", "num_gpu", "output_model",
+    "precise_float_parser", "device_type",
+    "start_iteration_predict", "num_iteration_predict", "predict_raw_score",
+    "predict_leaf_index", "predict_contrib", "predict_disable_shape_check",
+    "pred_early_stop", "pred_early_stop_freq", "pred_early_stop_margin",
+    "bagging_seed", "bagging_by_query", "feature_fraction_seed",
+    "extra_seed", "drop_rate", "max_drop", "skip_drop", "xgboost_dart_mode",
+    "uniform_drop", "drop_seed", "top_rate", "other_rate", "linear_lambda",
+    "min_data_per_group", "max_cat_threshold", "cat_l2", "cat_smooth",
+    "top_k", "monotone_constraints_method", "monotone_penalty",
+    "refit_decay_rate", "objective_seed", "lambdarank_truncation_level",
+    "lambdarank_norm", "label_gain",
+    "lambdarank_position_bias_regularization", "eval_at",
+    "tpu_device_goss", "tpu_hist_comm"))
+
+#: keys refused at a non-default value, with the ROADMAP item that ports
+#: them
+_REFUSED_KEYS = {
+    "two_round": "A1c", "save_binary": "A1c", "parser_config_file": "A1c",
+    "histogram_pool_size": "A8.5", "tpu_split_tile": "A8.5",
+    "pre_partition": "A10", "local_listen_port": "A10", "time_out": "A10",
+    "machine_list_filename": "A10", "machines": "A10",
+    "snapshot_freq": "A11", "checkpoint_interval": "A11",
+    "checkpoint_dir": "A11", "checkpoint_keep": "A11",
+    "tpu_probe_timeout": "A11", "tpu_telemetry": "A11",
+    "tpu_telemetry_log": "A11", "tpu_profile_iters": "A11",
+    "tpu_profile_dir": "A11", "tpu_telemetry_memory": "A11",
+    "tpu_stream_budget_mb": "A11", "tpu_stream_residency": "A11",
+    "tpu_stream_rows_per_shard": "A11", "tpu_stream_prefetch": "A11",
+    "serve_max_queue": "A7c", "serve_deadline_ms": "A7c",
+    "tpu_native_predict_max_rows": "A7d", "tpu_serve_compile_cache": "A7e",
+    "tpu_serve_request_log": "A7f", "tpu_serve_request_sample": "A7f",
+    "tpu_serve_slow_ms": "A7f", "tpu_serve_slo_p99_ms": "A7f",
+}
+_REFUSED_KEYS.update({k: "A11" for k in _CANONICAL
+                      if k.startswith("tpu_health_")})
+
+
 def check_supported(cfg: Config, train: Optional[TrainData] = None) -> None:
     """Raise ``NotImplementedError`` (naming the ROADMAP item) for every
-    param value, and every dataset, that the port does not train yet."""
+    param value, and every dataset, that the port does not train yet.
+    Keys are refused by value, not by name: a key at its default trains,
+    and the keys of ``_NO_OP_KEYS`` train at any value.  A key outside
+    the param table is kept and ignored, as the JAX package does."""
     unknown = sorted(k for k in cfg.raw_params if k not in _CANONICAL)
-    ops = [k for k in unknown if k.startswith("checkpoint")
-           or k in ("snapshot_freq", "save_period")]
-    if ops:
-        raise _todo(f"checkpoint param(s) {ops}", "A11")
     if unknown:
-        raise _todo(f"param(s) {unknown}", "queue A: the rest of the "
-                    "param table, A1")
+        Log.warning(f"unknown parameter(s) {unknown} are ignored")
+    for key, item in _REFUSED_KEYS.items():
+        if getattr(cfg, key) != _CANONICAL[key][2]:
+            raise _todo(f"{key}={getattr(cfg, key)!r}", item)
+    if cfg.input_model:
+        raise _todo("input_model in train's params (the command-line "
+                    "interface reads it; pass init_model= to train)", "A9")
+    if cfg.group_column:
+        raise _todo("query groups (group_column)", "A8.2")
     if cfg.objective in RANKING:
         raise _todo(f"training objective={cfg.objective}", "A8.2")
     if cfg.boosting != "gbdt":
@@ -94,15 +156,11 @@ def check_supported(cfg: Config, train: Optional[TrainData] = None) -> None:
         raise _todo("interaction constraints and feature_contri", "A8.7")
     if cfg.linear_tree:
         raise _todo("linear trees", "A8.8")
-    if cfg.input_model:
-        raise _todo("continued training (input_model)", "A8.9")
     if cfg.tree_learner != "serial" or cfg.num_machines > 1:
         raise _todo(f"tree_learner={cfg.tree_learner} / num_machines",
                     "A10")
     if cfg.tpu_iter_pack > 0:
         raise _todo("iteration packing (tpu_iter_pack)", "A8.11")
-    if cfg.max_bin_by_feature or cfg.forcedbins_filename:
-        raise _todo("max_bin_by_feature and forced bins", "A1")
     if cfg.tpu_histogram_impl not in _HIST_IMPLS:
         raise ValueError(f"tpu_histogram_impl={cfg.tpu_histogram_impl!r}: "
                          f"expected one of {', '.join(_HIST_IMPLS)}")
@@ -151,11 +209,15 @@ class GBDT:
     serving."""
 
     def __init__(self, cfg: Config, train: TrainData, valids=(),
-                 device=None):
+                 device=None, base_model=None):
         check_supported(cfg, train)
         self.cfg = cfg
         self.train_data = train
         self.device = resolve_device(device)
+        # continued training: a LoadedModel whose raw scores the caller
+        # folded into every dataset's init_score; its trees come first in
+        # predictions, model text, tree counts and importances
+        self.base_model = base_model
         self.num_class = cfg.num_model_per_iteration
         self.models: List[List[Tree]] = [[] for _ in range(self.num_class)]
         self.objective = create_objective(cfg)
@@ -212,6 +274,7 @@ class GBDT:
         if len({len(m) for m in models}) > 1:
             raise ValueError("every class needs the same number of trees")
         self.train_data = TrainData(binned=binned, label=np.zeros(0))
+        self.base_model = None
         self.models = [list(m) for m in models]
         self.init_scores = np.asarray(init_scores, np.float64).reshape(
             self.num_class).copy()
@@ -393,7 +456,8 @@ class GBDT:
 
     @property
     def num_trees(self) -> int:
-        return sum(len(m) for m in self.models)
+        own = sum(len(m) for m in self.models)
+        return own + (self.base_model.num_trees if self.base_model else 0)
 
     def host_trees(self, start: int = 0,
                    end: Optional[int] = None) -> List[List[Tree]]:
@@ -405,8 +469,28 @@ class GBDT:
 
     def predict_raw(self, X, num_iteration: Optional[int] = None,
                     start_iteration: int = 0, device=None) -> np.ndarray:
-        """(N,) f64 raw scores (init score included) through the fp32
-        serving plan on ``device`` (default: the training device)."""
+        """(N,) or (N, K) f64 raw scores (init score included).
+        Iterations index the combined model: a continuation's base model
+        (walked by :class:`~..serialization.LoadedModel`) first, then this
+        booster's own trees through the fp32 serving plan on ``device``
+        (default: the training device)."""
+        start_iteration = max(int(start_iteration), 0)
+        if self.base_model is None:
+            return self._predict_raw_own(X, num_iteration, start_iteration,
+                                         device)
+        nb = self.base_model.iter_
+        end = (None if num_iteration is None
+               else start_iteration + num_iteration)
+        b_start = min(start_iteration, nb)
+        b_num = (nb if end is None else max(min(end, nb), b_start)) - b_start
+        base = self.base_model.predict_raw(X, num_iteration=b_num,
+                                           start_iteration=b_start)
+        own_start = max(start_iteration - nb, 0)
+        own_num = None if end is None else max(end - nb - own_start, 0)
+        return base + self._predict_raw_own(X, own_num, own_start, device)
+
+    def _predict_raw_own(self, X, num_iteration: Optional[int],
+                         start_iteration: int, device=None) -> np.ndarray:
         from ..serve.plan import plan_for_model
         dev = getattr(self, "device", None) if device is None else device
         plan = plan_for_model(self, num_iteration, start_iteration,
@@ -420,8 +504,11 @@ class GBDT:
     def feature_importance(self, importance_type: str = "split"
                            ) -> np.ndarray:
         """Split counts (or summed gains) per feature (reference
-        ``GBDT::FeatureImportance``)."""
+        ``GBDT::FeatureImportance``), the base model's included."""
         imp = np.zeros(self.train_data.num_features, np.float64)
+        if self.base_model is not None:
+            base_imp = self.base_model.feature_importance(importance_type)
+            imp[: len(base_imp)] += base_imp
         for cls_models in self.models:
             for tree in cls_models:
                 k = tree.num_splits()

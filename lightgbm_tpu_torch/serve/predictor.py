@@ -54,7 +54,12 @@ class Predictor:
         ``"cpu"`` runs the plain PyTorch path on the host."""
         if not hasattr(model, "train_data"):
             raise ValueError("Predictor needs a model with its bin mappers "
-                             "(see convert.model_from_arrays)")
+                             "(see convert.model_from_arrays); a text-loaded "
+                             "model carries none: use Booster.predict")
+        if getattr(model, "base_model", None) is not None:
+            raise ValueError(
+                "Predictor does not serve a continuation booster (its base "
+                "model walks raw values, not bins): use Booster.predict")
         self._model = model
         self._raw_score = bool(raw_score)
         self._num_iteration = num_iteration

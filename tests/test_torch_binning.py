@@ -2,7 +2,10 @@
 package's binning.py — mappers byte for byte (in the flat-array encoding a
 model is carried across in) and bin matrices equal, dtype included; at
 max_bin 511 and 1023 (with NaNs and a categorical column) the matrices
-are uint16 in both.
+are uint16 in both.  Per-feature budgets (``max_bin_by_feature``) and
+forced upper bounds (``forcedbins_filename``, read by ``load_forced_bins``)
+give the JAX package's mappers too: the matrix is uint16 when any feature
+passes 256 bins, uint8 otherwise.
 
 The JAX package is imported inside the tests, never at module level, so the
 file also collects on the card, where only the port is installed."""
@@ -38,6 +41,17 @@ def _datasets():
         "nan_max_bin_1023": (wide, {"max_bin": 1023}),
         "messy_max_bin_511": (messy_data()[0], {"categorical_features": [4],
                                                 "max_bin": 511}),
+        "by_feature_mixed": (wide, {"max_bin_by_feature":
+                                    [15, 63, 255, 1023, 4, 300]}),
+        "by_feature_narrow": (higgs_like(3000, 4, seed=4)[0],
+                              {"max_bin_by_feature": [16, 8, 200, 3]}),
+        "forced_bins": (wide, {"max_bin": 63, "forced_bins": {
+            0: [-1.0, 0.0, 1e-40, 0.5, 2.0], 3: [0.25, 9.0, -0.7]}}),
+        "forced_by_feature": (wide, {"max_bin_by_feature":
+                                     [15, 63, 255, 1023, 16, 4],
+                                     "forced_bins": {1: [-0.5, 0.5],
+                                                     5: [0.1, 0.2, 0.3,
+                                                         0.4, 0.5]}}),
     }
 
 
@@ -115,7 +129,8 @@ def test_mapper_arrays_round_trip():
         assert arrays[k].tobytes() == back[k].tobytes(), k
 
 
-@pytest.mark.parametrize("name", ["nan_max_bin_1023", "messy_max_bin_511"])
+@pytest.mark.parametrize("name", ["nan_max_bin_1023", "messy_max_bin_511",
+                                  "by_feature_mixed"])
 def test_wide_max_bin_bins_are_uint16(name):
     """Above 256 bins a feature, the bin matrix is uint16 (the JAX
     package's storage), with ids past 255 in use."""
@@ -123,3 +138,67 @@ def test_wide_max_bin_bins_are_uint16(name):
     t = tb.bin_dataset(X, **kw)
     assert t.bins.dtype == np.uint16 and t.max_num_bins > 256
     assert int(t.bins.max()) > 255
+
+
+def test_per_feature_budgets_and_forced_bounds():
+    """Each feature keeps its own budget, the forced bounds stand among
+    the boundaries (the lowest ones, as many as the feature's budget
+    holds), and a matrix of features at <= 256 bins stays uint8."""
+    X, kw = _DATA["forced_by_feature"]
+    t = tb.bin_dataset(X, **kw)
+    for j, m in enumerate(t.mappers):
+        assert m.num_bins <= kw["max_bin_by_feature"][j], j
+        assert t.num_bins_per_feature[j] == m.num_bins
+    assert {-0.5, 0.5} <= set(t.mappers[1].upper_bounds.tolist())
+    # budget 4 with a NaN bin: 3 value bins, so 2 of the 5 forced bounds
+    assert t.mappers[5].upper_bounds.tolist() == [0.1, 0.2, np.inf]
+    X, kw = _DATA["by_feature_narrow"]
+    assert tb.bin_dataset(X, **kw).bins.dtype == np.uint8
+    with pytest.raises(ValueError, match="exact match"):
+        tb.bin_dataset(X, max_bin_by_feature=[16, 16])
+    with pytest.raises(ValueError, match="> 1"):
+        tb.bin_dataset(X, max_bin_by_feature=[16, 1, 16, 16])
+
+
+def test_load_forced_bins_matches_jax(tmp_path):
+    """The forced-bins JSON file reads alike: a categorical feature's
+    entry is skipped, a missing file is ignored, and a feature out of
+    range raises."""
+    import json
+    jb = _jax_binning()
+    path = str(tmp_path / "forced.json")
+    spec = [{"feature": 0, "bin_upper_bound": [0.5, -1, 2]},
+            {"feature": 2, "bin_upper_bound": [3]},
+            {"feature": 4, "bin_upper_bound": [1.5, 2.5]}]
+    with open(path, "w") as fh:
+        json.dump(spec, fh)
+    for cats in ((), (2,)):
+        assert (tb.load_forced_bins(path, 5, cats)
+                == jb.load_forced_bins(path, 5, cats))
+    assert tb.load_forced_bins(path, 5, (2,)) == {0: [0.5, -1.0, 2.0],
+                                                  4: [1.5, 2.5]}
+    missing = str(tmp_path / "none.json")
+    assert tb.load_forced_bins(missing, 5) is None
+    assert tb.load_forced_bins("", 5) is None
+    with pytest.raises(ValueError, match="out of range"):
+        tb.load_forced_bins(path, 3)
+
+
+def test_two_bin_budget_with_nan_matches_jax_python_path(monkeypatch):
+    """A budget of 2 bins on a feature with NaN leaves one value bin.  The
+    JAX package's Python boundary search (and the port's copy) closes it
+    with a bound and +inf (3 bins with the NaN bin); its C++ search
+    (``native.find_boundaries``) returns the bound without the +inf (2
+    bins).  The port follows the Python path, held here with the C++
+    library switched off in this process (ROADMAP queue C records it)."""
+    import lightgbm_tpu.native as native
+    jb = _jax_binning()
+    X = _DATA["by_feature_mixed"][0]
+    kw = {"max_bin_by_feature": [15, 63, 255, 1023, 2, 300]}
+    fast = jb.bin_dataset(X, **kw)
+    monkeypatch.setattr(native, "_load", lambda: None)
+    j = jb.bin_dataset(X, **kw)
+    t = tb.bin_dataset(X, **kw)
+    _assert_same_mappers(j.mappers, t.mappers, jb)
+    np.testing.assert_array_equal(j.bins, t.bins)
+    assert t.mappers[4].num_bins == 3 and fast.mappers[4].num_bins == 2

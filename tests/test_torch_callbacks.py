@@ -25,8 +25,8 @@ package's on the same numpy inputs from a seed.
   ``eval_valid``, ``Booster.eval`` and ``add_valid`` agree with each
   other and with the JAX package; a callable ``objective`` trains like
   ``Booster.update(fobj=...)``, which takes (N, K) gradients for K
-  classes; ``init_model``, ``resume_from``,
-  checkpoint params and ``cv`` raise, naming their ROADMAP items."""
+  classes; ``resume_from``, checkpoint params, refit and ``cv`` raise,
+  naming their ROADMAP items, and ``init_model`` continues training."""
 
 import contextlib
 import io
@@ -346,11 +346,16 @@ def test_multiclass_fobj_on_class_columns():
 def test_later_train_options_raise():
     X, y, _, _, obj = _train_data("l2")
     params = dict(obj, verbosity=-1)
-    for kw, item in (({"init_model": "model.txt"}, "A8.9"),
-                     ({"resume_from": "ckpt"}, "A11")):
-        with pytest.raises(NotImplementedError, match=item):
-            lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu",
-                      **kw)
+    with pytest.raises(NotImplementedError, match="A11"):
+        lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu",
+                  resume_from="ckpt")
+    # init_model continues training (slice 12); refit stays later work
+    base = lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu")
+    cont = lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu",
+                     init_model=base)
+    assert cont.current_iteration == 2
+    with pytest.raises(NotImplementedError, match="A8.9"):
+        cont.refit(X, y)
     with pytest.raises(NotImplementedError, match="A11"):
         lgt.train(dict(params, checkpoint_interval=5),
                   lgt.Dataset(X, label=y), 1, device="cpu")

@@ -44,14 +44,29 @@
   same params, and the model text loads in ``lightgbm_tpu.Booster(
   model_str=...)`` and predicts within 1e-6; ``tpu_wave_kernel=fused``
   at max_bin 511 trains and gives the unfused run's model text.
+- The param table holds every row of the JAX package's, and resolves
+  params (the new keys and their aliases too) alike.  Keys are refused
+  by value, not by name: the keys that change nothing the port trains
+  (threads, layout hints, ``device_type``, the predict keys, keys that
+  tune a feature refused by its own key) train at any value, and every
+  other key at a non-default value raises ``NotImplementedError`` naming
+  its ROADMAP item; a key outside the table is ignored with a warning,
+  as the JAX package ignores it.
+- ``max_bin_by_feature`` (15, 63, 255 and 1023 cycled over the features,
+  so the bins are uint16) with a forced-bins file: one exact-sum
+  iteration gives the JAX package's model text byte for byte, and the
+  fused wave's (forced on the CPU: its plain version) too.
 - Every unsupported param, an EFB-bundled dataset, a sorted
-  categorical feature, ``init_model``, ``resume_from`` and ``cv`` raise
-  ``NotImplementedError``; without ``device`` on a machine with no card,
-  ``train`` raises.
+  categorical feature, ``resume_from`` and ``cv`` raise
+  ``NotImplementedError``; ``init_model`` continues training and
+  ``Booster(model_str=...)`` loads (tests/test_torch_load_model.py holds
+  both to the JAX package); without ``device`` on a machine with no
+  card, ``train`` raises.
 
 On the card (``cuda`` marker), one exact-sum iteration gives the CPU
 model text byte for byte, f32 and quantized (deterministic rounding),
-over packed bins, with bf16 values and at max_bin 1023."""
+over packed bins, with bf16 values, at max_bin 1023 and with
+``max_bin_by_feature``."""
 
 import numpy as np
 import pytest
@@ -381,14 +396,13 @@ def test_fused_wave_above_256_bins_trains():
 
 
 def test_config_table_matches_jax():
-    """Every key of the port's param table has the JAX package's type,
-    default, aliases and bounds, and both resolve the same params alike."""
+    """Every row of the JAX package's param table is in the port's with its
+    type, default, aliases and bounds, and both resolve the same params
+    alike, the loader's and the no-op keys and their aliases included."""
     from lightgbm_tpu import config as JC
 
     from lightgbm_tpu_torch import config as PC
-    jax_rows = {row[0]: row for row in JC._PARAMS}
-    for row in PC._PARAMS:
-        assert row == jax_rows[row[0]], row[0]
+    assert PC._PARAMS == JC._PARAMS
     params = {"n_estimators": 7, "eta": 0.3, "min_child_samples": 3,
               "reg_lambda": 2.0, "max_bins": 63, "verbose": -1,
               "objective": "xentropy", "boosting_type": "GBRT",
@@ -400,16 +414,128 @@ def test_config_table_matches_jax():
               "poisson_max_delta_step": 0.5, "tweedie_variance_power": 1.2,
               "output_freq": 5, "train_metric": True,
               "multi_error_top_k": 2, "auc_mu_weights": "0,1,1,0",
-              "metrics": "l2,auc"}
+              "metrics": "l2,auc",
+              "n_jobs": 8, "device": "GPU", "deterministic": "true",
+              "force_col_wise": True, "has_header": "true",
+              "label": "name:target", "weight": "2", "blacklist": "4,5",
+              "query_column": "", "max_bin_by_feature": "15,63,255",
+              "forcedbins_filename": "bins.json",
+              "saved_feature_importance_type": 1, "model_out": "m.txt",
+              "is_sparse": "false", "precise_float_parser": True,
+              "gpu_device_id": 2, "raw_score": "true",
+              "pred_early_stop_margin": 3.5, "bagging_fraction_seed": 9,
+              "rate_drop": 0.3, "topk": 7, "mc_method": "Advanced",
+              "two_round_loading": True, "is_save_binary": True,
+              "hist_pool_size": 32.0, "ndcg_eval_at": "1,3,5",
+              "label_gain": "0;1;3", "local_port": 123,
+              "machine_list": "m.txt", "ckpt_interval": 4,
+              "health_policy": "WARN", "stream_budget_mb": 64.0,
+              "serve_compile_cache": "/cache", "telemetry_log": "t.jsonl"}
     for extra in ({}, {"objective": "quantile:0.25"},
                   {"objective": "softmax", "num_classes": 5},
                   {"objective": "ova", "num_class": 3}):
         jc, pc = JC.Config(dict(params, **extra)), PC.Config(
             dict(params, **extra))
-        for name in PC._CANONICAL:
+        for name in JC._CANONICAL:
             assert getattr(pc, name) == getattr(jc, name), name
         assert pc.raw_params == jc.raw_params
         assert pc.num_model_per_iteration == jc.num_model_per_iteration
+
+
+def test_every_param_key_sorted_once():
+    """Each key of the table is read by training, accepted at any value
+    (``_NO_OP_KEYS``), or refused at a non-default value naming its item
+    (``_REFUSED_KEYS``): the two sets are disjoint and every refused key
+    has a default the port trains at."""
+    from lightgbm_tpu_torch.config import _CANONICAL, Config
+    from lightgbm_tpu_torch.models.gbdt import (_NO_OP_KEYS, _REFUSED_KEYS,
+                                                check_supported)
+    assert _NO_OP_KEYS <= set(_CANONICAL)
+    assert set(_REFUSED_KEYS) <= set(_CANONICAL)
+    assert not _NO_OP_KEYS & set(_REFUSED_KEYS)
+    check_supported(Config({key: _CANONICAL[key][2]
+                            for key in _REFUSED_KEYS}))
+
+
+#: one non-default value of each no-op key
+NO_OP = {"num_threads": 8, "deterministic": True, "force_col_wise": True,
+         "force_row_wise": True, "is_enable_sparse": False,
+         "feature_pre_filter": False, "gpu_platform_id": 1,
+         "gpu_device_id": 1, "gpu_use_dp": True, "num_gpu": 2,
+         "output_model": "out.txt", "precise_float_parser": True,
+         "device_type": "gpu", "predict_raw_score": True,
+         "pred_early_stop": True, "num_iteration_predict": 3,
+         "bagging_seed": 9, "top_rate": 0.3, "drop_rate": 0.2,
+         "linear_lambda": 0.5, "lambdarank_norm": False, "extra_seed": 11,
+         "tpu_device_goss": "on", "tpu_hist_comm": "allreduce",
+         "refit_decay_rate": 0.5, "cat_l2": 3.0, "objective_seed": 2}
+
+
+def test_no_op_keys_train_and_change_nothing():
+    """The keys that change nothing the port trains are accepted at any
+    value and give the default run's trees (the model text differs only
+    in the parameter lines that record them)."""
+    from lightgbm_tpu_torch.models.gbdt import _NO_OP_KEYS
+    assert set(NO_OP) <= _NO_OP_KEYS
+    X, y = higgs_like(1500, 4)
+    params = {"objective": "binary", "verbosity": -1, "num_leaves": 7}
+    want = lgt.train(params, lgt.Dataset(X, label=y), 2, device="cpu")
+    got = lgt.train(dict(params, **NO_OP), lgt.Dataset(X, label=y), 2,
+                    device="cpu")
+    trees = lambda b: b.model_to_string().split("end of trees")[0]
+    assert trees(got) == trees(want)
+    # a key outside the table is kept in the text and ignored
+    odd = lgt.train(dict(params, my_app_key=3), lgt.Dataset(X, label=y), 2,
+                    device="cpu")
+    assert trees(odd) == trees(want)
+    assert "[my_app_key: 3]" in odd.model_to_string()
+
+
+def test_saved_feature_importance_type_gain(lgb):
+    X, y = higgs_like(1500, 4)
+    params = {"objective": "binary", "verbosity": -1, "num_leaves": 7,
+              "boost_from_average": False,
+              "saved_feature_importance_type": 1}
+    want = lgb.train(params, lgb.Dataset(X, label=y), 1).model_to_string()
+    got = lgt.train(params, lgt.Dataset(X, label=y), 1,
+                    device="cpu").model_to_string()
+    imp = got.split("feature_importances:\n")[1].split("\n\n")[0]
+    assert "." in imp and imp == want.split(
+        "feature_importances:\n")[1].split("\n\n")[0]
+
+
+def _forced_bins_file(tmp_path):
+    import json
+    path = str(tmp_path / "forced_bins.json")
+    with open(path, "w") as fh:
+        json.dump([{"feature": 0, "bin_upper_bound": [-1.0, 0.0, 0.5]},
+                   {"feature": 7, "bin_upper_bound": [0.1, 0.3]}], fh)
+    return path
+
+
+#: max_bin_by_feature cycling 15, 63, 255 and 1023 over grown_data's 12
+BY_FEATURE = [15, 63, 255, 1023] * 3
+
+
+@pytest.mark.parametrize("wave_kernel", ["auto", "fused"])
+def test_max_bin_by_feature_iteration_model_text_byte_equal(lgb, grown,
+                                                            tmp_path,
+                                                            wave_kernel):
+    X, y = grown
+    params = dict(EXACT, categorical_feature="", max_bin_by_feature=BY_FEATURE,
+                  forcedbins_filename=_forced_bins_file(tmp_path))
+    want = lgb.train(params, lgb.Dataset(X, label=y), 1).model_to_string()
+    extra = {} if wave_kernel == "auto" else {"tpu_wave_kernel": "fused"}
+    bst = lgt.train(dict(params, **extra), lgt.Dataset(X, label=y), 1,
+                    device="cpu")
+    assert bst._gbdt.bins_dev.dtype == torch.uint16
+    nb = bst._gbdt.train_data.binned.num_bins_per_feature
+    assert all(n <= m for n, m in zip(nb, BY_FEATURE)) and max(nb) > 256
+    assert -1.0 in bst._gbdt.train_data.binned.mappers[0].upper_bounds
+    text = bst.model_to_string()
+    if wave_kernel == "fused":
+        text = text.replace("[tpu_wave_kernel: fused]\n", "")
+    assert text == want
 
 
 UNSUPPORTED = [
@@ -430,10 +556,39 @@ UNSUPPORTED = [
     {"tree_learner": "data"},
     {"checkpoint_interval": 5},
     {"tpu_iter_pack": 4},
-    {"max_bin_by_feature": [16, 16, 16, 16]},
+    {"two_round": True},
     {"input_model": "model.txt"},
     {"histogram_pool_size": 64},
 ]
+
+
+#: a non-default value of each refused key, with the item it names
+REFUSED = [({"save_binary": True}, "A1c"), ({"two_round": True}, "A1c"),
+           ({"parser_config_file": "p.json"}, "A1c"),
+           ({"histogram_pool_size": 64}, "A8.5"),
+           ({"tpu_split_tile": 2}, "A8.5"),
+           ({"pre_partition": True}, "A10"), ({"machines": "a:1,b:2"}, "A10"),
+           ({"local_listen_port": 5000}, "A10"),
+           ({"checkpoint_interval": 5}, "A11"), ({"snapshot_freq": 2}, "A11"),
+           ({"tpu_health_policy": "warn"}, "A11"),
+           ({"tpu_telemetry_log": "t.jsonl"}, "A11"),
+           ({"tpu_stream_budget_mb": 64.0}, "A11"),
+           ({"serve_max_queue": 8}, "A7c"),
+           ({"tpu_native_predict_max_rows": 0}, "A7d"),
+           ({"tpu_serve_compile_cache": "/c"}, "A7e"),
+           ({"tpu_serve_request_log": "on"}, "A7f"),
+           ({"input_model": "model.txt"}, "A9"),
+           ({"group_column": "0"}, "A8.2")]
+
+
+@pytest.mark.parametrize("extra,item", REFUSED,
+                         ids=lambda v: "-".join(map(str, v))
+                         if isinstance(v, dict) else v)
+def test_refused_values_name_their_item(extra, item):
+    X, y = higgs_like(300, 4)
+    params = {"objective": "binary", "verbosity": -1, **extra}
+    with pytest.raises(NotImplementedError, match=item):
+        lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu")
 
 
 @pytest.mark.parametrize("extra", UNSUPPORTED,
@@ -467,15 +622,21 @@ def test_unsupported_datasets_and_options_raise():
     with pytest.raises(NotImplementedError, match="A8.4"):
         lgt.train(dict(params, categorical_feature="0"),
                   lgt.Dataset(Xc, label=y), 1, device="cpu")
-    for option, item in (({"init_model": "model.txt"}, "A8.9"),
-                         ({"resume_from": "ckpt"}, "A11")):
-        with pytest.raises(NotImplementedError, match=item):
-            lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu",
-                      **option)
+    with pytest.raises(NotImplementedError, match="A11"):
+        lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu",
+                  resume_from="ckpt")
     with pytest.raises(NotImplementedError, match="A5d"):
         lgt.cv(params, lgt.Dataset(X, label=y), 2)
-    with pytest.raises(NotImplementedError, match="A5b"):
-        lgt.Booster(model_str="tree\n")
+    # continued training and loading model text now work
+    Xd = X[:, 4:]
+    base = lgt.train(params, lgt.Dataset(Xd, label=y), 1, device="cpu")
+    cont = lgt.train(params, lgt.Dataset(Xd, label=y), 1, device="cpu",
+                     init_model=base)
+    assert cont.num_trees() == 2 and cont.current_iteration == 2
+    loaded = lgt.Booster(model_str=cont.model_to_string(), device="cpu")
+    assert loaded.num_trees() == 2
+    np.testing.assert_allclose(loaded.predict(Xd), cont.predict(Xd),
+                               rtol=0, atol=1e-6)
     with pytest.raises(ValueError, match="labels in"):
         lgt.train(params, lgt.Dataset(X[:, 4:], label=y * 2), 1,
                   device="cpu")
@@ -529,6 +690,21 @@ def test_card_bf16_iteration_matches_cpu_model_text(grown, cuda_device,
                   tpu_wave_kernel=wave_kernel)
     want = lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu")
     got = lgt.train(params, lgt.Dataset(X, label=y), 1, device=cuda_device)
+    assert got.model_to_string() == want.model_to_string()
+
+
+@pytest.mark.cuda
+def test_card_max_bin_by_feature_iteration_matches_cpu_model_text(
+        grown, cuda_device, tmp_path):
+    """Features of 15, 63, 255 and 1,023 bins in one uint16 matrix, with
+    forced bounds: the fused wave's uint16 mode on the card gives the CPU
+    model text."""
+    X, y = grown
+    params = dict(EXACT, categorical_feature="", max_bin_by_feature=BY_FEATURE,
+                  forcedbins_filename=_forced_bins_file(tmp_path))
+    want = lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu")
+    got = lgt.train(params, lgt.Dataset(X, label=y), 1, device=cuda_device)
+    assert got._gbdt.bins_dev.dtype == torch.uint16
     assert got.model_to_string() == want.model_to_string()
 
 
