@@ -7,9 +7,10 @@ Drives the port's main paths (serving, training, quantized training,
 bf16 and 4-bit-bin training, training at max_bin 1023 over uint16 bins,
 unfused and through the fused wave; the regression, multiclass and other
 objectives with a valid set, metrics and early stopping; text-file input,
-model text loading, continued training and per-feature bins) at full
-width and holds every kernel against its plain PyTorch version
-and every result against an independent reference.
+model text loading, continued training and per-feature bins; bagging,
+GOSS and feature_fraction, cv, and learning to rank) at full width and
+holds every kernel against its plain PyTorch version and every result
+against an independent reference.
 
 Serving (slice 1) — quantized serving through the hand-written CUDA
 traversal kernel at the width of the bench's headline ensemble (binary,
@@ -99,14 +100,15 @@ values:
     bitwise on exact sums (int8: histograms always, payloads on
     power-of-two scales), ``wave_agreement`` otherwise, and bitwise equal
     to its own f32 / unpacked launch;
-21. packed4 training: the bench rows binned once at max_bin 15, 100
-    iterations f32, quantized and bf16 (fused); the device bins are
+21. packed4 training: the bench rows binned once at max_bin 15, 50
+    iterations f32, quantized and bf16 (fused; 100 until slice 13); the device bins are
     (200,000, 14) uint8, only the packed4 modes launch, and the model text
     equals the same run's with tpu_4bit_bins=false but for the parameter
     line recording that option; holdout AUC, s/iteration and resident
     bin bytes, packed and unpacked;
 22. bf16 training at the bench config: fused, 100 iterations, holdout AUC
-    within 3e-3 of genuine LightGBM's; unfused (``auto``), 20 iterations,
+    within 3e-3 of genuine LightGBM's; unfused (``auto``), 10 iterations
+    (20 until slice 13),
     one bf16 histogram launch per root and per smaller sibling (= the
     trees' leaves); two 10-iteration fused runs give equal model text;
 23. timing of each new mode: histogram at N = 200,000 and 10,500,000, wave
@@ -269,6 +271,48 @@ a temporary directory):
     through the fused wave's uint16 mode (holdout AUC recorded, no
     gate); one exact-sum iteration on the kernels gives the model text of
     the same run on their plain versions.
+
+Row and feature sampling, cv and learning to rank (slice 13), through the
+histogram, fused-wave and traversal kernels under traffic they had not
+seen: rows with gradient, hessian and count 0 (out of bag), rows scaled
+by GOSS's amplification, 137-feature ranking bins and a ranker's trees;
+each held to the JAX package's results in ``tests/fixtures/
+torch_sampling_ref.json`` (made on the CPU by
+``tools/gen_torch_sampling_fixture.py``):
+
+43. sampling at the bench config (phase 10's params and binned rows, 100
+    iterations each): bagging 0.7 every iteration with feature_fraction
+    0.8, and GOSS on the host (``tpu_device_goss=off``), each at
+    ``bagging_seed`` = ``feature_fraction_seed`` 1 to 8, the mean holdout
+    AUC within 1e-3 of the JAX package's mean over the same seeds (the
+    same masks, draw for draw; one run's AUC moves ~1e-3 with the
+    float32 summation order alone, so the bar holds the mean); GOSS on
+    the card (``auto``) and quantized GOSS, one run each, within 3e-3
+    (the draws of another generator); s/iteration and launches per
+    iteration; two 10-iteration device-GOSS runs give equal model text;
+44. the kernels under masks: the bench bins under one bagging mask and
+    one GOSS mask (``sampling.SampleStrategy`` at 200,000 rows): the
+    histogram kernel bit for bit its plain version on exact sums and on
+    int8 levels, and its chunk-ordered twin on random values, with no
+    out-of-bag row counted; the wave kernel at W = 1 and 16 on bagging-
+    and GOSS-shaped masks, bit for bit its plain version on exact sums,
+    its child histograms bit for bit their twin on random values and the
+    payloads within ``wave_agreement``;
+45. ``cv``: 5 stratified folds x 20 rounds on the 200,000 training rows,
+    the last round's ``valid auc-mean`` within 1e-3 and ``-stdv`` within
+    2e-3 of the JAX package's; seconds a fold, peak device memory, the
+    memory left after ``cv`` returns;
+46. learning to rank at the repo's MS-LTR width (``make_msltr_like``:
+    137 features, 120 documents a query; the rung's 2,270,000 rows cut to
+    120,000 training rows in 1,000 queries and 24,000 holdout rows in 200,
+    for the time limit) with bench.py's rung params: lambdarank 15
+    iterations, holdout ndcg@1,3,5 within 5e-3 of the JAX package's, the
+    gradient step's ms, two runs give equal model text; rank_xendcg 10
+    iterations within 1e-2; the ranker served through
+    ``serving_predictor(quantize="int16")`` equal to a numpy walk of its
+    pack bit for bit, one traversal launch a request;
+47. the slice's seconds and each kernel's launches on these paths
+    (``slice13_launches`` in the kernels line).
 
 Each wave timing (phases 14, 18, 23, 31) also gives its three launches'
 device times by kernel name under ``torch.profiler`` (``wave_stage_ms``):
@@ -637,7 +681,7 @@ def hist_bound_ms(n, f, b, val_bytes=12, bin_bytes=None):
 
 
 def wave_case(gen, dev, sizes, exact, f=28, b=255, inactive=(),
-              scales=None, mode="f32", edit=None):
+              scales=None, mode="f32", edit=None, row_mask=None):
     """One wave over a random permutation on the card: slot w's parent is
     the next 2 * sizes[w] perm positions, its smaller sibling the first
     (even w) or last (odd w) sizes[w] of them.  Feature 3 is a one-hot
@@ -647,7 +691,8 @@ def wave_case(gen, dev, sizes, exact, f=28, b=255, inactive=(),
     bf16 passes the values rounded to bf16 (parents and stats from the
     rounded values); one ending in packed4 packs the bins (b <= 16).
     ``edit(bins, perm)`` (int64 copies) returns other bins for the wave,
-    drawn after the permutation (``lane_pattern``)."""
+    drawn after the permutation (``lane_pattern``).  ``row_mask`` (an
+    (N,) f32 mask) makes f32 values a sampled iteration's (``masked``)."""
     import torch
     from lightgbm_tpu_torch.ops import wave as WV
     from lightgbm_tpu_torch.ops.histogram import histogram_segment, pack_bins4
@@ -655,6 +700,8 @@ def wave_case(gen, dev, sizes, exact, f=28, b=255, inactive=(),
     bins = device_bins(gen, n, f, b, dev)
     if scales is None:
         vals = device_vals(gen, n, dev, exact)
+        if row_mask is not None:
+            vals = masked(vals, row_mask)
         if mode.startswith("bf16"):
             vals = vals.to(torch.bfloat16)
         sums = lambda v: v.float().sum(dim=0)
@@ -1205,8 +1252,9 @@ def train_phase(dev, fix, rows, name, extra, ds, hist_mode, wave_mode,
 
 
 def training_phases(seed, dev, smi):
-    """Phases 8-42; returns the histogram and wave entries of the kernels
-    line, every mode, and phase 35's serving record."""
+    """Phases 8-47; returns the histogram and wave entries of the kernels
+    line, every mode, phase 35's serving record and phase 46's traversal
+    launches."""
     import torch
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.models.tree import quantize_error_bound
@@ -1339,6 +1387,9 @@ def training_phases(seed, dev, smi):
     # 38-42. text-file input, model text, continued training and
     # per-feature bins (slice 12)
     s12_launches = slice12_phases(dev, fix, rows, ds, bst, rec)
+    # 43-47. sampling, the kernels under masks, cv and learning to rank
+    # (slice 13)
+    s13_launches = slice13_phases(gen, dev, fix, rows, ds)
 
     h = timing[f"histogram/{HIST_TIMING_ROWS[0]}"]
     h8 = timing8[f"histogram_int8/{HIST_TIMING_ROWS[0]}"]
@@ -1369,6 +1420,9 @@ def training_phases(seed, dev, smi):
                    timing16w[f"wave_{mode}/B={WIDE_MAX_BIN}/{wave_key}"],
                    fused16[mode][1], u16_wave_err[mode], sum(sizes))]
     entries = []
+    s13_modes = {"histogram": ("f32", "histogram"), "wave": ("f32", "wave"),
+                 "histogram_int8": ("int8", "histogram"),
+                 "wave_int8": ("int8", "wave")}
     obj_modes = {"histogram": "f32", "histogram_int8": "int8", "wave": "f32",
                  "wave_int8": "int8"}
     s12_modes = {"histogram": ("f32", "histogram"), "wave": ("f32", "wave"),
@@ -1384,6 +1438,12 @@ def training_phases(seed, dev, smi):
             extra["slice12_launches"] = s12_launches[mode][kernel]
             require(extra["slice12_launches"] > 0,
                     f"{name}: no launch on the slice-12 paths")
+        if name in s13_modes:
+            # launches on phases 43-47's paths (sampling, cv, ranking)
+            mode, kernel = s13_modes[name]
+            extra["slice13_launches"] = s13_launches[mode][kernel]
+            require(extra["slice13_launches"] > 0,
+                    f"{name}: no launch on the slice-13 paths")
         if name in obj_modes:
             # launches on phases 32-37's paths (objectives, valid sets)
             kernel = name.split("_")[0]
@@ -1401,7 +1461,7 @@ def training_phases(seed, dev, smi):
                          else "operations"),
             "library_ms": t.get("library_ms"), "rows": nrows, **extra,
             **({"stage_ms": t["stage_ms"]} if "stage_ms" in t else {})})
-    return entries, obj_serve
+    return entries, obj_serve, s13_launches["traverse"]
 
 
 def int8_timing(gen, dev, smi):
@@ -1728,6 +1788,12 @@ def twin_wave_phase(gen, dev):
           "cases": out})
 
 
+#: depths of phases 21 and 22's comparison runs, cut in slice 13 to make
+#: room for phases 43-47 (widths unchanged)
+PACKED4_ITERS = 50
+BF16_UNFUSED_ITERS = 10
+
+
 def resident_bins(bst):
     b = bst._gbdt.bins_dev
     return {"shape": list(b.shape), "dtype": str(b.dtype),
@@ -1759,7 +1825,8 @@ def slice4_training(dev, fix, rows, ds):
                       "tpu_wave_kernel": "fused"}, "bf16_packed4", "bf16")):
         extra = dict(extra, max_bin=15)
         bst, _, rec = train_phase(dev, fix, rows, f"train_packed4_{name}",
-                                  extra, ds15, mode, mode)
+                                  extra, ds15, mode, mode,
+                                  iters=PACKED4_ITERS)
         require(bst._gbdt.grower_cfg.packed4, "max_bin 15 did not pack")
         dbins = bst._gbdt.bins_dev
         require(tuple(dbins.shape) == (nt, (f + 1) // 2)
@@ -1772,7 +1839,8 @@ def slice4_training(dev, fix, rows, ds):
         del bst
         off, _, rec_off = train_phase(
             dev, fix, rows, f"train_unpacked_{name}",
-            dict(extra, tpu_4bit_bins=False), ds15, base, base)
+            dict(extra, tpu_4bit_bins=False), ds15, base, base,
+            iters=PACKED4_ITERS)
         require(not off._gbdt.grower_cfg.packed4, "tpu_4bit_bins=false packed")
         same = drop_param(off.model_to_string(),
                           "[tpu_4bit_bins: False]") == text
@@ -1797,7 +1865,7 @@ def slice4_training(dev, fix, rows, ds):
         ref=(fix["ref_auc"], 3e-3))
     del _b
     unf, _, rec_u = train_phase(dev, fix, rows, "train_bf16_unfused", bf16,
-                                ds, "bf16", None, iters=20)
+                                ds, "bf16", None, iters=BF16_UNFUSED_ITERS)
     leaves = sum(t.num_leaves for t in unf._gbdt.models[0])
     require(rec_u["histogram_launches"] == leaves,
             f"unfused bf16: {rec_u['histogram_launches']} histogram "
@@ -3207,6 +3275,382 @@ def slice12_phases(dev, fix, rows, ds, bst, rec):
             "f32_uint16": wide_l}
 
 
+# ------------------------------------------------------------ slice 13
+SAMPLING_FIXTURE = os.path.join("tests", "fixtures",
+                                "torch_sampling_ref.json")
+#: (fixture run, extra params, kernel mode, holdout AUC bar): the bar is
+#: 1e-3 where the masks are the JAX package's draw for draw, 3e-3 where
+#: the draws come from another generator (device GOSS, stochastic
+#: rounding)
+SAMPLING_RUNS = (
+    ("bagging_ff", {"bagging_fraction": 0.7, "bagging_freq": 1,
+                    "feature_fraction": 0.8}, "f32", 1e-3),
+    ("goss_device", {"data_sample_strategy": "goss",
+                     "tpu_device_goss": "auto"}, "f32", 3e-3),
+    ("goss_host", {"data_sample_strategy": "goss",
+                   "tpu_device_goss": "off"}, "f32", 1e-3),
+    ("goss_quantized", {"data_sample_strategy": "goss",
+                        "use_quantized_grad": True}, "int8", 3e-3))
+SAMPLING_REPEAT_ITERS = 10
+CV_MEAN_TOL, CV_STDV_TOL = 1e-3, 2e-3
+#: holdout ndcg@k bars against the fixture: lambdarank's gradients are
+#: the JAX package's to float32 rounding, XE-NDCG's gammas another
+#: generator's
+NDCG_BARS = {"lambdarank": 5e-3, "rank_xendcg": 1e-2}
+LTR_RUNG_ROWS = 2_270_000          # bench.py's LTR_ROWS (the MS-LTR scale)
+LTR_GRAD_ITERS = 10
+
+
+def make_msltr_like(n, f, group, seed=0):
+    """bench.py's MS-LTR-like generator (without its disk cache):
+    fixed-size query groups, graded relevance 0-4 skewed to low grades."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, f).astype(np.float32)
+    w = rng.randn(f) / np.sqrt(f)
+    util = X @ w + 0.3 * rng.randn(n)
+    cuts = np.quantile(util, [0.60, 0.80, 0.90, 0.97])
+    y = np.searchsorted(cuts, util).astype(np.float64)
+    groups = np.full(n // group, group, np.int64)
+    rem = n - groups.sum()
+    if rem:
+        groups = np.concatenate([groups, [rem]])
+    return X, y, groups
+
+
+def masked(vals, mask):
+    """(N, 3) values of one sampled iteration: gradient and hessian times
+    the row mask (0 out of bag, GOSS's amplification), count 1 in bag."""
+    import torch
+    if vals.dtype == torch.int8:
+        keep = (mask > 0).to(torch.int8)[:, None]
+        return (vals * keep).contiguous()
+    return torch.cat([vals[:, :2] * mask[:, None],
+                      (mask > 0).float()[:, None]], dim=1).contiguous()
+
+
+def sampling_phase(dev, fix, rows, ds, ref):
+    """43. The bench config under bagging + feature_fraction and GOSS on
+    the card, GOSS on the host and quantized GOSS, 100 iterations each
+    through the histogram and fused-wave kernels, held to the JAX
+    package's holdout AUC (``ref``); two device-GOSS runs give one model
+    text.  Returns the launches of each mode."""
+    import lightgbm_tpu_torch as lgt
+    out = {"f32": {"histogram": 0, "wave": 0},
+           "int8": {"histogram": 0, "wave": 0}}
+    goss_params = None
+    for name, extra, mode, bar in SAMPLING_RUNS:
+        want = ref["sampling"][name]
+        require(all(want["params"].get(k) == v for k, v in extra.items()),
+                f"{name}: the fixture's params differ from {extra}")
+        seeds = want.get("seeds", [None])
+        aucs, secs = [], []
+        for seed in seeds:
+            run = extra if seed is None else dict(
+                extra, bagging_seed=seed, feature_fraction_seed=seed)
+            tag = f"train_{name}" + ("" if seed is None else f"_seed{seed}")
+            bst, params, rec = train_phase(
+                dev, fix, rows, tag, run, ds, mode, mode,
+                iters=want["iterations"],
+                ref=(want["holdout_auc"], bar) if seed is None else None)
+            on_dev = bst._gbdt.goss_on_device()
+            require(on_dev == (name in ("goss_device", "goss_quantized")),
+                    f"{name}: GOSS on the device is {on_dev}")
+            out[mode]["histogram"] += rec["histogram_launches"]
+            out[mode]["wave"] += rec["wave_launches"]
+            aucs.append(rec["holdout_auc"])
+            secs.append(rec["s_per_iteration"])
+            if name == "goss_device":
+                goss_params = params
+            del bst
+        if seeds != [None]:
+            # one run's AUC moves ~1e-3 with the float32 summation order
+            # alone: the card is held to the mean over the seeds
+            gap = float(np.mean(aucs)) - want["holdout_auc_mean"]
+            require(abs(gap) <= bar, f"{name}: mean holdout AUC over seeds "
+                    f"{seeds} {np.mean(aucs)} not within {bar} of the JAX "
+                    f"package's {want['holdout_auc_mean']}")
+            emit({"phase": f"sampling_{name}", "seeds": seeds,
+                  "holdout_auc_by_seed": aucs,
+                  "ref_holdout_auc_by_seed": want["holdout_auc_by_seed"],
+                  "gap_by_seed": [a - b for a, b in zip(
+                      aucs, want["holdout_auc_by_seed"])],
+                  "holdout_auc_mean": float(np.mean(aucs)),
+                  "ref_holdout_auc_mean": want["holdout_auc_mean"],
+                  "mean_gap": gap, "bar": bar,
+                  "s_per_iteration_mean": float(np.mean(secs))})
+    t0 = time.perf_counter()
+    texts = [lgt.train(goss_params, ds, SAMPLING_REPEAT_ITERS,
+                       device=dev).model_to_string() for _ in range(2)]
+    require(texts[0] == texts[1], "two device-GOSS runs gave different "
+            "model text")
+    emit({"phase": "determinism", "training": "goss_device",
+          "iterations": SAMPLING_REPEAT_ITERS, "equal": True,
+          "seconds": time.perf_counter() - t0})
+    return out
+
+
+def masked_kernel_phase(gen, dev, fix, ds):
+    """44. Both training kernels on sampled iterations' values: the bench
+    bins (phase 10's dataset) under one bagging mask and one GOSS mask
+    (``sampling.SampleStrategy`` at the bench size: out-of-bag rows at
+    count 0, GOSS's rest rows amplified by 8) against their plain
+    versions, bit for bit on exact sums and on int8 levels, bit for bit
+    their chunk-ordered twins on random values; the wave the same on
+    bagging- and GOSS-shaped masks at W = 1 and 16."""
+    import torch
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.ops import histogram_flat as HF
+    from lightgbm_tpu_torch.ops import wave as WV
+    from lightgbm_tpu_torch.ops.histogram import (histogram_chunked,
+                                                  histogram_segment)
+    from lightgbm_tpu_torch.ops.split import SplitConfig
+    from lightgbm_tpu_torch.sampling import SampleStrategy
+    bins = ds.construct().bins_device(dev)
+    n = bins.shape[0]
+    base = dict(fix["params"])
+    base.pop("num_iterations")
+    bag = SampleStrategy(Config(dict(base, bagging_fraction=0.7,
+                                     bagging_freq=1)), n).mask(0)
+    rng = np.random.RandomState(int(torch.randint(0, 2 ** 31, (1,),
+                                                  generator=gen, device=dev)))
+    goss = SampleStrategy(Config(dict(base, data_sample_strategy="goss")),
+                          n).mask(0, rng.randn(n).astype(np.float32),
+                                  rng.rand(n).astype(np.float32))
+    cases = {}
+    for mname, mask_np in (("bagging", bag), ("goss", goss)):
+        m = torch.from_numpy(mask_np).to(dev)
+        in_bag = int((m > 0).sum())
+        ve = masked(device_vals(gen, n, dev, exact=True), m)
+        got = HF.histogram_flat(bins, ve, num_bins=255)
+        want = histogram_segment(bins, ve, num_bins=255)
+        vr = masked(device_vals(gen, n, dev, exact=False), m)
+        a = HF.histogram_flat(bins, vr, num_bins=255)
+        b = HF.histogram_flat(bins, vr, num_bins=255)
+        twin = histogram_chunked(bins, vr, num_bins=255)
+        plain = histogram_segment(bins, vr, num_bins=255)
+        lv = masked(device_levels(gen, n, dev), m)
+        g8 = HF.histogram_flat(bins, lv, num_bins=255)
+        w8 = histogram_segment(bins, lv, num_bins=255)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"{mname}: histogram kernel != "
+                "plain version on exact sums")
+        require(int(got[..., 2].sum()) == in_bag * bins.shape[1],
+                f"{mname}: out-of-bag rows counted")
+        require(torch.equal(a, b) and torch.equal(a, twin),
+                f"{mname}: histogram kernel != its chunk-ordered twin on "
+                "random values")
+        require(torch.equal(g8, w8), f"{mname}: int8 histogram kernel != "
+                "plain version")
+        cases[f"histogram/{mname}"] = {
+            "rows": n, "in_bag": in_bag,
+            "amplified": int((m > 1).sum()), "exact_bitwise": True,
+            "random_twin_bitwise": True, "int8_bitwise": True,
+            "random_max_abs_err_vs_plain": float((a - plain).abs().max())}
+    cfg = SplitConfig(min_data_in_leaf=0, min_sum_hessian_in_leaf=1.0,
+                      lambda_l2=0.5, max_cat_to_onehot=4)
+    shapes = {"bagging": lambda u: (u < 0.7).float(),
+              "goss": lambda u: torch.where(
+                  u < 0.2, 1.0, torch.where(u < 0.3, 8.0, 0.0))}
+    for mname, shape in shapes.items():
+        for wname, (sizes, inactive) in CHECK_WAVES.items():
+            n_w = sum(2 * s for s in sizes)
+            m = shape(torch.rand(n_w, generator=gen, device=dev))
+            for exact in (True, False):
+                inp = wave_case(gen, dev, sizes, exact, inactive=inactive,
+                                row_mask=m)
+                h, p = WV.fused_wave_call(cfg=cfg, **inp)
+                hp, pp = WV.wave_plain(cfg=cfg, **inp)
+                tag = f"wave/{mname}/{wname}/{'exact' if exact else 'random'}"
+                if exact:
+                    torch.cuda.synchronize()
+                    require(torch.equal(h, hp) and torch.equal(p, pp),
+                            f"{tag}: wave kernel != plain version")
+                    cases[tag] = {"bitwise": True}
+                    continue
+                twin = WV.wave_hists_chunked(
+                    inp["bins"], inp["vals"], inp["perm"],
+                    inp["small_start"], inp["small_cnt"], inp["parent"],
+                    inp["stats"], inp["num_bins"])
+                torch.cuda.synchronize()
+                require(torch.equal(h, twin), f"{tag}: child histograms "
+                        "!= their chunk-ordered twin")
+                cases[tag] = {"hist_twin_bitwise": True,
+                              **wave_agreement(h, p, hp, pp)}
+    emit({"phase": "kernels_under_masks", "features": int(bins.shape[1]),
+          "bins": 255, "cases": cases})
+
+
+def cv_phase(dev, fix, rows, ref):
+    """45. ``lightgbm_tpu_torch.cv`` at the bench config: 5 stratified
+    folds x 20 rounds on the 200,000 training rows (each fold binned
+    anew), the last round's ``valid auc-mean`` / ``-stdv`` held to the JAX
+    package's; seconds a fold, peak device memory, and the memory left
+    after ``cv`` returns (no fold booster kept).  Returns the f32
+    launches."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    want = ref["cv"]
+    X, y = rows
+    nt = fix["data"]["n_train"]
+    params = dict(want["params"])
+    starts = []
+
+    def fold_clock(env):
+        if env.iteration == 0:
+            torch.cuda.synchronize()
+            starts.append(time.perf_counter())
+
+    fold_clock.before_iteration = True
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    res = lgt.cv(params, lgt.Dataset(X[:nt], label=y[:nt]), want["rounds"],
+                 nfold=want["nfold"], stratified=want["stratified"],
+                 seed=want["seed"], callbacks=[fold_clock], device=dev)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    after = torch.cuda.memory_allocated()
+    ran = _launch_modes(launches)
+    trees = want["nfold"] * want["rounds"]
+    require(set(ran["histogram"]) == {"f32"} and set(ran["wave"]) == {"f32"},
+            f"cv: kernels launched {ran}")
+    require(launches["histogram"]["f32"] == trees,
+            f"cv: {launches['histogram']['f32']} root histograms for "
+            f"{trees} trees")
+    mean, stdv = res["valid auc-mean"], res["valid auc-stdv"]
+    require(len(mean) == want["rounds"], f"cv: {len(mean)} rounds")
+    d_mean = mean[-1] - want["auc_mean"][-1]
+    d_stdv = stdv[-1] - want["auc_stdv"][-1]
+    require(abs(d_mean) <= CV_MEAN_TOL, f"cv: auc-mean {mean[-1]} vs the "
+            f"JAX package's {want['auc_mean'][-1]}")
+    require(abs(d_stdv) <= CV_STDV_TOL, f"cv: auc-stdv {stdv[-1]} vs the "
+            f"JAX package's {want['auc_stdv'][-1]}")
+    ends = starts[1:] + [t0 + total]
+    emit({"phase": "cv", "rows": nt, "nfold": want["nfold"],
+          "rounds": want["rounds"], "stratified": True,
+          "auc_mean": mean[-1], "auc_stdv": stdv[-1],
+          "ref_auc_mean": want["auc_mean"][-1],
+          "ref_auc_stdv": want["auc_stdv"][-1], "mean_gap": d_mean,
+          "stdv_gap": d_stdv, "seconds": total,
+          "fold_seconds": [e - s for s, e in zip(starts, ends)],
+          "peak_device_bytes": peak, "device_bytes_before": before,
+          "device_bytes_after": after,
+          "histogram_launches": launches["histogram"]["f32"],
+          "wave_launches": launches["wave"]["f32"]})
+    return {"histogram": launches["histogram"]["f32"],
+            "wave": launches["wave"]["f32"]}
+
+
+def ltr_phase(dev, ref):
+    """46. Learning to rank at the repo's MS-LTR width (137 features,
+    queries of 120 documents): lambdarank 15 iterations and rank_xendcg
+    10 at bench.py's rung params, the holdout ndcg@1,3,5 held to the JAX
+    package's; the gradient step's device ms; two lambdarank runs give one
+    model text; the ranker served through ``serving_predictor(quantize=
+    "int16")`` equals a numpy walk of its pack bit for bit, one traversal
+    launch a request.  Returns the launches."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import traverse
+    d = ref["ltr_data"]
+    nq, vq, grp = d["queries"], d["valid_queries"], d["group"]
+    X, y, groups = make_msltr_like((nq + vq) * grp, d["n_features"], grp,
+                                   seed=d["seed"])
+    nt = int(groups[:nq].sum())
+    require(nt == d["n_train"], "ltr rows != the fixture's")
+    emit({"phase": "ltr_data", "rows": int(X.shape[0]), "train_rows": nt,
+          "holdout_rows": int(X.shape[0]) - nt, "queries": nq,
+          "holdout_queries": vq, "documents_per_query": grp,
+          "features": int(X.shape[1]), "cut_from_rows": LTR_RUNG_ROWS})
+    out = {"histogram": 0, "wave": 0}
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(X[:nt], label=y[:nt], group=groups[:nq])
+    ds.construct(ref["ranking"]["lambdarank"]["params"])
+    dv = lgt.Dataset(X[nt:], label=y[nt:], group=groups[nq:], reference=ds)
+    dv.construct()
+    emit({"phase": "ltr_binning", "rows": int(X.shape[0]),
+          "features": int(X.shape[1]), "seconds": time.perf_counter() - t0})
+    ranker = None
+    for name in ("lambdarank", "rank_xendcg"):
+        want = ref["ranking"][name]
+        bst, _h, rec = objective_run(dev, ds, dv, want, name)
+        ndcg = rec["holdout"]
+        rec["phase"] = f"ltr_{name}"
+        out["histogram"] += rec["histogram_launches"]
+        out["wave"] += rec["wave_launches"]
+        gaps = {k: ndcg[k] - want["holdout"][k] for k in want["holdout"]}
+        bar = NDCG_BARS[name]
+        require(all(abs(v) <= bar for v in gaps.values()),
+                f"{name}: holdout {ndcg} vs the JAX package's "
+                f"{want['holdout']} (bar {bar})")
+        g = bst._gbdt
+        rec.update(ref_holdout=want["holdout"], gaps=gaps, bar=bar)
+        if name == "lambdarank":
+            rec["gradient_ms"] = cuda_time_ms(
+                lambda: g.objective.get_gradients(g.scores),
+                iters=LTR_GRAD_ITERS)
+            again, _h, rec2 = objective_run(dev, ds, dv, want, name)
+            require(again.model_to_string() == bst.model_to_string(),
+                    "two lambdarank runs gave different model text")
+            out["histogram"] += rec2["histogram_launches"]
+            out["wave"] += rec2["wave_launches"]
+            rec["repeat_equal"] = True
+            del again
+            ranker = bst
+        emit(rec)
+    bst = ranker
+    binned = ds.construct().binned
+    pred = bst.serving_predictor(quantize="int16", raw_score=True)
+    rows_s = X[nt:].astype(np.float64)
+    traverse.launches = 0
+    t0 = time.perf_counter()
+    served = pred.predict(rows_s)
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    launches = traverse.launches
+    require(launches == 1, f"{launches} traversal launches for one ranker "
+            "request")
+    pack = pred.plan._packs[0]
+    acc, _ = walk_pack_numpy(pack, binned.apply(rows_s), binned.nan_bins)
+    want = (acc.astype(np.int32).astype(np.float32)
+            * np.float32(pack["scale"])).astype(np.float64) \
+        + bst._gbdt.init_scores[0]
+    require(served.shape == want.shape and np.array_equal(served, want),
+            "served ranker scores != the numpy walk")
+    emit({"phase": "serve_ranker", "rows": int(rows_s.shape[0]),
+          "trees": bst.num_trees(), "launches": launches,
+          "raw_bitwise": True, "request_ms": serve_ms})
+    out["traverse"] = launches
+    return out
+
+
+def slice13_phases(gen, dev, fix, rows, ds):
+    """43-47: sampling, the kernels under masks, cv and learning to rank
+    against tests/fixtures/torch_sampling_ref.json.  Returns the
+    launches of each kernel mode on these paths."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, SAMPLING_FIXTURE)) as fh:
+        ref = json.load(fh)
+    require(ref["data"]["n_train"] == fix["data"]["n_train"]
+            and ref["data"]["seed"] == fix["data"]["seed"],
+            "the sampling fixture's rows != the bench rows")
+    t0 = time.perf_counter()
+    launches = sampling_phase(dev, fix, rows, ds, ref)
+    masked_kernel_phase(gen, dev, fix, ds)
+    cv_l = cv_phase(dev, fix, rows, ref)
+    ltr_l = ltr_phase(dev, ref)
+    for kernel in ("histogram", "wave"):
+        launches["f32"][kernel] += cv_l[kernel] + ltr_l[kernel]
+    launches["traverse"] = ltr_l["traverse"]
+    emit({"phase": "slice13", "seconds": time.perf_counter() - t0,
+          "launches": launches})
+    return launches
+
+
 # -------------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3422,9 +3866,12 @@ def main(argv=None) -> int:
         "bound_by": ("bytes" if t65["bytes_ms"] >= t65["ops_ms"]
                      else "operations"),
         "library_ms": None, "rows": 65_536}]
-    entries, obj_serve = training_phases(args.seed, dev, smi)
+    entries, obj_serve, ranker_launches = training_phases(args.seed, dev, smi)
     # the traversal's launches serving phase 35's 4-class model
     kernels[0]["objective_launches"] = obj_serve["launches_per_request"] * 2
+    # and phase 46's ranker
+    require(ranker_launches > 0, "traverse: no launch serving the ranker")
+    kernels[0]["slice13_launches"] = ranker_launches
     kernels += entries
     emit({"kernels": kernels})
     print(f"wall_s={time.perf_counter() - t_start:.1f}", flush=True)

@@ -12,7 +12,10 @@ and scores valid sets with metrics, callbacks and early stopping.
 Slice 12 reads CSV / TSV / LibSVM files (``Dataset(path)``), bins each
 feature to its own budget with forced bounds, loads model text
 (``Booster(model_file=...)``) and continues training from it
-(``train(init_model=...)``).  A config it does not train raises
+(``train(init_model=...)``).  Slice 13 adds ``cv``, row and feature
+sampling (bagging, GOSS on the host or the card, ``feature_fraction``)
+and learning to rank (query groups and positions, ``lambdarank``,
+``rank_xendcg``, ``ndcg@k`` / ``map@k``).  A config it does not train raises
 ``NotImplementedError`` naming its ROADMAP item.
 
 Entry points run on the CUDA device unless the caller passes

@@ -13,8 +13,12 @@ model text and hands out the serving ``Predictor``.  ``Booster(
 model_file=...)`` / ``Booster(model_str=...)`` loads model text (a
 genuine LightGBM file, a JAX package file or the port's own) into a
 :class:`~.serialization.LoadedModel` that predicts, evaluates and saves.
-Query groups (ROADMAP A8.2), binary dataset caches (A1c), refit (A8.9)
-and ``pred_leaf`` / ``pred_contrib`` (A8.10) raise
+Ranking data carries query sizes (``group=``, ``set_group``, a
+``<data>.query`` side file or ``group_column``) and per-row positions
+(``position=``, ``set_position``, a ``<data>.position`` side file); valid
+sets hand their groups to the ranking metrics, and ``subset`` refuses a
+grouped dataset, as the JAX package does.  Binary dataset caches (ROADMAP
+A1c), refit (A8.9) and ``pred_leaf`` / ``pred_contrib`` (A8.10) raise
 ``NotImplementedError`` naming their item.
 
 Entry points run on the CUDA card unless ``device="cpu"`` is passed.
@@ -56,10 +60,8 @@ class Dataset:
                  feature_name: Union[str, List[str]] = "auto",
                  categorical_feature: Union[str, Sequence] = "auto",
                  params: Optional[Dict[str, Any]] = None,
-                 reference: Optional["Dataset"] = None, group=None):
-        if group is not None:
-            raise NotImplementedError(
-                "query groups (ranking) are not ported yet (ROADMAP A8.2)")
+                 reference: Optional["Dataset"] = None, group=None,
+                 position=None):
         self._text_path = None
         if isinstance(data, str):
             if not os.path.exists(data):
@@ -79,6 +81,8 @@ class Dataset:
                        else np.asarray(weight, np.float64))
         self.init_score = None if init_score is None else np.asarray(
             init_score)
+        self.group = None if group is None else np.asarray(group, np.int64)
+        self.position = None if position is None else np.asarray(position)
         self.params = dict(params or {})
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
@@ -91,35 +95,33 @@ class Dataset:
 
     def load_rows(self, params: Optional[Dict[str, Any]] = None) -> None:
         """Parse a text file's rows (once) with the merged params' column
-        specs, without binning them; the file's labels, weights and header
-        names fill what the caller did not pass."""
+        specs, without binning them; the file's labels, weights, query
+        groups (``group_column`` or ``<data>.query``), positions
+        (``<data>.position``) and header names fill what the caller did
+        not pass."""
         if self._text_path is None:
             return
-        from .io.parser import load_data_file
+        from .io.parser import load_data_file, position_side_file
         merged = dict(self.params)
         merged.update(params or {})
         cfg = Config(merged)
         path = self._text_path
-        if os.path.exists(path + ".position"):
-            raise NotImplementedError(
-                f"{path}.position: positions belong to ranking, not ported "
-                "to lightgbm_tpu_torch yet (ROADMAP A8.2)")
         with FunctionTimer("io/parse"):
             X, fy, fw, fg, names = load_data_file(
                 path, cfg.label_column, cfg.header,
                 weight_column=cfg.weight_column,
                 group_column=cfg.group_column,
                 ignore_column=cfg.ignore_column, with_feature_names=True)
-        if fg is not None:
-            raise NotImplementedError(
-                "query groups (group_column or a .query file) are not "
-                "ported to lightgbm_tpu_torch yet (ROADMAP A8.2)")
+        if self.position is None:
+            self.position = position_side_file(path, expected_rows=len(X))
         self.data = X
         self._text_path = None
         if self.label is None:
             self.label = fy
         if self.weight is None and fw is not None:
             self.weight = np.asarray(fw, np.float64)
+        if self.group is None and fg is not None:
+            self.group = np.asarray(fg, np.int64)
         if self.feature_name == "auto" and names:
             self.feature_name = names
 
@@ -168,6 +170,7 @@ class Dataset:
         with FunctionTimer("dataset/bin"):
             self._train_data = TrainData.build(
                 self.data, label, cfg, weight=self.weight,
+                group=self.group, position=self.position,
                 init_score=self.init_score, categorical_features=cats,
                 feature_names=self._feature_names(), reference=ref_td)
         return self._train_data
@@ -196,6 +199,48 @@ class Dataset:
 
     def get_weight(self):
         return self.weight
+
+    def get_group(self):
+        return self.group
+
+    def set_group(self, group) -> "Dataset":
+        """New query sizes; a constructed dataset keeps its bins."""
+        self.group = None if group is None else np.asarray(group, np.int64)
+        if self._train_data is not None:
+            self._train_data = dataclasses.replace(self._train_data,
+                                                   group=self.group)
+        return self
+
+    def set_position(self, position) -> "Dataset":
+        """Per-row positions for unbiased learning to rank (reference
+        ``Dataset.set_position``); a constructed dataset keeps its bins."""
+        self.position = None if position is None else np.asarray(position)
+        if self._train_data is not None:
+            self._train_data = dataclasses.replace(self._train_data,
+                                                   position=self.position)
+        return self
+
+    def subset(self, used_indices, params=None) -> "Dataset":
+        """The rows ``used_indices``, binned with this dataset's mappers
+        (reference ``Dataset.subset``).  A dataset with query groups
+        raises: slice whole queries and build a new Dataset."""
+        self.load_rows(params)
+        if self.group is not None:
+            raise ValueError(
+                "subset() cannot slice a Dataset with query groups; "
+                "slice whole queries and rebuild the Dataset instead")
+        idx = np.asarray(used_indices, np.int64)
+        return Dataset(
+            self.data[idx],
+            label=None if self.label is None else self.label[idx],
+            reference=self,
+            weight=None if self.weight is None else self.weight[idx],
+            position=None if self.position is None else self.position[idx],
+            init_score=(None if self.init_score is None
+                        else np.asarray(self.init_score)[idx]),
+            feature_name=self.feature_name,
+            categorical_feature=self.categorical_feature,
+            params=dict(self.params, **(params or {})))
 
     def set_label(self, label) -> "Dataset":
         """New labels; a constructed dataset keeps its bins (binning does
@@ -332,7 +377,7 @@ class Booster:
         raw = np.asarray(self._gbdt.predict_raw(data.data), np.float64)
         metrics = (metrics_for_config(self.cfg) if self._loaded
                    else self._gbdt.metrics)
-        out = [(name, m.name, m(data.label, raw, data.weight, None),
+        out = [(name, m.name, m(data.label, raw, data.weight, data.group),
                 m.higher_better) for m in metrics]
         if feval is not None:
             res = feval(raw, data)

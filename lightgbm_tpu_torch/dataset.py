@@ -1,5 +1,5 @@
-"""Internal training dataset: binned features, label, weights, and their
-device tensors.
+"""Internal training dataset: binned features, label, weights, query
+groups and positions, and their device tensors.
 
 The port of the JAX package's ``dataset.py::TrainData``: ``build`` checks
 the label and weights, bins the matrix on the host with the port's
@@ -17,6 +17,9 @@ mappers, as in the JAX package.  The bins are the (N, F) uint8 matrix
 host).  One layout is resident per device: asking for the packed one
 drops the unpacked copy, so the halving is real on the card (the JAX
 package's ``gbdt.py`` drops its byte-per-bin matrix the same way).
+Ranking data carries its query sizes (``group``; ``query_boundaries``
+gives the reference's ``Metadata::query_boundaries_``) and, for unbiased
+learning to rank, a position id per row (``position``).
 """
 
 from __future__ import annotations
@@ -30,6 +33,14 @@ import torch
 from .binning import BinnedData, _is_sparse, bin_dataset, load_forced_bins
 from .config import Config
 from .ops.histogram import pack_bins4
+
+
+def query_boundaries(group) -> Optional[np.ndarray]:
+    """Query sizes -> cumulative boundaries (num_queries + 1 entries),
+    the reference's ``Metadata::query_boundaries_``."""
+    if group is None:
+        return None
+    return np.concatenate([[0], np.cumsum(group)])
 
 
 def _check_finite(arr: np.ndarray, what: str) -> None:
@@ -47,13 +58,16 @@ class TrainData:
     binned: BinnedData
     label: np.ndarray
     weight: Optional[np.ndarray] = None
+    group: Optional[np.ndarray] = None          # query sizes (ranking)
+    position: Optional[np.ndarray] = None       # per-row position ids
     init_score: Optional[np.ndarray] = None
     feature_names: Optional[List[str]] = None
     _dev: Dict[str, Dict[str, torch.Tensor]] = dataclasses.field(
         default_factory=dict, repr=False)
 
     @classmethod
-    def build(cls, X, label, cfg: Config, *, weight=None, init_score=None,
+    def build(cls, X, label, cfg: Config, *, weight=None, group=None,
+              position=None, init_score=None,
               categorical_features: Sequence[int] = (),
               feature_names: Optional[List[str]] = None,
               reference: Optional["TrainData"] = None) -> "TrainData":
@@ -81,6 +95,8 @@ class TrainData:
         return cls(
             binned=binned, label=np.asarray(label),
             weight=None if weight is None else np.asarray(weight, np.float32),
+            group=None if group is None else np.asarray(group, np.int64),
+            position=None if position is None else np.asarray(position),
             init_score=None if init_score is None else np.asarray(init_score),
             feature_names=feature_names)
 
@@ -91,6 +107,9 @@ class TrainData:
     @property
     def num_features(self) -> int:
         return self.binned.num_features
+
+    def query_boundaries(self) -> Optional[np.ndarray]:
+        return query_boundaries(self.group)
 
     def _on(self, device: torch.device) -> Dict[str, torch.Tensor]:
         key = str(device)

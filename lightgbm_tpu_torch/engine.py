@@ -1,4 +1,4 @@
-"""Training entry points: ``train`` (and ``cv``, not ported yet).
+"""Training entry points: ``train`` and ``cv``.
 
 The port of the JAX package's ``engine.py::train`` (reference
 ``python-package/lightgbm/engine.py``): ``params``, ``train_set``,
@@ -16,8 +16,17 @@ package.  Metrics are computed only on rounds a callback consumes
 raw scores are folded into every dataset's init score, on shallow copies
 that keep the constructed bins (the caller's datasets keep their own),
 and its trees come first in the new booster's predictions and model
-text.  ``resume_from`` (ROADMAP A11) and ``cv`` (A5d) are later work and
-raise.
+text.  ``resume_from`` (ROADMAP A11) is later work and raises.
+
+``cv`` is the port of the JAX package's ``engine.py::cv`` (reference
+``engine.cv``): ``nfold`` folds (stratified by label for the binary and
+multiclass objectives, whole queries for a grouped dataset) or the
+caller's ``folds``, each trained by ``train`` on ``device`` with its
+held-out rows as the valid set ``"valid"``; the result maps ``"valid
+<metric>-mean"`` / ``"-stdv"`` to per-round lists over the folds.  A
+text file is parsed once, before the folds are cut, and each fold bins
+its own rows.  A fold's booster (and its device bins) is dropped before
+the next fold trains unless ``return_cv_booster`` keeps them all.
 """
 
 from __future__ import annotations
@@ -155,7 +164,101 @@ def train(params: Dict[str, Any], train_set: Dataset,
     return booster
 
 
-def cv(*args, **kwargs):
-    """Cross-validation: not ported yet."""
-    raise NotImplementedError(
-        "cv is not ported to lightgbm_tpu_torch yet (ROADMAP A5d)")
+def _query_folds(group, nfold: int, shuffle: bool, rng):
+    """Folds of whole queries: (train rows, valid rows, train group,
+    valid group) for each fold (reference ``_make_n_folds``)."""
+    nq = len(group)
+    bounds = np.concatenate([[0], np.cumsum(group)])
+    q_idx = np.arange(nq)
+    if shuffle:
+        rng.shuffle(q_idx)
+    q_parts = np.array_split(q_idx, nfold)
+    rows = lambda qs: np.concatenate([np.arange(bounds[q], bounds[q + 1])
+                                      for q in qs])
+    folds = []
+    for i in range(nfold):
+        va_q = np.sort(q_parts[i])
+        tr_q = np.sort(np.concatenate(
+            [p for j, p in enumerate(q_parts) if j != i]))
+        folds.append((rows(tr_q), rows(va_q), group[tr_q], group[va_q]))
+    return folds
+
+
+def _row_folds(y, nfold: int, stratified: bool, shuffle: bool, rng):
+    """(train rows, valid rows) for each fold, stratified by label."""
+    idx = np.arange(len(y))
+    if stratified:
+        folds_idx = [[] for _ in range(nfold)]
+        for cls in np.unique(y):
+            cls_idx = idx[y == cls]
+            if shuffle:
+                rng.shuffle(cls_idx)
+            for i, part in enumerate(np.array_split(cls_idx, nfold)):
+                folds_idx[i].extend(part)
+        return [(np.setdiff1d(idx, np.array(f)), np.array(sorted(f)))
+                for f in folds_idx]
+    if shuffle:
+        rng.shuffle(idx)
+    parts = np.array_split(idx, nfold)
+    return [(np.concatenate([p for j, p in enumerate(parts) if j != i]),
+             parts[i]) for i in range(nfold)]
+
+
+def cv(params: Dict[str, Any], train_set: Dataset,
+       num_boost_round: int = 100, folds=None, nfold: int = 5,
+       stratified: bool = True, shuffle: bool = True, metrics=None,
+       seed: int = 0, callbacks: Optional[List[Callable]] = None,
+       eval_train_metric: bool = False, return_cv_booster: bool = False,
+       *, device=None) -> Dict[str, Any]:
+    """K-fold cross-validation on ``device`` (the CUDA card unless
+    ``"cpu"``).  ``eval_train_metric`` is accepted and, as in the JAX
+    package, adds nothing."""
+    params = copy.deepcopy(params)
+    if metrics is not None:
+        params["metric"] = metrics
+    train_set.load_rows(params)
+    X, y = train_set.data, np.asarray(train_set.label)
+    w = train_set.weight
+    rng = np.random.RandomState(seed)
+    group = train_set.group
+    if folds is None and group is not None:
+        folds = _query_folds(np.asarray(group), nfold, shuffle, rng)
+    elif folds is None:
+        folds = _row_folds(y, nfold, stratified and params.get("objective")
+                           in ("binary", "multiclass", "multiclassova"),
+                           shuffle, rng)
+    boosters, fold_histories = [], []
+    for fold in folds:
+        tr_idx, va_idx = fold[0], fold[1]
+        tr_g, va_g = (fold[2], fold[3]) if len(fold) == 4 else (None, None)
+        dtr = Dataset(X[tr_idx], label=y[tr_idx], group=tr_g,
+                      weight=None if w is None else w[tr_idx],
+                      params=params)
+        dva = Dataset(X[va_idx], label=y[va_idx], group=va_g,
+                      weight=None if w is None else w[va_idx],
+                      reference=dtr, params=params)
+        history: Dict[str, Dict[str, List[float]]] = {}
+        cbs = list(callbacks or []) + [
+            callback_mod.record_evaluation(history)]
+        bst = train(params, dtr, num_boost_round, valid_sets=[dva],
+                    valid_names=["valid"], callbacks=cbs, device=device)
+        fold_histories.append(history.get("valid", {}))
+        if return_cv_booster:
+            boosters.append(bst)
+        # one fold's device bins alive at a time
+        del bst, dtr, dva
+    return _collect_cv(fold_histories, boosters, return_cv_booster)
+
+
+def _collect_cv(fold_histories, boosters, return_cv_booster):
+    """Per-round means and standard deviations over the folds."""
+    results: Dict[str, Any] = {}
+    metric_names = sorted({m for h in fold_histories for m in h})
+    for m in metric_names:
+        rounds = min(len(h[m]) for h in fold_histories if m in h)
+        vals = np.array([h[m][:rounds] for h in fold_histories if m in h])
+        results[f"valid {m}-mean"] = list(vals.mean(axis=0))
+        results[f"valid {m}-stdv"] = list(vals.std(axis=0))
+    if return_cv_booster:
+        results["cvbooster"] = boosters
+    return results

@@ -4,8 +4,9 @@ sniffed from the first lines.
 The port's copy of the JAX package's ``io/parser.py`` (reference
 ``Parser::CreateParser``, ``src/io/parser.cpp``), its Python path: the
 label column by index or ``name:<col>``, in-data weight / query / ignored
-columns, the ``<data>.weight`` / ``<data>.query`` side files (reference
-``src/io/metadata.cpp``), and the header's feature names.  Tokens are read
+columns, the ``<data>.weight`` / ``<data>.query`` / ``<data>.position``
+side files (reference ``src/io/metadata.cpp``), and the header's feature
+names.  Tokens are read
 with Python's ``float`` (``na``, ``nan``, ``null``, ``none`` and empty
 tokens are NaN).  The JAX package's threaded C++ parser and its two-round
 loader are not ported (ROADMAP A1b, A1c).
@@ -238,6 +239,21 @@ def _side_files(path: str):
     if os.path.exists(path + ".query"):
         group = np.loadtxt(path + ".query").astype(np.int64)
     return weight, group
+
+
+def position_side_file(path: str, expected_rows: Optional[int] = None):
+    """``<data>.position`` (reference Advanced-Topics.rst:108,
+    metadata.cpp): one position per row; any identifiers factorize to
+    dense int32 ids, as the reference maps its position strings."""
+    if not os.path.exists(path + ".position"):
+        return None
+    raw = np.loadtxt(path + ".position", dtype=str, ndmin=1)
+    if expected_rows is not None and len(raw) != expected_rows:
+        raise ValueError(
+            f"{path}.position has {len(raw)} rows; data has "
+            f"{expected_rows}")
+    _, ids = np.unique(raw, return_inverse=True)
+    return ids.astype(np.int32)
 
 
 def _atof(tok: str) -> float:

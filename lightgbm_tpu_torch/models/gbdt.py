@@ -24,6 +24,18 @@ bins and gradients live on the device; each grown tree becomes a host
 ``gbdt/host_tree``) mark an iteration's steps.  ``predict_raw`` walks the
 fp32 pack (``models/tree.py::forest_scores``) through the serving plan.
 
+Row and feature sampling (``sampling.py``): bagging (plain, balanced,
+by query) and ``feature_fraction`` draw their masks on the host from the
+JAX package's ``RandomState`` streams; GOSS scores each row by
+``|sum_k g * sum_k h|`` (one mask serves the K trees of an iteration) and
+samples on the device under ``tpu_device_goss`` ``on``, and under
+``auto`` wherever the JAX package's fused iteration would (an objective
+without leaf renewal or host-stochastic gradients), else on the host
+(``off``, and custom gradients).  A sampled-out row keeps gradient,
+hessian and count 0 in every histogram.  The ranking objectives read the
+training data's query groups and positions, and every dataset hands its
+groups to the metrics.
+
 Continued training: ``base_model`` (a loaded model text,
 ``serialization.LoadedModel``) whose raw scores the caller folded into
 the datasets' init scores (so boost-from-average stays off); its trees
@@ -55,6 +67,8 @@ from ..metrics import metrics_for_config
 from ..objectives import RANKING, create_objective
 from ..ops.quantize import quant_generator
 from ..ops.split import SplitConfig
+from ..sampling import (FeatureSampler, SampleStrategy, goss_generator,
+                        goss_mask_device)
 from ..utils.device import resolve_device
 from ..utils.log import Log
 from .grower import GrowerConfig, make_grower
@@ -81,15 +95,11 @@ _NO_OP_KEYS = frozenset((
     "start_iteration_predict", "num_iteration_predict", "predict_raw_score",
     "predict_leaf_index", "predict_contrib", "predict_disable_shape_check",
     "pred_early_stop", "pred_early_stop_freq", "pred_early_stop_margin",
-    "bagging_seed", "bagging_by_query", "feature_fraction_seed",
     "extra_seed", "drop_rate", "max_drop", "skip_drop", "xgboost_dart_mode",
-    "uniform_drop", "drop_seed", "top_rate", "other_rate", "linear_lambda",
+    "uniform_drop", "drop_seed", "linear_lambda",
     "min_data_per_group", "max_cat_threshold", "cat_l2", "cat_smooth",
     "top_k", "monotone_constraints_method", "monotone_penalty",
-    "refit_decay_rate", "objective_seed", "lambdarank_truncation_level",
-    "lambdarank_norm", "label_gain",
-    "lambdarank_position_bias_regularization", "eval_at",
-    "tpu_device_goss", "tpu_hist_comm"))
+    "refit_decay_rate", "tpu_hist_comm"))
 
 #: keys refused at a non-default value, with the ROADMAP item that ports
 #: them
@@ -129,18 +139,14 @@ def check_supported(cfg: Config, train: Optional[TrainData] = None) -> None:
     if cfg.input_model:
         raise _todo("input_model in train's params (the command-line "
                     "interface reads it; pass init_model= to train)", "A9")
-    if cfg.group_column:
-        raise _todo("query groups (group_column)", "A8.2")
-    if cfg.objective in RANKING:
-        raise _todo(f"training objective={cfg.objective}", "A8.2")
     if cfg.boosting != "gbdt":
         raise _todo(f"boosting={cfg.boosting}", "A8.9")
-    if (cfg.data_sample_strategy != "bagging" or cfg.bagging_fraction < 1.0
-            or cfg.pos_bagging_fraction < 1.0
-            or cfg.neg_bagging_fraction < 1.0 or cfg.bagging_freq > 0):
-        raise _todo("bagging and GOSS", "A8.3")
-    if cfg.feature_fraction < 1.0:
-        raise _todo("feature_fraction < 1", "A8.3")
+    if cfg.data_sample_strategy not in ("bagging", "goss"):
+        raise ValueError(f"data_sample_strategy={cfg.data_sample_strategy!r}"
+                         ": expected bagging or goss")
+    if cfg.tpu_device_goss not in ("auto", "on", "off"):
+        raise ValueError(f"tpu_device_goss={cfg.tpu_device_goss!r}: "
+                         "expected auto, on or off")
     if cfg.feature_fraction_bynode < 1.0 or cfg.extra_trees:
         raise _todo("feature_fraction_bynode and extra_trees", "A8.7")
     if cfg.monotone_constraints and any(int(m) != 0
@@ -222,7 +228,10 @@ class GBDT:
         self.models: List[List[Tree]] = [[] for _ in range(self.num_class)]
         self.objective = create_objective(cfg)
         if self.objective is not None:
-            self.objective.init(train.label, train.weight, self.device)
+            ranking = ({"group": train.group, "position": train.position}
+                       if cfg.objective in RANKING else {})
+            self.objective.init(train.label, train.weight, self.device,
+                                **ranking)
         self.metrics = metrics_for_config(cfg)
         # 4-bit bin storage (reference DenseBin IS_4BIT; the JAX package's
         # gate without its EFB and feature-parallel exclusions, which the
@@ -259,7 +268,13 @@ class GBDT:
         n, f = train.num_data, train.num_features
         self._full_mask = torch.ones(n, dtype=torch.float32,
                                      device=self.device)
-        self._fmask = torch.ones(f, dtype=torch.bool, device=self.device)
+        self.sample_strategy = SampleStrategy(
+            cfg, n, train.label, train.query_boundaries())
+        self.feature_sampler = FeatureSampler(cfg, f)
+        self._bag_mask_dev = None
+        self._fmask_static = (torch.ones(f, dtype=torch.bool,
+                                         device=self.device)
+                              if cfg.feature_fraction >= 1.0 else None)
 
     @classmethod
     def from_trees(cls, cfg: Config, binned: BinnedData,
@@ -295,17 +310,67 @@ class GBDT:
             base = base[:, 0]
         return torch.from_numpy(np.ascontiguousarray(base)).to(self.device)
 
-    def _grow(self, grad, hess, iteration: int, class_id: Optional[int]):
-        """Grow one tree of ``iteration`` on (N,) gradients; ``class_id``
-        seeds its own stochastic rounding when the iteration grows K
-        trees."""
+    def goss_on_device(self, custom_grads: bool = False) -> bool:
+        """Does GOSS sample on the device this run?  ``on`` does (but for
+        custom gradients, which arrive from the host), ``off`` does not,
+        and ``auto`` does wherever the JAX package's fused iteration
+        would: an objective without leaf renewal or host-stochastic
+        gradients.  False when the run does not sample with GOSS."""
+        mode = self.cfg.tpu_device_goss
+        obj = self.objective
+        if custom_grads or mode == "off" or not self.sample_strategy.is_goss:
+            return False
+        return mode == "on" or (
+            obj is not None and not obj.need_renew_tree_output
+            and not obj.stochastic_gradients)
+
+    def _iter_masks(self, grad, hess, custom_grads: bool):
+        """This iteration's (N,) f32 row mask and (F,) bool feature mask
+        (the JAX package's ``_iter_masks`` / ``_tree_fmask``)."""
+        strategy = self.sample_strategy
+        it = self.iter_
+        n = self.train_data.num_data
+        with record_function("gbdt/sample"):
+            if strategy.is_goss:
+                if strategy.goss_warmup(it):
+                    mask = self._full_mask
+                elif self.goss_on_device(custom_grads):
+                    mask = goss_mask_device(
+                        grad.reshape(n, -1).sum(dim=1),
+                        hess.reshape(n, -1).sum(dim=1),
+                        goss_generator(self.cfg.bagging_seed, it,
+                                       self.device),
+                        *strategy.goss_constants())
+                else:
+                    gm = grad.cpu().numpy().reshape(n, -1)
+                    hm = hess.cpu().numpy().reshape(n, -1)
+                    mask = torch.from_numpy(strategy.mask(
+                        it, gm.sum(axis=1), hm.sum(axis=1))).to(self.device)
+            elif strategy.is_bagging:
+                if (strategy.needs_resample(it)
+                        or self._bag_mask_dev is None):
+                    self._bag_mask_dev = torch.from_numpy(
+                        strategy.mask(it)).to(self.device)
+                mask = self._bag_mask_dev
+            else:
+                mask = self._full_mask
+            fmask = (self._fmask_static if self._fmask_static is not None
+                     else torch.from_numpy(self.feature_sampler.tree_mask(
+                         it)).to(self.device))
+        return mask, fmask
+
+    def _grow(self, grad, hess, iteration: int, class_id: Optional[int],
+              mask, fmask):
+        """Grow one tree of ``iteration`` on (N,) gradients under the row
+        and feature masks; ``class_id`` seeds its own stochastic rounding
+        when the iteration grows K trees."""
         meta = self.meta_dev
         qgen = (quant_generator(self.cfg.seed, iteration, self.device,
                                 class_id)
                 if self.cfg.use_quantized_grad else None)
         with record_function("gbdt/grow"):
             return self.grow(
-                self.bins_dev, grad, hess, self._full_mask, self._fmask,
+                self.bins_dev, grad, hess, mask, fmask,
                 meta["num_bins_per_feature"], meta["nan_bins"],
                 meta["is_categorical"], quant_generator=qgen)
 
@@ -337,11 +402,13 @@ class GBDT:
             * torch.tensor(np.float32(shrink)))
 
     def _grow_apply(self, grad, hess, shrink: float, iteration: int,
-                    class_id: Optional[int] = None):
-        """``grow_apply``: grow one tree, shrink it (renewing its leaves
-        first where the objective refits them), and add its leaf values
-        to the scores (column ``class_id`` of (N, K) scores)."""
-        arrays, row_leaf = self._grow(grad, hess, iteration, class_id)
+                    masks, class_id: Optional[int] = None):
+        """``grow_apply``: grow one tree under ``masks`` (row, feature),
+        shrink it (renewing its leaves first where the objective refits
+        them), and add its leaf values to the scores (column ``class_id``
+        of (N, K) scores)."""
+        arrays, row_leaf = self._grow(grad, hess, iteration, class_id,
+                                      *masks)
         k = 0 if class_id is None else class_id
         scores_k = self.scores[:, k] if self._shape_k else self.scores
         renew = (self.objective is not None
@@ -401,6 +468,7 @@ class GBDT:
         """One boosting iteration; ``grad``/``hess`` (N,) or (N, K)
         override the objective's.  Returns True when no tree of the
         iteration could split (the caller stops)."""
+        custom = grad is not None
         with record_function("gbdt/gradients"):
             if grad is None:
                 if self.objective is None:
@@ -415,12 +483,14 @@ class GBDT:
                 hess = torch.as_tensor(np.asarray(hess, np.float32),
                                        device=self.device).reshape(shape)
         it, lr = self.iter_, self.cfg.learning_rate
+        masks = self._iter_masks(grad, hess, custom)
         leaves = []
         for k in range(self.num_class):
             if self._shape_k:
-                arrays = self._grow_apply(grad[:, k], hess[:, k], lr, it, k)
+                arrays = self._grow_apply(grad[:, k], hess[:, k], lr, it,
+                                          masks, k)
             else:
-                arrays = self._grow_apply(grad, hess, lr, it)
+                arrays = self._grow_apply(grad, hess, lr, it, masks)
             self._store_tree(k, arrays)
             leaves.append(arrays.num_leaves)
         return all(nl <= 1 for nl in leaves)
@@ -442,7 +512,7 @@ class GBDT:
                 sc = scores.cpu().numpy().astype(np.float64)
                 for m in self.metrics:
                     out.append((name, m.name,
-                                m(data.label, sc, data.weight, None),
+                                m(data.label, sc, data.weight, data.group),
                                 m.higher_better))
         return out
 

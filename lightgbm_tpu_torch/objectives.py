@@ -13,7 +13,9 @@ numpy float64, and ``renew_leaf_values`` (the percentile leaf refit of
 L1 / Huber / Quantile / MAPE) in host numpy, verbatim.  ``get_gradients``
 runs as torch ops on the scores' device, in float32 and in the JAX
 package's order, so gradients without an ``exp`` are bit for bit the
-JAX package's.  The ranking objectives are later work (ROADMAP A8.2).
+JAX package's.  The ranking objectives (``lambdarank``, ``rank_xendcg``)
+live in ``ranking.py``; ``create_objective`` makes them too, and their
+``init`` also takes the training data's query groups and positions.
 """
 
 from __future__ import annotations
@@ -37,6 +39,10 @@ class ObjectiveFunction:
 
     is_constant_hessian = False
     need_renew_tree_output = False
+    #: True where ``get_gradients`` advances host state (a generator), so
+    #: device GOSS under ``tpu_device_goss=auto`` keeps the host sampler,
+    #: as the JAX package's unfused path does
+    stochastic_gradients = False
 
     def __init__(self, name: str, cfg: Config):
         self.name = name
@@ -547,7 +553,8 @@ _REGISTRY = {
     "cross_entropy_lambda": CrossEntropyLambda,
 }
 
-#: objectives of later work
+#: the learning-to-rank objectives (``ranking.py``): they read the
+#: training data's query groups and positions
 RANKING = ("lambdarank", "rank_xendcg")
 
 
@@ -557,9 +564,10 @@ def create_objective(cfg: Config) -> Optional[ObjectiveFunction]:
     if cfg.objective == "custom":
         return None
     if cfg.objective in RANKING:
-        raise NotImplementedError(
-            f"objective={cfg.objective} is not ported to lightgbm_tpu_torch "
-            "yet (ROADMAP A8.2: ranking objectives and query groups)")
+        from .ranking import LambdaRankNDCG, RankXENDCG
+        cls = {"lambdarank": LambdaRankNDCG,
+               "rank_xendcg": RankXENDCG}[cfg.objective]
+        return cls(cfg.objective, cfg)
     if cfg.objective not in _REGISTRY:
         raise ValueError(f"unknown objective: {cfg.objective}")
     return _REGISTRY[cfg.objective](cfg.objective, cfg)

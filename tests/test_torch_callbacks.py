@@ -25,8 +25,9 @@ package's on the same numpy inputs from a seed.
   ``eval_valid``, ``Booster.eval`` and ``add_valid`` agree with each
   other and with the JAX package; a callable ``objective`` trains like
   ``Booster.update(fobj=...)``, which takes (N, K) gradients for K
-  classes; ``resume_from``, checkpoint params, refit and ``cv`` raise,
-  naming their ROADMAP items, and ``init_model`` continues training."""
+  classes; ``resume_from``, checkpoint params and refit raise, naming
+  their ROADMAP items, ``init_model`` continues training and ``cv``
+  trains."""
 
 import contextlib
 import io
@@ -359,5 +360,8 @@ def test_later_train_options_raise():
     with pytest.raises(NotImplementedError, match="A11"):
         lgt.train(dict(params, checkpoint_interval=5),
                   lgt.Dataset(X, label=y), 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="A5d"):
-        lgt.cv(params, lgt.Dataset(X, label=y), 2)
+    # cv trains (slice 13; tests/test_torch_cv.py holds it to the JAX
+    # package's)
+    res = lgt.cv(params, lgt.Dataset(X, label=y), 2, nfold=2, device="cpu")
+    assert sorted(res) == ["valid l2-mean", "valid l2-stdv"]
+    assert len(res["valid l2-mean"]) == 2

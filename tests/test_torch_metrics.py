@@ -8,7 +8,9 @@
 - ``default_metric_for_objective`` for every objective, and
   ``metrics_for_config`` over metric lists, aliases and placeholders,
   give the JAX package's metrics.
-- ``ndcg`` and ``map`` raise, naming ROADMAP A8.2."""
+- ``ndcg`` and ``map`` (and their aliases) resolve to the JAX package's
+  metrics, one per ``eval_at`` position (tests/test_torch_ranking.py
+  holds their values)."""
 
 import numpy as np
 import pytest
@@ -125,9 +127,16 @@ def test_metrics_for_config_matches_jax(jm, params):
             == [(m.name, m.higher_better) for m in want])
 
 
-def test_ranking_metrics_raise_naming_a82():
+def test_ranking_metrics_raise_naming_a82(jm):
+    """The ranking metrics, which raised naming A8.2 until slice 13, now
+    resolve as the JAX package's do: one metric per eval_at position
+    (tests/test_torch_ranking.py holds their values)."""
+    from lightgbm_tpu.config import Config as JConfig
     for name in ("ndcg", "map", "lambdarank", "mean_average_precision"):
-        with pytest.raises(NotImplementedError, match="A8.2"):
-            PM.create_metric(name, PConfig({}))
+        for params in ({}, {"eval_at": [2, 7]}):
+            got = PM.create_metric(name, PConfig(params))
+            want = jm.create_metric(name, JConfig(params))
+            assert ([(m.name, m.higher_better) for m in got]
+                    == [(m.name, m.higher_better) for m in want])
     with pytest.raises(ValueError, match="unknown metric"):
         PM.create_metric("no_such_metric", PConfig({}))

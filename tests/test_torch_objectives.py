@@ -172,10 +172,23 @@ def test_label_checks_match_jax(lgb, params, label):
     assert str(got.value) == str(want.value)
 
 
-def test_ranking_objectives_raise_naming_a82():
+def test_ranking_objectives_raise_naming_a82(lgb):
+    """The ranking objectives, which raised naming A8.2 until slice 13,
+    now build; without query groups their init raises the JAX package's
+    ValueError (tests/test_torch_ranking.py holds their gradients)."""
+    from lightgbm_tpu.config import Config as JConfig
+    from lightgbm_tpu.objectives import create_objective as jax_objective
+    y = np.array([0.0, 1.0, 2.0, 1.0])
     for name in ("lambdarank", "rank_xendcg"):
-        with pytest.raises(NotImplementedError, match="A8.2"):
-            PO.create_objective(PConfig({"objective": name}))
+        obj = PO.create_objective(PConfig({"objective": name}))
+        assert obj.name == name and obj.num_model_per_iteration == 1
+        with pytest.raises(ValueError) as want:
+            jax_objective(JConfig({"objective": name})).init(
+                y, None, None, JConfig({"objective": name}))
+        with pytest.raises(ValueError) as got:
+            obj.init(y, None, torch.device("cpu"))
+        assert str(got.value) == str(want.value)
+        obj.init(y, None, torch.device("cpu"), group=np.array([4]))
 
 
 def test_constant_hessian_quantization_matches_jax(lgb):

@@ -18,7 +18,8 @@
 - The file's labels, weights and header names fill what the caller did
   not pass; a missing file raises ``FileNotFoundError``; a binary cache
   (a zip file) names A1c; query groups (``group_column``, a ``.query``
-  file) and ``.position`` files name A8.2.
+  file) and ``.position`` files load (``group_column``'s groups are the
+  JAX package's), and ``subset`` refuses a grouped dataset.
 """
 
 import os
@@ -217,15 +218,25 @@ def test_file_refusals(tmp_path):
     X, y = _rows(seed=6)
     path = str(tmp_path / "rows.csv")
     _write_delimited(path, np.nan_to_num(X), y, sep=",")
-    with pytest.raises(NotImplementedError, match="A8.2"):
-        lgt.Dataset(path, params={"group_column": "1"}).construct()
+    # query groups and positions load since slice 13 (ROADMAP A8.2):
+    # group_column's query ids become group sizes, as in the JAX package
+    jx = pytest.importorskip("lightgbm_tpu")
+    want = jx.Dataset(path, params={"group_column": "1"})
+    want.construct()
+    got = lgt.Dataset(path, params={"group_column": "1"})
+    got.construct()
+    np.testing.assert_array_equal(got.get_group(), want.get_group())
+    assert got.construct().group is not None
     np.savetxt(path + ".position", np.zeros(len(y)))
-    with pytest.raises(NotImplementedError, match="A8.2"):
-        lgt.Dataset(path).construct()
+    ds = lgt.Dataset(path)
+    ds.construct()
+    np.testing.assert_array_equal(ds.position, np.zeros(len(y)))
     os.remove(path + ".position")
-    np.savetxt(path + ".query", [len(y)], fmt="%d")
-    with pytest.raises(NotImplementedError, match="A8.2"):
-        lgt.Dataset(path).construct()
+    np.savetxt(path + ".query", [len(y) - 1, 1], fmt="%d")
+    ds = lgt.Dataset(path)
+    np.testing.assert_array_equal(ds.construct().group, [len(y) - 1, 1])
+    with pytest.raises(ValueError, match="query groups"):
+        ds.subset([0, 1])
 
 
 def test_timer_spans_match_jax_and_time_the_parse(tmp_path):

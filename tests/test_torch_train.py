@@ -57,8 +57,11 @@
   iteration gives the JAX package's model text byte for byte, and the
   fused wave's (forced on the CPU: its plain version) too.
 - Every unsupported param, an EFB-bundled dataset, a sorted
-  categorical feature, ``resume_from`` and ``cv`` raise
-  ``NotImplementedError``; ``init_model`` continues training and
+  categorical feature and ``resume_from`` raise
+  ``NotImplementedError``; the entries of those lists that train since
+  slice 13 (lambdarank, bagging, GOSS, ``feature_fraction``,
+  ``group_column``, ``cv``) are checked to train; ``init_model``
+  continues training and
   ``Booster(model_str=...)`` loads (tests/test_torch_load_model.py holds
   both to the JAX package); without ``device`` on a machine with no
   card, ``train`` raises.
@@ -465,10 +468,14 @@ NO_OP = {"num_threads": 8, "deterministic": True, "force_col_wise": True,
          "output_model": "out.txt", "precise_float_parser": True,
          "device_type": "gpu", "predict_raw_score": True,
          "pred_early_stop": True, "num_iteration_predict": 3,
-         "bagging_seed": 9, "top_rate": 0.3, "drop_rate": 0.2,
-         "linear_lambda": 0.5, "lambdarank_norm": False, "extra_seed": 11,
-         "tpu_device_goss": "on", "tpu_hist_comm": "allreduce",
-         "refit_decay_rate": 0.5, "cat_l2": 3.0, "objective_seed": 2}
+         "drop_rate": 0.2, "linear_lambda": 0.5, "extra_seed": 11,
+         "tpu_hist_comm": "allreduce", "refit_decay_rate": 0.5,
+         "cat_l2": 3.0}
+
+#: keys that were no-ops until slice 13 and are now read by sampling and
+#: ranking: inert in a binary run without sampling
+INERT_HERE = {"bagging_seed": 9, "top_rate": 0.3, "lambdarank_norm": False,
+              "tpu_device_goss": "on", "objective_seed": 2}
 
 
 def test_no_op_keys_train_and_change_nothing():
@@ -477,11 +484,12 @@ def test_no_op_keys_train_and_change_nothing():
     in the parameter lines that record them)."""
     from lightgbm_tpu_torch.models.gbdt import _NO_OP_KEYS
     assert set(NO_OP) <= _NO_OP_KEYS
+    assert not set(INERT_HERE) & _NO_OP_KEYS
     X, y = higgs_like(1500, 4)
     params = {"objective": "binary", "verbosity": -1, "num_leaves": 7}
     want = lgt.train(params, lgt.Dataset(X, label=y), 2, device="cpu")
-    got = lgt.train(dict(params, **NO_OP), lgt.Dataset(X, label=y), 2,
-                    device="cpu")
+    got = lgt.train(dict(params, **NO_OP, **INERT_HERE),
+                    lgt.Dataset(X, label=y), 2, device="cpu")
     trees = lambda b: b.model_to_string().split("end of trees")[0]
     assert trees(got) == trees(want)
     # a key outside the table is kept in the text and ignored
@@ -579,6 +587,8 @@ REFUSED = [({"save_binary": True}, "A1c"), ({"two_round": True}, "A1c"),
            ({"tpu_serve_request_log": "on"}, "A7f"),
            ({"input_model": "model.txt"}, "A9"),
            ({"group_column": "0"}, "A8.2")]
+#: items of REFUSED that train since slice 13
+PORTED_ITEMS = ("A8.2",)
 
 
 @pytest.mark.parametrize("extra,item", REFUSED,
@@ -587,8 +597,21 @@ REFUSED = [({"save_binary": True}, "A1c"), ({"two_round": True}, "A1c"),
 def test_refused_values_name_their_item(extra, item):
     X, y = higgs_like(300, 4)
     params = {"objective": "binary", "verbosity": -1, **extra}
+    if item in PORTED_ITEMS:
+        # group_column is read by the file parser (tests/
+        # test_torch_parser.py); over arrays it is ignored, as in the JAX
+        # package
+        b = lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu")
+        assert b.num_trees() == 1
+        return
     with pytest.raises(NotImplementedError, match=item):
         lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu")
+
+
+#: entries of UNSUPPORTED that train since slice 13 (ROADMAP A8.2, A8.3)
+PORTED = [{"objective": "lambdarank"},
+          {"bagging_fraction": 0.5, "bagging_freq": 1},
+          {"data_sample_strategy": "goss"}, {"feature_fraction": 0.5}]
 
 
 @pytest.mark.parametrize("extra", UNSUPPORTED,
@@ -598,6 +621,19 @@ def test_unsupported_params_raise(extra):
     X = rng.randn(300, 4)
     y = (X[:, 0] > 0).astype(np.float64)
     params = {"objective": "binary", "verbosity": -1, **extra}
+    if extra in PORTED:
+        # trains now: lambdarank over query groups, sampling over rows
+        # and features (tests/test_torch_ranking.py and
+        # test_torch_sampling.py hold them to the JAX package)
+        group = np.full(30, 10) if extra.get("objective") else None
+        label = np.clip(np.round(X[:, 0] + 1), 0, 3) if group is not None \
+            else y
+        b = lgt.train(params, lgt.Dataset(X, label=label, group=group), 2,
+                      device="cpu")
+        assert b.num_trees() == 2
+        b.update()
+        assert b.num_trees() == 3
+        return
     with pytest.raises(NotImplementedError):
         b = lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu")
         b.update()
@@ -625,8 +661,12 @@ def test_unsupported_datasets_and_options_raise():
     with pytest.raises(NotImplementedError, match="A11"):
         lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu",
                   resume_from="ckpt")
-    with pytest.raises(NotImplementedError, match="A5d"):
-        lgt.cv(params, lgt.Dataset(X, label=y), 2)
+    # cv trains (slice 13; tests/test_torch_cv.py holds it to the JAX
+    # package's)
+    Xd = X[:, 4:]
+    res = lgt.cv(params, lgt.Dataset(Xd, label=y), 2, nfold=2, device="cpu")
+    assert sorted(res) == ["valid binary_logloss-mean",
+                           "valid binary_logloss-stdv"]
     # continued training and loading model text now work
     Xd = X[:, 4:]
     base = lgt.train(params, lgt.Dataset(Xd, label=y), 1, device="cpu")

@@ -95,9 +95,11 @@ def pow2_scale_grads(n, seed=3):
     return g, h
 
 
-def jax_grow(X, y, params, grad, hess, categorical=(), **grower_kw):
+def jax_grow(X, y, params, grad, hess, categorical=(), sample_mask=None,
+             **grower_kw):
     """The JAX package's ``make_grower`` on the binned ``X`` -> (tree
-    fields as numpy, row_leaf)."""
+    fields as numpy, row_leaf); ``sample_mask`` (N,) f32 row weights
+    (bagging / GOSS), every row at 1 by default."""
     import dataclasses
 
     import jax.numpy as jnp
@@ -118,9 +120,10 @@ def jax_grow(X, y, params, grad, hess, categorical=(), **grower_kw):
     if grower_kw.get("packed4"):
         from lightgbm_tpu.ops.histogram import pack_bins4
         bins = pack_bins4(bins)
+    mask = (jnp.ones(n, jnp.float32) if sample_mask is None
+            else jnp.asarray(sample_mask, jnp.float32))
     tree, row_leaf = grow(
-        bins, jnp.asarray(grad), jnp.asarray(hess),
-        jnp.ones(n, jnp.float32), jnp.ones(f, bool),
+        bins, jnp.asarray(grad), jnp.asarray(hess), mask, jnp.ones(f, bool),
         meta["num_bins_per_feature"], meta["nan_bins"],
         meta["is_categorical"], meta["monotone"])
     fields = {k: np.asarray(getattr(tree, k)) for k in TREE_FIELDS}
@@ -129,7 +132,7 @@ def jax_grow(X, y, params, grad, hess, categorical=(), **grower_kw):
 
 
 def port_grow(X, y, params, grad, hess, categorical=(), device="cpu",
-              **grower_kw):
+              sample_mask=None, **grower_kw):
     """The port's grower on the same rows -> (tree fields as numpy,
     row_leaf)."""
     import dataclasses
@@ -147,10 +150,12 @@ def port_grow(X, y, params, grad, hess, categorical=(), device="cpu",
     dev = torch.device(device)
     meta = td.feature_meta_device(dev)
     n, f = td.binned.bins.shape
+    mask = (torch.ones(n, device=dev) if sample_mask is None
+            else torch.from_numpy(np.asarray(sample_mask, np.float32)).to(dev))
     tree, row_leaf = grow(
         td.bins_device(dev, packed4=grower_kw.get("packed4", False)),
         torch.from_numpy(grad).to(dev),
-        torch.from_numpy(hess).to(dev), torch.ones(n, device=dev),
+        torch.from_numpy(hess).to(dev), mask,
         torch.ones(f, dtype=torch.bool, device=dev),
         meta["num_bins_per_feature"], meta["nan_bins"],
         meta["is_categorical"])
