@@ -8,7 +8,8 @@ bf16 and 4-bit-bin training, training at max_bin 1023 over uint16 bins,
 unfused and through the fused wave; the regression, multiclass and other
 objectives with a valid set, metrics and early stopping; text-file input,
 model text loading, continued training and per-feature bins; bagging,
-GOSS and feature_fraction, cv, and learning to rank) at full width and
+GOSS and feature_fraction, cv, and learning to rank; sorted many-vs-many
+categorical splits) at full width and
 holds every kernel against its plain PyTorch version and every result
 against an independent reference.
 
@@ -35,7 +36,7 @@ the seed):
    kernel launch per request;
 7. timing: traversal kernel (CUDA events, and device ms a launch by
    kernel name) at 1, 4,096, 65,536 and 1,048,576 rows, int16 and int8
-   packs, its bound, and the plain version's time.
+   packs, its bound, and the plain version's time (int16).
 
 Training (slice 2) — binary GBDT through the hand-written CUDA histogram
 and fused-wave kernels:
@@ -314,6 +315,32 @@ torch_sampling_ref.json`` (made on the CPU by
 47. the slice's seconds and each kernel's launches on these paths
     (``slice13_launches`` in the kernels line).
 
+Sorted many-vs-many categorical splits (slice 15) — against
+``tests/fixtures/torch_categorical_ref.json`` (made on the CPU by
+``tools/gen_torch_categorical_fixture.py``):
+
+48. ``make_airline_like(250,000, seed)``: the 28 higgs-like columns plus
+    two 300-category airports (Zipf-like, the tail in the rest bin), a
+    20-category carrier and a 12-category month, the label carried also
+    by hidden sets of categories; 200,000 rows train at the bench params
+    with the categorical keys at their defaults, 100 iterations in f32
+    and quantized (``stochastic_rounding`` false) through the fused wave
+    and histogram kernels, the holdout AUC within 2e-3 (f32) and 3e-3
+    (quantized) of the JAX package's, a category set of 2 or more; f32 at
+    ``max_cat_to_onehot`` 256 beside them, no bar;
+49. exact-sum gradients on 20,000 of those rows: the grower through the
+    fused wave kernel, the ``tpu_wave_kernel=unfused`` grower (both on
+    the card) and the CPU grower give equal trees and ``row_leaf``, f32
+    and quantized;
+50. phase 48's f32 model served as an int16 pack on 65,536 holdout rows
+    with unseen categories and NaN: bit for bit a numpy walk, one launch;
+    its model text loaded: rows without a rest-bin category within the
+    round-trip bar, the rest-bin rows that differ counted;
+51. one sorted-categorical iteration's ``torch.profiler`` split (3
+    warm-up, 5 profiled): s/iteration beside phase 10's and the
+    ``grower/sorted_cat`` ms an iteration; the slice's launches
+    (``slice15_launches`` in the kernels line).
+
 Each wave timing (phases 14, 18, 23, 31) also gives its three launches'
 device times by kernel name under ``torch.profiler`` (``wave_stage_ms``):
 stage 1, the combine and the scan.
@@ -391,6 +418,42 @@ def make_higgs_like(n, f, seed=0):
     p = 1 / (1 + np.exp(-logits))
     y = (rng.rand(n) < p).astype(np.float64)
     return X, y
+
+
+#: make_airline_like's categorical columns (after the 28 higgs-like
+#: ones): (name, categories, Zipf exponent of their frequencies, weight of
+#: their hidden set in the logit)
+AIRLINE_COLUMNS = (("origin", 300, 1.1, 0.6), ("dest", 300, 1.1, 0.6),
+                   ("carrier", 20, 0.8, 0.4), ("month", 12, 0.0, 0.3))
+
+
+def make_airline_like(n, seed=0):
+    """``make_higgs_like(n, 28, seed)``'s rows plus the four categorical
+    columns of ``AIRLINE_COLUMNS``, in the manner of the airline data
+    LightGBM's documentation shows categorical support on: two airports
+    of 300 categories with Zipf-like frequencies (at max_bin 255 the
+    rarest 46 share the rest bin), a 20-category carrier, a 12-category
+    month.  Category ids are shuffled against their frequency.  The label
+    is drawn from the higgs-like logit plus, per column, its weight times
+    +-1 by a hidden half of its categories.  Returns (X (n, 32) float64,
+    y, the categorical column indices)."""
+    rng = np.random.RandomState(seed)
+    f = 28
+    X = rng.randn(n, f).astype(np.float32)
+    w = rng.randn(f) / np.sqrt(f)
+    logits = X @ w + 0.5 * np.sin(X[:, 0] * 2) * X[:, 1]
+    crng = np.random.RandomState([seed, 15])
+    cols = []
+    for _name, k, zipf, weight in AIRLINE_COLUMNS:
+        p = 1.0 / np.arange(1, k + 1) ** zipf
+        ids = crng.permutation(k)
+        cat = ids[crng.choice(k, n, p=p / p.sum())]
+        hidden = np.where(crng.rand(k) < 0.5, 1.0, -1.0)
+        logits = logits + weight * hidden[cat]
+        cols.append(cat.astype(np.float64))
+    y = (crng.rand(n) < 1 / (1 + np.exp(-logits))).astype(np.float64)
+    Xc = np.column_stack([X.astype(np.float64)] + cols)
+    return Xc, y, list(range(f, f + len(AIRLINE_COLUMNS)))
 
 
 def random_tree(rng, num_leaves, num_bins, cat_features, max_bins):
@@ -558,7 +621,13 @@ def device_binning_rows(binned, X, rng, n):
 
 
 # ------------------------------------------------------------------ helpers
+#: the process's start: each phase line's ``t_s`` is the seconds since
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -897,12 +966,12 @@ def kernel_stage_ms(fn, iters=10, attempts=3):
             torch.cuda.synchronize()
         total = dict.fromkeys(stages + ["other"], 0.0)
         count = dict.fromkeys(stages + ["other"], 0)
-        for ev in prof.events():
-            if "cuda" not in str(getattr(ev, "device_type", "")).lower():
+        for name, on_device, start, end in profiler_events(prof):
+            if not on_device:
                 continue
-            key = next((k for k, part in WAVE_STAGES if part in ev.name),
+            key = next((k for k, part in WAVE_STAGES if part in name),
                        "other")
-            total[key] += ev.time_range.end - ev.time_range.start
+            total[key] += end - start
             count[key] += 1
         if count["stage1"]:
             break
@@ -927,21 +996,38 @@ def named_kernel_ms(fn, part, iters=10):
             fn()
         torch.cuda.synchronize()
     total, count = 0.0, 0
-    for ev in prof.events():
-        if ("cuda" in str(getattr(ev, "device_type", "")).lower()
-                and part in ev.name):
-            total += ev.time_range.end - ev.time_range.start
+    for name, on_device, start, end in profiler_events(prof):
+        if on_device and part in name:
+            total += end - start
             count += 1
     return {"ms": total / count / 1e3 if count else 0.0, "launches": count}
 
 
+def profiler_events(prof):
+    """(name, on the device, start us, end us) of every event a
+    ``torch.profiler`` session recorded, read from its raw kineto events:
+    ``prof.events()`` builds a Python tree of them first (seconds for the
+    hundreds of thousands of events of a profiled iteration).
+    Times count from the trace's start, as ``prof.events()``' do;
+    ``tools/torch_profile_readers.py`` reads one profile both ways."""
+    res = prof.profiler.kineto_results
+    t0 = res.trace_start_ns()
+    return [(ev.name(), "cuda" in str(ev.device_type()).lower(),
+             (ev.start_ns() - t0) / 1e3,
+             (ev.start_ns() + ev.duration_ns() - t0) / 1e3)
+            for ev in res.events()]
+
+
 def profile_phase(params, ds, dev, warmup=3, iters=5):
     """13. Train ``warmup`` iterations of a fresh booster, then ``iters``
-    more under ``torch.profiler``.  Host time per iteration in each of the
-    port's ranges (``grower/*`` nest inside ``gbdt/grow``; the rest of it
-    is the grower's host bookkeeping), and the device's busy time: the
-    union of its kernel and copy intervals over the window from the first
-    one's start to the last one's end."""
+    more under ``torch.profiler``, read by :func:`read_profile`."""
+    prof, wall = profile_training(params, ds, dev, warmup, iters)
+    return read_profile(profiler_events(prof), wall, warmup, iters)
+
+
+def profile_training(params, ds, dev, warmup, iters):
+    """The profiler session of :func:`profile_phase` and its wall
+    seconds."""
     import torch
     import lightgbm_tpu_torch as lgt
     from torch.profiler import ProfilerActivity, profile
@@ -956,16 +1042,24 @@ def profile_phase(params, ds, dev, warmup=3, iters=5):
             bst.update()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return prof, wall
+
+
+def read_profile(events, wall, warmup, iters):
+    """Host time per iteration in each of the port's ranges (``grower/*``
+    nest inside ``gbdt/grow``; the rest of it is the grower's host
+    bookkeeping), and the device's busy time: the union of its kernel and
+    copy intervals over the window from the first one's start to the
+    last one's end.  ``events`` as :func:`profiler_events` gives them."""
     ranges, spans, kernels = {}, [], {}
-    for ev in prof.events():
-        start, end = ev.time_range.start, ev.time_range.end
-        is_range = ev.name.startswith(("gbdt/", "grower/"))
-        if "cuda" in str(getattr(ev, "device_type", "")).lower():
+    for name, on_device, start, end in events:
+        is_range = name.startswith(("gbdt/", "grower/"))
+        if on_device:
             if not is_range:       # the ranges' own device-side copies
                 spans.append((start, end))
-                kernels[ev.name] = kernels.get(ev.name, 0.0) + end - start
+                kernels[name] = kernels.get(name, 0.0) + end - start
         elif is_range:
-            ranges[ev.name] = ranges.get(ev.name, 0.0) + end - start
+            ranges[name] = ranges.get(name, 0.0) + end - start
     per_iter = {k: v / 1e3 / iters for k, v in sorted(ranges.items())}
     if "gbdt/grow" in per_iter:
         per_iter["grower bookkeeping (rest of gbdt/grow)"] = (
@@ -1252,9 +1346,9 @@ def train_phase(dev, fix, rows, name, extra, ds, hist_mode, wave_mode,
 
 
 def training_phases(seed, dev, smi):
-    """Phases 8-47; returns the histogram and wave entries of the kernels
-    line, every mode, phase 35's serving record and phase 46's traversal
-    launches."""
+    """Phases 8-51; returns the histogram and wave entries of the kernels
+    line, every mode, phase 35's serving record and phases 46's and 50's
+    traversal launches."""
     import torch
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.models.tree import quantize_error_bound
@@ -1390,6 +1484,8 @@ def training_phases(seed, dev, smi):
     # 43-47. sampling, the kernels under masks, cv and learning to rank
     # (slice 13)
     s13_launches = slice13_phases(gen, dev, fix, rows, ds)
+    # 48-51. sorted many-vs-many categorical splits (slice 15)
+    s15_launches = slice15_phases(dev, fix, rec, seed)
 
     h = timing[f"histogram/{HIST_TIMING_ROWS[0]}"]
     h8 = timing8[f"histogram_int8/{HIST_TIMING_ROWS[0]}"]
@@ -1444,6 +1540,12 @@ def training_phases(seed, dev, smi):
             extra["slice13_launches"] = s13_launches[mode][kernel]
             require(extra["slice13_launches"] > 0,
                     f"{name}: no launch on the slice-13 paths")
+        if name in s13_modes:
+            # launches on phases 48-51's paths (sorted categorical splits)
+            mode, kernel = s13_modes[name]
+            extra["slice15_launches"] = s15_launches[mode][kernel]
+            require(extra["slice15_launches"] > 0,
+                    f"{name}: no launch on the slice-15 paths")
         if name in obj_modes:
             # launches on phases 32-37's paths (objectives, valid sets)
             kernel = name.split("_")[0]
@@ -1461,7 +1563,8 @@ def training_phases(seed, dev, smi):
                          else "operations"),
             "library_ms": t.get("library_ms"), "rows": nrows, **extra,
             **({"stage_ms": t["stage_ms"]} if "stage_ms" in t else {})})
-    return entries, obj_serve, s13_launches["traverse"]
+    return entries, obj_serve, s13_launches["traverse"], \
+        s15_launches["traverse"]
 
 
 def int8_timing(gen, dev, smi):
@@ -1985,10 +2088,11 @@ WIDE_ITERS = {"f32": 10, "quantized": 5, "bf16": 3, "repeat": 3}
 #: eight bin tiles, the scan in 48)
 U16_WAVE_BINS = (257, 511, 1023, 2047, 4095)
 U16_WAVE_LARGE = ([300], 65536)
-#: phase 30's fused runs: iterations, and the iterations at which fused
-#: and unfused runs are held to one AUC (within FUSED_AUC_TOL) and two
-#: runs to one model text
-FUSED_ITERS = 100
+#: phase 30's fused runs: iterations (their s/iteration and AUC are
+#: reported, not held to a bar; cut from 100 to keep the smoke within its
+#: time limit), and the iterations at which fused and unfused runs are
+#: held to one AUC (within FUSED_AUC_TOL) and two runs to one model text
+FUSED_ITERS = 30
 FUSED_CHECK_ITERS = 10
 FUSED_AUC_TOL = 1e-3
 #: phase 29's waves whose bins push the uint16 kernels: lane patterns of
@@ -2600,6 +2704,12 @@ OBJ_FIXTURE = os.path.join("tests", "fixtures", "torch_objectives_ref.json")
 OBJ_BARS = {"l2": 5e-3, "l2_quantized": 1e-2, "l1": 5e-3,
             "multiclass": 5e-3, "other": 1e-2, "multi_error": 5e-3}
 OBJ_REPEAT_ITERS = {"l2": 10, "multiclass": 5}
+#: iterations of the long fixture runs (100 in the fixture), cut to keep
+#: the smoke within its time limit: held to the fixture's recorded holdout
+#: metrics at that iteration
+OBJ_ITERS = {"l2": 50, "l2_quantized": 50, "multiclass": 50}
+#: iterations of phase 37's repeat runs (each trains the objective twice)
+OTHER_REPEAT_ITERS = 5
 OBJ_SERVE_ROWS = 65_536
 ES_ROUNDS, ES_PATIENCE, ES_LEARNING_RATE = 300, 5, 0.5
 #: phase 37's runs, in the fixture's names
@@ -2714,15 +2824,16 @@ def poisson_constant(label):
 
 
 def check_against_fixture(rec, ref_run, bar, label=None):
-    """The run's last recorded holdout metrics against the fixture's:
-    relative ``bar`` (multi_error: absolute OBJ_BARS["multi_error"]).
+    """The run's last recorded holdout metrics against the fixture's at
+    the same iteration (its ``history``): relative ``bar`` (multi_error: absolute OBJ_BARS["multi_error"]).
     ``poisson`` is relative to the whole negative log-likelihood: the
     metric drops the label-only mean(log(y!)) (``label``: the holdout
     labels), which leaves a near-zero value (-0.011 here) that no relative
     bar can hold."""
     gaps = {}
     for m in ref_run["holdout"]:
-        got, want = rec["holdout"][m], ref_run["holdout"][m]
+        got = rec["holdout"][m]
+        want = ref_run["history"][m][rec["iterations"] - 1]
         require(np.isfinite(got), f"{rec['phase']}: {m} = {got}")
         entry = {"port": got, "jax_fixture": want}
         if m == "multi_error":
@@ -2849,7 +2960,8 @@ def objective_phases(dev, fix, rows, ds, binning_s, seed):
 
     # 32. L2, f32, with the holdout as a valid set
     yv = use("regression")
-    bst, hist, rec = objective_run(dev, ds, dv, runs["l2"], "l2")
+    bst, hist, rec = objective_run(dev, ds, dv, runs["l2"], "l2",
+                                   iters=OBJ_ITERS["l2"])
     check_against_fixture(rec, runs["l2"], OBJ_BARS["l2"])
     raw = bst.predict(Xv, raw_score=True)
     (l2,) = create_metric("l2", bst.cfg)
@@ -2866,8 +2978,9 @@ def objective_phases(dev, fix, rows, ds, binning_s, seed):
 
     # 33. L2, quantized
     _b, _h, rec = objective_run(dev, ds, dv, runs["l2_quantized"],
-                                "l2_quantized", hist_mode="int8",
-                                wave_mode="int8")
+                                "l2_quantized",
+                                iters=OBJ_ITERS["l2_quantized"],
+                                hist_mode="int8", wave_mode="int8")
     check_against_fixture(rec, runs["l2_quantized"],
                           OBJ_BARS["l2_quantized"])
     emit(rec)
@@ -2889,7 +3002,7 @@ def objective_phases(dev, fix, rows, ds, binning_s, seed):
     # traversal kernel
     use("multiclass")
     bst, _h, rec = objective_run(dev, ds, dv, runs["multiclass"],
-                                 "multiclass")
+                                 "multiclass", iters=OBJ_ITERS["multiclass"])
     check_against_fixture(rec, runs["multiclass"], OBJ_BARS["multiclass"])
     rec["repeat"] = repeat_check(dev, ds, runs["multiclass"]["params"],
                                  OBJ_REPEAT_ITERS["multiclass"],
@@ -2931,7 +3044,7 @@ def objective_phases(dev, fix, rows, ds, binning_s, seed):
         _b, _h, rec = objective_run(dev, ds, dv, run, name)
         check_against_fixture(rec, run, OBJ_BARS["other"], yv)
         rec["repeat"] = repeat_check(dev, ds, run["params"],
-                                     run["iterations"], name)
+                                     OTHER_REPEAT_ITERS, name)
         emit(rec)
         count(rec)
         others[name] = rec["vs_fixture"]
@@ -3651,6 +3764,280 @@ def slice13_phases(gen, dev, fix, rows, ds):
     return launches
 
 
+# ------------------------------------------------ slice 15: sorted categorical
+CAT_FIXTURE = os.path.join("tests", "fixtures", "torch_categorical_ref.json")
+#: phase 48's bars on the holdout AUC against the JAX package's: float32
+#: order alone moves one 100-iteration run by ~1e-3 (PERF.md), and the
+#: sorted order of near-tie categories amplifies it
+CAT_AUC_TOL = {"f32": 2e-3, "quantized": 3e-3}
+#: phase 49's rows (exact-sum gradients, three growers)
+CAT_GROW_ROWS = 20_000
+#: phase 50's request: rows, and the shares of categorical cells set to
+#: an unseen category and to NaN
+CAT_SERVE_ROWS = 65_536
+CAT_UNSEEN, CAT_NAN = 0.03, 0.02
+
+
+def cat_sets(bst):
+    """Category counts of every categorical node of a booster's trees."""
+    return [int(np.asarray(t.cat_mask[i]).sum())
+            for cls in bst._gbdt.models for t in cls
+            for i in range(t.num_leaves - 1) if bool(t.is_cat[i])]
+
+
+def sorted_cat_training(dev, fix, ref, data, rec10):
+    """48. ``make_airline_like`` at the bench params, the categorical keys
+    at their defaults: 100 iterations in f32 and quantized
+    (``stochastic_rounding`` false) through the fused wave and histogram
+    kernels, the holdout AUC within ``CAT_AUC_TOL`` of the JAX package's
+    (tests/fixtures/torch_categorical_ref.json), at least one category
+    set of 2 or more; f32 at ``max_cat_to_onehot`` 256 beside them (no
+    bar).  Returns (the f32 booster, its params, the dataset, launches by
+    mode)."""
+    import lightgbm_tpu_torch as lgt
+    X, y, cat_cols = data
+    nt = ref["data"]["n_train"]
+    rows = (X, y)
+    cfix = dict(fix, data=dict(fix["data"], n_train=nt))
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(X[:nt], label=y[:nt], categorical_feature=cat_cols)
+    ds.construct(dict(ref["params"]))
+    binned = ds.construct().binned
+    nbpf = [int(binned.num_bins_per_feature[j]) for j in cat_cols]
+    emit({"phase": "categorical_data", "rows": int(X.shape[0]),
+          "train_rows": nt, "features": int(X.shape[1]),
+          "categorical_columns": cat_cols, "bins": nbpf,
+          "rest_bin_share": [float(np.mean(binned.bins[:, j] == b - 1))
+                             for j, b in zip(cat_cols, nbpf)],
+          "binning_s": time.perf_counter() - t0})
+    launches = {"f32": {"histogram": 0, "wave": 0},
+                "int8": {"histogram": 0, "wave": 0}}
+    out = {}
+    for name, extra, mode in (
+            ("f32", {}, "f32"),
+            ("quantized", {"use_quantized_grad": True,
+                           "stochastic_rounding": False}, "int8"),
+            ("onehot", {"max_cat_to_onehot": 256}, "f32")):
+        want = ref["runs"][name]
+        bst, params, rec = train_phase(
+            dev, cfix, rows, f"train_categorical_{name}", extra, ds, mode,
+            mode, iters=ref["iterations"])
+        launches[mode]["histogram"] += rec["histogram_launches"]
+        launches[mode]["wave"] += rec["wave_launches"]
+        sets = cat_sets(bst)
+        gap = rec["holdout_auc"] - want["holdout_auc"]
+        summary = {"phase": f"categorical_{name}",
+                   "holdout_auc": rec["holdout_auc"],
+                   "jax_holdout_auc": want["holdout_auc"], "gap": gap,
+                   "s_per_iteration": rec["s_per_iteration"],
+                   "phase10_s_per_iteration": rec10["s_per_iteration"],
+                   "categorical_nodes": len(sets),
+                   "max_set_size": max(sets, default=0),
+                   "jax_max_set_size": want["max_set_size"]}
+        if name in CAT_AUC_TOL:
+            require(abs(gap) <= CAT_AUC_TOL[name],
+                    f"categorical {name}: holdout AUC {rec['holdout_auc']} "
+                    f"not within {CAT_AUC_TOL[name]} of the JAX package's "
+                    f"{want['holdout_auc']}")
+            require(max(sets, default=0) >= 2, f"categorical {name}: no "
+                    "category set of 2 or more")
+            summary["bar"] = CAT_AUC_TOL[name]
+        emit(summary)
+        out[name] = (bst, params)
+    return out["f32"][0], out["f32"][1], ds, launches
+
+
+def sorted_cat_grower_phase(dev, ref, data):
+    """49. Exact-sum gradients on ``CAT_GROW_ROWS`` of the categorical rows
+    (+-0.5 and 0.25; quantized: values in [-1, 1] and (0, 1] with power-of-
+    two scales): the grower through the fused wave kernel on the card, the
+    ``tpu_wave_kernel=unfused`` grower on the card and the CPU grower give
+    equal trees and ``row_leaf``, f32 and quantized.  Returns launches by
+    mode."""
+    import dataclasses
+    import torch
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.dataset import TrainData
+    from lightgbm_tpu_torch.models.gbdt import _split_config
+    from lightgbm_tpu_torch.models.grower import (GrowerConfig, make_grower,
+                                                  wave_fused_for)
+    X, y, cat_cols = data
+    n = CAT_GROW_ROWS
+    cfg = Config(dict(ref["params"], verbosity=-1))
+    td = TrainData.build(X[:n], y[:n], cfg, categorical_features=cat_cols)
+    rng = np.random.RandomState(3)
+    sign = (rng.rand(n) > 0.5).astype(np.float32)
+    exact = (sign - np.float32(0.5), np.full(n, 0.25, np.float32))
+    gq = rng.uniform(-1, 1, n).astype(np.float32)
+    hq = rng.uniform(0.01, 1, n).astype(np.float32)
+    gq[0], hq[1] = -1.0, 1.0
+    base = GrowerConfig(num_leaves=cfg.num_leaves,
+                        num_bins=td.binned.max_num_bins,
+                        split=_split_config(cfg, td), leaf_batch=16)
+    require(base.split.use_sorted_categorical, "phase 49: no sorted feature")
+    fields = ("split_feature", "split_bin", "default_left", "is_cat",
+              "cat_mask", "left_child", "right_child", "split_gain",
+              "internal_value", "internal_count", "leaf_value", "leaf_count",
+              "leaf_weight")
+
+    def grow(device, grads, **kw):
+        gcfg = dataclasses.replace(base, **kw)
+        meta = td.feature_meta_device(device)
+        tree, row_leaf = make_grower(gcfg)(
+            td.bins_device(device), torch.from_numpy(grads[0]).to(device),
+            torch.from_numpy(grads[1]).to(device),
+            torch.ones(n, device=device),
+            torch.ones(X.shape[1], dtype=torch.bool, device=device),
+            meta["num_bins_per_feature"], meta["nan_bins"],
+            meta["is_categorical"])
+        out = {k: getattr(tree, k).cpu().numpy() for k in fields}
+        out["num_leaves"] = int(tree.num_leaves)
+        out["row_leaf"] = row_leaf.cpu().numpy()
+        return out
+
+    launches = {"f32": {"histogram": 0, "wave": 0},
+                "int8": {"histogram": 0, "wave": 0}}
+    cases = {}
+    cpu = torch.device("cpu")
+    for name, grads, kw, mode in (
+            ("f32", exact, {}, "f32"),
+            ("quantized", (gq, hq), {"quantized": True,
+                                     "stochastic_rounding": False}, "int8")):
+        require(wave_fused_for(dataclasses.replace(base, **kw), dev),
+                "phase 49: auto does not fuse on the card")
+        t0 = time.perf_counter()
+        want = grow(cpu, grads, **kw)
+        cpu_s = time.perf_counter() - t0
+        _zero_launches()
+        fused = grow(dev, grads, **kw)
+        fl = _read_launches()
+        unfused = grow(dev, grads, wave_kernel="unfused", **kw)
+        ul = _read_launches()
+        require(fl["wave"][mode] > 0 and fl["histogram"][mode] == 1,
+                f"phase 49 {name}: fused grower launched {fl}")
+        require(ul["wave"][mode] == fl["wave"][mode]
+                and ul["histogram"][mode] > fl["histogram"][mode],
+                f"phase 49 {name}: unfused grower launched {ul}")
+        for label, got in (("fused", fused), ("unfused", unfused)):
+            for k in fields + ("num_leaves", "row_leaf"):
+                require(np.array_equal(np.asarray(got[k]),
+                                       np.asarray(want[k])),
+                        f"phase 49 {name}: the {label} grower on the card "
+                        f"differs from the CPU grower in {k}")
+        m = want["num_leaves"] - 1
+        sets = want["cat_mask"][:m][want["is_cat"][:m]].sum(axis=1)
+        require(sets.size and sets.max() >= 2,
+                f"phase 49 {name}: no category set of 2 or more")
+        for kernel in ("histogram", "wave"):
+            launches[mode][kernel] += ul[kernel][mode]
+        cases[name] = {"leaves": want["num_leaves"],
+                       "categorical_nodes": int(sets.size),
+                       "max_set_size": int(sets.max()), "cpu_s": cpu_s,
+                       "launches_fused": {k: fl[k][mode] for k in fl},
+                       "launches_unfused": {k: ul[k][mode] - fl[k][mode]
+                                            for k in ul}}
+    emit({"phase": "categorical_growers_equal", "rows": n,
+          "features": int(X.shape[1]), "cases": cases})
+    return launches
+
+
+def sorted_cat_serving_phase(dev, bst, ds, data, ref, seed):
+    """50. Phase 48's f32 model served as an int16 pack on
+    ``CAT_SERVE_ROWS`` holdout rows whose categorical cells are set to an
+    unseen category (3%) or NaN (2%): bit for bit a numpy walk of the
+    pack, one traversal launch.  Then the model's text loaded in the port:
+    rows with no rest-bin category within the round-trip bar of the
+    in-memory predictions; how many rest-bin rows differ is reported (the
+    text's bitsets hold category values only, so a rest bin in a left set
+    goes right after the round trip: the JAX package's behaviour).
+    Returns the traversal launches."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import traverse
+    X, _y, cat_cols = data
+    nt = ref["data"]["n_train"]
+    rng = np.random.RandomState(seed + 50)
+    rows = X[nt:][rng.randint(0, X.shape[0] - nt, CAT_SERVE_ROWS)].copy()
+    u = rng.rand(CAT_SERVE_ROWS, len(cat_cols))
+    block = rows[:, cat_cols]
+    block[u < CAT_UNSEEN] = 10_000 + rng.randint(0, 100, (u < CAT_UNSEEN).sum())
+    block[(u >= CAT_UNSEEN) & (u < CAT_UNSEEN + CAT_NAN)] = np.nan
+    rows[:, cat_cols] = block
+    binned = ds.construct().binned
+    pred = bst.serving_predictor(quantize="int16", raw_score=True)
+    traverse.launches = 0
+    t0 = time.perf_counter()
+    served = pred.predict(rows)
+    torch.cuda.synchronize()
+    request_ms = (time.perf_counter() - t0) * 1e3
+    launches = traverse.launches
+    require(launches == 1, f"{launches} traversal launches for one request")
+    pack = pred.plan._packs[0]
+    host_bins = binned.apply(rows)
+    acc, _ = walk_pack_numpy(pack, host_bins, binned.nan_bins)
+    want = (acc.astype(np.int32).astype(np.float32)
+            * np.float32(pack["scale"])).astype(np.float64) \
+        + bst._gbdt.init_scores[0]
+    require(served.shape == want.shape and np.array_equal(served, want),
+            "served categorical scores != the numpy walk")
+    mem = bst.predict(rows, raw_score=True)
+    loaded = lgt.Booster(model_str=bst.model_to_string(), device=dev)
+    raw = loaded.predict(rows, raw_score=True)
+    rest = np.zeros(CAT_SERVE_ROWS, bool)
+    for j in cat_cols:
+        rest |= host_bins[:, j] == binned.num_bins_per_feature[j] - 1
+    bar = LOAD_RAW_TOL + fp32_sum_bound(bst.num_trees(), mem)
+    diff = np.abs(raw - mem)
+    err_seen = float(diff[~rest].max())
+    require(err_seen <= bar, f"loaded categorical model: rows without a "
+            f"rest-bin category off by {err_seen} (bar {bar})")
+    rest_left = sum(bool(t.cat_mask[i, binned.num_bins_per_feature[
+        t.split_feature[i]] - 1]) for t in bst._gbdt.models[0]
+        for i in range(t.num_leaves - 1) if bool(t.is_cat[i]))
+    emit({"phase": "serve_categorical", "rows": CAT_SERVE_ROWS,
+          "launches": launches, "raw_bitwise": True,
+          "request_ms": request_ms, "rest_bin_rows": int(rest.sum()),
+          "rest_bin_in_left_sets": int(rest_left),
+          "loaded_max_abs_err_seen": err_seen, "bar": bar,
+          "loaded_rest_rows_differing": int((diff[rest] > bar).sum()),
+          "loaded_rest_max_abs_diff": float(diff[rest].max())
+          if rest.any() else 0.0})
+    return launches
+
+
+def slice15_phases(dev, fix, rec10, seed):
+    """48-51: sorted many-vs-many categorical splits against
+    tests/fixtures/torch_categorical_ref.json.  Returns the launches of
+    each kernel mode on these paths."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, CAT_FIXTURE)) as fh:
+        ref = json.load(fh)
+    d = ref["data"]
+    t0 = time.perf_counter()
+    data = make_airline_like(d["n_train"] + d["n_valid"], d["seed"])
+    require(data[2] == d["categorical_columns"],
+            "the categorical fixture's columns != make_airline_like's")
+    bst, params, ds, launches = sorted_cat_training(dev, fix, ref, data,
+                                                    rec10)
+    grow_l = sorted_cat_grower_phase(dev, ref, data)
+    for mode in launches:
+        for kernel in launches[mode]:
+            launches[mode][kernel] += grow_l[mode][kernel]
+    launches["traverse"] = sorted_cat_serving_phase(dev, bst, ds, data, ref,
+                                                    seed)
+    # 51. where a sorted-categorical iteration's time goes
+    prof = profile_phase(params, ds, dev)
+    emit({**prof, "training": "categorical_f32",
+          "sorted_cat_ms_per_iteration": prof[
+              "range_host_ms_per_iteration"].get("grower/sorted_cat", 0.0),
+          "phase10_s_per_iteration": rec10["s_per_iteration"]})
+    require(prof["range_host_ms_per_iteration"].get("grower/sorted_cat", 0)
+            > 0, "the profiler saw no grower/sorted_cat range")
+    emit({"phase": "slice15", "seconds": time.perf_counter() - t0,
+          "launches": launches})
+    return launches
+
+
 # -------------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3827,10 +4214,14 @@ def main(argv=None) -> int:
     pack_bytes = pack_nbytes(full16)
     nanb = torch.as_tensor(nan_bins, dtype=torch.int32, device=dev)
     host_bins = binned.apply(X).astype(np.int32)
+    # one row draw a size for both packs: they hold the same trees, so the
+    # numpy walk's node visits are counted once
+    draws = {n: rng.randint(0, X.shape[0], n) for n in TRAVERSE_TIMING_ROWS}
+    visits_at = {}
     for mode in ("int16", "int8"):
         pack = packs["full", mode]
         for n in TRAVERSE_TIMING_ROWS:
-            idx = rng.randint(0, X.shape[0], n)
+            idx = draws[n]
             bins = torch.from_numpy(host_bins[idx]).to(dev)
             fn = lambda: traverse.fused_class_sums(pack, bins, nanb)
             nbytes = traverse_bytes(pack, bins)
@@ -3840,16 +4231,21 @@ def main(argv=None) -> int:
                 "device_ms": named_kernel_ms(
                     fn, "traverse", iters=10 if n <= 65_536 else 3)}
             if n <= 65_536:
-                _acc, visits = walk_pack_numpy(pack, host_bins[idx],
-                                               nan_bins)
+                if n not in visits_at:
+                    visits_at[n] = walk_pack_numpy(pack, host_bins[idx],
+                                                   nan_bins)[1]
+                visits = visits_at[n]
                 entry["node_visits"] = visits
                 entry["ops_ms"] = visits / SCALAR_OPS_PER_S * 1e3
             if n == 65_536:
-                entry["plain_ms"] = cuda_time_ms(
-                    lambda: _ensemble_sum_q(pack, bins, nanb), iters=2,
-                    warmup=1)
-                entry["max_abs_err"] = int((fn() - _ensemble_sum_q(
-                    pack, bins, nanb)).abs().max())
+                # the plain walk takes ~5 s a call: timed once for the
+                # int16 pack (the kernels line), checked for both
+                t_plain = time.perf_counter()
+                plain = _ensemble_sum_q(pack, bins, nanb)
+                torch.cuda.synchronize()
+                if mode == "int16":
+                    entry["plain_ms"] = (time.perf_counter() - t_plain) * 1e3
+                entry["max_abs_err"] = int((fn() - plain).abs().max())
             timing[str(n) if mode == "int16" else f"{mode}/{n}"] = entry
     emit({"phase": "timing", "trees": 500, "leaves": 255, "features": 28,
           "pack_bytes": pack_bytes, "launches_per_request": 1,
@@ -3866,12 +4262,16 @@ def main(argv=None) -> int:
         "bound_by": ("bytes" if t65["bytes_ms"] >= t65["ops_ms"]
                      else "operations"),
         "library_ms": None, "rows": 65_536}]
-    entries, obj_serve, ranker_launches = training_phases(args.seed, dev, smi)
+    entries, obj_serve, ranker_launches, cat_launches = training_phases(
+        args.seed, dev, smi)
     # the traversal's launches serving phase 35's 4-class model
     kernels[0]["objective_launches"] = obj_serve["launches_per_request"] * 2
     # and phase 46's ranker
     require(ranker_launches > 0, "traverse: no launch serving the ranker")
     kernels[0]["slice13_launches"] = ranker_launches
+    # and phase 50's categorical request
+    require(cat_launches > 0, "traverse: no launch serving phase 48's model")
+    kernels[0]["slice15_launches"] = cat_launches
     kernels += entries
     emit({"kernels": kernels})
     print(f"wall_s={time.perf_counter() - t_start:.1f}", flush=True)

@@ -97,7 +97,6 @@ _NO_OP_KEYS = frozenset((
     "pred_early_stop", "pred_early_stop_freq", "pred_early_stop_margin",
     "extra_seed", "drop_rate", "max_drop", "skip_drop", "xgboost_dart_mode",
     "uniform_drop", "drop_seed", "linear_lambda",
-    "min_data_per_group", "max_cat_threshold", "cat_l2", "cat_smooth",
     "top_k", "monotone_constraints_method", "monotone_penalty",
     "refit_decay_rate", "tpu_hist_comm"))
 
@@ -175,16 +174,9 @@ def check_supported(cfg: Config, train: Optional[TrainData] = None) -> None:
                          "expected auto, fused or unfused")
     if train is None:
         return
-    b = train.binned
-    sorted_cat = b.is_categorical & (b.num_bins_per_feature
-                                     > cfg.max_cat_to_onehot)
-    if sorted_cat.any():
-        raise _todo(
-            f"sorted many-vs-many categorical splits (features "
-            f"{np.nonzero(sorted_cat)[0].tolist()} have more than "
-            f"max_cat_to_onehot={cfg.max_cat_to_onehot} bins)", "A8.4")
     if cfg.enable_bundle and build_bundles(
-            b, max_conflict_rate=cfg.max_conflict_rate) is not None:
+            train.binned, max_conflict_rate=cfg.max_conflict_rate) \
+            is not None:
         raise _todo("EFB bundling of this dataset (pass enable_bundle="
                     "false to train it unbundled)", "A8.6")
 
@@ -194,16 +186,22 @@ def _split_config(cfg: Config, train: Optional[TrainData] = None
     facts = {}
     if train is not None:
         b = train.binned
+        is_cat = np.asarray(b.is_categorical)
         facts = dict(
             has_nan=bool(np.any(np.asarray(b.nan_bins) < b.max_num_bins)),
-            has_categorical=bool(np.any(b.is_categorical)))
+            has_categorical=bool(np.any(is_cat)),
+            use_sorted_categorical=bool(np.any(
+                is_cat & (np.asarray(b.num_bins_per_feature)
+                          > cfg.max_cat_to_onehot))))
     return SplitConfig(
         lambda_l1=cfg.lambda_l1, lambda_l2=cfg.lambda_l2,
         min_data_in_leaf=cfg.min_data_in_leaf,
         min_sum_hessian_in_leaf=cfg.min_sum_hessian_in_leaf,
         min_gain_to_split=cfg.min_gain_to_split,
-        max_delta_step=cfg.max_delta_step,
+        max_delta_step=cfg.max_delta_step, cat_l2=cfg.cat_l2,
+        cat_smooth=cfg.cat_smooth, max_cat_threshold=cfg.max_cat_threshold,
         max_cat_to_onehot=cfg.max_cat_to_onehot,
+        min_data_per_group=cfg.min_data_per_group,
         path_smooth=cfg.path_smooth, **facts)
 
 

@@ -38,8 +38,18 @@ wave (the partition counts, the split payload).  Every float op on the
 decision state runs in float32 in the JAX package's order, so with
 exactly representable histogram sums the trees are the JAX package's bit
 for bit.  ``torch.profiler`` ranges (``grower/root``,
-``grower/partition``, ``grower/wave``, ``grower/payload_read``,
-``grower/row_leaf``) mark the steps of wave growth.
+``grower/partition``, ``grower/wave``, ``grower/sorted_cat``,
+``grower/payload_read``, ``grower/row_leaf``) mark the steps of wave
+growth.
+
+Sorted many-vs-many categorical splits (a categorical feature with more
+than ``max_cat_to_onehot`` bins): the root and the mask layout search
+through ``best_split`` / ``best_split_batch``, which merge the sorted
+scan; the wave step, fused or not, gives such a feature no candidate, so
+each wave's 2W children are scanned and merged into its payload on the
+device (``grower/sorted_cat``) before the one payload read.  The JAX
+package keeps these datasets off its fused wave; the port fuses them
+(the fused and unfused steps give one payload).
 
 Not ported here: the histogram pool, EFB, monotone constraints, CEGB,
 forced splits, interaction constraints, voting and device meshes (ROADMAP
@@ -60,9 +70,11 @@ from ..ops.histogram import (histogram_from_vals, read_bins, resolve_impl,
                              unpack_bins4)
 from ..ops.quantize import discretize_gradients, gradient_scales, max_level
 from ..ops.split import (BestSplit, SplitConfig, best_split, best_split_batch,
-                         first_argmax, leaf_output, smoothed_output)
-from ..ops.wave import (fused_wave_call, payload_to_best, scale_hist,
-                        split_payload, wave_meta, wave_plain, wave_stats)
+                         first_argmax, leaf_output, smoothed_output,
+                         sorted_feature_index)
+from ..ops.wave import (fused_wave_call, merge_sorted_payload,
+                        payload_to_best, scale_hist, split_payload, wave_meta,
+                        wave_plain, wave_stats)
 
 _NEG_INF = float("-inf")
 _MIN_BUCKET = 2048
@@ -256,6 +268,10 @@ class Grower:
                          is_categorical.to(dev, torch.bool),
                          feature_mask.to(dev, torch.bool))
         self.nan_bins_host = nan_bins.cpu().numpy().astype(np.int64)
+        # the features the sorted categorical scan reads (empty: no merge)
+        self.sorted_features = sorted_feature_index(
+            num_bins_per_feature.cpu(), is_categorical.cpu(),
+            cfg.split).to(dev)
         if bins.shape[0] > _MIN_BUCKET:
             tree, row_leaf = self._grow_wave()
         else:
@@ -294,7 +310,8 @@ class Grower:
         return _to_host(best_split(
             hist, d(pg), d(ph), d(pc), num_bins_per_feature=nbpf,
             nan_bins=nanb, is_categorical=iscat, feature_mask=fmask,
-            cfg=self.cfg.split, parent_output=d(pout)))
+            cfg=self.cfg.split, parent_output=d(pout),
+            sorted_features=self.sorted_features))
 
     def _best_batch(self, hists, pg, ph, pc, pout) -> BestSplit:
         nbpf, nanb, iscat, fmask = self.meta_dev
@@ -302,7 +319,7 @@ class Grower:
         return _to_host(best_split_batch(
             hists, d(pg), d(ph), d(pc), d(pout), num_bins_per_feature=nbpf,
             nan_bins=nanb, is_categorical=iscat, feature_mask=fmask,
-            cfg=self.cfg.split))
+            cfg=self.cfg.split, sorted_features=self.sorted_features))
 
     def _root(self, n: int):
         """Root histogram, state and best split (``_perm_setup`` /
@@ -434,12 +451,17 @@ class Grower:
                 torch.stack([cl, cr], 1), torch.stack([out_l, out_r], 1),
                 torch.from_numpy(small_left), torch.ones(k, dtype=torch.bool))
             with record_function("grower/wave"):
+                stats = stats.to(dev)
                 hists, payload = wave(
                     self.bins, self.vals, perm, small_start.tolist(),
                     small_cnt.tolist(), self.leaf_hist[top_l.to(dev)],
-                    stats.to(dev), meta_w, cfg.split, B)
+                    stats, meta_w, cfg.split, B)
+            pay = split_payload(payload)
+            if self.sorted_features.numel():
+                with record_function("grower/sorted_cat"):
+                    pay = self._merge_sorted(hists, pay, stats)
             with record_function("grower/payload_read"):
-                bs = payload_to_best(split_payload(payload).cpu())
+                bs = payload_to_best(pay.cpu())
             hist_left, hist_right = hists[:, 0], hists[:, 1]
 
             # ---- tree updates (W nodes)
@@ -483,6 +505,19 @@ class Grower:
         with record_function("grower/row_leaf"):
             row_leaf = self._row_leaf_from_perm(st, perm, n)
         return st.finish(L), row_leaf
+
+    def _merge_sorted(self, hists, pay, stats):
+        """The sorted categorical scan on a wave's 2W children (lefts, then
+        rights, as ``split_payload`` orders them), merged into their
+        payload on the device; only the sorted columns are copied and
+        scaled."""
+        nbpf, fmask = self.meta_dev[0], self.meta_dev[3]
+        feats = self.sorted_features
+        sub = hists.index_select(2, feats)
+        return merge_sorted_payload(
+            pay, scale_hist(torch.cat([sub[:, 0], sub[:, 1]]), self.scale3),
+            torch.cat([stats[:, 0], stats[:, 1]]), features=feats,
+            num_bins_per_feature=nbpf, feature_mask=fmask, cfg=self.cfg.split)
 
     def _row_leaf_from_perm(self, st: _State, perm, n: int):
         """row -> leaf from the final grouped permutation (zero-row leaves

@@ -10,6 +10,14 @@ kernel (``ops/csrc/wave.cu``); ``best_split`` is the untiled host search
 (``_select_from_tables``' gather form).  Both selectors pick the same
 winner.
 
+Categorical features with more than ``max_cat_to_onehot`` bins have no
+candidate in those tables: ``sorted_categorical`` scans them (the sorted
+many-vs-many split, bins ordered by ``G / (H + cat_smooth)``) and
+``merge_sorted_categorical`` takes its winner where it is strictly
+better, batched over a leading axis of leaves.  ``best_split`` and
+``best_split_batch`` merge it; the wave kernel does not, so the grower
+merges its payload (``models/grower.py``).
+
 Every float op runs in float32 in the JAX package's order, so gains and
 leaf outputs round as the JAX package rounds them.  The cumulative sums
 are ``torch.cumsum`` (double accumulation on the CPU, a parallel scan on a
@@ -17,8 +25,8 @@ CUDA device); where histogram sums are exactly representable (the
 exact-sum tests) any order gives the same bits.
 
 Not ported here: monotone constraints, CEGB penalties, extra_trees,
-feature_contri, the sorted many-vs-many categorical scan and the tiled
-scan (ROADMAP A8.4, A8.5, A8.7) — the trainer refuses those configs.
+feature_contri and the tiled scan (ROADMAP A8.5, A8.7) — the trainer
+refuses those configs.
 """
 
 from __future__ import annotations
@@ -42,11 +50,18 @@ class SplitConfig:
     min_sum_hessian_in_leaf: float = 1e-3
     min_gain_to_split: float = 0.0
     max_delta_step: float = 0.0
+    cat_l2: float = 10.0
+    cat_smooth: float = 10.0
+    max_cat_threshold: int = 32
     max_cat_to_onehot: int = 4
+    min_data_per_group: int = 100
     path_smooth: float = 0.0
     # Static dataset facts; True = "may be present" (safe).
     has_nan: bool = True
     has_categorical: bool = True
+    # a categorical feature with more than max_cat_to_onehot bins (the
+    # sorted many-vs-many scan runs)
+    use_sorted_categorical: bool = True
 
 
 class BestSplit(NamedTuple):
@@ -113,6 +128,14 @@ def child_gain(g, h, count, parent_output, cfg: SplitConfig,
     return gain_given_output(g, h, w, cfg, l2_extra)
 
 
+def _parent_gain(parent_grad, parent_hess, parent_output, cfg: SplitConfig):
+    """The parent gain shift: closed form without smoothing, output-based
+    with, always with plain ``lambda_l2``."""
+    if cfg.path_smooth > 0.0:
+        return gain_given_output(parent_grad, parent_hess, parent_output, cfg)
+    return leaf_gain(parent_grad, parent_hess, cfg)
+
+
 class ScanTables(NamedTuple):
     """Candidate tables of one (F, B) scan block."""
 
@@ -155,11 +178,7 @@ def scan_tables(G, H, C, parent_grad, parent_hess, parent_count, *,
     cumH = torch.cumsum(Hv, dim=1)
     cumC = torch.cumsum(Cv, dim=1)
 
-    if cfg.path_smooth > 0.0:
-        parent_gain = gain_given_output(parent_grad, parent_hess,
-                                        parent_output, cfg)
-    else:
-        parent_gain = leaf_gain(parent_grad, parent_hess, cfg)
+    parent_gain = _parent_gain(parent_grad, parent_hess, parent_output, cfg)
     min_count = float(max(cfg.min_data_in_leaf, 1))
 
     def eval_dir(GL, HL, CL):
@@ -235,11 +254,11 @@ def _select_from_tables(t: ScanTables, is_categorical,
 
 
 def first_argmax(x: torch.Tensor) -> torch.Tensor:
-    """Index of the first maximum of a 1-D tensor (``jnp.argmax``'s
+    """Index of the first maximum along the last axis (``jnp.argmax``'s
     tie-break; ``torch.argmax`` does not promise one)."""
-    mx = x.max()
-    idx = torch.arange(x.shape[0], device=x.device)
-    return torch.where(x == mx, idx, x.shape[0]).min()
+    mx = x.max(dim=-1, keepdim=True).values
+    idx = torch.arange(x.shape[-1], device=x.device)
+    return torch.where(x == mx, idx, x.shape[-1]).min(dim=-1).values
 
 
 def select_payload(t: ScanTables, is_categorical, cfg: SplitConfig):
@@ -281,22 +300,197 @@ def select_payload(t: ScanTables, is_categorical, cfg: SplitConfig):
 
 
 def best_split(hist, parent_grad, parent_hess, parent_count, *,
-               num_bins_per_feature, nan_bins, is_categorical, feature_mask,
-               cfg: SplitConfig, parent_output=None) -> BestSplit:
-    """Every candidate of an (F, B, 3) leaf histogram, then the argmax."""
-    G, H, C = hist[..., 0], hist[..., 1], hist[..., 2]
-    t = scan_tables(G, H, C, parent_grad, parent_hess, parent_count,
-                    num_bins_per_feature=num_bins_per_feature,
-                    nan_bins=nan_bins, is_categorical=is_categorical,
-                    feature_mask=feature_mask, cfg=cfg,
-                    parent_output=parent_output)
-    return _select_from_tables(t, is_categorical, cfg)
+               cfg: SplitConfig, parent_output=None, **meta) -> BestSplit:
+    """Every candidate of an (F, B, 3) leaf histogram, then the argmax,
+    the sorted categorical scan merged; ``meta``: the per-feature
+    ``num_bins_per_feature``, ``nan_bins``, ``is_categorical`` and
+    ``feature_mask``."""
+    if parent_output is None:
+        parent_output = leaf_output(parent_grad, parent_hess, cfg)
+    one = lambda t: t.reshape(1)
+    bs = best_split_batch(hist[None], one(parent_grad), one(parent_hess),
+                          one(parent_count), one(parent_output), cfg=cfg,
+                          **meta)
+    return BestSplit(*(t[0] for t in bs))
 
 
-def best_split_batch(hists, pg, ph, pc, pout, **kw) -> BestSplit:
+def best_split_batch(hists, pg, ph, pc, pout, *, num_bins_per_feature,
+                     nan_bins, is_categorical, feature_mask,
+                     cfg: SplitConfig, sorted_features=None) -> BestSplit:
     """:func:`best_split` for K leaves: (K, F, B, 3) histograms and (K,)
-    parent stats -> a BestSplit of (K,) fields ((K, B) cat_mask)."""
-    outs = [best_split(hists[k], pg[k], ph[k], pc[k], parent_output=pout[k],
-                       **kw) for k in range(hists.shape[0])]
-    return BestSplit(*(torch.stack([getattr(o, fld) for o in outs])
+    parent stats -> a BestSplit of (K,) fields ((K, B) cat_mask); one
+    sorted categorical merge serves the K leaves.  ``sorted_features``:
+    :func:`sorted_feature_index` of the meta, where the caller holds it
+    (None: found here)."""
+    outs = []
+    for k in range(hists.shape[0]):
+        G, H, C = hists[k, ..., 0], hists[k, ..., 1], hists[k, ..., 2]
+        t = scan_tables(G, H, C, pg[k], ph[k], pc[k],
+                        num_bins_per_feature=num_bins_per_feature,
+                        nan_bins=nan_bins, is_categorical=is_categorical,
+                        feature_mask=feature_mask, cfg=cfg,
+                        parent_output=pout[k])
+        outs.append(_select_from_tables(t, is_categorical, cfg))
+    best = BestSplit(*(torch.stack([getattr(o, fld) for o in outs])
                        for fld in BestSplit._fields))
+    if sorted_features is None:
+        sorted_features = sorted_feature_index(num_bins_per_feature,
+                                               is_categorical, cfg)
+    if not sorted_features.numel():
+        return best
+    return merge_sorted_categorical(
+        best, hists.index_select(1, sorted_features), pg, ph, pc, pout,
+        features=sorted_features, num_bins_per_feature=num_bins_per_feature,
+        feature_mask=feature_mask, cfg=cfg)
+
+
+# ------------------------------------------------ sorted many-vs-many scan
+def sorted_categorical(hists, parent_grad, parent_hess, parent_count,
+                       parent_output, in_feature, cfg: SplitConfig):
+    """The sorted many-vs-many scan (reference
+    ``FindBestThresholdCategoricalInner``'s sorted branch; the JAX
+    package's ``_sorted_categorical``) over K leaves at once: ``hists``
+    (K, F, B, 3) f32, ``parent_*`` (K,), ``in_feature`` (F, B) bool.  Bins
+    with at least ``cat_smooth`` rows are ordered by ``G / (H +
+    cat_smooth)`` (a stable sort, the rest after them); prefixes of at
+    most ``max_cat_threshold`` bins are scanned from both ends, a
+    candidate each time ``min_data_per_group`` rows have gathered since
+    the last; children use ``lambda_l2 + cat_l2``.  Returns per (leaf,
+    feature) ``(gain, cat_mask (K, F, B), gl, hl, cl)``; gain is the
+    children's sum (the caller subtracts the parent's).
+
+    The JAX package's grouping scan is a sequential float32 running sum
+    of counts.  Counts are integers (exact in float32 below 2**24), so
+    the rows gathered from position s to i are ``cum[i] - cum[s - 1]``
+    exactly, every start's next candidate is found at once, and the chain
+    of candidates from position 0 follows by pointer doubling: a few
+    launches in place of one step a position."""
+    k_, f, b, _ = hists.shape
+    dev = hists.device
+    K = min(b, max(int(cfg.max_cat_threshold), 1))
+    mdpg = float(cfg.min_data_per_group)
+    min_count = float(max(cfg.min_data_in_leaf, 1))
+    G, H, C = hists[..., 0], hists[..., 1], hists[..., 2]
+    valid = in_feature & (C >= cfg.cat_smooth)
+    # + 0.0 makes -0.0 +0.0: any stable sort then orders as jnp.argsort
+    # (NaN, from 0 / 0 at cat_smooth 0, last on both devices)
+    key = torch.where(valid, G / (H + cfg.cat_smooth), float("inf")) + 0.0
+    order = torch.argsort(key, dim=-1, stable=True)
+    used = valid.sum(dim=-1, keepdim=True)                     # (K, F, 1)
+    vs = torch.gather(valid, -1, order)
+    srt = torch.gather(hists, 2, order[..., None].expand(k_, f, b, 3))
+    srt = torch.where(vs[..., None], srt, 0.0)
+    max_num_cat = torch.clamp((used + 1) // 2, max=int(cfg.max_cat_threshold))
+    iidx = torch.arange(K, device=dev)
+    # the backward direction starts at the last used position
+    bidx = torch.clamp(used - 1 - iidx, 0, b - 1)              # (K, F, K)
+    back = torch.gather(srt, 2, bidx[..., None].expand(k_, f, K, 3))
+    back = torch.where((iidx < used)[..., None], back, 0.0)
+    # both directions at once: (K, F, 2, K, 3) = [forward, backward]
+    dirs = torch.stack([srt[:, :, :K], back], dim=2)
+    cum = torch.cumsum(dirs, dim=3)
+    cg, cc, cnt = cum[..., 0], cum[..., 2], dirs[..., 2]
+    ch = cum[..., 1] + _EPS
+    pg, ph, pc, po = (t.reshape(k_, 1, 1, 1) for t in (
+        parent_grad, parent_hess, parent_count, parent_output))
+    pos_ok = ((iidx < used) & (iidx < max_num_cat))[:, :, None, :]
+    left_ok = (cc >= min_count) & (ch >= cfg.min_sum_hessian_in_leaf)
+    rc = pc - cc
+    right_ok = ((rc >= min_count) & (rc >= mdpg)
+                & (ph - ch >= cfg.min_sum_hessian_in_leaf))
+    ok = pos_ok & left_ok & right_ok                            # (K, F, 2, K)
+    # the grouping scan: from start s the next candidate is the first i
+    # >= s where ok and the rows of s..i reach min_data_per_group
+    seg = cc[..., None, :] - (cc - cnt)[..., :, None]          # (.., s, i)
+    tri = iidx[None, :] >= iidx[:, None]
+    nxt = torch.where(ok[..., None, :] & (seg >= mdpg) & tri, iidx,
+                      K).amin(dim=-1)                           # (.., s)
+    # states 0..K (K: done); a candidate at i restarts the scan at i + 1
+    nxt = torch.cat([nxt, torch.full_like(nxt[..., :1], K)], dim=-1)
+    jump = torch.clamp(nxt + 1, max=K)
+    seen = torch.zeros_like(nxt)
+    seen[..., 0] = 1
+    # after j steps ``seen`` holds the chain's first 2**j states, and the
+    # chain has at most K + 1 <= 2**K.bit_length() of them
+    for step in range(K.bit_length()):
+        seen = seen.scatter_reduce(-1, jump, seen, "amax")
+        if step + 1 < K.bit_length():
+            jump = torch.gather(jump, -1, jump)
+    emit = torch.zeros_like(nxt).scatter_(
+        -1, torch.where(seen > 0, nxt, K), 1)[..., :K] > 0
+    gain = (child_gain(cg, ch, cc, po, cfg, cfg.cat_l2)
+            + child_gain(pg - cg, ph - ch, pc - cc, po, cfg, cfg.cat_l2))
+    gain = torch.where(emit, gain, _NEG_INF).reshape(k_, f, 2 * K)
+    flat = first_argmax(gain)[..., None]                      # (K, F, 1)
+    take = lambda a: torch.gather(a.reshape(k_, f, 2 * K), -1, flat)[..., 0]
+    best_i = flat % K
+    biota = torch.arange(b, device=dev)
+    left = torch.where(flat < K, biota <= best_i, biota >= used - 1 - best_i)
+    cat_mask = torch.zeros_like(vs).scatter_(-1, order, left & vs)
+    return take(gain), cat_mask, take(cg), take(ch), take(cc)
+
+
+def sorted_feature_index(num_bins_per_feature, is_categorical,
+                         cfg: SplitConfig) -> torch.Tensor:
+    """The columns the sorted categorical scan reads: the categorical
+    features with more than ``max_cat_to_onehot`` bins, ascending int64
+    indices on the meta's device (empty: nothing to merge).  One read of
+    the meta to the host; a grower finds them once a tree."""
+    eligible = (is_categorical.reshape(-1)
+                & (num_bins_per_feature.reshape(-1) > cfg.max_cat_to_onehot)
+                & (cfg.has_categorical and cfg.use_sorted_categorical))
+    return torch.nonzero(eligible)[:, 0]
+
+
+def sorted_winner(hists, parent_grad, parent_hess, parent_count,
+                  parent_output, *, features, num_bins_per_feature,
+                  feature_mask, cfg: SplitConfig):
+    """Each leaf's best sorted categorical split: ``hists`` (K, S, B, 3)
+    f32 are the histograms of the S columns ``features``
+    (:func:`sorted_feature_index`), the per-feature meta is the full
+    (F,) one.  Returns ``(gain, feature, cat_mask (K, B), gl, hl, cl)``,
+    gain net of the parent shift (plain ``lambda_l2``: the reference
+    computes it before adding ``cat_l2``) and ``-inf`` below
+    ``min_gain_to_split`` or outside ``feature_mask``; the lowest feature
+    wins ties."""
+    nbpf, fmask = (t.reshape(-1).index_select(0, features)
+                   for t in (num_bins_per_feature, feature_mask))
+    b = hists.shape[2]
+    in_feature = torch.arange(b, device=hists.device) < nbpf[:, None]
+    s_gain, s_mask, s_gl, s_hl, s_cl = sorted_categorical(
+        hists, parent_grad, parent_hess, parent_count, parent_output,
+        in_feature, cfg)
+    s_gain = s_gain - _parent_gain(parent_grad, parent_hess, parent_output,
+                                   cfg)[:, None]
+    s_gain = torch.where((s_gain > cfg.min_gain_to_split + _EPS) & fmask,
+                         s_gain, _NEG_INF)
+    sf = first_argmax(s_gain)                                  # (K,)
+    at = lambda a: torch.gather(a, 1, sf[:, None])[:, 0]
+    mask = torch.gather(s_mask, 1, sf[:, None, None].expand(-1, 1, b))[:, 0]
+    return at(s_gain), features[sf], mask, at(s_gl), at(s_hl), at(s_cl)
+
+
+def merge_sorted_categorical(best: BestSplit, hists, parent_grad,
+                             parent_hess, parent_count, parent_output,
+                             **kw) -> BestSplit:
+    """:func:`sorted_winner` on K leaves' (K, S, B, 3) histograms of the
+    sorted columns, taken where it beats ``best`` (a BestSplit of (K,)
+    fields) strictly: the JAX package's ``_merge_sorted_categorical``
+    without its CEGB, feature_contri and extra_trees branches."""
+    sg, sf, mask, gl, hl, cl = sorted_winner(
+        hists, parent_grad, parent_hess, parent_count, parent_output, **kw)
+    better = sg > best.gain
+    pick = lambda new, old: torch.where(better, new, old)
+    return BestSplit(
+        gain=pick(sg, best.gain),
+        feature=pick(sf.to(torch.int32), best.feature),
+        bin=pick(torch.zeros_like(best.bin), best.bin),
+        default_left=best.default_left & ~better,
+        is_cat=best.is_cat | better,
+        cat_mask=torch.where(better[:, None], mask, best.cat_mask),
+        sum_grad_left=pick(gl, best.sum_grad_left),
+        sum_hess_left=pick(hl, best.sum_hess_left),
+        count_left=pick(cl, best.count_left),
+        sum_grad_right=pick(parent_grad - gl, best.sum_grad_right),
+        sum_hess_right=pick(parent_hess - hl, best.sum_hess_right),
+        count_right=pick(parent_count - cl, best.count_right))

@@ -48,7 +48,8 @@ from .histogram_flat import (MAX_CHUNKS, MIN_CHUNK_ROWS,  # noqa: F401
                              MIN_CHUNK_ROWS_INT8, MODES, check_int8_rows,
                              check_layout, chunking, int8_chunk_rows,
                              int8_shape, mode_name)
-from .split import BestSplit, SplitConfig, _EPS, scan_tables, select_payload
+from .split import (BestSplit, SplitConfig, _EPS, scan_tables,
+                    select_payload, sorted_winner)
 
 #: scalar lanes ahead of the cat one-hot in the per-child payload:
 #: [gain, feature, bin, default_left, is_cat, GL, HL, CL, GR, HR, CR] + pad
@@ -90,6 +91,30 @@ def payload_to_best(pay: torch.Tensor) -> BestSplit:
         is_cat=col(4) > 0.5, cat_mask=pay[:, PAYLOAD_SCALARS:] > 0.5,
         sum_grad_left=col(5), sum_hess_left=col(6), count_left=col(7),
         sum_grad_right=col(8), sum_hess_right=col(9), count_right=col(10))
+
+
+def merge_sorted_payload(pay: torch.Tensor, hists: torch.Tensor,
+                         stats: torch.Tensor, **kw) -> torch.Tensor:
+    """The sorted categorical scan merged into K children's (K,
+    PAYLOAD_SCALARS + B) payload: ``hists`` (K, S, B, 3) f32 of the
+    sorted columns as the scan sees them, ``stats`` (K, STAT_LANES);
+    ``kw`` as ``ops/split.py::sorted_winner`` takes them.  A child takes
+    the sorted winner where it is active and strictly better (``bin`` 0,
+    ``default_left`` false, ``is_cat`` true, its set in the one-hot
+    lanes): ``merge_sorted_categorical``'s rule, written on the payload
+    so that the wave's winners stay one tensor and one read to the host.
+    The kernel and ``wave_plain`` give a sorted-eligible feature no
+    candidate; this is the step that does."""
+    pg, ph, pc, pout = stats[:, 0], stats[:, 1], stats[:, 2], stats[:, 3]
+    sg, sf, mask, gl, hl, cl = sorted_winner(hists, pg, ph, pc, pout, **kw)
+    zero = torch.zeros_like(sg)
+    scalars = torch.stack([sg, sf.to(torch.float32), zero, zero,
+                           torch.ones_like(sg), gl, hl, cl, pg - gl, ph - hl,
+                           pc - cl], dim=1)
+    cand = torch.cat([scalars, pay[:, scalars.shape[1]:PAYLOAD_SCALARS],
+                      mask.to(torch.float32)], dim=1)
+    better = (sg > pay[:, 0]) & (stats[:, 5] > 0.5)
+    return torch.where(better[:, None], cand, pay)
 
 
 def _child_payload(hist, st, meta, cfg: SplitConfig, num_bins: int):

@@ -27,6 +27,7 @@ CUDA kernel here.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -125,6 +126,15 @@ def _feature_info(m) -> str:
     return f"[{m.upper_bounds[0]:g}:{m.upper_bounds[-2]:g}]"
 
 
+def _rest_bin_left(tree, mappers) -> int:
+    """Categorical nodes of ``tree`` whose left set holds their feature's
+    rest bin (the last bin: rare, unseen and negative categories, NaN)."""
+    m = tree.num_splits()
+    return sum(bool(np.any(tree.cat_mask[node][
+        len(mappers[int(tree.split_feature[node])].categories):]))
+        for node in np.nonzero(tree.is_cat[:m])[0])
+
+
 def model_to_string(gbdt, num_iteration: Optional[int] = None,
                     start_iteration: int = 0,
                     fold_bias: bool = True) -> str:
@@ -132,7 +142,11 @@ def model_to_string(gbdt, num_iteration: Optional[int] = None,
     ``fold_bias`` writes reference-compatible files: the init scores
     folded into the first iteration's values and the ``init_scores`` line
     zeroed.  Iterations index the combined model: a continuation's base
-    model first (its trees verbatim), then the booster's own."""
+    model first (its trees verbatim), then the booster's own.  The text's
+    category sets hold category values only, as the JAX package's do: a
+    split that sends its feature's rest bin left sends those rows right
+    once the text is loaded, and writing such a model warns of it (the
+    text stays as it is)."""
     cfg = gbdt.cfg
     td = gbdt.train_data
     mappers = td.binned.mappers
@@ -158,7 +172,7 @@ def model_to_string(gbdt, num_iteration: Optional[int] = None,
     n_base = base.iter_ if base is not None else 0
     n_own = min(len(m) for m in gbdt.models) if gbdt.models else 0
     n_total = n_base + n_own
-    idx = 0
+    idx = rest_left = 0
     # trees interleave per iteration (iter0/class0, iter0/class1, ...)
     for t in range(start_iteration, n_total if end is None
                    else min(end, n_total)):
@@ -170,9 +184,16 @@ def model_to_string(gbdt, num_iteration: Optional[int] = None,
                 out.append(_loaded_tree_to_string(
                     base.trees[t * gbdt.num_class + k], idx, bias))
             else:
-                out.append(_tree_to_string(gbdt.models[k][t - n_base], idx,
-                                           mappers, bias))
+                tree = gbdt.models[k][t - n_base]
+                out.append(_tree_to_string(tree, idx, mappers, bias))
+                rest_left += _rest_bin_left(tree, mappers)
             idx += 1
+    if rest_left:
+        warnings.warn(
+            f"{rest_left} categorical split(s) send their feature's rest "
+            "bin (rare, unseen and negative categories, NaN) left; the "
+            "model text holds category values only, so a model loaded "
+            "from it sends those rows right", stacklevel=3)
     out.append("end of trees")
     out.append("")
     # saved_feature_importance_type=1 writes gain importances

@@ -44,7 +44,8 @@ also where the JAX package's TPU ``wave_layout`` does not fit.
 On the card (``cuda`` marker) the grower driven through both CUDA kernels
 gives the CPU plain version's trees bit for bit, f32 and quantized, over
 packed bins, with bf16 values and over uint16 bins (fused and unfused),
-through the matching kernel modes."""
+through the matching kernel modes, and with a sorted categorical
+feature."""
 
 import numpy as np
 import pytest
@@ -333,6 +334,36 @@ def test_kernel_path_matches_plain(grown, cuda_device, leaf_batch):
     got, prl = port_grow(X, y, P, g, h, leaf_batch=leaf_batch,
                          device=cuda_device)
     assert HF.launches["f32"] == h0 + 1 and WV.launches["f32"] > w0
+    assert_same_tree(want, got, rl, prl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "quantized"])
+def test_sorted_categorical_kernel_path_matches_plain(cuda_device, quant):
+    """A 40-category feature (the sorted many-vs-many scan merged into
+    each wave's payload on the card): the fused kernel path and the
+    unfused path on the card give the CPU plain version's trees bit for
+    bit."""
+    rng = np.random.RandomState(13)
+    n = 3 * 2560
+    cat = rng.randint(0, 40, n).astype(np.float64)
+    X = np.column_stack([cat, rng.randn(n, 3)])
+    y = (((np.arange(40) * 7 % 5) < 2)[cat.astype(int)]
+         ^ (X[:, 1] > 1.0)).astype(np.float64)
+    g, h = pow2_scale_grads(n) if quant else exact_grads(n)
+    kw = dict(categorical=[0], leaf_batch=4,
+              **(dict(quantized=True, stochastic_rounding=False)
+                 if quant else {}))
+    want, rl = port_grow(X, y, P, g, h, wave_kernel="fused", **kw)
+    m = want["num_leaves"] - 1
+    assert (want["cat_mask"][:m][want["is_cat"][:m]].sum(axis=1) > 1).any()
+    mode = "int8" if quant else "f32"
+    w0 = WV.launches[mode]
+    got, prl = port_grow(X, y, P, g, h, device=cuda_device, **kw)
+    assert WV.launches[mode] > w0
+    assert_same_tree(want, got, rl, prl)
+    got, prl = port_grow(X, y, P, g, h, device=cuda_device,
+                         wave_kernel="unfused", **kw)
     assert_same_tree(want, got, rl, prl)
 
 

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from lightgbm_tpu_torch.ops import split as S
+from torch_port_util import cuda_device  # noqa: F401
 
 F, B = 6, 16
 NBPF = np.array([16, 12, 16, 12, 4, 9], np.int32)
@@ -208,3 +209,35 @@ def test_split_config_defaults_match_jax():
     jax_defaults = dataclasses.asdict(JC())
     for k, v in port.items():
         assert jax_defaults[k] == v, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("smooth", [0.0, 10.0])
+def test_sorted_scan_card_matches_cpu(cuda_device, smooth):
+    """The sorted categorical scan on the card gives the CPU's results
+    bit for bit on exact sums, with the keys a device sort could order
+    otherwise: 0 / 0 (empty bins at ``cat_smooth`` 0), -0.0 gradients,
+    and equal keys (ties keep bin order)."""
+    rng = np.random.RandomState(5)
+    k, f, b = 6, 5, 64
+    cnt = rng.randint(0, 30, (k, f, b)).astype(np.float32)
+    cnt[rng.rand(k, f, b) < 0.2] = 0.0
+    g = rng.randint(-3, 4, (k, f, b)).astype(np.float32) * 0.5
+    g[cnt == 0] = 0.0
+    g[:, :, ::7] = -0.0
+    hists = torch.from_numpy(np.stack([g, cnt * 0.25, cnt], axis=-1))
+    tot = hists[:, 0].sum(dim=1)
+    pout = torch.zeros(k)
+    in_feature = torch.arange(b)[None, :] < torch.tensor([[64], [40], [7],
+                                                          [2], [64]])
+    cfg = S.SplitConfig(cat_smooth=smooth, min_data_per_group=3,
+                        min_data_in_leaf=1)
+    want = S.sorted_categorical(hists, tot[:, 0], tot[:, 1], tot[:, 2], pout,
+                                in_feature, cfg)
+    got = S.sorted_categorical(
+        hists.to(cuda_device), *(t.to(cuda_device) for t in (
+            tot[:, 0], tot[:, 1], tot[:, 2], pout)),
+        in_feature.to(cuda_device), cfg)
+    assert torch.isfinite(want[0]).any()
+    for a, w in zip(got, want):
+        assert torch.equal(a.cpu(), w)

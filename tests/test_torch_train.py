@@ -56,11 +56,14 @@
   so the bins are uint16) with a forced-bins file: one exact-sum
   iteration gives the JAX package's model text byte for byte, and the
   fused wave's (forced on the CPU: its plain version) too.
-- Every unsupported param, an EFB-bundled dataset, a sorted
-  categorical feature and ``resume_from`` raise
-  ``NotImplementedError``; the entries of those lists that train since
-  slice 13 (lambdarank, bagging, GOSS, ``feature_fraction``,
-  ``group_column``, ``cv``) are checked to train; ``init_model``
+- Every unsupported param, an EFB-bundled dataset and ``resume_from``
+  raise ``NotImplementedError``; the entries of those lists that train
+  since slice 13 (lambdarank, bagging, GOSS, ``feature_fraction``,
+  ``group_column``, ``cv``) are checked to train, and a categorical
+  feature above ``max_cat_to_onehot`` bins trains its sorted
+  many-vs-many splits (since slice 15; ``cat_l2``, ``cat_smooth``,
+  ``max_cat_threshold`` and ``min_data_per_group`` change its trees;
+  tests/test_torch_categorical.py holds them to the JAX package); ``init_model``
   continues training and
   ``Booster(model_str=...)`` loads (tests/test_torch_load_model.py holds
   both to the JAX package); without ``device`` on a machine with no
@@ -469,13 +472,16 @@ NO_OP = {"num_threads": 8, "deterministic": True, "force_col_wise": True,
          "device_type": "gpu", "predict_raw_score": True,
          "pred_early_stop": True, "num_iteration_predict": 3,
          "drop_rate": 0.2, "linear_lambda": 0.5, "extra_seed": 11,
-         "tpu_hist_comm": "allreduce", "refit_decay_rate": 0.5,
-         "cat_l2": 3.0}
+         "tpu_hist_comm": "allreduce", "refit_decay_rate": 0.5}
 
 #: keys that were no-ops until slice 13 and are now read by sampling and
-#: ranking: inert in a binary run without sampling
+#: ranking, and the sorted categorical keys read since slice 15: inert in
+#: a binary run without sampling or categorical features
+SORTED_CAT_KEYS = {"cat_l2": 3.0, "cat_smooth": 150.0, "max_cat_threshold": 3,
+                   "min_data_per_group": 400}
 INERT_HERE = {"bagging_seed": 9, "top_rate": 0.3, "lambdarank_norm": False,
-              "tpu_device_goss": "on", "objective_seed": 2}
+              "tpu_device_goss": "on", "objective_seed": 2,
+              **SORTED_CAT_KEYS}
 
 
 def test_no_op_keys_train_and_change_nothing():
@@ -497,6 +503,26 @@ def test_no_op_keys_train_and_change_nothing():
                     device="cpu")
     assert trees(odd) == trees(want)
     assert "[my_app_key: 3]" in odd.model_to_string()
+
+
+@pytest.mark.parametrize("key", sorted(SORTED_CAT_KEYS))
+def test_sorted_categorical_keys_change_trees(key):
+    """Each sorted categorical key, inert without a categorical feature,
+    changes the trees of a dataset with a 30-category feature."""
+    rng = np.random.RandomState(3)
+    n = 3000
+    cat = rng.randint(0, 30, n)
+    lift = rng.rand(30) < 0.5
+    X = np.column_stack([cat, rng.randn(n, 2)]).astype(np.float64)
+    y = (lift[cat] ^ (rng.rand(n) < 0.2)).astype(np.float64)
+    params = {"objective": "binary", "verbosity": -1, "num_leaves": 15,
+              "categorical_feature": "0", "min_data_per_group": 50}
+    want = lgt.train(params, lgt.Dataset(X, label=y), 2, device="cpu")
+    got = lgt.train(dict(params, **{key: SORTED_CAT_KEYS[key]}),
+                    lgt.Dataset(X, label=y), 2, device="cpu")
+    trees = lambda b: b.model_to_string().split("end of trees")[0]
+    assert "num_cat=0" not in trees(want).split("Tree=1")[0]
+    assert trees(got) != trees(want)
 
 
 def test_saved_feature_importance_type_gain(lgb):
@@ -655,9 +681,11 @@ def test_unsupported_datasets_and_options_raise():
     lgt.train(dict(params, enable_bundle=False), lgt.Dataset(X, label=y), 1,
               device="cpu")
     Xc = np.column_stack([rng.randint(0, 12, n), rng.randn(n)])
-    with pytest.raises(NotImplementedError, match="A8.4"):
-        lgt.train(dict(params, categorical_feature="0"),
-                  lgt.Dataset(Xc, label=y), 1, device="cpu")
+    # a 12-category feature trains its sorted splits (slice 15)
+    sc = lgt.train(dict(params, categorical_feature="0"),
+                   lgt.Dataset(Xc, label=y), 1, device="cpu")
+    assert sc.num_trees() == 1
+    assert "num_cat=0" not in sc.model_to_string().split("end of trees")[0]
     with pytest.raises(NotImplementedError, match="A11"):
         lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu",
                   resume_from="ckpt")
