@@ -3,10 +3,11 @@
 The port's copy of the JAX package's ``binning.py`` numpy path: the
 greedy equal-count boundary search, the per-feature ``BinMapper``, sampled
 ``bin_dataset``, dense and CSC ingestion, and the flat-array mapper
-encoding, per-feature bin budgets (``max_bin_by_feature``) and forced
-bin bounds (``forcedbins_filename``, :func:`load_forced_bins`).  Mappers
-and bin matrices are byte-for-byte those of the JAX package (pinned by
-tests/test_torch_binning.py).  The JAX package's threaded C++ fast path
+encoding, per-feature bin budgets (``max_bin_by_feature``), forced bin
+bounds (``forcedbins_filename``, :func:`load_forced_bins`) and exclusive
+feature bundling (:func:`build_bundles`).  Mappers, bin matrices and
+bundles are byte-for-byte those of the JAX package (pinned by
+tests/test_torch_binning.py and tests/test_torch_efb.py).  The JAX package's threaded C++ fast path
 (``native``) is not ported (ROADMAP A1b).
 
 Conventions kept from the JAX package: bins are dense ``uint8``/``uint16``;
@@ -466,15 +467,98 @@ def mappers_to_arrays(mappers: List[BinMapper]) -> dict:
     }
 
 
+@dataclasses.dataclass
+class FeatureBundles:
+    """Exclusive feature bundling (reference EFB: ``DatasetLoader::FindGroups``
+    / ``FeatureGroup``), the JAX package's ``FeatureBundles``.
+
+    Mutually (near-)exclusive sparse features share one histogram column:
+    bundle bin 0 means "every member at its default"; member ``f``'s
+    non-default bins ``1..nb_f-1`` occupy ``[offset_f, offset_f + nb_f - 2]``.
+    Features that cannot bundle (categorical, a non-zero default bin, too
+    many bins) ride along as identity singletons (``feat_offset == -1``).
+    Histograms and row partitions run on the (N, G) bundled matrix; split
+    scans, trees, model text and serving stay in the original feature
+    space (``ops/bundle.py`` rebuilds each feature's histogram)."""
+
+    feat_group: np.ndarray    # (F,) int32: bundle column of each feature
+    feat_offset: np.ndarray   # (F,) int32: non-default-bin offset; -1 identity
+    group_bins: np.ndarray    # (G,) int32: bins per bundle column
+    bins: np.ndarray          # (N, G) bundled matrix, uint8 or uint16
+
+    @property
+    def num_groups(self) -> int:
+        return len(self.group_bins)
+
+    @property
+    def max_group_bins(self) -> int:
+        return int(self.group_bins.max()) if len(self.group_bins) else 1
+
+    def bundle_row_matrix(self, bins: np.ndarray) -> np.ndarray:
+        """Bundle an (N, F) original-bin matrix; where members conflict in
+        a row, the last writer (the highest feature index) wins."""
+        n = bins.shape[0]
+        out = np.zeros((n, self.num_groups), dtype=self.bins.dtype)
+        for f in range(len(self.feat_group)):
+            g, off = int(self.feat_group[f]), int(self.feat_offset[f])
+            col = bins[:, f]
+            if off < 0:
+                out[:, g] = col
+            else:
+                nz = col > 0
+                out[nz, g] = (off + col[nz].astype(np.int32) - 1).astype(
+                    out.dtype)
+        return out
+
+
+def _evict_conflicts(bins: np.ndarray, members: List[int],
+                     full_budget: int) -> List[int]:
+    """The full-matrix re-check of one bundle: while its rows hold more
+    than ``(m - 1) * full_budget`` conflicts (a row with k non-default
+    members counts k - 1), evict the member that takes part in the most
+    conflicting rows (the first such member on ties).  Returns the
+    evicted features in order; ``members`` keeps the rest.
+
+    The (N, m) non-default matrix is built once; an eviction updates the
+    per-row counts, and only the rows that conflicted at the start (a
+    row's count only falls) are read again: the JAX package's
+    recomputation, eviction for eviction, without its full pass each
+    time."""
+    nz_cols = bins[:, members] != 0                      # (N, m)
+    row_nnz = nz_cols.sum(axis=1)
+    rows = np.nonzero(row_nnz > 1)[0]
+    sub = nz_cols[rows]                                  # (R, m)
+    cnt = row_nnz[rows]
+    alive = np.ones(len(members), bool)
+    order = list(members)
+    evicted = []
+    while alive.sum() > 1:
+        conflicts = int(np.maximum(cnt - 1, 0).sum())
+        if conflicts <= (int(alive.sum()) - 1) * full_budget:
+            break
+        overlap = (sub & (cnt > 1)[:, None]).sum(axis=0)
+        overlap = np.where(alive, overlap, -1)
+        i = int(np.argmax(overlap))
+        alive[i] = False
+        cnt = cnt - sub[:, i]
+        evicted.append(order[i])
+    members[:] = [j for j, a in zip(order, alive) if a]
+    return evicted
+
+
 def build_bundles(binned: BinnedData, *, max_conflict_rate: float = 0.0,
                   sample_cnt: int = 20000, max_bundle_bins: int = 4096,
                   min_gain_cols: float = 0.75,
-                  random_state: int = 3) -> Optional[List[List[int]]]:
-    """The JAX package's EFB decision (its ``build_bundles``, the greedy
-    conflict-bounded bundling of reference ``FindGroups``), without the
-    bundled matrix: the multi-feature bundles it would form, or None when
-    it would not bundle.  The port trains unbundled, so a dataset this
-    returns bundles for is refused (ROADMAP A8.6)."""
+                  random_state: int = 3) -> Optional[FeatureBundles]:
+    """Greedy conflict-bounded bundling (the EFB paper's Greedy Bundling,
+    reference ``FindGroups``), the JAX package's ``build_bundles`` byte for
+    byte: eligible features (numerical, default bin 0, at most
+    ``max_bundle_bins - 1`` non-default bins) go sparsest first into the
+    first bundle whose conflicts with them on a ``sample_cnt``-row sample
+    stay within the budget; each multi-member bundle is re-checked on the
+    full matrix (:func:`_evict_conflicts`).  Returns None when fewer than
+    8 features, or when the columns would not fall to ``min_gain_cols *
+    F`` or fewer (dense data)."""
     bins = binned.bins
     n, f = bins.shape
     if f < 8:
@@ -514,23 +598,40 @@ def build_bundles(binned: BinnedData, *, max_conflict_rate: float = 0.0,
             bundle_nz.append(nz[:, j].copy())
             bundle_bins.append(1 + extra)
     # re-check each multi-member bundle on the full matrix (the sample only
-    # bounded the conflicts in-sample) and evict the worst offender
+    # bounded the conflicts in-sample); each evicted feature becomes a
+    # bundle of its own
     full_budget = int(max_conflict_rate * n)
     if n > s:
         for bi in range(len(bundles)):
-            members = bundles[bi]
-            while len(members) > 1:
-                nz_cols = bins[:, members] != 0
-                row_nnz = nz_cols.sum(axis=1)
-                conflicts = int(np.maximum(row_nnz - 1, 0).sum())
-                if conflicts <= (len(members) - 1) * full_budget:
-                    break
-                overlap = ((row_nnz > 1)[:, None] & nz_cols).sum(axis=0)
-                bundles.append([members.pop(int(np.argmax(overlap)))])
+            if len(bundles[bi]) > 1:
+                bundles += [[j] for j in _evict_conflicts(
+                    bins, bundles[bi], full_budget)]
     n_single = f - sum(len(b) for b in bundles)
     if len(bundles) + n_single > min_gain_cols * f:
         return None
-    return [b for b in bundles if len(b) > 1]
+    feat_group = np.empty(f, np.int32)
+    feat_offset = np.full(f, -1, np.int32)
+    group_bins = []
+    for bi, members in enumerate(bundles):
+        off = 1
+        for j in members:
+            feat_group[j] = bi
+            feat_offset[j] = off
+            off += int(nbpf[j]) - 1
+        group_bins.append(off)
+    g = len(bundles)
+    for j in range(f):
+        if eligible[j]:
+            continue
+        feat_group[j] = g
+        group_bins.append(int(nbpf[j]))
+        g += 1
+    dtype = np.uint8 if max(group_bins) <= 256 else np.uint16
+    fb = FeatureBundles(feat_group=feat_group, feat_offset=feat_offset,
+                        group_bins=np.asarray(group_bins, np.int32),
+                        bins=np.zeros((0, len(group_bins)), dtype))
+    fb.bins = fb.bundle_row_matrix(bins)
+    return fb
 
 
 def mappers_from_arrays(d: dict) -> List[BinMapper]:

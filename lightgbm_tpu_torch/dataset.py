@@ -17,6 +17,10 @@ mappers, as in the JAX package.  The bins are the (N, F) uint8 matrix
 host).  One layout is resident per device: asking for the packed one
 drops the unpacked copy, so the halving is real on the card (the JAX
 package's ``gbdt.py`` drops its byte-per-bin matrix the same way).
+Exclusive feature bundling (``build_bundles``, decided once per
+``(enable_bundle, max_conflict_rate)``, as the JAX package decides it)
+gives the (N, G) bundled matrix (``bundled_bins_device``); a bundled run
+uploads only that one for training.
 Ranking data carries its query sizes (``group``; ``query_boundaries``
 gives the reference's ``Metadata::query_boundaries_``) and, for unbiased
 learning to rank, a position id per row (``position``).
@@ -30,7 +34,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .binning import BinnedData, _is_sparse, bin_dataset, load_forced_bins
+from .binning import (BinnedData, FeatureBundles, _is_sparse, bin_dataset,
+                      build_bundles, load_forced_bins)
 from .config import Config
 from .ops.histogram import pack_bins4
 
@@ -64,6 +69,11 @@ class TrainData:
     feature_names: Optional[List[str]] = None
     _dev: Dict[str, Dict[str, torch.Tensor]] = dataclasses.field(
         default_factory=dict, repr=False)
+    #: EFB: the bundles of the last ``build_bundles`` and its params
+    bundles: Optional[FeatureBundles] = dataclasses.field(default=None,
+                                                         repr=False)
+    _bundles_key: Optional[tuple] = dataclasses.field(default=None,
+                                                      repr=False)
 
     @classmethod
     def build(cls, X, label, cfg: Config, *, weight=None, group=None,
@@ -129,14 +139,43 @@ class TrainData:
                     packed4: bool = False) -> torch.Tensor:
         """The (N, F) uint8 (uint16 above 256 bins) bins on ``device``, or
         with ``packed4`` their (N, ceil(F/2)) nibble pairs; uploaded once,
-        and the other layout's copy on ``device`` is dropped."""
+        and the other layouts' copies on ``device`` are dropped."""
         d = self._on(device)
         key, other = ("bins4", "bins") if packed4 else ("bins", "bins4")
         if key not in d:
             d.pop(other, None)
+            d.pop("bundled", None)
             host = torch.from_numpy(np.ascontiguousarray(self.binned.bins))
             d[key] = (pack_bins4(host) if packed4 else host).to(device)
         return d[key]
+
+    def build_bundles(self, cfg: Config) -> Optional[FeatureBundles]:
+        """EFB bundles of these bins (``binning.py::build_bundles``), or
+        None when ``enable_bundle`` is off or the data does not bundle;
+        decided anew whenever ``(enable_bundle, max_conflict_rate)``
+        changes, and kept otherwise."""
+        key = (bool(cfg.enable_bundle), float(cfg.max_conflict_rate))
+        if self._bundles_key != key:
+            self._bundles_key = key
+            self.bundles = None
+            for d in self._dev.values():
+                d.pop("bundled", None)
+            if cfg.enable_bundle:
+                self.bundles = build_bundles(
+                    self.binned, max_conflict_rate=cfg.max_conflict_rate)
+        return self.bundles
+
+    def bundled_bins_device(self, device: torch.device) -> torch.Tensor:
+        """The (N, G) bundled matrix of :meth:`build_bundles` on
+        ``device``, uploaded once; the (N, F) layouts' copies on
+        ``device`` are dropped (the grower is their only reader)."""
+        d = self._on(device)
+        if "bundled" not in d:
+            d.pop("bins", None)
+            d.pop("bins4", None)
+            d["bundled"] = torch.from_numpy(
+                np.ascontiguousarray(self.bundles.bins)).to(device)
+        return d["bundled"]
 
     def feature_meta_device(self, device: torch.device) -> dict:
         """``num_bins_per_feature``, ``nan_bins`` (int32) and

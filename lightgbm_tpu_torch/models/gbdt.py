@@ -17,7 +17,12 @@ Under ``use_quantized_grad`` each tree's stochastic rounding draws from
 its own ``torch.Generator`` seeded from ``(seed, iteration)``, and the
 class too when K > 1 (``ops/quantize.py::quant_generator``).  With every
 feature at <= 16 bins and ``tpu_4bit_bins`` on (the default) the bins
-are stored as 4-bit nibble pairs (``GrowerConfig.packed4``).  Scores,
+are stored as 4-bit nibble pairs (``GrowerConfig.packed4``).  With
+``enable_bundle`` on (the default) and a dataset whose sparse exclusive
+columns bundle (``TrainData.build_bundles``), the grower trains on the
+(N, G) bundled matrix (with the bundles' tables, built once); trees
+stay in the
+original feature space.  Scores,
 bins and gradients live on the device; each grown tree becomes a host
 ``Tree`` at once.  ``torch.profiler`` ranges
 (``gbdt/gradients``, ``gbdt/grow``, ``gbdt/score_update``,
@@ -60,11 +65,12 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..binning import BinnedData, build_bundles
+from ..binning import BinnedData
 from ..config import Config, _CANONICAL
 from ..dataset import TrainData
 from ..metrics import metrics_for_config
 from ..objectives import RANKING, create_objective
+from ..ops.bundle import bundle_tables
 from ..ops.quantize import quant_generator
 from ..ops.split import SplitConfig
 from ..sampling import (FeatureSampler, SampleStrategy, goss_generator,
@@ -123,9 +129,9 @@ _REFUSED_KEYS.update({k: "A11" for k in _CANONICAL
                       if k.startswith("tpu_health_")})
 
 
-def check_supported(cfg: Config, train: Optional[TrainData] = None) -> None:
+def check_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` (naming the ROADMAP item) for every
-    param value, and every dataset, that the port does not train yet.
+    param value that the port does not train yet.
     Keys are refused by value, not by name: a key at its default trains,
     and the keys of ``_NO_OP_KEYS`` train at any value.  A key outside
     the param table is kept and ignored, as the JAX package does."""
@@ -172,13 +178,6 @@ def check_supported(cfg: Config, train: Optional[TrainData] = None) -> None:
     if cfg.tpu_wave_kernel not in ("auto", "fused", "unfused"):
         raise ValueError(f"tpu_wave_kernel={cfg.tpu_wave_kernel!r}: "
                          "expected auto, fused or unfused")
-    if train is None:
-        return
-    if cfg.enable_bundle and build_bundles(
-            train.binned, max_conflict_rate=cfg.max_conflict_rate) \
-            is not None:
-        raise _todo("EFB bundling of this dataset (pass enable_bundle="
-                    "false to train it unbundled)", "A8.6")
 
 
 def _split_config(cfg: Config, train: Optional[TrainData] = None
@@ -214,7 +213,7 @@ class GBDT:
 
     def __init__(self, cfg: Config, train: TrainData, valids=(),
                  device=None, base_model=None):
-        check_supported(cfg, train)
+        check_supported(cfg)
         self.cfg = cfg
         self.train_data = train
         self.device = resolve_device(device)
@@ -231,10 +230,18 @@ class GBDT:
             self.objective.init(train.label, train.weight, self.device,
                                 **ranking)
         self.metrics = metrics_for_config(cfg)
+        # EFB (reference FindGroups / FeatureGroup): histograms and row
+        # partitions run on the bundled columns, split scans on each
+        # feature's rebuilt histogram (ops/bundle.py)
+        self.bundles = train.build_bundles(cfg)
+        if self.bundles is not None:
+            Log.info(f"EFB: bundled {train.num_features} features into "
+                     f"{self.bundles.num_groups} columns")
         # 4-bit bin storage (reference DenseBin IS_4BIT; the JAX package's
-        # gate without its EFB and feature-parallel exclusions, which the
-        # port refuses or lacks): every feature at <= 16 bins.
-        packed4 = bool(cfg.tpu_4bit_bins
+        # gate without its feature-parallel exclusion, which the port
+        # lacks): every feature at <= 16 bins, and no bundles (their bins
+        # pass 4 bits)
+        packed4 = bool(cfg.tpu_4bit_bins and self.bundles is None
                        and train.binned.max_num_bins <= 16)
         self.grower_cfg = GrowerConfig(
             num_leaves=cfg.num_leaves, max_depth=cfg.max_depth,
@@ -248,8 +255,15 @@ class GBDT:
             stochastic_rounding=cfg.stochastic_rounding,
             quant_renew_leaf=cfg.quant_train_renew_leaf, packed4=packed4)
         self.grow = make_grower(self.grower_cfg)
-        self.bins_dev = train.bins_device(self.device, packed4=packed4)
         self.meta_dev = train.feature_meta_device(self.device)
+        if self.bundles is not None:
+            self.bins_dev = train.bundled_bins_device(self.device)
+            self._bundle_args = {"bundle": bundle_tables(
+                self.bundles, train.binned.num_bins_per_feature,
+                self.grower_cfg.num_bins, self.device)}
+        else:
+            self.bins_dev = train.bins_device(self.device, packed4=packed4)
+            self._bundle_args = {}
         self.init_scores = np.zeros(self.num_class, np.float64)
         # reference gbdt.cpp:319: boost from average only when the data
         # carries no init score
@@ -370,7 +384,8 @@ class GBDT:
             return self.grow(
                 self.bins_dev, grad, hess, mask, fmask,
                 meta["num_bins_per_feature"], meta["nan_bins"],
-                meta["is_categorical"], quant_generator=qgen)
+                meta["is_categorical"], quant_generator=qgen,
+                **self._bundle_args)
 
     def _shrink(self, arrays, shrink: float):
         """Shrunk leaf values (zero for a stump) and internal values."""

@@ -39,8 +39,8 @@ decision state runs in float32 in the JAX package's order, so with
 exactly representable histogram sums the trees are the JAX package's bit
 for bit.  ``torch.profiler`` ranges (``grower/root``,
 ``grower/partition``, ``grower/wave``, ``grower/sorted_cat``,
-``grower/payload_read``, ``grower/row_leaf``) mark the steps of wave
-growth.
+``grower/efb_scan``, ``grower/payload_read``, ``grower/row_leaf``) mark
+the steps of wave growth.
 
 Sorted many-vs-many categorical splits (a categorical feature with more
 than ``max_cat_to_onehot`` bins): the root and the mask layout search
@@ -51,9 +51,23 @@ device (``grower/sorted_cat``) before the one payload read.  The JAX
 package keeps these datasets off its fused wave; the port fuses them
 (the fused and unfused steps give one payload).
 
-Not ported here: the histogram pool, EFB, monotone constraints, CEGB,
-forced splits, interaction constraints, voting and device meshes (ROADMAP
-A8.5-A8.7, A10).
+Exclusive feature bundling (``binning.py::FeatureBundles``, the grower
+given its ``ops/bundle.py::BundleTables``): the bins are the (N, G)
+bundled matrix, every histogram and the leaf carry ``leaf_hist`` are
+(G, HB, 3) over ``hist_bins`` bins, and the
+partitions read the split feature's bundle column and decode it
+(``ops/bundle.py::decode_bins``).  Every scan runs in feature space on
+histograms rebuilt by ``ops/bundle.py::expand_hist`` from the leaf's own
+totals: at the root, on the mask layout, and for each wave's 2W
+children at once (the fused kernel, or the unfused step, gives only
+their bundle-space histograms; one ``best_split_batch`` scans them and
+one read brings the winners to the host, ``grower/efb_scan``).  The JAX
+package keeps bundled data off its fused wave; the port fuses it on the
+card (the fused and unfused steps give the same histograms).
+
+Not ported here: the histogram pool, monotone constraints, CEGB, forced
+splits, interaction constraints, voting and device meshes (ROADMAP
+A8.5, A8.7, A10).
 """
 
 from __future__ import annotations
@@ -66,15 +80,17 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from ..ops.bundle import decode_bins, expand_hist
 from ..ops.histogram import (histogram_from_vals, read_bins, resolve_impl,
                              unpack_bins4)
 from ..ops.quantize import discretize_gradients, gradient_scales, max_level
 from ..ops.split import (BestSplit, SplitConfig, best_split, best_split_batch,
                          first_argmax, leaf_output, smoothed_output,
                          sorted_feature_index)
-from ..ops.wave import (fused_wave_call, merge_sorted_payload,
-                        payload_to_best, scale_hist, split_payload, wave_meta,
-                        wave_plain, wave_stats)
+from ..ops.wave import (best_to_payload, fused_wave_call,
+                        merge_sorted_payload, payload_to_best, scale_hist,
+                        split_payload, wave_children, wave_meta, wave_plain,
+                        wave_stats)
 
 _NEG_INF = float("-inf")
 _MIN_BUCKET = 2048
@@ -222,9 +238,12 @@ def _to_host(bs: BestSplit) -> BestSplit:
 
 class Grower:
     """``grow(bins, grad, hess, sample_mask, feature_mask, nbpf, nan_bins,
-    is_cat, quant_generator=None)`` -> ``(TreeArrays, row_leaf)``; the JAX
-    ``make_grower``'s callable (``quant_generator``, a ``torch.Generator``
-    on the rows' device, takes the place of its ``quant_key``).
+    is_cat, quant_generator=None, bundle=None)`` -> ``(TreeArrays,
+    row_leaf)``; the JAX ``make_grower``'s callable (``quant_generator``, a
+    ``torch.Generator`` on the rows' device, takes the place of its
+    ``quant_key``; ``bundle``, the ``ops/bundle.py::BundleTables`` of
+    bundled bins, that of its ``feat_group`` / ``feat_offset``: the grower
+    is bundled when it is given them, with HB their ``hist_bins``).
     ``row_leaf`` stays on the rows' device."""
 
     def __init__(self, cfg: GrowerConfig):
@@ -234,7 +253,7 @@ class Grower:
 
     def __call__(self, bins, grad, hess, sample_mask, feature_mask,
                  num_bins_per_feature, nan_bins, is_categorical,
-                 quant_generator=None):
+                 quant_generator=None, bundle=None):
         cfg = self.cfg
         dev = bins.device
         g = grad * sample_mask
@@ -257,6 +276,7 @@ class Grower:
             if cfg.histogram_impl == "flat_bf16":
                 vals = vals.to(torch.bfloat16)
         self.nf = int(num_bins_per_feature.shape[0])
+        self._bundle_setup(bins, bundle)
         self.packed4 = cfg.packed4 and bins.shape[0] > _MIN_BUCKET
         if cfg.packed4 and not self.packed4:
             bins = unpack_bins4(bins, self.nf)
@@ -280,6 +300,43 @@ class Grower:
             tree = self._renew_leaves(tree, row_leaf, g, h)
         return tree, row_leaf
 
+    def _bundle_setup(self, bins, bundle) -> None:
+        """The EFB tables (``self.bundle`` None when unbundled), built once
+        a training by ``ops/bundle.py::bundle_tables``."""
+        cfg = self.cfg
+        self.bundle = bundle
+        self.hb = cfg.num_bins
+        if bundle is None:
+            if not cfg.packed4 and bins.shape[1] != self.nf:
+                raise ValueError(
+                    f"{bins.shape[1]} bin columns for {self.nf} features: "
+                    "bundled bins need their bundle tables")
+            return
+        if cfg.packed4:
+            raise ValueError("bundled bins are never 4-bit packed")
+        if (bundle.meta.shape[0] != bins.shape[1]
+                or bundle.index.device != bins.device
+                or bundle.num_bins != cfg.num_bins):
+            raise ValueError("bundle tables do not fit the bins or config")
+        self.hb = bundle.hist_bins
+
+    def _mask_col(self, feat: int):
+        """Every row's bin (int64) of feature ``feat``; under EFB read
+        from its bundle column and decoded."""
+        if self.bundle is None:
+            return read_bins(self.bins, slice(None), feat)
+        g, off, nb = (int(v) for v in self.bundle.decode[feat])
+        return decode_bins(read_bins(self.bins, slice(None), g), off, nb)
+
+    def _scan_hists(self, hists, totals):
+        """(K, G, HB, 3) raw histograms as the scan reads them: scaled,
+        and under EFB rebuilt per feature from the (K, 3) f32 ``totals``
+        -> (K, F, B, 3)."""
+        hists = scale_hist(hists, self.scale3)
+        if self.bundle is None:
+            return hists
+        return expand_hist(hists, totals.to(self.dev), self.bundle)
+
     def _renew_leaves(self, tree: TreeArrays, row_leaf, g, h) -> TreeArrays:
         """``quant_train_renew_leaf``: leaf outputs from the true f32
         gradients (reference ``RenewIntGradTreeOutput``).  The per-leaf
@@ -297,8 +354,9 @@ class Grower:
 
     # ------------------------------------------------------------ shared
     def _hist(self, bins, vals) -> torch.Tensor:
-        """RAW (F, B, 3) histogram through the configured impl."""
-        return histogram_from_vals(bins, vals, num_bins=self.cfg.num_bins,
+        """RAW (F, B, 3) histogram through the configured impl ((G, HB,
+        3) under EFB)."""
+        return histogram_from_vals(bins, vals, num_bins=self.hb,
                                    impl=self.cfg.histogram_impl,
                                    rows_block=self.cfg.rows_block,
                                    packed4=self.packed4, features=self.nf,
@@ -339,8 +397,8 @@ class Grower:
         self.leaf_hist = torch.zeros((L,) + tuple(root_hist.shape),
                                      dtype=root_hist.dtype, device=self.dev)
         self.leaf_hist[0] = root_hist
-        bs = self._best(scale_hist(root_hist, self.scale3), root_tot[0],
-                        root_tot[1], root_tot[2], st.leaf_out[0])
+        bs = self._best(self._scan_hists(root_hist[None], root_tot[None])[0],
+                        root_tot[0], root_tot[1], root_tot[2], st.leaf_out[0])
         st.store_best(0, bs, torch.tensor(True))
         return st
 
@@ -359,12 +417,15 @@ class Grower:
         total = int(cnts.sum())
         base = np.cumsum(cnts) - cnts
         nanb = self.nan_bins_host[feats]
-        info = torch.from_numpy(np.stack([
-            starts, cnts, base, feats, sbins, nanb, dlefts.astype(np.int64),
-            scats.astype(np.int64)], axis=1)).to(dev)
+        cols = [starts, cnts, base, feats, sbins, nanb,
+                dlefts.astype(np.int64), scats.astype(np.int64)]
+        if self.bundle is not None:
+            # the split feature's bundle column, offset and bins
+            cols += list(self.bundle.decode[feats].T)
+        info = torch.from_numpy(np.stack(cols, axis=1)).to(dev)
         seg_id = torch.repeat_interleave(
             torch.arange(k, device=dev), info[:, 1], output_size=total)
-        si = info[seg_id]                                    # (total, 8)
+        si = info[seg_id]                            # (total, 8; EFB 11)
         off = torch.arange(total, device=dev) - si[:, 2]
         pos = si[:, 0] + off
         rows = perm[pos]
@@ -372,6 +433,9 @@ class Grower:
         if self.packed4:
             byte = self.bins[rows.long(), feat // 2].long()
             col = (byte >> ((feat % 2) * 4)) & 15
+        elif self.bundle is not None:
+            col = decode_bins(read_bins(self.bins, rows.long(), si[:, 8]),
+                              si[:, 9], si[:, 10])
         else:
             col = read_bins(self.bins, rows.long(), feat)
         go_left = col <= si[:, 4]
@@ -395,18 +459,28 @@ class Grower:
 
     def _grow_wave(self):
         cfg = self.cfg
-        L, B = cfg.num_leaves, cfg.num_bins
+        L = cfg.num_leaves
         M = max(L - 1, 1)
         n = self.bins.shape[0]
         W = min(cfg.leaf_batch, max(L - 1, 1))
         dev = self.dev
-        meta_w = wave_meta(*self.meta_dev)
-        wave = (functools.partial(fused_wave_call, scale3=self.scale3,
-                                  packed4=self.packed4,
-                                  max_level=self.max_level)
-                if wave_fused_for(cfg, dev)
-                else functools.partial(wave_plain, histogram=self._hist,
-                                       scale3=self.scale3))
+        bundled = self.bundle is not None
+        meta_w = self.bundle.meta if bundled else wave_meta(*self.meta_dev)
+        if wave_fused_for(cfg, dev):
+            wave = functools.partial(fused_wave_call, scale3=self.scale3,
+                                     packed4=self.packed4,
+                                     max_level=self.max_level)
+        elif bundled:
+            def wave(bins, vals, perm, small_start, small_cnt, parent,
+                     stats, *_):
+                """The siblings' histograms only (no payload): the scan
+                runs in feature space."""
+                return wave_children(bins, vals, perm, small_start,
+                                     small_cnt, parent, stats,
+                                     self._hist), None
+        else:
+            wave = functools.partial(wave_plain, histogram=self._hist,
+                                     scale3=self.scale3)
         perm = torch.arange(n, dtype=torch.int32, device=dev)
         with record_function("grower/root"):
             st = self._root(n)
@@ -455,13 +529,17 @@ class Grower:
                 hists, payload = wave(
                     self.bins, self.vals, perm, small_start.tolist(),
                     small_cnt.tolist(), self.leaf_hist[top_l.to(dev)],
-                    stats, meta_w, cfg.split, B)
-            pay = split_payload(payload)
-            if self.sorted_features.numel():
-                with record_function("grower/sorted_cat"):
-                    pay = self._merge_sorted(hists, pay, stats)
-            with record_function("grower/payload_read"):
-                bs = payload_to_best(pay.cpu())
+                    stats, meta_w, cfg.split, self.hb)
+            if bundled:
+                with record_function("grower/efb_scan"):
+                    bs = self._efb_scan(hists, stats)
+            else:
+                pay = split_payload(payload)
+                if self.sorted_features.numel():
+                    with record_function("grower/sorted_cat"):
+                        pay = self._merge_sorted(hists, pay, stats)
+                with record_function("grower/payload_read"):
+                    bs = payload_to_best(pay.cpu())
             hist_left, hist_right = hists[:, 0], hists[:, 1]
 
             # ---- tree updates (W nodes)
@@ -506,6 +584,22 @@ class Grower:
             row_leaf = self._row_leaf_from_perm(st, perm, n)
         return st.finish(L), row_leaf
 
+    def _efb_scan(self, hists, stats) -> BestSplit:
+        """A bundled wave's 2W children (lefts, then rights): rebuilt per
+        feature from their stats lanes' sums, scanned in one
+        ``best_split_batch`` (the sorted categorical merge included), the
+        winners read to the host in one copy."""
+        nbpf, nanb, iscat, fmask = self.meta_dev
+        st2 = torch.cat([stats[:, 0], stats[:, 1]])
+        full = self._scan_hists(torch.cat([hists[:, 0], hists[:, 1]]),
+                                st2[:, :3])
+        bs = best_split_batch(
+            full, st2[:, 0], st2[:, 1], st2[:, 2], st2[:, 3],
+            num_bins_per_feature=nbpf, nan_bins=nanb, is_categorical=iscat,
+            feature_mask=fmask, cfg=self.cfg.split,
+            sorted_features=self.sorted_features)
+        return payload_to_best(best_to_payload(bs).cpu())
+
     def _merge_sorted(self, hists, pay, stats):
         """The sorted categorical scan on a wave's 2W children (lefts, then
         rights, as ``split_payload`` orders them), merged into their
@@ -548,7 +642,7 @@ class Grower:
             node = st.num_leaves - 1
             new_leaf = st.num_leaves
             feat = int(st.best_feature[leaf])
-            col = self.bins[:, feat].long()
+            col = self._mask_col(feat)
             if bool(st.best_is_cat[leaf]):
                 go_left = st.best_cat_mask[leaf].to(dev)[col]
             else:
@@ -607,7 +701,9 @@ class Grower:
             st.leaf_is_left[pair] = torch.tensor([True, False])
             st.leaf_out[pair] = torch.stack([out_l, out_r])
             bs2 = self._best_batch(
-                scale_hist(torch.stack([hist_left, hist_right]), self.scale3),
+                self._scan_hists(torch.stack([hist_left, hist_right]),
+                                 torch.stack([torch.stack([gl, hl, cl]),
+                                              torch.stack([gr, hr, cr])])),
                 torch.stack([gl, gr]),
                 torch.stack([hl, hr]), torch.stack([cl, cr]),
                 torch.stack([out_l, out_r]))

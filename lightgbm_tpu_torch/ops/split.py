@@ -151,11 +151,13 @@ class ScanTables(NamedTuple):
 def scan_tables(G, H, C, parent_grad, parent_hess, parent_count, *,
                 num_bins_per_feature, nan_bins, is_categorical, feature_mask,
                 cfg: SplitConfig, parent_output=None) -> ScanTables:
-    """Evaluate every candidate of one (F, B) histogram block into masked
+    """Evaluate every candidate of (..., F, B) histogram blocks into masked
     gain/stat tables (the JAX package's ``scan_tables`` without monotone,
-    CEGB, extra_trees and feature_contri).  ``parent_*`` are 0-dim f32
-    tensors on the histogram's device."""
-    f, b = G.shape
+    CEGB, extra_trees and feature_contri).  ``parent_*`` are f32 tensors
+    of the blocks' leading shape (0-dim for one block) on the
+    histogram's device; every op is elementwise or runs along the bin
+    axis, so a block's tables are the same in a batch as alone."""
+    f, b = G.shape[-2:]
     dev = G.device
     nbpf_c = num_bins_per_feature.reshape(f, 1)
     nanb_c = nan_bins.reshape(f, 1)
@@ -165,18 +167,22 @@ def scan_tables(G, H, C, parent_grad, parent_hess, parent_count, *,
     value_mask = in_feature & ~nan_pos
     if parent_output is None:
         parent_output = leaf_output(parent_grad, parent_hess, cfg)
+    cell = lambda t: t.reshape(t.shape + (1, 1))
+    parent_grad, parent_hess, parent_count, parent_output = (
+        cell(t) for t in (parent_grad, parent_hess, parent_count,
+                          parent_output))
     zero = torch.zeros((), dtype=G.dtype, device=dev)
     neg_inf = torch.full((), _NEG_INF, dtype=G.dtype, device=dev)
 
     Gv = torch.where(value_mask, G, zero)
     Hv = torch.where(value_mask, H, zero)
     Cv = torch.where(value_mask, C, zero)
-    Gn = torch.where(nan_pos, G, zero).sum(dim=1, keepdim=True)
-    Hn = torch.where(nan_pos, H, zero).sum(dim=1, keepdim=True)
-    Cn = torch.where(nan_pos, C, zero).sum(dim=1, keepdim=True)
-    cumG = torch.cumsum(Gv, dim=1)
-    cumH = torch.cumsum(Hv, dim=1)
-    cumC = torch.cumsum(Cv, dim=1)
+    Gn = torch.where(nan_pos, G, zero).sum(dim=-1, keepdim=True)
+    Hn = torch.where(nan_pos, H, zero).sum(dim=-1, keepdim=True)
+    Cn = torch.where(nan_pos, C, zero).sum(dim=-1, keepdim=True)
+    cumG = torch.cumsum(Gv, dim=-1)
+    cumH = torch.cumsum(Hv, dim=-1)
+    cumC = torch.cumsum(Cv, dim=-1)
 
     parent_gain = _parent_gain(parent_grad, parent_hess, parent_output, cfg)
     min_count = float(max(cfg.min_data_in_leaf, 1))
@@ -227,25 +233,34 @@ def scan_tables(G, H, C, parent_grad, parent_hess, parent_count, *,
 
 def _select_from_tables(t: ScanTables, is_categorical,
                         cfg: SplitConfig) -> BestSplit:
-    """Argmax + winner-stat gather: the lowest flat (feature, bin) index
-    wins ties."""
+    """Argmax + winner-stat gather over the last two axes of (..., F, B)
+    tables: the lowest flat (feature, bin) index wins ties.  Fields have
+    the tables' leading shape ((..., B) cat_mask)."""
     gain_fb = t.gain_fb
-    f, b = gain_fb.shape
-    flat = first_argmax(gain_fb.reshape(-1))
+    lead = gain_fb.shape[:-2]
+    f, b = gain_fb.shape[-2:]
+    dev = gain_fb.device
+    flat = first_argmax(gain_fb.reshape(lead + (f * b,)))
     bf, bb = flat // b, flat % b
-    bgain = gain_fb[bf, bb]
+
+    def at(a):
+        a = a.expand(gain_fb.shape).reshape(lead + (f * b,))
+        return torch.gather(a, -1, flat[..., None])[..., 0]
+
+    bgain = at(gain_fb)
     bis_cat = (is_categorical[bf] if cfg.has_categorical
-               else torch.zeros((), dtype=torch.bool, device=gain_fb.device))
+               else torch.zeros(lead, dtype=torch.bool, device=dev))
     bdefault_left = torch.where(bis_cat, torch.zeros_like(bis_cat),
-                                t.num_default_left[bf, bb])
+                                at(t.num_default_left))
 
     def pick(i):
-        return torch.where(bis_cat, t.cat_stats[i][bf, bb],
-                           torch.where(bdefault_left, t.stats_ml[i][bf, bb],
-                                       t.stats_mr[i][bf, bb]))
+        return torch.where(bis_cat, at(t.cat_stats[i]),
+                           torch.where(bdefault_left, at(t.stats_ml[i]),
+                                       at(t.stats_mr[i])))
 
     GL, HL, CL, GR, HR, CR = (pick(i) for i in range(6))
-    cat_mask = ((torch.arange(b, device=gain_fb.device) == bb) & bis_cat)
+    cat_mask = ((torch.arange(b, device=dev) == bb[..., None])
+                & bis_cat[..., None])
     return BestSplit(gain=bgain, feature=bf.to(torch.int32),
                      bin=bb.to(torch.int32), default_left=bdefault_left,
                      is_cat=bis_cat, cat_mask=cat_mask,
@@ -318,21 +333,15 @@ def best_split_batch(hists, pg, ph, pc, pout, *, num_bins_per_feature,
                      nan_bins, is_categorical, feature_mask,
                      cfg: SplitConfig, sorted_features=None) -> BestSplit:
     """:func:`best_split` for K leaves: (K, F, B, 3) histograms and (K,)
-    parent stats -> a BestSplit of (K,) fields ((K, B) cat_mask); one
-    sorted categorical merge serves the K leaves.  ``sorted_features``:
-    :func:`sorted_feature_index` of the meta, where the caller holds it
-    (None: found here)."""
-    outs = []
-    for k in range(hists.shape[0]):
-        G, H, C = hists[k, ..., 0], hists[k, ..., 1], hists[k, ..., 2]
-        t = scan_tables(G, H, C, pg[k], ph[k], pc[k],
-                        num_bins_per_feature=num_bins_per_feature,
-                        nan_bins=nan_bins, is_categorical=is_categorical,
-                        feature_mask=feature_mask, cfg=cfg,
-                        parent_output=pout[k])
-        outs.append(_select_from_tables(t, is_categorical, cfg))
-    best = BestSplit(*(torch.stack([getattr(o, fld) for o in outs])
-                       for fld in BestSplit._fields))
+    parent stats -> a BestSplit of (K,) fields ((K, B) cat_mask), in one
+    pass over the leading child axis; one sorted categorical merge serves
+    the K leaves.  ``sorted_features``: :func:`sorted_feature_index` of
+    the meta, where the caller holds it (None: found here)."""
+    t = scan_tables(hists[..., 0], hists[..., 1], hists[..., 2], pg, ph, pc,
+                    num_bins_per_feature=num_bins_per_feature,
+                    nan_bins=nan_bins, is_categorical=is_categorical,
+                    feature_mask=feature_mask, cfg=cfg, parent_output=pout)
+    best = _select_from_tables(t, is_categorical, cfg)
     if sorted_features is None:
         sorted_features = sorted_feature_index(num_bins_per_feature,
                                                is_categorical, cfg)

@@ -27,6 +27,13 @@ in each value type (never packed).  The nine modes are those of
 points, whose scan cuts the bin axis into tiles where it does not fit
 the block's shared memory.
 
+Exclusive feature bundling: the grower passes the (N, G) bundled matrix,
+(W, G, HB, 3) parents and the (G, 4) meta of the bundle columns (their
+bins, no NaN bin, not categorical, feature mask 0).  The scan then offers
+no candidate and the payload is not read: the grower takes the child
+histograms and scans them in feature space (``ops/bundle.py``); the
+unfused step builds the histograms alone (``wave_children``).
+
 The TPU kernel's VMEM layout (``wave_layout``), lane padding, the
 gathered ``(W, S, ct)`` row copy and the packed4 nibble-plane order with
 its original-order tie-break keys have no counterpart: the kernel reads
@@ -93,6 +100,19 @@ def payload_to_best(pay: torch.Tensor) -> BestSplit:
         sum_grad_right=col(8), sum_hess_right=col(9), count_right=col(10))
 
 
+def best_to_payload(bs: BestSplit) -> torch.Tensor:
+    """A batched BestSplit -> its (K, PAYLOAD_SCALARS + B) f32 payload
+    (:func:`payload_to_best`'s inverse; every field is exact in f32), so
+    that K winners come to the host in one copy."""
+    scalars = torch.stack([t.to(torch.float32) for t in (
+        bs.gain, bs.feature, bs.bin, bs.default_left, bs.is_cat,
+        bs.sum_grad_left, bs.sum_hess_left, bs.count_left,
+        bs.sum_grad_right, bs.sum_hess_right, bs.count_right)], dim=1)
+    pad = scalars.new_zeros(scalars.shape[0],
+                            PAYLOAD_SCALARS - scalars.shape[1])
+    return torch.cat([scalars, pad, bs.cat_mask.to(torch.float32)], dim=1)
+
+
 def merge_sorted_payload(pay: torch.Tensor, hists: torch.Tensor,
                          stats: torch.Tensor, **kw) -> torch.Tensor:
     """The sorted categorical scan merged into K children's (K,
@@ -145,6 +165,23 @@ def scale_hist(hist: torch.Tensor, scale3) -> torch.Tensor:
     return hist.to(torch.float32) * scale3
 
 
+def wave_children(bins, vals, perm, small_start: Sequence[int],
+                  small_cnt: Sequence[int], parent, stats, histogram):
+    """The plain version's child histograms (W, 2, F, B, 3): each smaller
+    sibling by ``histogram(bins, vals)`` over its rows, the larger one as
+    parent - smaller, the pair in (left, right) order by ``stats[w, 0,
+    4]``."""
+    hists = []
+    for w in range(parent.shape[0]):
+        s0, cnt = int(small_start[w]), int(small_cnt[w])
+        rows = perm[s0:s0 + cnt].long()
+        small = histogram(bins.index_select(0, rows), vals[rows])
+        big = parent[w] - small
+        sl = bool(stats[w, 0, 4] > 0.5)
+        hists.append(torch.stack([small, big] if sl else [big, small]))
+    return torch.stack(hists)
+
+
 def wave_plain(bins, vals, perm, small_start: Sequence[int],
                small_cnt: Sequence[int], parent, stats, meta,
                cfg: SplitConfig, num_bins: int, histogram=None,
@@ -160,21 +197,13 @@ def wave_plain(bins, vals, perm, small_start: Sequence[int],
         histogram = lambda b, v: histogram_segment(
             b, v, num_bins=num_bins, packed4=packed4,
             features=parent.shape[1])
-    hists, pays = [], []
-    for w in range(parent.shape[0]):
-        s0, cnt = int(small_start[w]), int(small_cnt[w])
-        rows = perm[s0:s0 + cnt].long()
-        small = histogram(bins.index_select(0, rows), vals[rows])
-        big = parent[w] - small
-        sl = bool(stats[w, 0, 4] > 0.5)
-        left, right = (small, big) if sl else (big, small)
-        hists.append(torch.stack([left, right]))
-        pays.append(torch.stack([
-            _child_payload(scale_hist(left, scale3), stats[w, 0], meta, cfg,
-                           num_bins),
-            _child_payload(scale_hist(right, scale3), stats[w, 1], meta, cfg,
-                           num_bins)]))
-    return torch.stack(hists), torch.stack(pays)
+    hists = wave_children(bins, vals, perm, small_start, small_cnt, parent,
+                          stats, histogram)
+    pays = [torch.stack([_child_payload(scale_hist(hists[w, c], scale3),
+                                        stats[w, c], meta, cfg, num_bins)
+                         for c in range(2)])
+            for w in range(parent.shape[0])]
+    return hists, torch.stack(pays)
 
 
 def segment_table(small_cnt: Sequence[int], f: int, num_bins: int,

@@ -1,6 +1,6 @@
 """Leveled logging (the part of the JAX package's ``utils/log.py`` the
-serving slice calls): warnings, written to stderr with the JAX package's
-prefix.
+port calls): warnings and info lines, written to stderr with the JAX
+package's prefix.
 
 Reference: ``include/LightGBM/utils/log.h:88``.
 """
@@ -19,3 +19,8 @@ class Log:
     def warning(cls, msg: str) -> None:
         if cls.level >= WARNING:
             sys.stderr.write(f"[LightGBM-TPU] [Warning] {msg}\n")
+
+    @classmethod
+    def info(cls, msg: str) -> None:
+        if cls.level >= INFO:
+            sys.stderr.write(f"[LightGBM-TPU] [Info] {msg}\n")

@@ -56,8 +56,10 @@
   so the bins are uint16) with a forced-bins file: one exact-sum
   iteration gives the JAX package's model text byte for byte, and the
   fused wave's (forced on the CPU: its plain version) too.
-- Every unsupported param, an EFB-bundled dataset and ``resume_from``
-  raise ``NotImplementedError``; the entries of those lists that train
+- Every unsupported param and ``resume_from`` raise
+  ``NotImplementedError``; an EFB-bundled dataset trains the unbundled
+  run's model text on exact gradients (since slice 16); the entries of
+  those lists that train
   since slice 13 (lambdarank, bagging, GOSS, ``feature_fraction``,
   ``group_column``, ``cv``) are checked to train, and a categorical
   feature above ``max_cat_to_onehot`` bins trains its sorted
@@ -668,7 +670,11 @@ def test_unsupported_params_raise(extra):
 def test_unsupported_datasets_and_options_raise():
     rng = np.random.RandomState(1)
     n = 4000
-    # mutually exclusive sparse columns: the JAX package would bundle them
+    # mutually exclusive sparse columns: EFB bundles them (slice 16;
+    # tests/test_torch_efb.py holds it to the JAX package).  On the first
+    # iteration's exact gradients (no boost from average: +-0.5, 0.25)
+    # the bundled model text is the unbundled run's but for the
+    # parameter line that records enable_bundle
     base = rng.randint(0, 4, n)
     X = np.zeros((n, 8))
     for j in range(4):
@@ -676,10 +682,14 @@ def test_unsupported_datasets_and_options_raise():
     X[:, 4:] = rng.randn(n, 4)
     y = (X[:, 4] + base > 1.5).astype(np.float64)
     params = {"objective": "binary", "verbosity": -1}
-    with pytest.raises(NotImplementedError, match="A8.6"):
-        lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu")
-    lgt.train(dict(params, enable_bundle=False), lgt.Dataset(X, label=y), 1,
-              device="cpu")
+    exact = dict(params, boost_from_average=False)
+    on = lgt.train(exact, lgt.Dataset(X, label=y), 1, device="cpu")
+    assert on._gbdt.bundles is not None and on._gbdt.bundles.num_groups == 5
+    off = lgt.train(dict(exact, enable_bundle=False),
+                    lgt.Dataset(X, label=y), 1, device="cpu")
+    assert off._gbdt.bundles is None
+    assert on.model_to_string() == off.model_to_string().replace(
+        "\n[enable_bundle: False]\n", "\n")
     Xc = np.column_stack([rng.randint(0, 12, n), rng.randn(n)])
     # a 12-category feature trains its sorted splits (slice 15)
     sc = lgt.train(dict(params, categorical_feature="0"),

@@ -99,7 +99,9 @@ def jax_grow(X, y, params, grad, hess, categorical=(), sample_mask=None,
              **grower_kw):
     """The JAX package's ``make_grower`` on the binned ``X`` -> (tree
     fields as numpy, row_leaf); ``sample_mask`` (N,) f32 row weights
-    (bagging / GOSS), every row at 1 by default."""
+    (bagging / GOSS), every row at 1 by default.  ``bundled=True``: on
+    the JAX package's EFB bundles of the bins (``max_conflict_rate`` from
+    ``params``), ``hist_bins`` their widest column."""
     import dataclasses
 
     import jax.numpy as jnp
@@ -113,10 +115,20 @@ def jax_grow(X, y, params, grad, hess, categorical=(), sample_mask=None,
     base = G.GrowerConfig(num_leaves=cfg.num_leaves,
                           num_bins=td.binned.max_num_bins,
                           split=_split_config(cfg, td))
-    grow = G.make_grower(dataclasses.replace(base, **grower_kw))
     meta = td.feature_meta_device()
     n, f = td.binned.bins.shape
     bins = jnp.asarray(td.binned.bins)
+    efb = {}
+    if grower_kw.get("bundled"):
+        from lightgbm_tpu.binning import build_bundles
+        fb = build_bundles(td.binned,
+                           max_conflict_rate=cfg.max_conflict_rate)
+        assert fb is not None, "the data does not bundle"
+        bins = jnp.asarray(fb.bins)
+        grower_kw = dict(grower_kw, hist_bins=fb.max_group_bins)
+        efb = {"feat_group": jnp.asarray(fb.feat_group),
+               "feat_offset": jnp.asarray(fb.feat_offset)}
+    grow = G.make_grower(dataclasses.replace(base, **grower_kw))
     if grower_kw.get("packed4"):
         from lightgbm_tpu.ops.histogram import pack_bins4
         bins = pack_bins4(bins)
@@ -125,7 +137,7 @@ def jax_grow(X, y, params, grad, hess, categorical=(), sample_mask=None,
     tree, row_leaf = grow(
         bins, jnp.asarray(grad), jnp.asarray(hess), mask, jnp.ones(f, bool),
         meta["num_bins_per_feature"], meta["nan_bins"],
-        meta["is_categorical"], meta["monotone"])
+        meta["is_categorical"], meta["monotone"], **efb)
     fields = {k: np.asarray(getattr(tree, k)) for k in TREE_FIELDS}
     fields["num_leaves"] = int(tree.num_leaves)
     return fields, np.asarray(row_leaf)
@@ -134,31 +146,42 @@ def jax_grow(X, y, params, grad, hess, categorical=(), sample_mask=None,
 def port_grow(X, y, params, grad, hess, categorical=(), device="cpu",
               sample_mask=None, **grower_kw):
     """The port's grower on the same rows -> (tree fields as numpy,
-    row_leaf)."""
+    row_leaf); ``bundled=True`` as in :func:`jax_grow`, on the port's
+    bundles."""
     import dataclasses
 
     from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.dataset import TrainData
     from lightgbm_tpu_torch.models.gbdt import _split_config
     from lightgbm_tpu_torch.models.grower import GrowerConfig, make_grower
+    from lightgbm_tpu_torch.ops.bundle import bundle_tables
     cfg = Config(dict(params, verbosity=-1))
     td = TrainData.build(X, y, cfg, categorical_features=list(categorical))
     base = GrowerConfig(num_leaves=cfg.num_leaves,
                         num_bins=td.binned.max_num_bins,
                         split=_split_config(cfg, td))
-    grow = make_grower(dataclasses.replace(base, **grower_kw))
     dev = torch.device(device)
     meta = td.feature_meta_device(dev)
     n, f = td.binned.bins.shape
+    efb = {}
+    grower_kw = dict(grower_kw)
+    if grower_kw.pop("bundled", False):
+        fb = td.build_bundles(cfg)
+        assert fb is not None, "the data does not bundle"
+        bins = td.bundled_bins_device(dev)
+        efb = {"bundle": bundle_tables(fb, td.binned.num_bins_per_feature,
+                                       base.num_bins, dev)}
+    else:
+        bins = td.bins_device(dev, packed4=grower_kw.get("packed4", False))
+    grow = make_grower(dataclasses.replace(base, **grower_kw))
     mask = (torch.ones(n, device=dev) if sample_mask is None
             else torch.from_numpy(np.asarray(sample_mask, np.float32)).to(dev))
     tree, row_leaf = grow(
-        td.bins_device(dev, packed4=grower_kw.get("packed4", False)),
-        torch.from_numpy(grad).to(dev),
+        bins, torch.from_numpy(grad).to(dev),
         torch.from_numpy(hess).to(dev), mask,
         torch.ones(f, dtype=torch.bool, device=dev),
         meta["num_bins_per_feature"], meta["nan_bins"],
-        meta["is_categorical"])
+        meta["is_categorical"], **efb)
     fields = {k: getattr(tree, k).cpu().numpy() for k in TREE_FIELDS}
     fields["num_leaves"] = int(tree.num_leaves)
     return fields, row_leaf.cpu().numpy()
