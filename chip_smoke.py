@@ -9,7 +9,8 @@ unfused and through the fused wave; the regression, multiclass and other
 objectives with a valid set, metrics and early stopping; text-file input,
 model text loading, continued training and per-feature bins; bagging,
 GOSS and feature_fraction, cv, and learning to rank; sorted many-vs-many
-categorical splits; exclusive feature bundling) at full width and
+categorical splits; exclusive feature bundling; the histogram pool and
+the tiled split scan) at full width and
 holds every kernel against its plain PyTorch version and every result
 against an independent reference.
 
@@ -171,7 +172,7 @@ modes, so max_bin above 255 trains through the fused wave:
     runs of 32 rows and pairs on one bin; an exact gain tie across two
     scan blocks (features 1 and 25 at B = 257 and 1,023) that must select
     the lower key; a wave with no valid split at B = 2,047;
-30. fused training at max_bin 1023, 100 iterations: f32 and quantized
+30. fused training at max_bin 1023, 30 iterations: f32 and quantized
     under ``auto``, bf16 with ``flat_bf16`` and ``tpu_wave_kernel=fused``;
     only the ``<mode>_uint16`` wave launches, plus one uint16 histogram a
     tree (the root); s/iteration and holdout AUC beside phase 27's
@@ -373,6 +374,37 @@ Exclusive feature bundling (slice 16) — against
     ``grower/efb_scan`` ms an iteration; the slice's launches
     (``slice16_launches`` in the kernels line).
 
+The histogram pool and the feature-tiled split scan (slice 17): the
+grower's leaf histograms in P slots with LRU eviction, an evicted
+parent rebuilt through the histogram kernel and handed to the wave
+kernel from its slot; the host scans in feature blocks:
+
+55. phase 10's rows at its params and ``tpu_leaf_batch`` 16, exact-sum
+    gradients that follow the label: the grower at
+    ``histogram_pool_size`` 0 (33 slots) and the unpooled one, fused f32,
+    ``tpu_wave_kernel=unfused`` f32, fused quantized and fused bf16: equal
+    trees and ``row_leaf``, misses > 0, one more histogram launch a miss;
+56. training at the bench config with ``histogram_pool_size`` 0: f32 100
+    iterations, holdout AUC within 1e-3 of genuine LightGBM's,
+    s/iteration beside phase 10's, misses and histogram launches per
+    iteration; quantized 30 iterations pooled and unpooled give the same
+    model text;
+57. Epsilon's width (2,000 dense features, max_bin 255, 255 leaves;
+    131,072 rows of bins drawn on the card): one tree each unpooled
+    untiled, unpooled in 128-wide blocks (16) and pooled at 128 MB at
+    auto: equal trees and ``row_leaf``, the pooled peak device memory at
+    least 1 GB below the unpooled ones';
+58. phase 52's bundled data: 10 iterations at the default (auto, which
+    on the card tiles only past ``AUTO_TILE_BYTES``: untiled here) and
+    at ``tpu_split_tile`` 128 (6 blocks) give the same model text; peak
+    memory both ways, and a profiled run at 128 beside phase 54's at the
+    default: the ``grower/efb_scan`` ms an iteration; the slice's
+    launches (``slice17_launches`` in the kernels line).
+
+Phase 29's and every other ``wave_agreement`` hold the wave kernel's
+child histograms to the float64 sum of the same cells
+(``wave_hists_f64``), not to the plain version's float32 atomics.
+
 Each wave timing (phases 14, 18, 23, 31) also gives its three launches'
 device times by kernel name under ``torch.profiler`` (``wave_stage_ms``):
 stage 1, the combine and the scan.
@@ -409,6 +441,12 @@ EDGE_PACKS = ((21, 255), (3, 5000))
 #: int8 mode channel scales: powers of two (every scaled sum exact)
 POW2_SCALES = (2.0 ** -6, 2.0 ** -9, 1.0)
 BENCH_FIXTURE = os.path.join("tests", "fixtures", "bench_auc.json")
+#: the TreeArrays fields the grower phases (49, 53, 55, 57) hold bit for
+#: bit
+TREE_FIELDS = ("split_feature", "split_bin", "default_left", "is_cat",
+               "cat_mask", "left_child", "right_child", "split_gain",
+               "internal_value", "internal_count", "leaf_value",
+               "leaf_count", "leaf_weight")
 #: float32 operations of the split scan: per (child, feature, bin), three
 #: cumulative-sum adds and three NaN-bin adds; per NaN direction of it,
 #: three right-child subtractions, two child gains (multiply, add, divide
@@ -922,24 +960,61 @@ def wave_gain_bound(pay, hist, rtol=1e-5):
     return bound
 
 
-def wave_agreement(h, p, hp, pp, rtol=1e-5):
+def wave_hists_f64(inp):
+    """The (W, 2, F, B, 3) child histograms of one wave (``wave_case``'s
+    inputs) summed in float64 on the inputs' device: each smaller
+    sibling's cells by one float64 ``index_add_`` over its perm rows
+    (``histogram_segment``; int8 levels times the channel scales), the
+    larger one as the parent (scaled, in int8 mode) minus it, the pair in
+    (left, right) order.  Its own rounding is ~1e-16 of a cell, so a
+    check against it sees the kernel's float32 rounding alone."""
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import histogram_segment
+    scale = inp.get("scale3")
+    scale = (torch.ones(3, dtype=torch.float64, device=inp["vals"].device)
+             if scale is None else scale.double())
+    vals = inp["vals"].double() * scale
+    parent = inp["parent"].double() * scale
+    small = []
+    for s0, cnt in zip(inp["small_start"], inp["small_cnt"]):
+        rows = inp["perm"][int(s0):int(s0) + int(cnt)].long()
+        small.append(histogram_segment(
+            inp["bins"].index_select(0, rows), vals[rows],
+            num_bins=inp["num_bins"], packed4=inp.get("packed4", False),
+            features=parent.shape[1]))
+    small = torch.stack(small)
+    big = parent - small
+    left = (inp["stats"][:, 0, 4] > 0.5)[:, None, None, None]
+    return torch.stack([torch.where(left, small, big),
+                        torch.where(left, big, small)], dim=1)
+
+
+def wave_agreement(h, p, hp, pp, inp, rtol=1e-5):
     """Hold the wave kernel's ``(h, p)`` to its plain version's
-    ``(hp, pp)`` where the two may round differently (random values).
-    Child histograms: gradient and hessian channels within ``rtol`` of the
-    channel's largest plain value, counts equal.  Per child: gains -inf in
-    the same children, and within ``wave_gain_bound`` of each other; with
-    the same winner (feature, bin, NaN direction, kind), equal counts and
+    ``(hp, pp)`` on the wave's inputs ``inp`` where the two may round
+    differently (random values; int8 mode: ``h`` and ``hp`` scaled).
+    Child histograms: gradient and hessian channels within ``rtol`` of
+    the channel's largest value of the float64 sum of the same cells
+    (``wave_hists_f64``: the plain version sums through float32
+    ``index_add_`` atomics, whose rounding varies run to run), counts
+    equal the plain version's.  Per child: gains -inf in the same
+    children, and within ``wave_gain_bound`` of each other; with the same
+    winner (feature, bin, NaN direction, kind), equal counts and
     categorical lanes and sums within ``rtol`` of the wave's largest plain
-    sum.  Raises on a breach; returns the measured errors."""
+    sum.  Raises on a breach; returns the measured errors (``plain_*``:
+    the plain version's against the float64 sum, not held)."""
     import torch
     from lightgbm_tpu_torch.ops.wave import PAYLOAD_SCALARS
-    hist_err = []
+    ref = wave_hists_f64(inp)
+    hist_err, plain_err = [], []
     for c in (0, 1):
-        scale = float(hp[..., c].abs().max())
-        err = float((h[..., c] - hp[..., c]).abs().max())
+        scale = max(float(ref[..., c].abs().max()), 1e-30)
+        err = float((h[..., c].double() - ref[..., c]).abs().max())
         require(err <= rtol * scale, f"wave child histogram channel {c} off "
-                f"by {err} (scale {scale})")
-        hist_err.append(err / max(scale, 1e-30))
+                f"by {err} from its float64 sum (scale {scale})")
+        hist_err.append(err / scale)
+        plain_err.append(float((hp[..., c].double() - ref[..., c]).abs()
+                               .max()) / scale)
     require(torch.equal(h[..., 2], hp[..., 2]),
             "wave child histogram counts != plain version")
     k, q = p.reshape(-1, p.shape[-1]), pp.reshape(-1, pp.shape[-1])
@@ -968,6 +1043,7 @@ def wave_agreement(h, p, hp, pp, rtol=1e-5):
             f"(scale {sum_scale})")
     some = bool(fin.any())
     return {"hist_rel_err": max(hist_err),
+            "plain_hist_rel_err": max(plain_err),
             "gain_abs_err": float(gain_err.max()) if some else 0.0,
             "gain_rel_err": float((gain_err / q[fin, 0].abs()).max())
             if some else 0.0,
@@ -1209,7 +1285,7 @@ def wave_phase(gen, dev):
                 "slots": len(sizes), "rows": sum(sizes),
                 "hist_max_abs_err": float((h1 - hp).abs().max()),
                 "payload_equal": bool(torch.equal(p1, pp)),
-                **wave_agreement(h1, p1, hp, pp)}
+                **wave_agreement(h1, p1, hp, pp, inp)}
     emit({"phase": "wave_vs_plain", "features": 28, "bins": 255,
           "cases": out})
 
@@ -1277,7 +1353,7 @@ def wave_int8_phase(gen, dev):
                 "slots": len(sizes), "rows": sum(sizes), "scales": scales,
                 "hist_bitwise": True,
                 "payload_equal": bool(torch.equal(p1, pp)),
-                **wave_agreement(sh, p1, sh, pp)}
+                **wave_agreement(sh, p1, sh, pp, inp)}
     out.update(int8_wave_checks(gen, dev, "int8", 255, cfg))
     out.update(int8_wave_checks(gen, dev, "int8_packed4", 16, cfg))
     emit({"phase": "wave_int8_vs_plain", "features": 28, "bins": 255,
@@ -1393,7 +1469,7 @@ def train_phase(dev, fix, rows, name, extra, ds, hist_mode, wave_mode,
 
 
 def training_phases(seed, dev, smi):
-    """Phases 8-54; returns the histogram and wave entries of the kernels
+    """Phases 8-58; returns the histogram and wave entries of the kernels
     line, every mode, phase 35's serving record and phases 46's, 50's and
     54's traversal launches."""
     import torch
@@ -1500,7 +1576,7 @@ def training_phases(seed, dev, smi):
     h1, p1 = WV.fused_wave_call(cfg=cfg, **inp)
     hp, pp = WV.wave_plain(cfg=cfg, **inp)
     w_entry["max_abs_err"] = float((h1 - hp).abs().max())
-    w_entry["agreement"] = wave_agreement(h1, p1, hp, pp)
+    w_entry["agreement"] = wave_agreement(h1, p1, hp, pp, inp)
     w_entry["bytes_ms"], w_entry["ops_ms"] = wave_bound_ms(inp)
     w_entry["stage_ms"] = wave_stage_ms(
         lambda: WV.fused_wave_call(cfg=cfg, **inp))
@@ -1534,7 +1610,10 @@ def training_phases(seed, dev, smi):
     # 48-51. sorted many-vs-many categorical splits (slice 15)
     s15_launches = slice15_phases(dev, fix, rec, seed)
     # 52-54. exclusive feature bundling (slice 16)
-    s16_launches = slice16_phases(dev, fix, rec, seed)
+    s16_launches, s16 = slice16_phases(dev, fix, rec, seed)
+    # 55-58. the histogram pool and the tiled scan (slice 17)
+    s17_launches = slice17_phases(gen, dev, fix, rows, ds, rec, s16)
+    del s16
 
     h = timing[f"histogram/{HIST_TIMING_ROWS[0]}"]
     h8 = timing8[f"histogram_int8/{HIST_TIMING_ROWS[0]}"]
@@ -1573,6 +1652,8 @@ def training_phases(seed, dev, smi):
     s16_modes = dict(s13_modes, **{
         f"{kernel}_{mode}": (mode, kernel) for kernel in ("histogram", "wave")
         for mode in ("f32_uint16", "int8_uint16")})
+    s17_modes = dict(s13_modes, histogram_bf16=("bf16", "histogram"),
+                     wave_bf16=("bf16", "wave"))
     s12_modes = {"histogram": ("f32", "histogram"), "wave": ("f32", "wave"),
                  "histogram_f32_uint16": ("f32_uint16", "histogram"),
                  "wave_f32_uint16": ("f32_uint16", "wave")}
@@ -1604,6 +1685,13 @@ def training_phases(seed, dev, smi):
             extra["slice16_launches"] = s16_launches[mode][kernel]
             require(extra["slice16_launches"] > 0,
                     f"{name}: no launch on the slice-16 paths")
+        if name in s17_modes:
+            # launches on phases 55-58's paths (the pool, tiled scans)
+            mode, kernel = s17_modes[name]
+            extra["slice17_launches"] = s17_launches.get(mode, {}).get(
+                kernel, 0)
+            require(extra["slice17_launches"] > 0,
+                    f"{name}: no launch on the slice-17 paths")
         if name in obj_modes:
             # launches on phases 32-37's paths (objectives, valid sets)
             kernel = name.split("_")[0]
@@ -1703,7 +1791,7 @@ def int8_timing(gen, dev, smi):
     sh = WV.scale_hist(hp, inp["scale3"])
     w_entry["max_abs_err"] = float((WV.scale_hist(h1, inp["scale3"])
                                     - sh).abs().max())
-    w_entry["agreement"] = wave_agreement(sh, p1, sh, pp)
+    w_entry["agreement"] = wave_agreement(sh, p1, sh, pp, inp)
     w_entry["bytes_ms"], w_entry["ops_ms"] = wave_bound_ms(inp)
     w_entry["stage_ms"] = wave_stage_ms(
         lambda: WV.fused_wave_call(cfg=cfg, **inp))
@@ -1850,9 +1938,9 @@ def new_mode_wave_phase(gen, dev):
                                 f"wave {tag}: payload != plain version")
                     if int8:
                         sh = WV.scale_hist(hp, inp["scale3"])
-                        agree = wave_agreement(sh, p1, sh, pp)
+                        agree = wave_agreement(sh, p1, sh, pp, inp)
                     else:
-                        agree = wave_agreement(h1, p1, hp, pp)
+                        agree = wave_agreement(h1, p1, hp, pp, inp)
                     out[tag] = {"slots": len(sizes), "rows": sum(sizes),
                                 "payload_equal": bool(torch.equal(p1, pp)),
                                 **agree}
@@ -1930,7 +2018,7 @@ def twin_wave_phase(gen, dev):
                     "their chunk-ordered twin (off by "
                     f"{float((h - want).abs().max())})")
             out[tag] = {"hist_bitwise": True, "slots": len(sizes),
-                        **wave_agreement(h, p, hp, pp)}
+                        **wave_agreement(h, p, hp, pp, inp)}
     none = SplitConfig(min_data_in_leaf=10 ** 9, min_sum_hessian_in_leaf=1.0,
                        lambda_l2=0.5, max_cat_to_onehot=4)
     sizes, inactive = CHECK_WAVES["W16"]
@@ -2115,7 +2203,7 @@ def new_mode_timing(gen, dev, smi):
             h1 = WV.scale_hist(h1, inp["scale3"])
             hp = WV.scale_hist(hp, inp["scale3"])
         w_entry["max_abs_err"] = float((h1 - hp).abs().max())
-        w_entry["agreement"] = wave_agreement(h1, p1, hp, pp)
+        w_entry["agreement"] = wave_agreement(h1, p1, hp, pp, inp)
         w_entry["bytes_ms"], w_entry["ops_ms"] = wave_bound_ms(inp)
         w_entry["stage_ms"] = wave_stage_ms(
             lambda: WV.fused_wave_call(cfg=cfg, **inp))
@@ -2585,7 +2673,7 @@ def uint16_wave_phase(gen, dev):
                     f"{float((h1 - want).abs().max())})")
         out[tag] = {"slots": len(sizes), "rows": sum(sizes),
                     "payload_equal": bool(torch.equal(p1, pp)),
-                    **wave_agreement(h1, p1, hp, pp)}
+                    **wave_agreement(h1, p1, hp, pp, inp)}
         return float((h1 - hp).abs().max()), p1
 
     for mode in U16_MODES:
@@ -2742,7 +2830,7 @@ def uint16_wave_timing(gen, dev, smi, launches):
             h1 = WV.scale_hist(h1, inp["scale3"])
             hp = WV.scale_hist(hp, inp["scale3"])
         entry["max_abs_err"] = float((h1 - hp).abs().max())
-        entry["agreement"] = wave_agreement(h1, p1, hp, pp)
+        entry["agreement"] = wave_agreement(h1, p1, hp, pp, inp)
         entry["bytes_ms"], entry["ops_ms"] = wave_bound_ms(inp)
         entry["stage_ms"] = wave_stage_ms(fn)
         if b == WIDE_MAX_BIN and w == len(WAVE_TIMING_SIZES):
@@ -3646,7 +3734,7 @@ def masked_kernel_phase(gen, dev, fix, ds):
                 require(torch.equal(h, twin), f"{tag}: child histograms "
                         "!= their chunk-ordered twin")
                 cases[tag] = {"hist_twin_bitwise": True,
-                              **wave_agreement(h, p, hp, pp)}
+                              **wave_agreement(h, p, hp, pp, inp)}
     emit({"phase": "kernels_under_masks", "features": int(bins.shape[1]),
           "bins": 255, "cases": cases})
 
@@ -3937,10 +4025,7 @@ def sorted_cat_grower_phase(dev, ref, data):
                         num_bins=td.binned.max_num_bins,
                         split=_split_config(cfg, td), leaf_batch=16)
     require(base.split.use_sorted_categorical, "phase 49: no sorted feature")
-    fields = ("split_feature", "split_bin", "default_left", "is_cat",
-              "cat_mask", "left_child", "right_child", "split_gain",
-              "internal_value", "internal_count", "leaf_value", "leaf_count",
-              "leaf_weight")
+    fields = TREE_FIELDS
 
     def grow(device, grads, **kw):
         gcfg = dataclasses.replace(base, **kw)
@@ -4288,10 +4373,7 @@ def efb_grower_phase(dev, ref, data, ds, fb52):
         hq = rng.uniform(0.01, 1, n).astype(np.float32)
         gq[0], hq[1] = np.float32(1.0 - 2.0 * y[0]), 1.0
         return exact, (gq, hq)
-    fields = ("split_feature", "split_bin", "default_left", "is_cat",
-              "cat_mask", "left_child", "right_child", "split_gain",
-              "internal_value", "internal_count", "leaf_value", "leaf_count",
-              "leaf_weight")
+    fields = TREE_FIELDS
     launches = {}
     cases = {}
     cpu = torch.device("cpu")
@@ -4421,7 +4503,8 @@ def efb_serving_phase(dev, bst, ds, data, ref, seed):
 def slice16_phases(dev, fix, rec10, seed):
     """52-54: exclusive feature bundling against
     tests/fixtures/torch_efb_ref.json.  Returns the launches of each
-    kernel mode on these paths."""
+    kernel mode on these paths, and what phase 58 reads: phase 52's
+    dataset and f32 params and phase 54's profile."""
     root = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(root, EFB_FIXTURE)) as fh:
         ref = json.load(fh)
@@ -4443,6 +4526,346 @@ def slice16_phases(dev, fix, rec10, seed):
           "phase10_s_per_iteration": rec10["s_per_iteration"]})
     require(efb_ms > 0, "the profiler saw no grower/efb_scan range")
     emit({"phase": "slice16", "seconds": time.perf_counter() - t0,
+          "launches": launches})
+    return launches, {"ds": ds, "params": params, "profile": prof}
+
+
+# ------------------------------- slice 17: the histogram pool, tiled scans
+#: phases 55-57's leaf batch (the bench's tpu_leaf_batch)
+POOL_LEAF_BATCH = 16
+#: phase 55's growers: name, GrowerConfig fields, the kernels' mode
+POOL_GROWERS = (("f32", {}, "f32"),
+                ("f32_unfused", {"wave_kernel": "unfused"}, "f32"),
+                ("quantized", {"quantized": True,
+                               "stochastic_rounding": False}, "int8"),
+                ("bf16", {"histogram_impl": "flat_bf16",
+                          "wave_kernel": "fused"}, "bf16"))
+#: phase 56's quantized iterations, pooled and unpooled
+POOL_QUANT_ITERS = 30
+#: phase 57: LightGBM's published Experiments config for Epsilon
+#: (2,000 dense features, 400,000 rows: docs/Experiments.rst), its rows
+#: cut to EPS_ROWS for the time limit; the pool's size in MB, and how far
+#: the pooled grower's peak must fall below the unpooled one's (full
+#: residency 255 x 2,000 x 255 x 12 B = 1.56 GB, the pool's 33 slots
+#: 0.20 GB)
+EPS_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+              "learning_rate": 0.1, "min_sum_hessian_in_leaf": 100,
+              "verbosity": -1}
+EPS_FEATURES = 2000
+EPS_ROWS = 131_072
+EPS_POOL_MB = 128
+EPS_PEAK_DROP = 1.0e9
+#: phase 57's explicit block width (2,000 columns: 16 blocks)
+EPS_TILE = 128
+#: phase 58's iterations at each tile setting, and its explicit width
+#: (660 columns in feature space: 6 blocks)
+TILE_ITERS = 10
+EFB_TILE = 128
+
+
+def grow_once(grower, bins, grad, hess, meta):
+    """One tree of ``grower`` on the card with every row in the bag and
+    every feature on: (tree fields and ``row_leaf`` as numpy, launches by
+    kernel and mode, seconds)."""
+    import torch
+    dev = bins.device
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree, row_leaf = grower(bins, grad, hess,
+                            torch.ones(bins.shape[0], device=dev),
+                            torch.ones(meta[0].shape[0], dtype=torch.bool,
+                                       device=dev), *meta)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out = {k: getattr(tree, k).cpu().numpy() for k in TREE_FIELDS}
+    out["num_leaves"] = int(tree.num_leaves)
+    out["row_leaf"] = row_leaf.cpu().numpy()
+    return out, _read_launches(), seconds
+
+
+def same_tree(a, b):
+    return all(np.array_equal(a[k], b[k])
+               for k in TREE_FIELDS + ("num_leaves", "row_leaf"))
+
+
+def add_launches(total, launches):
+    """Add one run's launches by kernel and mode into ``total`` (mode ->
+    {"histogram": n, "wave": n})."""
+    for kernel, counts in launches.items():
+        for mode, n in counts.items():
+            if n:
+                lm = total.setdefault(mode, {"histogram": 0, "wave": 0})
+                lm[kernel] += n
+
+
+def pool_grower_phase(dev, fix, rows, ds):
+    """55. Phase 10's 200,000 x 28 uint8 rows at its params (255 leaves)
+    and ``tpu_leaf_batch`` 16, with exact-sum gradients that follow the
+    label (0.5 - y, hessian 0.25; bf16-exact): the grower at
+    ``histogram_pool_size`` 0 (the floor, 2W + 1 = 33 slots) against the
+    unpooled grower, fused f32, ``tpu_wave_kernel=unfused`` f32, fused
+    quantized and fused bf16 (``flat_bf16``).  Trees and ``row_leaf``
+    bit for bit, misses > 0, and each miss one more histogram launch
+    than the unpooled grower made (the wave launches the same).  Returns
+    launches by mode."""
+    import dataclasses
+    import torch
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.models.gbdt import _split_config
+    from lightgbm_tpu_torch.models.grower import GrowerConfig, make_grower
+    td = ds.construct()
+    cfg = Config(dict(fix["params"], tpu_leaf_batch=POOL_LEAF_BATCH,
+                      verbosity=-1))
+    nt = fix["data"]["n_train"]
+    y = np.asarray(rows[1][:nt], np.float64)
+    grad = torch.from_numpy((0.5 - y).astype(np.float32)).to(dev)
+    hess = torch.full((nt,), 0.25, device=dev)
+    bins = td.bins_device(dev)
+    m = td.feature_meta_device(dev)
+    meta = (m["num_bins_per_feature"], m["nan_bins"], m["is_categorical"])
+    base = GrowerConfig(num_leaves=cfg.num_leaves,
+                        num_bins=td.binned.max_num_bins,
+                        split=_split_config(cfg, td),
+                        leaf_batch=POOL_LEAF_BATCH)
+    launches, cases = {}, {}
+    for name, kw, mode in POOL_GROWERS:
+        plain = make_grower(dataclasses.replace(base, **kw))
+        pooled = make_grower(dataclasses.replace(base, histogram_pool_size=0,
+                                                 **kw))
+        slots = pooled.pool_slots(bins.shape[1])
+        require(slots == 2 * POOL_LEAF_BATCH + 1,
+                f"phase 55: {slots} pool slots, not the floor")
+        want, ul, us = grow_once(plain, bins, grad, hess, meta)
+        got, pl, ps = grow_once(pooled, bins, grad, hess, meta)
+        counts = pooled.pool_counts
+        require(same_tree(want, got), f"phase 55 {name}: the pooled tree "
+                "differs from the unpooled one")
+        require(counts["misses"] > 0, f"phase 55 {name}: no pool miss")
+        require(want["num_leaves"] > slots, f"phase 55 {name}: "
+                f"{want['num_leaves']} leaves fit the pool")
+        for label, lc in (("unpooled", ul), ("pooled", pl)):
+            ran = {(k, md) for k in lc for md, v in lc[k].items() if v}
+            require(ran <= {("histogram", mode), ("wave", mode)},
+                    f"phase 55 {name}: the {label} grower launched {lc}")
+        extra = pl["histogram"][mode] - ul["histogram"][mode]
+        require(extra == counts["misses"]
+                and pl["wave"][mode] == ul["wave"][mode],
+                f"phase 55 {name}: {extra} more histogram launches for "
+                f"{counts['misses']} misses (wave {pl['wave'][mode]} "
+                f"against {ul['wave'][mode]})")
+        add_launches(launches, ul)
+        add_launches(launches, pl)
+        cases[name] = {"mode": mode, "leaves": want["num_leaves"],
+                       "slots": slots, **counts,
+                       "histogram_launches_unpooled": ul["histogram"][mode],
+                       "histogram_launches_pooled": pl["histogram"][mode],
+                       "wave_launches": pl["wave"][mode],
+                       "unpooled_s": us, "pooled_s": ps}
+    emit({"phase": "pool_growers_equal", "rows": nt,
+          "features": int(bins.shape[1]), "leaf_batch": POOL_LEAF_BATCH,
+          "cases": cases})
+    return launches
+
+
+def pool_training_phase(dev, fix, rows, ds, rec10):
+    """56. Training at the bench config (``bench_auc.json`` plus
+    ``tpu_leaf_batch`` 16) with ``histogram_pool_size`` 0: f32 for the
+    fixture's 100 iterations, the holdout AUC within phase 10's 1e-3 of
+    genuine LightGBM's (a rebuilt parent is a fresh float32 sum where the
+    unpooled grower subtracts, so the trees may part from phase 10's),
+    s/iteration beside phase 10's, misses and histogram launches per
+    iteration; quantized, POOL_QUANT_ITERS iterations pooled and unpooled:
+    the model text byte for byte but for the line recording the pool.
+    Returns launches by mode."""
+    launches = {}
+    bst, _p, rec = train_phase(
+        dev, fix, rows, "train_pooled_f32", {"histogram_pool_size": 0}, ds,
+        "f32", "f32", ref=(fix["ref_auc"], 1e-3))
+    counts = dict(bst._gbdt.grow.pool_counts)
+    iters = rec["iterations"]
+    require(counts["misses"] > 0, "phase 56: no pool miss in training")
+    add_launches(launches, {"histogram": {"f32": rec["histogram_launches"]},
+                            "wave": {"f32": rec["wave_launches"]}})
+    texts = {}
+    for name, extra in (("pooled", {"histogram_pool_size": 0}),
+                        ("unpooled", {})):
+        qb, _p, qrec = train_phase(
+            dev, fix, rows, f"train_{name}_quantized",
+            dict(extra, use_quantized_grad=True), ds, "int8", "int8",
+            iters=POOL_QUANT_ITERS)
+        texts[name] = qb.model_to_string()
+        if name == "pooled":
+            q_misses = qb._gbdt.grow.pool_counts["misses"]
+        add_launches(launches,
+                     {"histogram": {"int8": qrec["histogram_launches"]},
+                      "wave": {"int8": qrec["wave_launches"]}})
+    require(q_misses > 0, "phase 56: no pool miss in quantized training")
+    require(drop_param(texts["pooled"], "[histogram_pool_size: 0]")
+            == texts["unpooled"], "phase 56: the pooled quantized model "
+            "text differs from the unpooled one")
+    emit({"phase": "pool_training", "iterations": iters,
+          "holdout_auc": rec["holdout_auc"], "ref_auc": fix["ref_auc"],
+          "auc_gap": rec["holdout_auc"] - fix["ref_auc"],
+          "phase10_holdout_auc": rec10["holdout_auc"],
+          "s_per_iteration": rec["s_per_iteration"],
+          "phase10_s_per_iteration": rec10["s_per_iteration"],
+          "misses_per_iteration": counts["misses"] / iters,
+          "evictions_per_iteration": counts["evictions"] / iters,
+          "hits_per_iteration": counts["hits"] / iters,
+          "histogram_launches_per_iteration":
+              rec["histogram_launches_per_iteration"],
+          "phase10_histogram_launches_per_iteration":
+              rec10["histogram_launches_per_iteration"],
+          "quantized_iterations": POOL_QUANT_ITERS,
+          "quantized_misses_per_iteration": q_misses / POOL_QUANT_ITERS,
+          "quantized_text_equal": True})
+    return launches
+
+
+def epsilon_phase(gen, dev):
+    """57. Epsilon's width (EPS_PARAMS: 2,000 dense features, max_bin
+    255, 255 leaves) at EPS_ROWS rows and ``tpu_leaf_batch`` 16: uint8
+    bins drawn on the card from the seed, a label read off three columns
+    plus noise, exact-sum gradients that follow it.  One tree each from
+    the unpooled untiled grower (``tpu_split_tile`` 1), the unpooled
+    grower in 128-wide blocks (EPS_TILE: 16 blocks) and the pooled one
+    at auto (its root scan untiled on the card: ``block_width``) with
+    ``histogram_pool_size`` EPS_POOL_MB (its slots floored at 2W + 1):
+    trees and ``row_leaf`` bit for bit across the three, and
+    the pooled grower's peak device memory at least EPS_PEAK_DROP below
+    the unpooled ones'.  Returns launches by mode."""
+    import torch
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.models.gbdt import _split_config
+    from lightgbm_tpu_torch.models.grower import GrowerConfig, make_grower
+    from lightgbm_tpu_torch.ops.split import block_width
+    n, f, b = EPS_ROWS, EPS_FEATURES, EPS_PARAMS["max_bin"]
+    bins = torch.randint(0, b, (n, f), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    z = (bins[:, 0].float() + bins[:, 1].float() - bins[:, 2].float()
+         + 64.0 * torch.randn(n, generator=gen, device=dev))
+    grad = 0.5 - (z > 127.0).float()
+    hess = torch.full((n,), 0.25, device=dev)
+    meta = (torch.full((f,), b, dtype=torch.int32, device=dev),
+            torch.full((f,), b, dtype=torch.int32, device=dev),
+            torch.zeros(f, dtype=torch.bool, device=dev))
+    launches, runs = {}, {}
+    want = None
+    for name, tile, pool in (("unpooled_untiled", 1, -1.0),
+                             ("unpooled_tiled", EPS_TILE, -1.0),
+                             ("pooled_auto", 0, EPS_POOL_MB)):
+        split = _split_config(Config(dict(EPS_PARAMS, tpu_split_tile=tile)))
+        grower = make_grower(GrowerConfig(
+            num_leaves=EPS_PARAMS["num_leaves"], num_bins=b, split=split,
+            leaf_batch=POOL_LEAF_BATCH, histogram_pool_size=pool))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        data_bytes = torch.cuda.memory_allocated()
+        got, lc, secs = grow_once(grower, bins, grad, hess, meta)
+        peak = torch.cuda.max_memory_allocated()
+        add_launches(launches, lc)
+        if want is None:
+            want = got
+        require(same_tree(want, got), f"phase 57 {name}: the tree differs "
+                "from the unpooled untiled grower's")
+        width = block_width(split, 1, f, b, cuda=True)
+        runs[name] = {"root_scan_blocks": -(-f // (width or f)),
+                      "slots": grower.pool_slots(f), "seconds": secs,
+                      "peak_allocated_bytes": peak,
+                      "peak_above_data_bytes": peak - data_bytes,
+                      "launches": {k: {md: v for md, v in lc[k].items() if v}
+                                   for k in lc},
+                      **grower.pool_counts}
+        del grower
+    leaves = want["num_leaves"]
+    require(leaves > runs["pooled_auto"]["slots"],
+            f"phase 57: {leaves} leaves fit the pool")
+    drop = min(runs[k]["peak_allocated_bytes"] for k in
+               ("unpooled_untiled", "unpooled_tiled")) \
+        - runs["pooled_auto"]["peak_allocated_bytes"]
+    require(drop >= EPS_PEAK_DROP, f"phase 57: the pool lowered the peak "
+            f"by {drop} bytes, not {EPS_PEAK_DROP}")
+    emit({"phase": "epsilon_pool_tiles", "rows": n, "features": f,
+          "bins": b, "leaves": leaves, "trees_equal": True,
+          "full_residency_bytes": EPS_PARAMS["num_leaves"] * f * b * 12,
+          "pool_bytes": runs["pooled_auto"]["slots"] * f * b * 12,
+          "peak_drop_bytes": drop, "peak_drop_bar": EPS_PEAK_DROP,
+          "runs": runs})
+    return launches
+
+
+def tile_efb_phase(dev, s16):
+    """58. The tiled scan on phase 52's bundled data (660 features in
+    feature space): TILE_ITERS iterations at the default (auto: on the
+    card untiled below ``AUTO_TILE_BYTES``, as ``block_width`` reports
+    for the wave's 2W children) and at ``tpu_split_tile`` EFB_TILE (6
+    blocks) give the same model text but for the line recording the
+    option, with the peak device memory of each; then one profiled
+    iteration run (``profile_phase``) at EFB_TILE beside phase 54's at
+    the default: ``grower/efb_scan`` and the whole iteration's host ms.
+    Returns launches by mode."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops.split import block_width
+    ds, params = s16["ds"], s16["params"]
+    launches, runs, texts = {}, {}, {}
+    for name, extra in (("default", {}),
+                        ("tiled", {"tpu_split_tile": EFB_TILE})):
+        prm = dict(params, **extra)
+        _zero_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        bst = lgt.train(prm, ds, TILE_ITERS, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        add_launches(launches, _read_launches())
+        texts[name] = bst.model_to_string()
+        gcfg = bst._gbdt.grower_cfg
+        f = int(ds.construct().num_features)
+        width = block_width(gcfg.split, 2 * gcfg.leaf_batch, f,
+                            gcfg.num_bins, cuda=True)
+        runs[name] = {"s_per_iteration": secs / TILE_ITERS,
+                      "wave_scan_blocks": -(-f // (width or f)),
+                      "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+        del bst
+    require(runs["default"]["wave_scan_blocks"] == 1
+            and runs["tiled"]["wave_scan_blocks"] > 1,
+            f"phase 58: scan blocks {runs}")
+    require(drop_param(texts["tiled"], f"[tpu_split_tile: {EFB_TILE}]")
+            == texts["default"], "phase 58: the tiled EFB model text "
+            "differs from the untiled one")
+    prof = profile_phase(dict(params, tpu_split_tile=EFB_TILE), ds, dev)
+    efb = "grower/efb_scan"
+    for name, p in (("default", s16["profile"]), ("tiled", prof)):
+        runs[name]["profile_efb_scan_ms_per_iteration"] = \
+            p["range_host_ms_per_iteration"].get(efb, 0.0)
+        runs[name]["profile_wall_ms_per_iteration"] = \
+            p["wall_ms_per_iteration"]
+        runs[name]["profile_device_busy_share"] = p["device_busy_share"]
+    require(runs["tiled"]["profile_efb_scan_ms_per_iteration"] > 0,
+            "phase 58: the profiler saw no grower/efb_scan range")
+    emit({**prof, "training": "efb_f32_tiled"})
+    emit({"phase": "tile_efb", "iterations": TILE_ITERS, "text_equal": True,
+          "features": f, "tile": EFB_TILE, "runs": runs})
+    return launches
+
+
+def slice17_phases(gen, dev, fix, rows, ds, rec10, s16):
+    """55-58: the histogram pool and the tiled scan.  Returns the
+    launches of each kernel mode on these paths."""
+    t0 = time.perf_counter()
+    launches = {}
+    for part in (pool_grower_phase(dev, fix, rows, ds),
+                 pool_training_phase(dev, fix, rows, ds, rec10),
+                 epsilon_phase(gen, dev),
+                 tile_efb_phase(dev, s16)):
+        for mode, counts in part.items():
+            lm = launches.setdefault(mode, {"histogram": 0, "wave": 0})
+            for kernel, n in counts.items():
+                lm[kernel] += n
+    emit({"phase": "slice17", "seconds": time.perf_counter() - t0,
           "launches": launches})
     return launches
 
@@ -4684,6 +5107,8 @@ def main(argv=None) -> int:
     # and phase 54's bundled model
     require(efb_launches > 0, "traverse: no launch serving phase 52's model")
     kernels[0]["slice16_launches"] = efb_launches
+    # slice 17 serves nothing: a pooled model is served as any model
+    kernels[0]["slice17_launches"] = 0
     kernels += entries
     emit({"kernels": kernels})
     print(f"wall_s={time.perf_counter() - t_start:.1f}", flush=True)

@@ -110,7 +110,6 @@ _NO_OP_KEYS = frozenset((
 #: them
 _REFUSED_KEYS = {
     "two_round": "A1c", "save_binary": "A1c", "parser_config_file": "A1c",
-    "histogram_pool_size": "A8.5", "tpu_split_tile": "A8.5",
     "pre_partition": "A10", "local_listen_port": "A10", "time_out": "A10",
     "machine_list_filename": "A10", "machines": "A10",
     "snapshot_freq": "A11", "checkpoint_interval": "A11",
@@ -201,7 +200,7 @@ def _split_config(cfg: Config, train: Optional[TrainData] = None
         cat_smooth=cfg.cat_smooth, max_cat_threshold=cfg.max_cat_threshold,
         max_cat_to_onehot=cfg.max_cat_to_onehot,
         min_data_per_group=cfg.min_data_per_group,
-        path_smooth=cfg.path_smooth, **facts)
+        path_smooth=cfg.path_smooth, scan_tile=cfg.tpu_split_tile, **facts)
 
 
 class GBDT:
@@ -253,7 +252,8 @@ class GBDT:
             quantized=cfg.use_quantized_grad,
             num_grad_quant_bins=cfg.num_grad_quant_bins,
             stochastic_rounding=cfg.stochastic_rounding,
-            quant_renew_leaf=cfg.quant_train_renew_leaf, packed4=packed4)
+            quant_renew_leaf=cfg.quant_train_renew_leaf, packed4=packed4,
+            histogram_pool_size=cfg.histogram_pool_size)
         self.grow = make_grower(self.grower_cfg)
         self.meta_dev = train.feature_meta_device(self.device)
         if self.bundles is not None:

@@ -65,9 +65,29 @@ one read brings the winners to the host, ``grower/efb_scan``).  The JAX
 package keeps bundled data off its fused wave; the port fuses it on the
 card (the fused and unfused steps give the same histograms).
 
-Not ported here: the histogram pool, monotone constraints, CEGB, forced
-splits, interaction constraints, voting and device meshes (ROADMAP
-A8.5, A8.7, A10).
+The histogram pool (``histogram_pool_size`` >= 0, the reference's
+``HistogramPool``; ``pool_active_for``, ``Grower.pool_slots``): the wave
+layout keeps its leaf histograms in P slots (``leaf_hist`` (P, G, HB,
+3)) rather than one a leaf, P from the size in MB, at least ``2W + 1``
+(one wave always fits) and at most L (P = L is the unpooled carry).
+Which leaf owns which slot is host bookkeeping in numpy beside
+``_State`` (``leaf_slot``, ``slot_leaf``, ``slot_tick``, ``tick``: the
+JAX package's LRU stamps, claimed in its ``argmin`` order: free slots
+first, then the least recently stamped, the lower slot on a tie; the
+wave's parents are pinned).  Per split the smaller child takes a fresh
+slot and the larger one its parent's (a second fresh slot where the
+parent was evicted).  An evicted parent (a miss) is rebuilt before the
+partition reorders its rows: one ``_hist`` (``histogram_flat`` on the
+card) over its perm segment in creation-time row order
+(``grower/pool_miss``).  A rebuilt histogram is a fresh sum where the
+stored one came through sibling subtraction, so pooled trees equal
+unpooled ones bit for bit only where the sums are exact (exact-sum f32
+gradients, integer quantized histograms); ``pool_counts`` counts hits,
+misses and evictions.  The mask layout keeps every leaf's histogram, as
+the JAX package does.
+
+Not ported here: monotone constraints, CEGB, forced splits, interaction
+constraints, voting and device meshes (ROADMAP A8.7, A10).
 """
 
 from __future__ import annotations
@@ -119,6 +139,9 @@ class GrowerConfig:
     # (N, ceil(F/2)) nibble pairs.  Set by GBDT when every feature has
     # <= 16 bins and tpu_4bit_bins is on.
     packed4: bool = False
+    # the leaf histograms' memory bound in MB (reference HistogramPool);
+    # < 0: every leaf's histogram stays resident
+    histogram_pool_size: float = -1.0
 
 
 class TreeArrays(NamedTuple):
@@ -166,6 +189,69 @@ def wave_fused_for(cfg: GrowerConfig, device: torch.device) -> bool:
         return True
     return (device.type == "cuda"
             and resolve_impl(cfg.histogram_impl, device) in ("pallas", "flat"))
+
+
+def pool_active_for(cfg: GrowerConfig) -> bool:
+    """May the grower bound its leaf histograms by the slot pool
+    (``histogram_pool_size`` >= 0)?  The JAX package also keeps full
+    residency for its GSPMD mask layout, voting and the
+    intermediate / advanced monotone refresh, none of which the port
+    trains.  The slot count depends on the histogram's shape
+    (``Grower.pool_slots``): a pool that holds all L leaves is the
+    unpooled carry."""
+    return cfg.histogram_pool_size >= 0
+
+
+class _Pool:
+    """The host bookkeeping of a P-slot histogram pool (the JAX
+    package's ``_pool_ops``): ``leaf_slot`` (L,) the slot of each leaf (-1
+    evicted), ``slot_leaf`` (P,) the owner of each slot (-1 free),
+    ``slot_tick`` (P,) the LRU stamp of each slot.  The root owns slot
+    0."""
+
+    def __init__(self, L: int, P: int):
+        self.P = P
+        self.leaf_slot = np.full(L, -1, np.int64)
+        self.slot_leaf = np.full(P, -1, np.int64)
+        self.slot_tick = np.zeros(P, np.int64)
+        self.tick = 1
+        self.leaf_slot[0] = 0
+        self.slot_leaf[0] = 0
+
+    def claim(self, sp: np.ndarray):
+        """Slots for the children of k splitting leaves whose slots are
+        ``sp`` (-1: a miss): the smaller child takes a fresh slot, the
+        larger one the parent's, or a second fresh slot on a miss.  Free
+        slots go first, then the least recently stamped (the lower slot
+        on a tie); the parents' slots and the slots claimed are pinned.
+        Evicted leaves lose their slot.  Returns (slot_small (k,),
+        slot_big (k,), evictions)."""
+        imax = np.iinfo(np.int64).max
+        pin = np.zeros(self.P, bool)
+        pin[sp[sp >= 0]] = True
+        base = np.where(self.slot_leaf < 0, -1, self.slot_tick)
+        small = np.empty(len(sp), np.int64)
+        big = np.empty(len(sp), np.int64)
+        evicted = []
+        for j, parent_slot in enumerate(sp):
+            fresh = []
+            for _ in range(1 if parent_slot >= 0 else 2):
+                v = int(np.argmin(np.where(pin, imax, base)))
+                pin[v] = True
+                fresh.append(v)
+                if self.slot_leaf[v] >= 0:
+                    evicted.append(self.slot_leaf[v])
+            small[j] = fresh[0]
+            big[j] = fresh[1] if parent_slot < 0 else parent_slot
+        self.leaf_slot[np.asarray(evicted, np.int64)] = -1
+        return small, big, len(evicted)
+
+    def assign(self, leaves: np.ndarray, slots: np.ndarray) -> None:
+        """Record the owners and LRU stamps of a wave's children."""
+        self.leaf_slot[leaves] = slots
+        self.slot_leaf[slots] = leaves
+        self.slot_tick[slots] = self.tick
+        self.tick += 1
 
 
 class _State:
@@ -250,6 +336,25 @@ class Grower:
         self.cfg = cfg
         # the largest int8 level a quantized row holds (int32 bound)
         self.max_level = max_level(cfg.num_grad_quant_bins)
+        # the histogram pool's hits, misses (rebuilt parents) and
+        # evictions over every tree this grower grew
+        self.pool_counts = dict.fromkeys(("hits", "misses", "evictions"), 0)
+
+    def pool_slots(self, hist_cols: int, hist_bins: int = 0) -> int:
+        """Slots of the histogram pool over (``hist_cols``, ``hist_bins``
+        (default ``num_bins``), 3) 4-byte slots (the JAX package's
+        ``_pool_slots``): ``histogram_pool_size`` MB of them, at least
+        ``2W + 1`` (W parents pinned while up to 2W children take slots)
+        and at most L; L is the unpooled carry."""
+        cfg = self.cfg
+        L = cfg.num_leaves
+        if not pool_active_for(cfg):
+            return L
+        slot_bytes = hist_cols * (hist_bins or cfg.num_bins) * 3 * 4
+        p = int(float(cfg.histogram_pool_size) * (1 << 20)
+                // max(slot_bytes, 1))
+        floor = min(2 * min(cfg.leaf_batch, max(L - 1, 1)) + 1, L)
+        return min(max(p, floor), L)
 
     def __call__(self, bins, grad, hess, sample_mask, feature_mask,
                  num_bins_per_feature, nan_bins, is_categorical,
@@ -296,6 +401,9 @@ class Grower:
             tree, row_leaf = self._grow_wave()
         else:
             tree, row_leaf = self._grow_mask()
+        # the leaf histograms live for one tree: the next root's carry is
+        # allocated beside no earlier one
+        self.leaf_hist = None
         if cfg.quantized and cfg.quant_renew_leaf:
             tree = self._renew_leaves(tree, row_leaf, g, h)
         return tree, row_leaf
@@ -379,9 +487,10 @@ class Grower:
             nan_bins=nanb, is_categorical=iscat, feature_mask=fmask,
             cfg=self.cfg.split, sorted_features=self.sorted_features))
 
-    def _root(self, n: int):
+    def _root(self, n: int, slots: int = 0):
         """Root histogram, state and best split (``_perm_setup`` /
-        ``_root_best``)."""
+        ``_root_best``); ``leaf_hist`` holds ``slots`` histograms (default
+        one a leaf), the root's first."""
         cfg = self.cfg
         L, B = cfg.num_leaves, cfg.num_bins
         root_hist = self._hist(self.bins, self.vals)
@@ -394,7 +503,7 @@ class Grower:
         st.leaf_sum_hess[0] = root_tot[1]
         st.leaf_count[0] = root_tot[2]
         st.leaf_out[0] = leaf_output(root_tot[0], root_tot[1], cfg.split)
-        self.leaf_hist = torch.zeros((L,) + tuple(root_hist.shape),
+        self.leaf_hist = torch.zeros((slots or L,) + tuple(root_hist.shape),
                                      dtype=root_hist.dtype, device=self.dev)
         self.leaf_hist[0] = root_hist
         bs = self._best(self._scan_hists(root_hist[None], root_tot[None])[0],
@@ -482,8 +591,11 @@ class Grower:
             wave = functools.partial(wave_plain, histogram=self._hist,
                                      scale3=self.scale3)
         perm = torch.arange(n, dtype=torch.int32, device=dev)
+        P = self.pool_slots(self.nf if self.packed4 else self.bins.shape[1],
+                            self.hb)
+        pool = _Pool(L, P) if P < L else None
         with record_function("grower/root"):
-            st = self._root(n)
+            st = self._root(n, P)
         while st.num_leaves < L and float(st.best_gain.max()) > _NEG_INF:
             budget = L - st.num_leaves
             order = torch.sort(st.best_gain, descending=True, stable=True)
@@ -502,6 +614,13 @@ class Grower:
             dlefts = st.best_default_left[top_l]
             scats = st.best_is_cat[top_l]
             cmasks = st.best_cat_mask[top_l]
+            if pool is None:
+                parent_hist = self.leaf_hist[top_l.to(dev)]
+            else:
+                # before the partition reorders the missed parents' rows
+                sp = pool.leaf_slot[lv]
+                parent_hist = self._pool_parents(pool, perm, lv, sp, starts,
+                                                 cnts)
             with record_function("grower/partition"):
                 nl = self._partition(perm, starts, cnts,
                                      feats.numpy().astype(np.int64),
@@ -528,8 +647,8 @@ class Grower:
                 stats = stats.to(dev)
                 hists, payload = wave(
                     self.bins, self.vals, perm, small_start.tolist(),
-                    small_cnt.tolist(), self.leaf_hist[top_l.to(dev)],
-                    stats, meta_w, cfg.split, self.hb)
+                    small_cnt.tolist(), parent_hist, stats, meta_w,
+                    cfg.split, self.hb)
             if bundled:
                 with record_function("grower/efb_scan"):
                     bs = self._efb_scan(hists, stats)
@@ -569,7 +688,17 @@ class Grower:
             st.leaf_start[nlv] = starts + nl
             st.leaf_rows[lv] = nl
             st.leaf_rows[nlv] = cnts - nl
-            self.leaf_hist[idx2.to(dev)] = torch.cat([hist_left, hist_right])
+            slots2 = idx2
+            if pool is not None:
+                small_slot, big_slot, evicted = pool.claim(sp)
+                slots = np.concatenate([
+                    np.where(small_left, small_slot, big_slot),
+                    np.where(small_left, big_slot, small_slot)])
+                pool.assign(idx2.numpy(), slots)
+                self.pool_counts["evictions"] += evicted
+                slots2 = torch.from_numpy(slots)
+            self.leaf_hist[slots2.to(dev)] = torch.cat([hist_left,
+                                                        hist_right])
             st.leaf_sum_grad[idx2] = torch.cat([gl, gr])
             st.leaf_sum_hess[idx2] = torch.cat([hl, hr])
             st.leaf_count[idx2] = torch.cat([cl, cr])
@@ -583,6 +712,29 @@ class Grower:
         with record_function("grower/row_leaf"):
             row_leaf = self._row_leaf_from_perm(st, perm, n)
         return st.finish(L), row_leaf
+
+    def _pool_parents(self, pool: _Pool, perm, lv, sp, starts, cnts):
+        """The (k, G, HB, 3) histograms of a wave's parents ``lv`` whose
+        slots are ``sp``: a copy of each resident slot, and each evicted
+        parent rebuilt by one ``_hist`` over its perm segment (its rows in
+        creation-time order), gathered a miss at a time so that the
+        rebuild holds no more than one leaf's rows."""
+        miss = sp < 0
+        hit = ~miss
+        if np.any(pool.slot_leaf[sp[hit]] != lv[hit]):
+            raise RuntimeError("histogram pool: a parent's slot is owned "
+                               "by another leaf")
+        self.pool_counts["hits"] += int(hit.sum())
+        self.pool_counts["misses"] += int(miss.sum())
+        idx = torch.from_numpy(np.where(miss, 0, sp)).to(self.dev)
+        parent = self.leaf_hist.index_select(0, idx)
+        if miss.any():
+            with record_function("grower/pool_miss"):
+                for j in np.flatnonzero(miss):
+                    rows = perm[starts[j]:starts[j] + cnts[j]].long()
+                    parent[j] = self._hist(self.bins.index_select(0, rows),
+                                           self.vals.index_select(0, rows))
+        return parent
 
     def _efb_scan(self, hists, stats) -> BestSplit:
         """A bundled wave's 2W children (lefts, then rights): rebuilt per

@@ -18,15 +18,29 @@ better, batched over a leading axis of leaves.  ``best_split`` and
 ``best_split_batch`` merge it; the wave kernel does not, so the grower
 merges its payload (``models/grower.py``).
 
+The feature-tiled scan (``SplitConfig.scan_tile``, the JAX package's
+``tpu_split_tile``): ``best_split`` / ``best_split_batch`` take the bins'
+cumulative sums once over every feature (three (K, F, B) tables, the
+untiled scan's own call, whose rounding on a CUDA device follows the
+call's shape), then scan blocks of ``block_width`` columns one after
+another, so the rest of the scan's (K, F, B) tables peak at one block's
+width, and keep the winner across blocks with the untiled tie-break:
+the larger gain, on a tie a numeric or one-hot winner over a sorted
+categorical one, then the lower block.  Every other op of a block's scan
+is elementwise, so the tiled result is the untiled one bit for bit.
+The block width is the JAX package's ``_resolve_tile`` but for auto on a
+CUDA device, which tiles only a scan whose untiled stats table would
+pass ``AUTO_TILE_BYTES``: each block repeats the scan's launches, and
+below that size the blocks cost more time than the memory they save.
+
 Every float op runs in float32 in the JAX package's order, so gains and
 leaf outputs round as the JAX package rounds them.  The cumulative sums
 are ``torch.cumsum`` (double accumulation on the CPU, a parallel scan on a
 CUDA device); where histogram sums are exactly representable (the
 exact-sum tests) any order gives the same bits.
 
-Not ported here: monotone constraints, CEGB penalties, extra_trees,
-feature_contri and the tiled scan (ROADMAP A8.5, A8.7) — the trainer
-refuses those configs.
+Not ported here: monotone constraints, CEGB penalties, extra_trees and
+feature_contri (ROADMAP A8.7) — the trainer refuses those configs.
 """
 
 from __future__ import annotations
@@ -62,6 +76,9 @@ class SplitConfig:
     # a categorical feature with more than max_cat_to_onehot bins (the
     # sorted many-vs-many scan runs)
     use_sorted_categorical: bool = True
+    # feature blocks of the host scan (tpu_split_tile): 0 auto, 1
+    # untiled, >= 2 the block width (_resolve_tile)
+    scan_tile: int = 0
 
 
 class BestSplit(NamedTuple):
@@ -141,30 +158,54 @@ class ScanTables(NamedTuple):
 
     gain_fb: torch.Tensor           # (F, B) masked candidate gains
     num_default_left: torch.Tensor  # (F, B) bool NaN direction
-    stats_mr: tuple                 # 6x (F, B) child stats, NaN -> right
-    stats_ml: tuple                 # 6x (F, B) child stats, NaN -> left
-    cat_stats: tuple                # 6x (F, B) child stats, one-hot cat.
     parent_gain: torch.Tensor
     parent_output: torch.Tensor
+    # the six child stats (GL, HL, CL, GR, HR, CR) of the D evaluated
+    # directions, (6, D, F, B), and the index in D of NaN -> right,
+    # NaN -> left and one-hot "bin == k goes left"
+    stats: torch.Tensor
+    dirs: tuple
+
+
+def _bin_masks(num_bins_per_feature, nan_bins, b: int):
+    """(F, B) bool masks of each feature's bins: in the feature, its NaN
+    bin, its value bins."""
+    f = num_bins_per_feature.reshape(-1).shape[0]
+    biota = torch.arange(b, device=nan_bins.device,
+                         dtype=torch.int32).reshape(1, b)
+    in_feature = biota < num_bins_per_feature.reshape(f, 1)
+    nan_pos = biota == nan_bins.reshape(f, 1)
+    return in_feature, nan_pos, in_feature & ~nan_pos
+
+
+def _bin_cumsums(G, H, C, value_mask):
+    """The value bins' cumulative sums of (..., F, B) channels, one
+    ``torch.cumsum`` a channel along the bins.  On a CUDA device torch
+    blocks that scan by the call's row count, so its sums round by the
+    call's shape: the tiled scan takes them once over every feature, as
+    the untiled one does."""
+    return tuple(torch.cumsum(torch.where(value_mask, x, 0.0), dim=-1)
+                 for x in (G, H, C))
 
 
 def scan_tables(G, H, C, parent_grad, parent_hess, parent_count, *,
                 num_bins_per_feature, nan_bins, is_categorical, feature_mask,
-                cfg: SplitConfig, parent_output=None) -> ScanTables:
+                cfg: SplitConfig, parent_output=None,
+                cums=None) -> ScanTables:
     """Evaluate every candidate of (..., F, B) histogram blocks into masked
     gain/stat tables (the JAX package's ``scan_tables`` without monotone,
     CEGB, extra_trees and feature_contri).  ``parent_*`` are f32 tensors
     of the blocks' leading shape (0-dim for one block) on the
-    histogram's device; every op is elementwise or runs along the bin
-    axis, so a block's tables are the same in a batch as alone."""
+    histogram's device; every op but the cumulative sums
+    (``cums``, :func:`_bin_cumsums` of the blocks, taken here where the
+    caller did not) is elementwise.  The candidate directions (NaN right, NaN left, one-hot)
+    are evaluated as one stacked batch."""
     f, b = G.shape[-2:]
     dev = G.device
     nbpf_c = num_bins_per_feature.reshape(f, 1)
     nanb_c = nan_bins.reshape(f, 1)
-    biota = torch.arange(b, device=dev, dtype=torch.int32).reshape(1, b)
-    in_feature = biota < nbpf_c
-    nan_pos = biota == nanb_c
-    value_mask = in_feature & ~nan_pos
+    in_feature, nan_pos, value_mask = _bin_masks(num_bins_per_feature,
+                                                 nan_bins, b)
     if parent_output is None:
         parent_output = leaf_output(parent_grad, parent_hess, cfg)
     cell = lambda t: t.reshape(t.shape + (1, 1))
@@ -174,61 +215,63 @@ def scan_tables(G, H, C, parent_grad, parent_hess, parent_count, *,
     zero = torch.zeros((), dtype=G.dtype, device=dev)
     neg_inf = torch.full((), _NEG_INF, dtype=G.dtype, device=dev)
 
-    Gv = torch.where(value_mask, G, zero)
-    Hv = torch.where(value_mask, H, zero)
-    Cv = torch.where(value_mask, C, zero)
-    Gn = torch.where(nan_pos, G, zero).sum(dim=-1, keepdim=True)
-    Hn = torch.where(nan_pos, H, zero).sum(dim=-1, keepdim=True)
-    Cn = torch.where(nan_pos, C, zero).sum(dim=-1, keepdim=True)
-    cumG = torch.cumsum(Gv, dim=-1)
-    cumH = torch.cumsum(Hv, dim=-1)
-    cumC = torch.cumsum(Cv, dim=-1)
+    # the six child stats of every direction (NaN right, NaN left,
+    # one-hot "bin == k goes left") in one (6, D, .., F, B) tensor, the
+    # left sums written in place: each direction is evaluated in the same
+    # batched ops, and the winner's stats come out in one gather
+    i_ml = 1 if cfg.has_nan else 0
+    i_cat = i_ml + 1 if cfg.has_categorical else 0
+    stats = torch.empty((6, 1 + i_ml + int(cfg.has_categorical))
+                        + tuple(G.shape), dtype=G.dtype, device=dev)
+    GL, HL, CL, GR, HR, CR = stats.unbind(0)
+    if cums is None:
+        cums = _bin_cumsums(G, H, C, value_mask)
+    for c, x in enumerate((G, H, C)):
+        left = stats[c]
+        left[0].copy_(cums[c])
+        if cfg.has_nan:
+            torch.add(left[0], torch.where(nan_pos, x, zero).sum(
+                dim=-1, keepdim=True), out=left[i_ml])
+        if cfg.has_categorical:
+            left[i_cat].copy_(x)
 
     parent_gain = _parent_gain(parent_grad, parent_hess, parent_output, cfg)
     min_count = float(max(cfg.min_data_in_leaf, 1))
+    torch.sub(parent_grad, GL, out=GR)
+    torch.sub(parent_hess, HL, out=HR)
+    torch.sub(parent_count, CL, out=CR)
+    valid = ((CL >= min_count) & (CR >= min_count)
+             & (HL >= cfg.min_sum_hessian_in_leaf)
+             & (HR >= cfg.min_sum_hessian_in_leaf))
+    gain = (child_gain(GL, HL, CL, parent_output, cfg)
+            + child_gain(GR, HR, CR, parent_output, cfg)
+            - parent_gain)
+    gain = torch.where(valid & (gain > cfg.min_gain_to_split + _EPS),
+                       gain, neg_inf)
+    del valid
 
-    def eval_dir(GL, HL, CL):
-        GR = parent_grad - GL
-        HR = parent_hess - HL
-        CR = parent_count - CL
-        valid = ((CL >= min_count) & (CR >= min_count)
-                 & (HL >= cfg.min_sum_hessian_in_leaf)
-                 & (HR >= cfg.min_sum_hessian_in_leaf))
-        gain = (child_gain(GL, HL, CL, parent_output, cfg)
-                + child_gain(GR, HR, CR, parent_output, cfg)
-                - parent_gain)
-        gain = torch.where(valid & (gain > cfg.min_gain_to_split + _EPS),
-                           gain, neg_inf)
-        return gain, (GL, HL, CL, GR, HR, CR)
-
-    gain_mr, stats_mr = eval_dir(cumG, cumH, cumC)            # NaN -> right
+    gain_mr = gain[0]
     if cfg.has_nan:
-        gain_ml, stats_ml = eval_dir(cumG + Gn, cumH + Hn, cumC + Cn)
-        gain_ml = torch.where(nanb_c < b, gain_ml, neg_inf)
+        gain_ml = torch.where(nanb_c < b, gain[i_ml], neg_inf)
         num_gain = torch.maximum(gain_mr, gain_ml)
         num_default_left = gain_ml > gain_mr
     else:
-        stats_ml = stats_mr
         num_gain = gain_mr
         num_default_left = torch.zeros_like(gain_mr, dtype=torch.bool)
     num_gain = torch.where(value_mask, num_gain, neg_inf)
 
     if cfg.has_categorical:
-        # One-hot categorical: "bin == k goes left".
-        cat_gain, cat_stats = eval_dir(G, H, C)
-        cat_gain = torch.where(in_feature, cat_gain, neg_inf)
+        cat_gain = torch.where(in_feature, gain[i_cat], neg_inf)
         is_cat_col = is_categorical.reshape(f, 1)
         sorted_eligible = is_cat_col & (nbpf_c > cfg.max_cat_to_onehot)
         gain_fb = torch.where(is_cat_col, cat_gain, num_gain)
         gain_fb = torch.where(sorted_eligible, neg_inf, gain_fb)
     else:
-        cat_stats = stats_mr
         gain_fb = num_gain
     gain_fb = torch.where(feature_mask.reshape(f, 1), gain_fb, neg_inf)
     return ScanTables(gain_fb=gain_fb, num_default_left=num_default_left,
-                      stats_mr=stats_mr, stats_ml=stats_ml,
-                      cat_stats=cat_stats, parent_gain=parent_gain,
-                      parent_output=parent_output)
+                      parent_gain=parent_gain, parent_output=parent_output,
+                      stats=stats, dirs=(0, i_ml, i_cat))
 
 
 def _select_from_tables(t: ScanTables, is_categorical,
@@ -252,13 +295,15 @@ def _select_from_tables(t: ScanTables, is_categorical,
                else torch.zeros(lead, dtype=torch.bool, device=dev))
     bdefault_left = torch.where(bis_cat, torch.zeros_like(bis_cat),
                                 at(t.num_default_left))
-
-    def pick(i):
-        return torch.where(bis_cat, at(t.cat_stats[i]),
-                           torch.where(bdefault_left, at(t.stats_ml[i]),
-                                       at(t.stats_mr[i])))
-
-    GL, HL, CL, GR, HR, CR = (pick(i) for i in range(6))
+    # every direction's six stats at the winner in one gather: (6, D, ...)
+    stats = t.stats.reshape(t.stats.shape[:2] + lead + (f * b,))
+    won = torch.gather(stats, -1, flat[None, None, ..., None].expand(
+        stats.shape[:-1] + (1,)))[..., 0]
+    i_mr, i_ml, i_cat = t.dirs
+    picked = torch.where(bis_cat, won[:, i_cat],
+                         torch.where(bdefault_left, won[:, i_ml],
+                                     won[:, i_mr]))
+    GL, HL, CL, GR, HR, CR = picked.unbind(0)
     cat_mask = ((torch.arange(b, device=dev) == bb[..., None])
                 & bis_cat[..., None])
     return BestSplit(gain=bgain, feature=bf.to(torch.int32),
@@ -300,18 +345,44 @@ def select_payload(t: ScanTables, is_categorical, cfg: SplitConfig):
         bis_cat = torch.zeros((), dtype=torch.bool, device=dev)
     bdefault_left = torch.where(bis_cat, torch.zeros_like(bis_cat),
                                 (sel & t.num_default_left).any())
-    zero = torch.zeros((), dtype=gain_fb.dtype, device=dev)
-
-    def take(a):
-        return torch.where(sel, a, zero).sum()
-
-    def pick(i):
-        return torch.where(bis_cat, take(t.cat_stats[i]),
-                           torch.where(bdefault_left, take(t.stats_ml[i]),
-                                       take(t.stats_mr[i])))
-
-    GL, HL, CL, GR, HR, CR = (pick(i) for i in range(6))
+    # every direction's six stats at the winner, each a masked sum of
+    # one element: (6, D)
+    won = torch.where(sel, t.stats, 0.0).sum(dim=(-2, -1))
+    i_mr, i_ml, i_cat = t.dirs
+    picked = torch.where(bis_cat, won[:, i_cat],
+                         torch.where(bdefault_left, won[:, i_ml],
+                                     won[:, i_mr]))
+    GL, HL, CL, GR, HR, CR = picked.unbind(0)
     return bgain, bf, bb, bdefault_left, bis_cat, GL, HL, CL, GR, HR, CR
+
+
+def _resolve_tile(scan_tile: int, f: int) -> int:
+    """Columns a block of a scan over ``f`` columns (0: untiled): an
+    explicit width of 2 or more below ``f``; auto (0) takes 128-wide
+    blocks past 256 columns; 1 never tiles."""
+    if scan_tile >= 2:
+        return 0 if scan_tile >= f else scan_tile
+    if scan_tile == 1:
+        return 0
+    return 128 if f > 256 else 0
+
+
+#: the bytes of the untiled scan's (6, D, K, F, B) float32 stats table
+#: past which auto (``scan_tile`` 0) tiles on a CUDA device
+AUTO_TILE_BYTES = 1 << 30
+
+
+def block_width(cfg: SplitConfig, k: int, f: int, b: int,
+                cuda: bool) -> int:
+    """Columns a block of the scan of ``k`` (f, b) histograms (0:
+    untiled): :func:`_resolve_tile`, but auto on a CUDA device tiles only
+    where the untiled stats table would pass ``AUTO_TILE_BYTES``."""
+    t = _resolve_tile(cfg.scan_tile, f)
+    if t and cfg.scan_tile == 0 and cuda:
+        d = 1 + int(cfg.has_nan) + int(cfg.has_categorical)
+        if 6 * d * k * f * b * 4 <= AUTO_TILE_BYTES:
+            return 0
+    return t
 
 
 def best_split(hist, parent_grad, parent_hess, parent_count, *,
@@ -336,21 +407,65 @@ def best_split_batch(hists, pg, ph, pc, pout, *, num_bins_per_feature,
     parent stats -> a BestSplit of (K,) fields ((K, B) cat_mask), in one
     pass over the leading child axis; one sorted categorical merge serves
     the K leaves.  ``sorted_features``: :func:`sorted_feature_index` of
-    the meta, where the caller holds it (None: found here)."""
-    t = scan_tables(hists[..., 0], hists[..., 1], hists[..., 2], pg, ph, pc,
-                    num_bins_per_feature=num_bins_per_feature,
-                    nan_bins=nan_bins, is_categorical=is_categorical,
-                    feature_mask=feature_mask, cfg=cfg, parent_output=pout)
-    best = _select_from_tables(t, is_categorical, cfg)
+    the meta, where the caller holds it (None: found here).  Blocks of
+    :func:`block_width` features are scanned in turn."""
     if sorted_features is None:
         sorted_features = sorted_feature_index(num_bins_per_feature,
                                                is_categorical, cfg)
+    meta = (num_bins_per_feature, nan_bins, is_categorical, feature_mask)
+    k, f, b = hists.shape[:3]
+    t = block_width(cfg, k, f, b, hists.is_cuda)
+    cums = _bin_cumsums(hists[..., 0], hists[..., 1], hists[..., 2],
+                        _bin_masks(num_bins_per_feature, nan_bins, b)[2])
+    if t == 0:
+        return _scan_block(hists, pg, ph, pc, pout, meta, cfg,
+                           sorted_features, cums)[0]
+    # the sorted columns of each block, cut on the host (one read)
+    sf_host = sorted_features.cpu()
+    blocks = []
+    for lo in range(0, f, t):
+        hi = min(lo + t, f)
+        sf = sf_host[(sf_host >= lo) & (sf_host < hi)] - lo
+        blk, src = _scan_block(hists[:, lo:hi], pg, ph, pc, pout,
+                               tuple(m.reshape(-1)[lo:hi] for m in meta),
+                               cfg, sf.to(sorted_features.device),
+                               tuple(c[:, lo:hi] for c in cums))
+        blocks.append((blk._replace(feature=blk.feature + lo), src))
+    # the untiled tie-break across blocks: the largest gain, then a
+    # numeric or one-hot winner before a sorted categorical one (which
+    # the untiled merge takes only on a strictly larger gain), then the
+    # lowest block
+    nb = len(blocks)
+    gains = torch.stack([b.gain for b, _ in blocks])           # (nb, K)
+    srcs = torch.stack([src for _, src in blocks])
+    iota = torch.arange(nb, device=gains.device)[:, None]
+    key = torch.where(gains == gains.max(dim=0).values,
+                      srcs.long() * nb + iota, 2 * nb)
+    win = key.min(dim=0).indices
+    rows = torch.arange(win.shape[0], device=win.device)
+    return BestSplit(*(torch.stack(field)[win, rows]
+                       for field in zip(*(b for b, _ in blocks))))
+
+
+def _scan_block(hists, pg, ph, pc, pout, meta, cfg: SplitConfig,
+                sorted_features, cums):
+    """The untiled scan of (K, F, B, 3) ``hists`` over their ``meta``
+    (``num_bins_per_feature``, ``nan_bins``, ``is_categorical``,
+    ``feature_mask``) and their bins' cumulative sums ``cums`` with the
+    sorted categorical merge -> (BestSplit of (K,) fields, (K,) bool: the
+    winner is a sorted categorical one)."""
+    nbpf, nanb, iscat, fmask = meta
+    t = scan_tables(hists[..., 0], hists[..., 1], hists[..., 2], pg, ph, pc,
+                    num_bins_per_feature=nbpf, nan_bins=nanb,
+                    is_categorical=iscat, feature_mask=fmask, cfg=cfg,
+                    parent_output=pout, cums=cums)
+    best = _select_from_tables(t, iscat, cfg)
     if not sorted_features.numel():
-        return best
+        return best, torch.zeros_like(best.is_cat)
     return merge_sorted_categorical(
         best, hists.index_select(1, sorted_features), pg, ph, pc, pout,
-        features=sorted_features, num_bins_per_feature=num_bins_per_feature,
-        feature_mask=feature_mask, cfg=cfg)
+        features=sorted_features, num_bins_per_feature=nbpf,
+        feature_mask=fmask, cfg=cfg)
 
 
 # ------------------------------------------------ sorted many-vs-many scan
@@ -481,11 +596,13 @@ def sorted_winner(hists, parent_grad, parent_hess, parent_count,
 
 def merge_sorted_categorical(best: BestSplit, hists, parent_grad,
                              parent_hess, parent_count, parent_output,
-                             **kw) -> BestSplit:
+                             **kw):
     """:func:`sorted_winner` on K leaves' (K, S, B, 3) histograms of the
     sorted columns, taken where it beats ``best`` (a BestSplit of (K,)
     fields) strictly: the JAX package's ``_merge_sorted_categorical``
-    without its CEGB, feature_contri and extra_trees branches."""
+    without its CEGB, feature_contri and extra_trees branches.  Returns
+    (the merged BestSplit, (K,) bool: where the sorted winner was
+    taken)."""
     sg, sf, mask, gl, hl, cl = sorted_winner(
         hists, parent_grad, parent_hess, parent_count, parent_output, **kw)
     better = sg > best.gain
@@ -502,4 +619,4 @@ def merge_sorted_categorical(best: BestSplit, hists, parent_grad,
         count_left=pick(cl, best.count_left),
         sum_grad_right=pick(parent_grad - gl, best.sum_grad_right),
         sum_hess_right=pick(parent_hess - hl, best.sum_hess_right),
-        count_right=pick(parent_count - cl, best.count_right))
+        count_right=pick(parent_count - cl, best.count_right)), better

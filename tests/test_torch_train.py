@@ -615,8 +615,8 @@ REFUSED = [({"save_binary": True}, "A1c"), ({"two_round": True}, "A1c"),
            ({"tpu_serve_request_log": "on"}, "A7f"),
            ({"input_model": "model.txt"}, "A9"),
            ({"group_column": "0"}, "A8.2")]
-#: items of REFUSED that train since slice 13
-PORTED_ITEMS = ("A8.2",)
+#: items of REFUSED that train since slices 13 and 17
+PORTED_ITEMS = ("A8.2", "A8.5")
 
 
 @pytest.mark.parametrize("extra,item", REFUSED,
@@ -628,7 +628,8 @@ def test_refused_values_name_their_item(extra, item):
     if item in PORTED_ITEMS:
         # group_column is read by the file parser (tests/
         # test_torch_parser.py); over arrays it is ignored, as in the JAX
-        # package
+        # package.  The histogram pool and the tiled scan train
+        # (tests/test_torch_pool.py, test_torch_split_tile.py)
         b = lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu")
         assert b.num_trees() == 1
         return
@@ -636,10 +637,12 @@ def test_refused_values_name_their_item(extra, item):
         lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu")
 
 
-#: entries of UNSUPPORTED that train since slice 13 (ROADMAP A8.2, A8.3)
+#: entries of UNSUPPORTED that train since slices 13 and 17 (ROADMAP
+#: A8.2, A8.3, A8.5)
 PORTED = [{"objective": "lambdarank"},
           {"bagging_fraction": 0.5, "bagging_freq": 1},
-          {"data_sample_strategy": "goss"}, {"feature_fraction": 0.5}]
+          {"data_sample_strategy": "goss"}, {"feature_fraction": 0.5},
+          {"histogram_pool_size": 64}]
 
 
 @pytest.mark.parametrize("extra", UNSUPPORTED,
@@ -651,8 +654,9 @@ def test_unsupported_params_raise(extra):
     params = {"objective": "binary", "verbosity": -1, **extra}
     if extra in PORTED:
         # trains now: lambdarank over query groups, sampling over rows
-        # and features (tests/test_torch_ranking.py and
-        # test_torch_sampling.py hold them to the JAX package)
+        # and features, the histogram pool (tests/test_torch_ranking.py,
+        # test_torch_sampling.py and test_torch_pool.py hold them to the
+        # JAX package)
         group = np.full(30, 10) if extra.get("objective") else None
         label = np.clip(np.round(X[:, 0] + 1), 0, 3) if group is not None \
             else y

@@ -16,8 +16,9 @@ exact sums.
 On the card (``cuda`` marker): the kernel against its plain version at
 W in {1, 16}, sibling sizes from 1 row to 100k rows, child histograms and
 payloads bitwise on exact-sum values; on random values run-to-run bitwise
-and within 1e-5 relative of the plain version (``chip_smoke.py``'s
-``wave_agreement``, whose own checks are pinned here on the CPU).  int8
+and held by ``chip_smoke.py``'s ``wave_agreement`` (child histograms
+within 1e-5 relative of the float64 sum of the same cells, payloads to
+the plain version; its own checks are pinned here on the CPU).  int8
 mode: child histograms bitwise on any levels, payloads bitwise on
 power-of-two scales and within ``wave_agreement`` on random scales.  The
 bf16 and packed4 modes against their plain versions the same way at F =
@@ -452,7 +453,7 @@ def test_int8_wave_agrees_with_f32_wave_on_the_scaled_values():
     del f["scale3"]
     h32, p32 = WV.wave_plain(cfg=CFG, **f)
     got = _chip_smoke().wave_agreement(WV.scale_hist(h8, q["scale3"]), p8,
-                                       h32, p32)
+                                       h32, p32, q)
     assert got["splitting_children"] > 0
 
 
@@ -470,13 +471,13 @@ def test_wave_agreement_catches_faults(kind):
     h, p = WV.wave_plain(cfg=CFG, **inp)
     hf, pf = _fault(cs, h, p, kind)
     if kind in ("none", "other_winner_same_gain"):
-        got = cs.wave_agreement(hf, pf, h, p)
+        got = cs.wave_agreement(hf, pf, h, p, inp)
         assert got["other_winner"] == (kind != "none")
         assert got["gain_err_over_bound"] == 0.0
         assert 0 < got["splitting_children"] <= 6  # slot 2 is inactive
     else:
         with pytest.raises(AssertionError):
-            cs.wave_agreement(hf, pf, h, p)
+            cs.wave_agreement(hf, pf, h, p, inp)
 
 
 def test_bounds_count_what_the_function_needs():
@@ -545,7 +546,7 @@ def test_kernel_matches_plain(cuda_device, sizes):
         if exact:
             assert torch.equal(h1, hp) and torch.equal(p1, pp)
         else:
-            _chip_smoke().wave_agreement(h1, p1, hp, pp)
+            _chip_smoke().wave_agreement(h1, p1, hp, pp, inp)
 
 
 @pytest.mark.cuda
@@ -573,7 +574,7 @@ def test_int8_kernel_matches_plain(cuda_device, sizes):
             assert torch.equal(p1, pp)
         else:
             scaled = WV.scale_hist(hp, inp["scale3"])
-            _chip_smoke().wave_agreement(scaled, p1, scaled, pp)
+            _chip_smoke().wave_agreement(scaled, p1, scaled, pp, inp)
 
 
 @pytest.mark.cuda
@@ -614,7 +615,7 @@ def test_new_mode_kernels_match_plain(cuda_device, mode, sizes):
             if exact:
                 assert torch.equal(h1, hp) and torch.equal(p1, pp)
             else:
-                _chip_smoke().wave_agreement(h1, p1, hp, pp)
+                _chip_smoke().wave_agreement(h1, p1, hp, pp, inp)
 
 
 @pytest.mark.cuda
@@ -638,7 +639,7 @@ def test_kernel_child_hists_equal_chunked_twin(cuda_device, mode, sizes):
     hp, pp = WV.wave_plain(cfg=CFG, **inp)
     torch.cuda.synchronize()
     assert torch.equal(h, want)
-    _chip_smoke().wave_agreement(h, p, hp, pp)
+    _chip_smoke().wave_agreement(h, p, hp, pp, inp)
 
 
 @pytest.mark.cuda
@@ -721,11 +722,11 @@ def _check_uint16_kernel(mode, b, f, sizes, exact, device, seed):
     elif kind == "int8":
         assert torch.equal(h1, hp)
         scaled = WV.scale_hist(hp, inp["scale3"])
-        _chip_smoke().wave_agreement(scaled, p1, scaled, pp)
+        _chip_smoke().wave_agreement(scaled, p1, scaled, pp, inp)
     else:
         want = WV.wave_hists_chunked(*(inp[k] for k in HIST_ARGS))
         assert torch.equal(h1, want)
-        _chip_smoke().wave_agreement(h1, p1, hp, pp)
+        _chip_smoke().wave_agreement(h1, p1, hp, pp, inp)
 
 
 @pytest.mark.cuda

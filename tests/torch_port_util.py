@@ -144,10 +144,11 @@ def jax_grow(X, y, params, grad, hess, categorical=(), sample_mask=None,
 
 
 def port_grow(X, y, params, grad, hess, categorical=(), device="cpu",
-              sample_mask=None, **grower_kw):
+              sample_mask=None, pool_counts=None, **grower_kw):
     """The port's grower on the same rows -> (tree fields as numpy,
     row_leaf); ``bundled=True`` as in :func:`jax_grow`, on the port's
-    bundles."""
+    bundles; a ``pool_counts`` dict gets the grower's histogram pool
+    counts."""
     import dataclasses
 
     from lightgbm_tpu_torch.config import Config
@@ -182,6 +183,8 @@ def port_grow(X, y, params, grad, hess, categorical=(), device="cpu",
         torch.ones(f, dtype=torch.bool, device=dev),
         meta["num_bins_per_feature"], meta["nan_bins"],
         meta["is_categorical"], **efb)
+    if pool_counts is not None:
+        pool_counts.update(grow.pool_counts)
     fields = {k: getattr(tree, k).cpu().numpy() for k in TREE_FIELDS}
     fields["num_leaves"] = int(tree.num_leaves)
     return fields, row_leaf.cpu().numpy()
