@@ -10,7 +10,8 @@ objectives with a valid set, metrics and early stopping; text-file input,
 model text loading, continued training and per-feature bins; bagging,
 GOSS and feature_fraction, cv, and learning to rank; sorted many-vs-many
 categorical splits; exclusive feature bundling; the histogram pool and
-the tiled split scan) at full width and
+the tiled split scan; extra_trees and feature_fraction_bynode) at full
+width and
 holds every kernel against its plain PyTorch version and every result
 against an independent reference.
 
@@ -61,7 +62,8 @@ and fused-wave kernels:
 12. serving the trained model: ``Booster.serving_predictor(quantize=
     "int16")`` on 65,536 holdout rows within the pack's error bound of
     ``Booster.predict(raw_score=True)``;
-13. profile: a fresh booster warmed up 3 iterations, then 5 under
+13. profile: a fresh booster warmed up 2 iterations, then 3 (3 and 5
+    until slice 18) under
     ``torch.profiler``: host milliseconds per iteration in each of the
     port's ``record_function`` ranges (``gbdt/*``, ``grower/*``), the
     device's busy and idle share of the window, the top kernels;
@@ -102,15 +104,16 @@ values:
     bitwise on exact sums (int8: histograms always, payloads on
     power-of-two scales), ``wave_agreement`` otherwise, and bitwise equal
     to its own f32 / unpacked launch;
-21. packed4 training: the bench rows binned once at max_bin 15, 50
-    iterations f32, quantized and bf16 (fused; 100 until slice 13); the device bins are
+21. packed4 training: the bench rows binned once at max_bin 15, 25
+    iterations f32, quantized and bf16 (fused; 100 until slice 13, 50
+    until slice 18); the device bins are
     (200,000, 14) uint8, only the packed4 modes launch, and the model text
     equals the same run's with tpu_4bit_bins=false but for the parameter
     line recording that option; holdout AUC, s/iteration and resident
     bin bytes, packed and unpacked;
 22. bf16 training at the bench config: fused, 100 iterations, holdout AUC
-    within 3e-3 of genuine LightGBM's; unfused (``auto``), 10 iterations
-    (20 until slice 13),
+    within 3e-3 of genuine LightGBM's; unfused (``auto``), 5 iterations
+    (20 until slice 13, 10 until slice 18),
     one bf16 histogram launch per root and per smaller sibling (= the
     trees' leaves); two 10-iteration fused runs give equal model text;
 23. timing of each new mode: histogram at N = 200,000 and 10,500,000, wave
@@ -172,7 +175,8 @@ modes, so max_bin above 255 trains through the fused wave:
     runs of 32 rows and pairs on one bin; an exact gain tie across two
     scan blocks (features 1 and 25 at B = 257 and 1,023) that must select
     the lower key; a wave with no valid split at B = 2,047;
-30. fused training at max_bin 1023, 30 iterations: f32 and quantized
+30. fused training at max_bin 1023, 20 iterations (30 until slice 18):
+    f32 and quantized
     under ``auto``, bf16 with ``flat_bf16`` and ``tpu_wave_kernel=fused``;
     only the ``<mode>_uint16`` wave launches, plus one uint16 histogram a
     tree (the root); s/iteration and holdout AUC beside phase 27's
@@ -287,8 +291,9 @@ torch_sampling_ref.json`` (made on the CPU by
 43. sampling at the bench config (phase 10's params and binned rows, 100
     iterations each): bagging 0.7 every iteration with feature_fraction
     0.8, and GOSS on the host (``tpu_device_goss=off``), each at
-    ``bagging_seed`` = ``feature_fraction_seed`` 1 to 8, the mean holdout
-    AUC within 1e-3 of the JAX package's mean over the same seeds (the
+    ``bagging_seed`` = ``feature_fraction_seed`` 1 to 8 for 50 iterations
+    (100 until slice 18), the mean holdout AUC within 1e-3 of the JAX
+    package's mean over the same seeds at the same iteration (the
     same masks, draw for draw; one run's AUC moves ~1e-3 with the
     float32 summation order alone, so the bar holds the mean); GOSS on
     the card (``auto``) and quantized GOSS, one run each, within 3e-3
@@ -302,9 +307,10 @@ torch_sampling_ref.json`` (made on the CPU by
     and GOSS-shaped masks, bit for bit its plain version on exact sums,
     its child histograms bit for bit their twin on random values and the
     payloads within ``wave_agreement``;
-45. ``cv``: 5 stratified folds x 20 rounds on the 200,000 training rows,
-    the last round's ``valid auc-mean`` within 1e-3 and ``-stdv`` within
-    2e-3 of the JAX package's; seconds a fold, peak device memory, the
+45. ``cv``: 5 stratified folds x 10 rounds (the fixture's 20, cut in
+    slice 18) on the 200,000 training rows, the last round's ``valid
+    auc-mean`` within 1e-3 and ``-stdv`` within 2e-3 of the JAX
+    package's at the same round; seconds a fold, peak device memory, the
     memory left after ``cv`` returns;
 46. learning to rank at the repo's MS-LTR width (``make_msltr_like``:
     137 features, 120 documents a query; the rung's 2,270,000 rows cut to
@@ -340,8 +346,8 @@ Sorted many-vs-many categorical splits (slice 15) — against
     with unseen categories and NaN: bit for bit a numpy walk, one launch;
     its model text loaded: rows without a rest-bin category within the
     round-trip bar, the rest-bin rows that differ counted;
-51. one sorted-categorical iteration's ``torch.profiler`` split (3
-    warm-up, 5 profiled): s/iteration beside phase 10's and the
+51. one sorted-categorical iteration's ``torch.profiler`` split (2
+    warm-up, 3 profiled): s/iteration beside phase 10's and the
     ``grower/sorted_cat`` ms an iteration; the slice's launches
     (``slice15_launches`` in the kernels line).
 
@@ -370,7 +376,7 @@ Exclusive feature bundling (slice 16) — against
     ``row_leaf``, f32 and quantized;
 54. phase 52's f32 model served as an int16 pack on 65,536 holdout rows:
     bit for bit a numpy walk, one launch; one bundled iteration's
-    ``torch.profiler`` split (3 warm-up, 5 profiled): the
+    ``torch.profiler`` split (2 warm-up, 3 profiled): the
     ``grower/efb_scan`` ms an iteration; the slice's launches
     (``slice16_launches`` in the kernels line).
 
@@ -400,6 +406,35 @@ kernel from its slot; the host scans in feature blocks:
     memory both ways, and a profiled run at 128 beside phase 54's at the
     default: the ``grower/efb_scan`` ms an iteration; the slice's
     launches (``slice17_launches`` in the kernels line).
+
+extra_trees and feature_fraction_bynode (slice 18): per-node feature
+masks and random thresholds drawn on the host, read by the fused wave
+kernel's scans as a (W, 2, F) node table; against
+``tests/fixtures/torch_randomized_ref.json`` (made on the CPU by
+``tools/gen_torch_randomized_fixture.py``):
+
+59. the wave kernel with random node tables (features off, every
+    threshold, one bin: NaN and phantom bins included, a child with every
+    feature off) in f32, int8, bf16, f32 packed4 and f32 uint16, W = 1
+    and 16 with inactive slots: bit for bit its plain version on exact
+    sums (int8: power-of-two scales), held by ``wave_agreement`` on
+    random values; an all-(-1) table gives the payload of no table; the
+    16 x 12,500 wave timed with and without a table;
+60. phase 10's rows and params under ``extra_trees`` and
+    ``feature_fraction_bynode`` 0.5, f32 through the fused wave, and
+    quantized ``extra_trees``, each at the fixture's four seeds and 50
+    iterations: the mean holdout AUC within the fixture's bar
+    (``max(1e-3, 3 s / 2)``, quantized ``max(3e-3, ...)``) of the JAX
+    package's mean, s/iteration beside phase 10's, only the expected
+    kernel modes launched; two 10-iteration runs with both options give
+    equal model text;
+61. exact-sum gradients on 20,000 rows of phase 10's, phase 48's and
+    phase 52's (bundled) data with both options: the fused and unfused
+    growers on the card equal the CPU grower's trees and ``row_leaf``,
+    f32 and quantized (the draws are made on the host);
+62. phase 60's first f32 model served as an int16 pack on 65,536 holdout
+    rows: bit for bit a numpy walk, one launch; the slice's launches
+    (``slice18_launches`` in the kernels line).
 
 Phase 29's and every other ``wave_agreement`` hold the wave kernel's
 child histograms to the float64 sum of the same cells
@@ -1141,7 +1176,7 @@ def profiler_events(prof):
             for ev in res.events()]
 
 
-def profile_phase(params, ds, dev, warmup=3, iters=5):
+def profile_phase(params, ds, dev, warmup=2, iters=3):
     """13. Train ``warmup`` iterations of a fresh booster, then ``iters``
     more under ``torch.profiler``, read by :func:`read_profile`."""
     prof, wall = profile_training(params, ds, dev, warmup, iters)
@@ -1469,9 +1504,9 @@ def train_phase(dev, fix, rows, name, extra, ds, hist_mode, wave_mode,
 
 
 def training_phases(seed, dev, smi):
-    """Phases 8-58; returns the histogram and wave entries of the kernels
-    line, every mode, phase 35's serving record and phases 46's, 50's and
-    54's traversal launches."""
+    """Phases 8-62; returns the histogram and wave entries of the kernels
+    line, every mode, phase 35's serving record and phases 46's, 50's,
+    54's and 62's traversal launches."""
     import torch
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.models.tree import quantize_error_bound
@@ -1613,6 +1648,8 @@ def training_phases(seed, dev, smi):
     s16_launches, s16 = slice16_phases(dev, fix, rec, seed)
     # 55-58. the histogram pool and the tiled scan (slice 17)
     s17_launches = slice17_phases(gen, dev, fix, rows, ds, rec, s16)
+    # 59-62. extra_trees and feature_fraction_bynode (slice 18)
+    s18_launches = slice18_phases(gen, dev, fix, rows, ds, rec, s16, seed)
     del s16
 
     h = timing[f"histogram/{HIST_TIMING_ROWS[0]}"]
@@ -1692,6 +1729,16 @@ def training_phases(seed, dev, smi):
                 kernel, 0)
             require(extra["slice17_launches"] > 0,
                     f"{name}: no launch on the slice-17 paths")
+        # launches on phases 59-62's paths (extra_trees,
+        # feature_fraction_bynode): f32 and int8 only
+        if name in s13_modes:
+            mode, kernel = s13_modes[name]
+            extra["slice18_launches"] = s18_launches.get(mode, {}).get(
+                kernel, 0)
+            require(extra["slice18_launches"] > 0,
+                    f"{name}: no launch on the slice-18 paths")
+        else:
+            extra["slice18_launches"] = 0
         if name in obj_modes:
             # launches on phases 32-37's paths (objectives, valid sets)
             kernel = name.split("_")[0]
@@ -1710,7 +1757,8 @@ def training_phases(seed, dev, smi):
             "library_ms": t.get("library_ms"), "rows": nrows, **extra,
             **({"stage_ms": t["stage_ms"]} if "stage_ms" in t else {})})
     return entries, obj_serve, s13_launches["traverse"], \
-        s15_launches["traverse"], s16_launches["traverse"]
+        s15_launches["traverse"], s16_launches["traverse"], \
+        s18_launches["traverse"]
 
 
 def int8_timing(gen, dev, smi):
@@ -2037,10 +2085,10 @@ def twin_wave_phase(gen, dev):
           "cases": out})
 
 
-#: depths of phases 21 and 22's comparison runs, cut in slice 13 to make
-#: room for phases 43-47 (widths unchanged)
-PACKED4_ITERS = 50
-BF16_UNFUSED_ITERS = 10
+#: depths of phases 21 and 22's comparison runs, cut in slices 13 and 18
+#: to make room for phases 43-47 and 59-62 (widths unchanged)
+PACKED4_ITERS = 25
+BF16_UNFUSED_ITERS = 5
 
 
 def resident_bins(bst):
@@ -2236,9 +2284,10 @@ U16_WAVE_BINS = (257, 511, 1023, 2047, 4095)
 U16_WAVE_LARGE = ([300], 65536)
 #: phase 30's fused runs: iterations (their s/iteration and AUC are
 #: reported, not held to a bar; cut from 100 to keep the smoke within its
-#: time limit), and the iterations at which fused and unfused runs are
-#: held to one AUC (within FUSED_AUC_TOL) and two runs to one model text
-FUSED_ITERS = 30
+#: time limit; 30 until slice 18), and the iterations at which fused and
+#: unfused runs are held to one AUC (within FUSED_AUC_TOL) and two runs to
+#: one model text
+FUSED_ITERS = 20
 FUSED_CHECK_ITERS = 10
 FUSED_AUC_TOL = 1e-3
 #: phase 29's waves whose bins push the uint16 kernels: lane patterns of
@@ -3551,7 +3600,14 @@ SAMPLING_RUNS = (
     ("goss_quantized", {"data_sample_strategy": "goss",
                         "use_quantized_grad": True}, "int8", 3e-3))
 SAMPLING_REPEAT_ITERS = 10
+#: iterations of the seeded runs: the fixture's 100 cut in slice 18 for
+#: the time limit (the fixture holds each seed's AUC after every
+#: iteration)
+SAMPLING_SEED_ITERS = 50
 CV_MEAN_TOL, CV_STDV_TOL = 1e-3, 2e-3
+#: phase 45's rounds: the fixture's 20 cut in slice 18 for the time limit
+#: (the fixture holds every round's mean and stdv)
+CV_ROUNDS = 10
 #: holdout ndcg@k bars against the fixture: lambdarank's gradients are
 #: the JAX package's to float32 rounding, XE-NDCG's gammas another
 #: generator's
@@ -3590,9 +3646,11 @@ def masked(vals, mask):
 def sampling_phase(dev, fix, rows, ds, ref):
     """43. The bench config under bagging + feature_fraction and GOSS on
     the card, GOSS on the host and quantized GOSS, 100 iterations each
-    through the histogram and fused-wave kernels, held to the JAX
-    package's holdout AUC (``ref``); two device-GOSS runs give one model
-    text.  Returns the launches of each mode."""
+    (the seeded runs ``SAMPLING_SEED_ITERS``) through the histogram and
+    fused-wave kernels, held to the JAX package's holdout AUC (``ref``;
+    the seeded runs' mean to its mean at the same iteration); two
+    device-GOSS runs give one model text.  Returns the launches of each
+    mode."""
     import lightgbm_tpu_torch as lgt
     out = {"f32": {"histogram": 0, "wave": 0},
            "int8": {"histogram": 0, "wave": 0}}
@@ -3602,14 +3660,15 @@ def sampling_phase(dev, fix, rows, ds, ref):
         require(all(want["params"].get(k) == v for k, v in extra.items()),
                 f"{name}: the fixture's params differ from {extra}")
         seeds = want.get("seeds", [None])
+        iters = (want["iterations"] if seeds == [None]
+                 else SAMPLING_SEED_ITERS)
         aucs, secs = [], []
         for seed in seeds:
             run = extra if seed is None else dict(
                 extra, bagging_seed=seed, feature_fraction_seed=seed)
             tag = f"train_{name}" + ("" if seed is None else f"_seed{seed}")
             bst, params, rec = train_phase(
-                dev, fix, rows, tag, run, ds, mode, mode,
-                iters=want["iterations"],
+                dev, fix, rows, tag, run, ds, mode, mode, iters=iters,
                 ref=(want["holdout_auc"], bar) if seed is None else None)
             on_dev = bst._gbdt.goss_on_device()
             require(on_dev == (name in ("goss_device", "goss_quantized")),
@@ -3623,18 +3682,21 @@ def sampling_phase(dev, fix, rows, ds, ref):
             del bst
         if seeds != [None]:
             # one run's AUC moves ~1e-3 with the float32 summation order
-            # alone: the card is held to the mean over the seeds
-            gap = float(np.mean(aucs)) - want["holdout_auc_mean"]
+            # alone: the card is held to the mean over the seeds, at the
+            # runs' last iteration
+            ref_by_seed = [h[iters - 1]
+                           for h in want["holdout_auc_history_by_seed"]]
+            ref_mean = float(np.mean(ref_by_seed))
+            gap = float(np.mean(aucs)) - ref_mean
             require(abs(gap) <= bar, f"{name}: mean holdout AUC over seeds "
                     f"{seeds} {np.mean(aucs)} not within {bar} of the JAX "
-                    f"package's {want['holdout_auc_mean']}")
+                    f"package's {ref_mean} at iteration {iters}")
             emit({"phase": f"sampling_{name}", "seeds": seeds,
-                  "holdout_auc_by_seed": aucs,
-                  "ref_holdout_auc_by_seed": want["holdout_auc_by_seed"],
-                  "gap_by_seed": [a - b for a, b in zip(
-                      aucs, want["holdout_auc_by_seed"])],
+                  "iterations": iters, "holdout_auc_by_seed": aucs,
+                  "ref_holdout_auc_by_seed": ref_by_seed,
+                  "gap_by_seed": [a - b for a, b in zip(aucs, ref_by_seed)],
                   "holdout_auc_mean": float(np.mean(aucs)),
-                  "ref_holdout_auc_mean": want["holdout_auc_mean"],
+                  "ref_holdout_auc_mean": ref_mean,
                   "mean_gap": gap, "bar": bar,
                   "s_per_iteration_mean": float(np.mean(secs))})
     t0 = time.perf_counter()
@@ -3741,9 +3803,9 @@ def masked_kernel_phase(gen, dev, fix, ds):
 
 def cv_phase(dev, fix, rows, ref):
     """45. ``lightgbm_tpu_torch.cv`` at the bench config: 5 stratified
-    folds x 20 rounds on the 200,000 training rows (each fold binned
-    anew), the last round's ``valid auc-mean`` / ``-stdv`` held to the JAX
-    package's; seconds a fold, peak device memory, and the memory left
+    folds x ``CV_ROUNDS`` rounds on the 200,000 training rows (each fold
+    binned anew), the last round's ``valid auc-mean`` / ``-stdv`` held to
+    the JAX package's at the same round; seconds a fold, peak device memory, and the memory left
     after ``cv`` returns (no fold booster kept).  Returns the f32
     launches."""
     import torch
@@ -3765,7 +3827,7 @@ def cv_phase(dev, fix, rows, ref):
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
     t0 = time.perf_counter()
-    res = lgt.cv(params, lgt.Dataset(X[:nt], label=y[:nt]), want["rounds"],
+    res = lgt.cv(params, lgt.Dataset(X[:nt], label=y[:nt]), CV_ROUNDS,
                  nfold=want["nfold"], stratified=want["stratified"],
                  seed=want["seed"], callbacks=[fold_clock], device=dev)
     torch.cuda.synchronize()
@@ -3774,26 +3836,28 @@ def cv_phase(dev, fix, rows, ref):
     peak = torch.cuda.max_memory_allocated()
     after = torch.cuda.memory_allocated()
     ran = _launch_modes(launches)
-    trees = want["nfold"] * want["rounds"]
+    trees = want["nfold"] * CV_ROUNDS
     require(set(ran["histogram"]) == {"f32"} and set(ran["wave"]) == {"f32"},
             f"cv: kernels launched {ran}")
     require(launches["histogram"]["f32"] == trees,
             f"cv: {launches['histogram']['f32']} root histograms for "
             f"{trees} trees")
     mean, stdv = res["valid auc-mean"], res["valid auc-stdv"]
-    require(len(mean) == want["rounds"], f"cv: {len(mean)} rounds")
-    d_mean = mean[-1] - want["auc_mean"][-1]
-    d_stdv = stdv[-1] - want["auc_stdv"][-1]
+    require(len(mean) == CV_ROUNDS, f"cv: {len(mean)} rounds")
+    ref_mean = want["auc_mean"][CV_ROUNDS - 1]
+    ref_stdv = want["auc_stdv"][CV_ROUNDS - 1]
+    d_mean = mean[-1] - ref_mean
+    d_stdv = stdv[-1] - ref_stdv
     require(abs(d_mean) <= CV_MEAN_TOL, f"cv: auc-mean {mean[-1]} vs the "
-            f"JAX package's {want['auc_mean'][-1]}")
+            f"JAX package's {ref_mean}")
     require(abs(d_stdv) <= CV_STDV_TOL, f"cv: auc-stdv {stdv[-1]} vs the "
-            f"JAX package's {want['auc_stdv'][-1]}")
+            f"JAX package's {ref_stdv}")
     ends = starts[1:] + [t0 + total]
     emit({"phase": "cv", "rows": nt, "nfold": want["nfold"],
-          "rounds": want["rounds"], "stratified": True,
+          "rounds": CV_ROUNDS, "stratified": True,
           "auc_mean": mean[-1], "auc_stdv": stdv[-1],
-          "ref_auc_mean": want["auc_mean"][-1],
-          "ref_auc_stdv": want["auc_stdv"][-1], "mean_gap": d_mean,
+          "ref_auc_mean": ref_mean, "ref_auc_stdv": ref_stdv,
+          "mean_gap": d_mean,
           "stdv_gap": d_stdv, "seconds": total,
           "fold_seconds": [e - s for s, e in zip(starts, ends)],
           "peak_device_bytes": peak, "device_bytes_before": before,
@@ -4870,6 +4934,387 @@ def slice17_phases(gen, dev, fix, rows, ds, rec10, s16):
     return launches
 
 
+# ------------------ slice 18: extra_trees and feature_fraction_bynode
+RANDOMIZED_FIXTURE = os.path.join("tests", "fixtures",
+                                  "torch_randomized_ref.json")
+#: phase 60's runs: (fixture run name, extra params, histogram and wave
+#: modes); each at the fixture's seeds with extra_seed =
+#: feature_fraction_seed = the seed, for the fixture's iterations.  The
+#: bar, written in the fixture before any card run: the mean holdout AUC
+#: over the seeds within max(floor, 3 s / sqrt(seeds)) of the JAX
+#: package's mean (floor 1e-3 f32, 3e-3 quantized)
+RANDOMIZED_RUNS = (
+    ("extra_trees", {"extra_trees": True}, "f32"),
+    ("bynode", {"feature_fraction_bynode": 0.5}, "f32"),
+    ("extra_trees_quantized", {"extra_trees": True,
+                               "use_quantized_grad": True,
+                               "stochastic_rounding": False}, "int8"),
+)
+#: phase 60's determinism runs: both options, this many iterations, twice
+RANDOMIZED_REPEAT_ITERS = 10
+#: phase 59's waves: (name, slot sizes, inactive slots)
+NODE_WAVES = (("W1", (20_000,), ()),
+              ("W16", (2_000,) * 16, (3, 11)))
+#: phase 59's modes and their bins
+NODE_MODES = (("f32", 255), ("int8", 255), ("bf16", 255),
+              ("f32_packed4", 16), ("f32_uint16", WIDE_MAX_BIN))
+#: phase 61's rows (exact-sum gradients, three growers a dataset)
+NODE_GROW_ROWS = 20_000
+#: phase 62's request rows
+NODE_SERVE_ROWS = 65_536
+
+
+def node_case(gen, inp):
+    """A random (W, 2, F) node table for the wave ``inp``
+    (``wave_case``'s): per child and feature 30% off (-2), 10% every
+    threshold (-1), else one bin below the feature's bins; a fifth of the
+    draws on a NaN feature's NaN bin (B - 1), a third of the one-hot
+    categorical's (feature 3) on its phantom bins (4 .. B - 1); slot 0's
+    right child has every feature off."""
+    import torch
+    from lightgbm_tpu_torch.ops.wave import NODE_ALL, NODE_OFF
+    meta = inp["meta"]
+    dev = meta.device
+    w, f, b = inp["parent"].shape[0], meta.shape[0], inp["num_bins"]
+    shape = (w, 2, f)
+    u = lambda: torch.rand(shape, generator=gen, device=dev)
+    nb = meta[:, 0].long()
+    node = torch.randint(0, 1 << 30, shape, generator=gen,
+                         device=dev) % nb
+    has_nan = (meta[:, 1] < b)
+    node = torch.where(has_nan & (u() < 0.2), b - 1, node)
+    node[..., 3] = torch.where(
+        u()[..., 3] < 1 / 3, 4 + node[..., 3] % max(b - 4, 1),
+        node[..., 3] % 4)
+    node = torch.where(u() < 0.1, NODE_ALL, node)
+    node = torch.where(u() < 0.3, NODE_OFF, node)
+    node[0, 1] = NODE_OFF
+    return node.to(torch.int32).contiguous()
+
+
+def node_kernel_phase(gen, dev):
+    """59. The wave kernel with a node table against its plain version, in
+    f32, int8, bf16, f32 packed4 and f32 uint16 (the wide scan), at W = 1
+    and W = 16 with inactive slots, on random tables (``node_case``): on
+    exact sums (int8: power-of-two scales) child histograms and payloads
+    bit for bit the plain version's; on random values (int8: random
+    scales) held by ``wave_agreement``; an all-(-1) table gives the
+    payload of the launch without a table bit for bit (random values).
+    Then the default wave (16 x 12,500, f32) timed with and without a
+    table.  Returns {"cases": n, "worst": the largest payload gain error
+    against the plain version over random-value cases}."""
+    import torch
+    from lightgbm_tpu_torch.ops import wave as WV
+    from lightgbm_tpu_torch.ops.split import SplitConfig
+    cfg = SplitConfig(min_data_in_leaf=0, min_sum_hessian_in_leaf=1.0,
+                      lambda_l2=0.5, max_cat_to_onehot=4)
+    rand = torch.rand(2, generator=gen, device=dev) * 0.02 + 1e-3
+    random_scales = (float(rand[0]), float(rand[1]), 1.0)
+    cases, worst, off_children = [], 0.0, 0
+    for mode, b in NODE_MODES:
+        kind = mode.split("_")[0]
+        for wname, sizes, inactive in NODE_WAVES:
+            for exact in (True, False):
+                int8 = kind == "int8"
+                scales = ((POW2_SCALES if exact else random_scales)
+                          if int8 else None)
+                inp = wave_case(gen, dev, list(sizes), exact or int8, b=b,
+                                inactive=inactive, scales=scales, mode=mode)
+                node = node_case(gen, inp)
+                h, p = WV.fused_wave_call(cfg=cfg, node=node, **inp)
+                hp, pp = WV.wave_plain(cfg=cfg, node=node, **inp)
+                torch.cuda.synchronize()
+                tag = f"{mode} {wname} {'exact' if exact else 'random'}"
+                if exact:
+                    require(torch.equal(h, hp) and torch.equal(p, pp),
+                            f"phase 59 {tag}: kernel with a node table != "
+                            "plain version")
+                elif int8:
+                    # integer sums: the histograms are exact in any order
+                    require(torch.equal(h, hp), f"phase 59 {tag}: kernel "
+                            "histograms != plain version")
+                    sh = WV.scale_hist(hp, inp["scale3"])
+                    agree = wave_agreement(sh, p, sh, pp, inp)
+                else:
+                    agree = wave_agreement(h, p, hp, pp, inp)
+                if not exact:
+                    worst = max(worst, agree["gain_rel_err"])
+                    _, p_all = WV.fused_wave_call(
+                        cfg=cfg, node=torch.full_like(node, WV.NODE_ALL),
+                        **inp)
+                    _, p_none = WV.fused_wave_call(cfg=cfg, **inp)
+                    torch.cuda.synchronize()
+                    require(torch.equal(p_all, p_none),
+                            f"phase 59 {tag}: an all-(-1) table != no "
+                            "table")
+                require(bool(torch.isinf(p[0, 1, 0])),
+                        f"phase 59 {tag}: a child with every feature off "
+                        "has a finite gain")
+                for j in inactive:
+                    require(bool(torch.isinf(p[j, :, 0]).all()),
+                            f"phase 59 {tag}: inactive slot {j} has a "
+                            "finite gain")
+                off_children += int(torch.isinf(p[..., 0]).sum())
+                cases.append(tag)
+    inp = wave_case(gen, dev, list(WAVE_TIMING_SIZES), exact=False)
+    node = node_case(gen, inp)
+    times = {"table_ms": cuda_time_ms(
+        lambda: WV.fused_wave_call(cfg=cfg, node=node, **inp), iters=20),
+        "no_table_ms": cuda_time_ms(
+        lambda: WV.fused_wave_call(cfg=cfg, **inp), iters=20)}
+    emit({"phase": "node_table_kernel", "bitwise_exact": True,
+          "cases": cases, "worst_random_gain_rel_err": worst,
+          "children_without_a_split": off_children,
+          "timing_16x12500_f32": times})
+    return {"cases": len(cases), "worst": worst}
+
+
+def randomized_training(dev, fix, rows, ds, rec10, ref):
+    """60. Phase 10's rows and params under ``extra_trees`` and
+    ``feature_fraction_bynode`` 0.5, each at the fixture's seeds, f32
+    through the fused wave, and quantized ``extra_trees`` (deterministic
+    rounding): each configuration's mean holdout AUC within its bar
+    (``RANDOMIZED_RUNS``) of the JAX package's mean
+    (tests/fixtures/torch_randomized_ref.json); only the expected kernel
+    modes launch; two 10-iteration runs with both options give equal
+    model text; one such iteration's ``torch.profiler`` split (2 warm-up,
+    3 profiled) beside phase 13's.  Returns (the first f32 extra_trees
+    booster, launches by mode)."""
+    import lightgbm_tpu_torch as lgt
+    iters = ref["iterations"]
+    launches, results, first = {}, {}, None
+    for name, extra, mode in RANDOMIZED_RUNS:
+        want = ref["runs"][name]
+        require(want["extra"] == extra, f"phase 60 {name}: the fixture ran "
+                f"{want['extra']}")
+        aucs, secs = [], []
+        for seed in want["seeds"]:
+            bst, _params, rec = train_phase(
+                dev, fix, rows, f"randomized_{name}_seed{seed}",
+                dict(extra, extra_seed=seed, feature_fraction_seed=seed), ds,
+                mode, mode, iters=iters)
+            aucs.append(rec["holdout_auc"])
+            secs.append(rec["s_per_iteration"])
+            for kernel in ("histogram", "wave"):
+                lm = launches.setdefault(mode, {"histogram": 0, "wave": 0})
+                lm[kernel] += rec[f"{kernel}_launches"]
+            if first is None:
+                first = bst
+        mean = float(np.mean(aucs))
+        gap = mean - want["holdout_auc_mean"]
+        require(abs(gap) <= want["bar"], f"phase 60 {name}: mean holdout AUC "
+                f"{mean} not within {want['bar']} of the JAX package's "
+                f"{want['holdout_auc_mean']}")
+        results[name] = {"holdout_auc_by_seed": aucs, "mean": mean,
+                         "std": float(np.std(aucs, ddof=1)),
+                         "jax_mean": want["holdout_auc_mean"],
+                         "jax_std": want["holdout_auc_std"], "gap": gap,
+                         "bar": want["bar"],
+                         "s_per_iteration": float(np.mean(secs))}
+    prm = dict(fix["params"], tpu_leaf_batch=16, extra_trees=True,
+               feature_fraction_bynode=0.5)
+    prm.pop("num_iterations")
+    t0 = time.perf_counter()
+    texts = [lgt.train(prm, ds, RANDOMIZED_REPEAT_ITERS,
+                       device=dev).model_to_string() for _ in range(2)]
+    require(texts[0] == texts[1], "phase 60: two runs with extra_trees and "
+            "feature_fraction_bynode gave different model text")
+    repeat_s = time.perf_counter() - t0
+    emit({"phase": "randomized_training", "iterations": iters,
+          "runs": results, "phase10_s_per_iteration": rec10["s_per_iteration"],
+          "determinism": {"iterations": RANDOMIZED_REPEAT_ITERS,
+                          "equal": True, "seconds": repeat_s}})
+    # where an iteration with both options goes, beside phase 13's
+    emit({**profile_phase(prm, ds, dev), "training": "extra_trees_bynode_f32",
+          "phase10_s_per_iteration": rec10["s_per_iteration"]})
+    return first, launches
+
+
+def node_grower_phase(dev, fix, rows, s16):
+    """61. Exact-sum gradients that follow the label (0.5 - y and 0.25;
+    quantized: the same signs times magnitudes in (0, 1], power-of-two
+    scales) on ``NODE_GROW_ROWS`` rows of three datasets: phase 10's
+    bench rows, phase 48's categorical rows and phase 52's bundled matrix
+    (its bundles, ``min_sum_hessian_in_leaf`` 1 as phase 53).  Under
+    ``extra_trees`` and ``feature_fraction_bynode`` 0.5 (W = 16), each
+    grower given its own host node generator of one seed: the grower
+    through the fused wave kernel on the card, the
+    ``tpu_wave_kernel=unfused`` grower on the card and the CPU grower give
+    equal trees and ``row_leaf``, f32 and quantized.  Returns launches by
+    mode."""
+    import dataclasses
+    import torch
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.dataset import TrainData
+    from lightgbm_tpu_torch.models.gbdt import _split_config
+    from lightgbm_tpu_torch.models.grower import (GrowerConfig, make_grower,
+                                                  node_generator,
+                                                  wave_fused_for)
+    from lightgbm_tpu_torch.ops.bundle import bundle_tables
+    root = os.path.dirname(os.path.abspath(__file__))
+    n = NODE_GROW_ROWS
+    rng = np.random.RandomState(61)
+    bench_p = dict(fix["params"], verbosity=-1)
+    with open(os.path.join(root, CAT_FIXTURE)) as fh:
+        cref = json.load(fh)
+    cd = cref["data"]
+    Xc, yc, cat_cols = make_airline_like(cd["n_train"] + cd["n_valid"],
+                                         cd["seed"])
+    td52 = s16["ds"].construct()
+    efb_p = dict(s16["params"], verbosity=-1,
+                 min_sum_hessian_in_leaf=EFB_GROW_MIN_HESSIAN)
+    X, y = rows
+    sets = (
+        ("bench", TrainData.build(X[:n], y[:n], Config(bench_p)), bench_p,
+         None),
+        ("categorical", TrainData.build(
+            Xc[:n], yc[:n], Config(dict(cref["params"], verbosity=-1)),
+            categorical_features=cat_cols), cref["params"], None),
+        ("bundled", td52, efb_p, td52.build_bundles(Config(efb_p))))
+    launches, cases = {}, {}
+    cpu = torch.device("cpu")
+    for dname, td, params, fb in sets:
+        cfg = Config(dict(params, verbosity=-1))
+        lab = np.asarray(td.label[:n], np.float64)
+        exact = ((0.5 - lab).astype(np.float32),
+                 np.full(n, 0.25, np.float32))
+        gq = ((1.0 - 2.0 * lab) * rng.uniform(0.05, 1, n)).astype(np.float32)
+        hq = rng.uniform(0.01, 1, n).astype(np.float32)
+        gq[0], hq[1] = np.float32(1.0 - 2.0 * lab[0]), 1.0
+        base = GrowerConfig(num_leaves=cfg.num_leaves,
+                            num_bins=td.binned.max_num_bins,
+                            split=_split_config(cfg, td), leaf_batch=16,
+                            extra_trees=True, feature_fraction_bynode=0.5)
+        host_bins = np.ascontiguousarray(
+            (td.binned.bins if fb is None else fb.bins)[:n])
+        if dname == "bundled":
+            require(fb is not None and fb.bins.dtype == np.uint8,
+                    "phase 61: phase 52's matrix is not uint8 bundles")
+        if dname == "categorical":
+            require(base.split.use_sorted_categorical,
+                    "phase 61: no sorted categorical feature")
+        wide = "_uint16" if host_bins.dtype == np.uint16 else ""
+
+        def grow(device, grads, **kw):
+            gcfg = dataclasses.replace(base, **kw)
+            meta = td.feature_meta_device(device)
+            efb = ({} if fb is None else {"bundle": bundle_tables(
+                fb, td.binned.num_bins_per_feature, base.num_bins, device)})
+            tree, row_leaf = make_grower(gcfg)(
+                torch.from_numpy(host_bins).to(device),
+                torch.from_numpy(grads[0]).to(device),
+                torch.from_numpy(grads[1]).to(device),
+                torch.ones(n, device=device),
+                torch.ones(td.num_features, dtype=torch.bool, device=device),
+                meta["num_bins_per_feature"], meta["nan_bins"],
+                meta["is_categorical"],
+                node_generator=node_generator(18, 0), **efb)
+            out = {k: getattr(tree, k).cpu().numpy() for k in TREE_FIELDS}
+            out["num_leaves"] = int(tree.num_leaves)
+            out["row_leaf"] = row_leaf.cpu().numpy()
+            return out
+
+        for name, grads, kw, mode in (
+                ("f32", exact, {}, "f32" + wide),
+                ("quantized", (gq, hq), {"quantized": True,
+                                         "stochastic_rounding": False},
+                 "int8" + wide)):
+            require(wave_fused_for(dataclasses.replace(base, **kw), dev),
+                    "phase 61: auto does not fuse on the card")
+            t0 = time.perf_counter()
+            want = grow(cpu, grads, **kw)
+            cpu_s = time.perf_counter() - t0
+            _zero_launches()
+            t0 = time.perf_counter()
+            fused = grow(dev, grads, **kw)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            fl = _read_launches()
+            unfused = grow(dev, grads, wave_kernel="unfused", **kw)
+            ul = _read_launches()
+            require(fl["wave"][mode] > 0 and fl["histogram"][mode] == 1,
+                    f"phase 61 {dname} {name}: fused grower launched {fl}")
+            require(ul["wave"][mode] == fl["wave"][mode]
+                    and ul["histogram"][mode] > fl["histogram"][mode],
+                    f"phase 61 {dname} {name}: unfused grower launched {ul}")
+            require(want["num_leaves"] > 2,
+                    f"phase 61 {dname} {name}: a stump")
+            for label, got in (("fused", fused), ("unfused", unfused)):
+                require(same_tree(got, want), f"phase 61 {dname} {name}: "
+                        f"the {label} grower on the card differs from the "
+                        "CPU grower")
+            lm = launches.setdefault(mode, {"histogram": 0, "wave": 0})
+            for kernel in ("histogram", "wave"):
+                lm[kernel] += ul[kernel][mode]
+            m = want["num_leaves"] - 1
+            cases[f"{dname}/{name}"] = {
+                "leaves": want["num_leaves"],
+                "categorical_nodes": int(want["is_cat"][:m].sum()),
+                "features_split": int(len(set(want["split_feature"][:m]))),
+                "cpu_s": cpu_s, "card_fused_s": card_s,
+                "launches_fused": {k: fl[k][mode] for k in fl},
+                "launches_unfused": {k: ul[k][mode] - fl[k][mode]
+                                     for k in ul}}
+    require(cases["categorical/f32"]["categorical_nodes"] > 0,
+            "phase 61: no categorical split on the categorical rows")
+    emit({"phase": "randomized_growers_equal", "rows": n, "cases": cases})
+    return launches
+
+
+def randomized_serving_phase(dev, fix, rows, bst, seed):
+    """62. Phase 60's first f32 extra_trees model served as an int16 pack
+    on ``NODE_SERVE_ROWS`` holdout rows: bit for bit a numpy walk of the
+    pack, one traversal launch.  Returns the launches."""
+    import torch
+    from lightgbm_tpu_torch.ops import traverse
+    X, _y = rows
+    nt = fix["data"]["n_train"]
+    rng = np.random.RandomState(seed + 62)
+    req = X[nt:][rng.randint(0, X.shape[0] - nt, NODE_SERVE_ROWS)]
+    binned = bst._gbdt.train_data.binned
+    pred = bst.serving_predictor(quantize="int16", raw_score=True)
+    traverse.launches = 0
+    t0 = time.perf_counter()
+    served = pred.predict(req)
+    torch.cuda.synchronize()
+    request_ms = (time.perf_counter() - t0) * 1e3
+    launches = traverse.launches
+    require(launches == 1, f"{launches} traversal launches for one request")
+    pack = pred.plan._packs[0]
+    acc, _ = walk_pack_numpy(pack, binned.apply(req), binned.nan_bins)
+    want = (acc.astype(np.int32).astype(np.float32)
+            * np.float32(pack["scale"])).astype(np.float64) \
+        + bst._gbdt.init_scores[0]
+    require(served.shape == want.shape and np.array_equal(served, want),
+            "served extra_trees scores != the numpy walk")
+    emit({"phase": "serve_randomized", "rows": NODE_SERVE_ROWS,
+          "launches": launches, "raw_bitwise": True,
+          "request_ms": request_ms})
+    return launches
+
+
+def slice18_phases(gen, dev, fix, rows, ds, rec10, s16, seed):
+    """59-62: extra_trees and feature_fraction_bynode against
+    tests/fixtures/torch_randomized_ref.json.  Returns the launches of
+    each kernel mode on these paths (phase 59's checks not counted), the
+    traversal's under "traverse"."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, RANDOMIZED_FIXTURE)) as fh:
+        ref = json.load(fh)
+    t0 = time.perf_counter()
+    node_kernel_phase(gen, dev)
+    bst, launches = randomized_training(dev, fix, rows, ds, rec10, ref)
+    grown = node_grower_phase(dev, fix, rows, s16)
+    add_launches(launches, {kernel: {mode: c[kernel]
+                                     for mode, c in grown.items()}
+                            for kernel in ("histogram", "wave")})
+    launches["traverse"] = randomized_serving_phase(dev, fix, rows, bst,
+                                                    seed)
+    emit({"phase": "slice18", "seconds": time.perf_counter() - t0,
+          "launches": launches})
+    return launches
+
+
 # -------------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5094,8 +5539,8 @@ def main(argv=None) -> int:
         "bound_by": ("bytes" if t65["bytes_ms"] >= t65["ops_ms"]
                      else "operations"),
         "library_ms": None, "rows": 65_536}]
-    entries, obj_serve, ranker_launches, cat_launches, efb_launches = \
-        training_phases(args.seed, dev, smi)
+    (entries, obj_serve, ranker_launches, cat_launches, efb_launches,
+     randomized_launches) = training_phases(args.seed, dev, smi)
     # the traversal's launches serving phase 35's 4-class model
     kernels[0]["objective_launches"] = obj_serve["launches_per_request"] * 2
     # and phase 46's ranker
@@ -5109,6 +5554,10 @@ def main(argv=None) -> int:
     kernels[0]["slice16_launches"] = efb_launches
     # slice 17 serves nothing: a pooled model is served as any model
     kernels[0]["slice17_launches"] = 0
+    # and phase 62's extra_trees model
+    require(randomized_launches > 0,
+            "traverse: no launch serving phase 60's model")
+    kernels[0]["slice18_launches"] = randomized_launches
     kernels += entries
     emit({"kernels": kernels})
     print(f"wall_s={time.perf_counter() - t_start:.1f}", flush=True)

@@ -77,7 +77,7 @@ from ..sampling import (FeatureSampler, SampleStrategy, goss_generator,
                         goss_mask_device)
 from ..utils.device import resolve_device
 from ..utils.log import Log
-from .grower import GrowerConfig, make_grower
+from .grower import GrowerConfig, make_grower, node_generator
 from .tree import Tree, tree_scores
 
 #: histogram impls the port trains with
@@ -101,7 +101,7 @@ _NO_OP_KEYS = frozenset((
     "start_iteration_predict", "num_iteration_predict", "predict_raw_score",
     "predict_leaf_index", "predict_contrib", "predict_disable_shape_check",
     "pred_early_stop", "pred_early_stop_freq", "pred_early_stop_margin",
-    "extra_seed", "drop_rate", "max_drop", "skip_drop", "xgboost_dart_mode",
+    "drop_rate", "max_drop", "skip_drop", "xgboost_dart_mode",
     "uniform_drop", "drop_seed", "linear_lambda",
     "top_k", "monotone_constraints_method", "monotone_penalty",
     "refit_decay_rate", "tpu_hist_comm"))
@@ -151,8 +151,6 @@ def check_supported(cfg: Config) -> None:
     if cfg.tpu_device_goss not in ("auto", "on", "off"):
         raise ValueError(f"tpu_device_goss={cfg.tpu_device_goss!r}: "
                          "expected auto, on or off")
-    if cfg.feature_fraction_bynode < 1.0 or cfg.extra_trees:
-        raise _todo("feature_fraction_bynode and extra_trees", "A8.7")
     if cfg.monotone_constraints and any(int(m) != 0
                                         for m in cfg.monotone_constraints):
         raise _todo("monotone constraints", "A8.7")
@@ -253,7 +251,9 @@ class GBDT:
             num_grad_quant_bins=cfg.num_grad_quant_bins,
             stochastic_rounding=cfg.stochastic_rounding,
             quant_renew_leaf=cfg.quant_train_renew_leaf, packed4=packed4,
-            histogram_pool_size=cfg.histogram_pool_size)
+            histogram_pool_size=cfg.histogram_pool_size,
+            extra_trees=cfg.extra_trees,
+            feature_fraction_bynode=cfg.feature_fraction_bynode)
         self.grow = make_grower(self.grower_cfg)
         self.meta_dev = train.feature_meta_device(self.device)
         if self.bundles is not None:
@@ -375,17 +375,22 @@ class GBDT:
               mask, fmask):
         """Grow one tree of ``iteration`` on (N,) gradients under the row
         and feature masks; ``class_id`` seeds its own stochastic rounding
-        when the iteration grows K trees."""
+        and per-node draws when the iteration grows K trees.  The per-node
+        draws come from a host generator seeded from ``extra_seed * 92821
+        + feature_fraction_seed`` (the JAX package's per-training key)."""
         meta = self.meta_dev
-        qgen = (quant_generator(self.cfg.seed, iteration, self.device,
-                                class_id)
-                if self.cfg.use_quantized_grad else None)
+        cfg = self.cfg
+        qgen = (quant_generator(cfg.seed, iteration, self.device, class_id)
+                if cfg.use_quantized_grad else None)
+        ngen = (node_generator(
+            cfg.extra_seed * 92821 + cfg.feature_fraction_seed, iteration,
+            class_id) if self.grower_cfg.node_draws else None)
         with record_function("gbdt/grow"):
             return self.grow(
                 self.bins_dev, grad, hess, mask, fmask,
                 meta["num_bins_per_feature"], meta["nan_bins"],
                 meta["is_categorical"], quant_generator=qgen,
-                **self._bundle_args)
+                node_generator=ngen, **self._bundle_args)
 
     def _shrink(self, arrays, shrink: float):
         """Shrunk leaf values (zero for a stump) and internal values."""

@@ -86,6 +86,20 @@ gradients, integer quantized histograms); ``pool_counts`` counts hits,
 misses and evictions.  The mask layout keeps every leaf's histogram, as
 the JAX package does.
 
+Per-node randomness (``extra_trees``, ``feature_fraction_bynode``; the
+JAX package's ``_node_inputs`` / ``_batch_node_inputs``): the grower
+takes a host ``torch.Generator`` (``node_generator``, one a tree) and
+draws from it in the JAX package's shapes, through ``_node_draws`` alone:
+(1, F) for the root, (2, F) a split on the mask layout, (2W, F) a wave
+whatever the number of its active slots (slot j's left child row j, its
+right child row W + j).  ``node_inputs`` turns a draw into each node's
+feature mask and random thresholds.  The fused wave kernel reads them as
+a (W, 2, F) node table that goes up with the wave's stats in one copy;
+the unfused step, the sorted merge and the EFB scan take the same rows.
+The JAX package keeps these runs off its fused wave (its TPU kernel
+takes one mask a wave); the port fuses them.  The draws are made on the
+host, so a CPU run and a card run draw the same bits.
+
 Not ported here: monotone constraints, CEGB, forced splits, interaction
 constraints, voting and device meshes (ROADMAP A8.7, A10).
 """
@@ -103,14 +117,15 @@ from torch.profiler import record_function
 from ..ops.bundle import decode_bins, expand_hist
 from ..ops.histogram import (histogram_from_vals, read_bins, resolve_impl,
                              unpack_bins4)
-from ..ops.quantize import discretize_gradients, gradient_scales, max_level
+from ..ops.quantize import (discretize_gradients, gradient_scales, max_level,
+                            quant_generator)
 from ..ops.split import (BestSplit, SplitConfig, best_split, best_split_batch,
                          first_argmax, leaf_output, smoothed_output,
                          sorted_feature_index)
-from ..ops.wave import (best_to_payload, fused_wave_call,
-                        merge_sorted_payload, payload_to_best, scale_hist,
-                        split_payload, wave_children, wave_meta, wave_plain,
-                        wave_stats)
+from ..ops.wave import (NODE_OFF, best_to_payload, fused_wave_call,
+                        merge_sorted_payload, node_table, payload_to_best,
+                        scale_hist, split_payload, wave_children, wave_meta,
+                        wave_plain, wave_stats)
 
 _NEG_INF = float("-inf")
 _MIN_BUCKET = 2048
@@ -142,6 +157,14 @@ class GrowerConfig:
     # the leaf histograms' memory bound in MB (reference HistogramPool);
     # < 0: every leaf's histogram stays resident
     histogram_pool_size: float = -1.0
+    # per-node randomness (reference extra_trees / ColSampler by node)
+    extra_trees: bool = False
+    feature_fraction_bynode: float = 1.0
+
+    @property
+    def node_draws(self) -> bool:
+        """Does growth draw per-node inputs?"""
+        return self.extra_trees or self.feature_fraction_bynode < 1.0
 
 
 class TreeArrays(NamedTuple):
@@ -179,7 +202,10 @@ def wave_fused_for(cfg: GrowerConfig, device: torch.device) -> bool:
     its TPU VMEM model ``wave_layout`` fits (at F = 28, f32 up to 512
     bins); that model means nothing for the CUDA kernel, and the trees are
     the same either way (the unfused step is the fused one's plain
-    version)."""
+    version).  The JAX package also keeps ``extra_trees`` and
+    ``feature_fraction_bynode`` off its fused wave (its TPU kernel takes
+    one feature mask a wave); the CUDA kernel reads a per-child node
+    table, so they stay fused here."""
     if cfg.wave_kernel not in ("auto", "fused", "unfused"):
         raise ValueError(f"wave_kernel={cfg.wave_kernel!r}: expected auto, "
                          "fused or unfused")
@@ -189,6 +215,61 @@ def wave_fused_for(cfg: GrowerConfig, device: torch.device) -> bool:
         return True
     return (device.type == "cuda"
             and resolve_impl(cfg.histogram_impl, device) in ("pallas", "flat"))
+
+
+def node_generator(seed: int, iteration: int,
+                   class_id=None) -> torch.Generator:
+    """The host generator of one tree's per-node draws: a CPU
+    ``torch.Generator`` seeded from ``(seed, iteration)`` and, with K
+    trees an iteration, the class (``ops/quantize.py::quant_generator``'s
+    seeding; GBDT passes ``extra_seed * 92821 + feature_fraction_seed``,
+    the JAX package's per-training key)."""
+    return quant_generator(seed, iteration, torch.device("cpu"), class_id)
+
+
+def _node_draws(gen: torch.Generator, k: int, f: int):
+    """The port's only draw of per-node randomness: ``(ints (k, F) int64
+    in [0, 2**30), uniforms (k, F) float32 in [0, 1))`` from the host
+    generator, the ints first (the JAX package draws the random
+    thresholds before the feature sample).  Tests replace it to feed
+    the port and the JAX package the same draws."""
+    ints = torch.randint(0, 1 << 30, (k, f), generator=gen,
+                         dtype=torch.int64)
+    return ints, torch.rand((k, f), generator=gen, dtype=torch.float32)
+
+
+def node_inputs(gen: torch.Generator, feature_mask, num_bins_per_feature,
+                k: int, cfg: GrowerConfig):
+    """Per-node ``(feature_mask (k, F) bool, rand_bins (k, F) int64 or
+    None)`` for k nodes from one draw (the JAX package's
+    ``_batch_node_inputs``): ``extra_trees`` takes one random threshold a
+    (node, feature), the draw modulo ``max(num_bins, 1)``;
+    ``feature_fraction_bynode`` keeps a feature where its uniform is
+    below the fraction (float32), ANDed into the per-tree
+    ``feature_mask``, but keeps a node's whole per-tree mask where the
+    sample would leave it no feature.  Host tensors in and out."""
+    f = feature_mask.shape[0]
+    ints, unif = _node_draws(gen, k, f)
+    rand = None
+    if cfg.extra_trees:
+        rand = ints % torch.clamp(num_bins_per_feature.to(torch.int64), min=1)
+    fmask = feature_mask.expand(k, f)
+    if cfg.feature_fraction_bynode < 1.0:
+        sel = unif < torch.tensor(cfg.feature_fraction_bynode,
+                                  dtype=torch.float32)
+        keep = (sel & fmask).any(dim=1, keepdim=True)
+        fmask = torch.where(keep, fmask & sel, fmask)
+    return fmask, rand
+
+
+def _upload_together(stats, node, dev):
+    """A wave's (k, 2, STAT_LANES) f32 stats and (k, 2, F) int32 node
+    table to ``dev`` in one copy."""
+    n = stats.numel()
+    buf = torch.cat([stats.reshape(-1).view(torch.int32),
+                     node.reshape(-1)]).to(dev)
+    return (buf[:n].view(torch.float32).reshape(stats.shape),
+            buf[n:].reshape(node.shape))
 
 
 def pool_active_for(cfg: GrowerConfig) -> bool:
@@ -358,9 +439,17 @@ class Grower:
 
     def __call__(self, bins, grad, hess, sample_mask, feature_mask,
                  num_bins_per_feature, nan_bins, is_categorical,
-                 quant_generator=None, bundle=None):
+                 quant_generator=None, bundle=None, node_generator=None):
         cfg = self.cfg
         dev = bins.device
+        self.node_gen = None
+        if cfg.node_draws:
+            if node_generator is None:
+                node_generator = torch.Generator()
+                node_generator.manual_seed(0)
+            self.node_gen = node_generator
+            self.node_meta = (feature_mask.cpu().bool(),
+                              num_bins_per_feature.cpu())
         g = grad * sample_mask
         h = hess * sample_mask
         in_bag = sample_mask > 0.0
@@ -470,22 +559,49 @@ class Grower:
                                    packed4=self.packed4, features=self.nf,
                                    max_level=self.max_level)
 
-    def _best(self, hist, pg, ph, pc, pout) -> BestSplit:
-        nbpf, nanb, iscat, fmask = self.meta_dev
+    def _node_inputs(self, k: int):
+        """k nodes' ``(feature_mask (k, F), rand_bins (k, F) or None)`` on
+        the host from this tree's generator; None without per-node
+        draws."""
+        if self.node_gen is None:
+            return None
+        return node_inputs(self.node_gen, *self.node_meta, k, self.cfg)
+
+    def _scan_inputs(self, ni):
+        """``feature_mask`` and ``rand_bins`` of a scan on the device: the
+        per-tree mask and none without per-node inputs ``ni``."""
+        if ni is None:
+            return {"feature_mask": self.meta_dev[3], "rand_bins": None}
+        fm, rand = ni
+        return {"feature_mask": fm.to(self.dev),
+                "rand_bins": None if rand is None else rand.to(self.dev)}
+
+    def _table_inputs(self, node):
+        """:meth:`_scan_inputs` of a wave's 2W children (lefts, then
+        rights) read from its device node table."""
+        if node is None:
+            return self._scan_inputs(None)
+        nd = torch.cat([node[:, 0], node[:, 1]])
+        return {"feature_mask": nd != NODE_OFF,
+                "rand_bins": nd if self.cfg.extra_trees else None}
+
+    def _best(self, hist, pg, ph, pc, pout, ni=None) -> BestSplit:
+        """One leaf's split; ``ni``: one node's inputs, (1, F) rows."""
+        nbpf, nanb, iscat = self.meta_dev[:3]
         d = lambda t: t.to(self.dev)
         return _to_host(best_split(
             hist, d(pg), d(ph), d(pc), num_bins_per_feature=nbpf,
-            nan_bins=nanb, is_categorical=iscat, feature_mask=fmask,
-            cfg=self.cfg.split, parent_output=d(pout),
-            sorted_features=self.sorted_features))
+            nan_bins=nanb, is_categorical=iscat, cfg=self.cfg.split,
+            parent_output=d(pout), sorted_features=self.sorted_features,
+            **self._scan_inputs(ni)))
 
-    def _best_batch(self, hists, pg, ph, pc, pout) -> BestSplit:
-        nbpf, nanb, iscat, fmask = self.meta_dev
+    def _best_batch(self, hists, pg, ph, pc, pout, ni=None) -> BestSplit:
+        nbpf, nanb, iscat = self.meta_dev[:3]
         d = lambda t: t.to(self.dev)
         return _to_host(best_split_batch(
             hists, d(pg), d(ph), d(pc), d(pout), num_bins_per_feature=nbpf,
-            nan_bins=nanb, is_categorical=iscat, feature_mask=fmask,
-            cfg=self.cfg.split, sorted_features=self.sorted_features))
+            nan_bins=nanb, is_categorical=iscat, cfg=self.cfg.split,
+            sorted_features=self.sorted_features, **self._scan_inputs(ni)))
 
     def _root(self, n: int, slots: int = 0):
         """Root histogram, state and best split (``_perm_setup`` /
@@ -507,7 +623,8 @@ class Grower:
                                      dtype=root_hist.dtype, device=self.dev)
         self.leaf_hist[0] = root_hist
         bs = self._best(self._scan_hists(root_hist[None], root_tot[None])[0],
-                        root_tot[0], root_tot[1], root_tot[2], st.leaf_out[0])
+                        root_tot[0], root_tot[1], root_tot[2], st.leaf_out[0],
+                        self._node_inputs(1))
         st.store_best(0, bs, torch.tensor(True))
         return st
 
@@ -643,20 +760,32 @@ class Grower:
                 torch.stack([gl, gr], 1), torch.stack([hl, hr], 1),
                 torch.stack([cl, cr], 1), torch.stack([out_l, out_r], 1),
                 torch.from_numpy(small_left), torch.ones(k, dtype=torch.bool))
+            # the wave's (2W, F) draw: slot j's children take rows j, W + j
+            ni = self._node_inputs(2 * W)
             with record_function("grower/wave"):
-                stats = stats.to(dev)
+                node, kw = None, {}
+                if ni is None:
+                    stats = stats.to(dev)
+                else:
+                    rows = torch.cat([torch.arange(k), W + torch.arange(k)])
+                    nt = node_table(*(None if t is None else t[rows]
+                                      for t in ni))
+                    stats, node = _upload_together(
+                        stats, torch.stack([nt[:k], nt[k:]], dim=1), dev)
+                    if not bundled:
+                        kw["node"] = node
                 hists, payload = wave(
                     self.bins, self.vals, perm, small_start.tolist(),
                     small_cnt.tolist(), parent_hist, stats, meta_w,
-                    cfg.split, self.hb)
+                    cfg.split, self.hb, **kw)
             if bundled:
                 with record_function("grower/efb_scan"):
-                    bs = self._efb_scan(hists, stats)
+                    bs = self._efb_scan(hists, stats, node)
             else:
                 pay = split_payload(payload)
                 if self.sorted_features.numel():
                     with record_function("grower/sorted_cat"):
-                        pay = self._merge_sorted(hists, pay, stats)
+                        pay = self._merge_sorted(hists, pay, stats, node)
                 with record_function("grower/payload_read"):
                     bs = payload_to_best(pay.cpu())
             hist_left, hist_right = hists[:, 0], hists[:, 1]
@@ -736,34 +865,36 @@ class Grower:
                                            self.vals.index_select(0, rows))
         return parent
 
-    def _efb_scan(self, hists, stats) -> BestSplit:
+    def _efb_scan(self, hists, stats, node=None) -> BestSplit:
         """A bundled wave's 2W children (lefts, then rights): rebuilt per
         feature from their stats lanes' sums, scanned in one
-        ``best_split_batch`` (the sorted categorical merge included), the
-        winners read to the host in one copy."""
-        nbpf, nanb, iscat, fmask = self.meta_dev
+        ``best_split_batch`` (the sorted categorical merge included; the
+        children's rows of the node table ``node``), the winners read to
+        the host in one copy."""
+        nbpf, nanb, iscat = self.meta_dev[:3]
         st2 = torch.cat([stats[:, 0], stats[:, 1]])
         full = self._scan_hists(torch.cat([hists[:, 0], hists[:, 1]]),
                                 st2[:, :3])
         bs = best_split_batch(
             full, st2[:, 0], st2[:, 1], st2[:, 2], st2[:, 3],
             num_bins_per_feature=nbpf, nan_bins=nanb, is_categorical=iscat,
-            feature_mask=fmask, cfg=self.cfg.split,
-            sorted_features=self.sorted_features)
+            cfg=self.cfg.split, sorted_features=self.sorted_features,
+            **self._table_inputs(node))
         return payload_to_best(best_to_payload(bs).cpu())
 
-    def _merge_sorted(self, hists, pay, stats):
+    def _merge_sorted(self, hists, pay, stats, node=None):
         """The sorted categorical scan on a wave's 2W children (lefts, then
-        rights, as ``split_payload`` orders them), merged into their
-        payload on the device; only the sorted columns are copied and
-        scaled."""
-        nbpf, fmask = self.meta_dev[0], self.meta_dev[3]
+        rights, as ``split_payload`` orders them; their rows of the node
+        table ``node``), merged into their payload on the device; only the
+        sorted columns are copied and scaled."""
+        nbpf = self.meta_dev[0]
         feats = self.sorted_features
         sub = hists.index_select(2, feats)
         return merge_sorted_payload(
             pay, scale_hist(torch.cat([sub[:, 0], sub[:, 1]]), self.scale3),
             torch.cat([stats[:, 0], stats[:, 1]]), features=feats,
-            num_bins_per_feature=nbpf, feature_mask=fmask, cfg=self.cfg.split)
+            num_bins_per_feature=nbpf, cfg=self.cfg.split,
+            **self._table_inputs(node))
 
     def _row_leaf_from_perm(self, st: _State, perm, n: int):
         """row -> leaf from the final grouped permutation (zero-row leaves
@@ -858,7 +989,7 @@ class Grower:
                                               torch.stack([gr, hr, cr])])),
                 torch.stack([gl, gr]),
                 torch.stack([hl, hr]), torch.stack([cl, cr]),
-                torch.stack([out_l, out_r]))
+                torch.stack([out_l, out_r]), self._node_inputs(2))
             st.store_best(pair, bs2, self._depth_ok(depth.expand(2)))
         return st.finish(L), row_leaf
 

@@ -104,15 +104,20 @@ SIGNATURES = {
     "lgbt_histogram_i8": [_P, _P, _I64] + [_I32] * 7 + [_P] * 3,
     "lgbt_histogram_u16": [_P, _P, _I64] + [_I32] * 5 + [_P] * 3,
     "lgbt_histogram_i8_u16": [_P, _P, _I64] + [_I32] * 6 + [_P] * 3,
-    "lgbt_wave": ([_P] * 3 + [_I32] * 2 + [_P] + [_I32] * 3 + [_P] * 3
+    "lgbt_wave": ([_P] * 3 + [_I32] * 2 + [_P] + [_I32] * 3 + [_P] * 4
                   + [_F32] * 7 + [_I32] * 5 + [_P] * 4),
-    "lgbt_wave_i8": ([_P] * 3 + [_I32] * 2 + [_P] + [_I32] * 5 + [_P] * 4
+    "lgbt_wave_i8": ([_P] * 3 + [_I32] * 2 + [_P] + [_I32] * 5 + [_P] * 5
                      + [_F32] * 7 + [_I32] * 4 + [_P] * 4),
-    "lgbt_wave_u16": ([_P] * 3 + [_I32] * 2 + [_P] + [_I32] * 3 + [_P] * 3
+    "lgbt_wave_u16": ([_P] * 3 + [_I32] * 2 + [_P] + [_I32] * 3 + [_P] * 4
                       + [_F32] * 7 + [_I32] * 4 + [_P] * 4),
     "lgbt_wave_i8_u16": ([_P] * 3 + [_I32] * 2 + [_P] + [_I32] * 5
-                         + [_P] * 4 + [_F32] * 7 + [_I32] * 3 + [_P] * 4),
+                         + [_P] * 5 + [_F32] * 7 + [_I32] * 3 + [_P] * 4),
+    "lgbt_wave_node_table": [],
 }
+#: the position of the node table in each wave entry point's arguments
+#: (the argument after ``meta``; builds before it lack it)
+NODE_ARG = {"lgbt_wave": 12, "lgbt_wave_u16": 12, "lgbt_wave_i8": 14,
+            "lgbt_wave_i8_u16": 14}
 
 
 def _bind(lib: ctypes.CDLL, only_present: bool = False) -> None:

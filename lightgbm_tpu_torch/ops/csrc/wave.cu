@@ -19,6 +19,18 @@
 //      payload [gain, feature, bin, default_left, is_cat, GL, HL, CL, GR,
 //      HR, CR, 0 x 5, cat one-hot]; an inactive slot gets gain -inf.
 //
+// Per-child node table (extra_trees / feature_fraction_bynode; the JAX
+// package's _batch_node_inputs, which its TPU kernel cannot take: it keeps
+// those runs off its fused wave): an optional (W, 2, F) int32 `node`, read
+// once per (child, feature) by both scans.  kNodeOff (-2): the feature has
+// no candidate in this child; kNodeAll (-1): every threshold, as without
+// a table; b >= 0: only bin b (extra_trees' random threshold; every other
+// candidate of the feature, one-hot categorical bins included, is -inf, so
+// a draw on the NaN bin or a phantom bin leaves the feature none: the JAX
+// package's `biota == rand_bins` on the (F, B) gain table).  A null
+// pointer reads kNodeAll everywhere: the arithmetic, the candidates and
+// the tie-break are those of a launch without the table.
+//
 // What bounds it on this card.  Stage 1 is the histogram kernel's
 // accumulation over the smaller siblings' rows (hist_common.cuh): issue
 // of about one warp instruction per row-feature, the bins gathered
@@ -118,6 +130,8 @@ namespace {
 
 constexpr int kPayloadScalars = 16;
 constexpr int kStatLanes = 8;
+constexpr int kNodeOff = -2;
+constexpr int kNodeAll = -1;
 constexpr float kEps = 1e-15f;
 
 struct ScanCfg {
@@ -222,8 +236,9 @@ inline int scan_smem(int warps, int nbins) {
 // features warp, warp + warps, ...).  hist: (W, 2, F, B, 3) f32 or int32;
 // scale3: 3 f32 channel scales (int8 mode; nullptr for f32); stats: (W,
 // 2, 8) [pg, ph, pc, pout, small_left, active, 0, 0]; meta: (F, 4) int32
-// [num_bins, nan_bin, is_cat, fmask].  Per feature the warp stages the
-// cells in shared memory (int8: times the channel's scale), lanes 0-2
+// [num_bins, nan_bin, is_cat, fmask]; node: (W, 2, F) int32 node table
+// or nullptr.  Per feature the warp stages the cells in shared memory
+// (int8: times the channel's scale), lanes 0-2
 // turn them into the masked cumulative sums of G, H and C over the bins
 // in sequence (one channel each, the adds of a sequential scan), and
 // every lane evaluates the candidates of bins lane, lane + 32, ...; the
@@ -235,7 +250,8 @@ __global__ void __launch_bounds__(lgbt::kMaxWarps * 32)
 wave_scan_kernel(const T* __restrict__ hist,
                  const float* __restrict__ scale3,
                  const float* __restrict__ stats,
-                 const int32_t* __restrict__ meta, int f, int nbins,
+                 const int32_t* __restrict__ meta,
+                 const int32_t* __restrict__ node, int f, int nbins,
                  ScanCfg c, float* __restrict__ payload) {
   extern __shared__ __align__(16) unsigned char s_scan[];
   const int lane = threadIdx.x & 31;
@@ -266,7 +282,9 @@ wave_scan_kernel(const T* __restrict__ hist,
     const int nb = meta[feat * 4 + 0];
     const int nanb = meta[feat * 4 + 1];
     const bool iscat = c.has_cat && meta[feat * 4 + 2] != 0;
-    const bool fm = meta[feat * 4 + 3] != 0;
+    const int nd = node != nullptr ? node[(int64_t)child * f + feat]
+                                   : kNodeAll;
+    const bool fm = meta[feat * 4 + 3] != 0 && nd != kNodeOff;
     const bool sorted_el = iscat && nb > c.max_cat_onehot;
     const T* hf = h0 + (int64_t)feat * nbins * 3;
     for (int i = lane; i < nbins * 3; i += 32)
@@ -315,7 +333,7 @@ wave_scan_kernel(const T* __restrict__ hist,
         }
         if (!vm) gain = -CUDART_INF_F;
       }
-      if (sorted_el || !fm) gain = -CUDART_INF_F;
+      if (sorted_el || !fm || (nd >= 0 && b != nd)) gain = -CUDART_INF_F;
       // in key order: the lane's first candidate seeds its best
       if (mine.key == INT_MAX || gain > mine.gain) {
         mine.gain = gain;
@@ -369,19 +387,24 @@ wave_scan_kernel(const T* __restrict__ hist,
 // compile to the SASS of earlier builds (tools/torch_kernel_ab.py
 // compares it).
 
-// A feature as the scan reads it from meta (F, 4) and the config.
+// A feature as the scan reads it from meta (F, 4), the child's row of the
+// node table (`nrow`, nullptr: none) and the config; rb is the only bin
+// with a candidate, or -1 for every bin.
 struct Feat {
-  int nb, nanb;
+  int nb, nanb, rb;
   bool iscat, fm, sorted_el;
 };
 
-__device__ __forceinline__ Feat read_feat(const int32_t* meta, int feat,
+__device__ __forceinline__ Feat read_feat(const int32_t* meta,
+                                          const int32_t* nrow, int feat,
                                           const ScanCfg& c) {
   Feat q;
+  const int nd = nrow != nullptr ? nrow[feat] : kNodeAll;
   q.nb = meta[feat * 4 + 0];
   q.nanb = meta[feat * 4 + 1];
   q.iscat = c.has_cat && meta[feat * 4 + 2] != 0;
-  q.fm = meta[feat * 4 + 3] != 0;
+  q.fm = meta[feat * 4 + 3] != 0 && nd != kNodeOff;
+  q.rb = nd >= 0 ? nd : -1;
   q.sorted_el = q.iscat && q.nb > c.max_cat_onehot;
   return q;
 }
@@ -419,7 +442,8 @@ __device__ __forceinline__ void scan_bin(Best& mine, const float* p, int b,
     }
     if (!vm) gain = -CUDART_INF_F;
   }
-  if (q.sorted_el || !q.fm) gain = -CUDART_INF_F;
+  if (q.sorted_el || !q.fm || (q.rb >= 0 && b != q.rb))
+    gain = -CUDART_INF_F;
   if (mine.key == INT_MAX || gain > mine.gain) {
     mine.gain = gain;
     mine.key = feat * nbins + b;
@@ -594,7 +618,8 @@ __global__ void __launch_bounds__(kScanWideWarps * 32)
 wave_scan_wide_kernel(const T* __restrict__ hist,
                       const float* __restrict__ scale3,
                       const float* __restrict__ stats,
-                      const int32_t* __restrict__ meta, int f, int nbins,
+                      const int32_t* __restrict__ meta,
+                      const int32_t* __restrict__ node, int f, int nbins,
                       int fpb, int tile, ScanCfg c,
                       float* __restrict__ payload) {
   extern __shared__ __align__(16) unsigned char s_scan[];
@@ -618,11 +643,12 @@ wave_scan_wide_kernel(const T* __restrict__ hist,
   const T* h0 = hist + (int64_t)child * f * nbins * 3;
   const int f0 = blockIdx.y * fpb;
   const int f1 = min(f, f0 + fpb);
+  const int32_t* nrow = node != nullptr ? node + (int64_t)child * f : nullptr;
 
   if (lane == 0) s_best[warp] = Best{-CUDART_INF_F, INT_MAX, 0, 0, {}};
   Best mine{-CUDART_INF_F, INT_MAX, 0, 0, {}};
   for (int feat = f0; feat < f1; ++feat) {
-    const Feat q = read_feat(meta, feat, c);
+    const Feat q = read_feat(meta, nrow, feat, c);
     const T* hf = h0 + (int64_t)feat * nbins * 3;
     float gn = 0.f, hn = 0.f, cn = 0.f;
     if (q.nanb < nbins) {
@@ -710,14 +736,14 @@ wave_scan_wide_kernel(const T* __restrict__ hist,
 
 template <typename T>
 int launch_scan(const T* hist, const float* scale3, const float* stats,
-                const int32_t* meta, int f, int nbins, int w, ScanCfg c,
-                float* payload, cudaStream_t s) {
+                const int32_t* meta, const int32_t* node, int f, int nbins,
+                int w, ScanCfg c, float* payload, cudaStream_t s) {
   const int warps = lgbt::warps_for(f);
   const int smem = scan_smem(warps, nbins);
   const int err = lgbt::smem_opt_in(wave_scan_kernel<T>, smem);
   if (err != 0) return err;
   wave_scan_kernel<T><<<(unsigned)(2 * w), 32 * warps, smem, s>>>(
-      hist, scale3, stats, meta, f, nbins, c, payload);
+      hist, scale3, stats, meta, node, f, nbins, c, payload);
   return (int)cudaGetLastError();
 }
 
@@ -725,8 +751,9 @@ int launch_scan(const T* hist, const float* scale3, const float* stats,
 // each child) where a child has more than one block, then the scan.
 template <typename T>
 int launch_scan_wide(const T* hist, const float* scale3, const float* stats,
-                     const int32_t* meta, int f, int nbins, int w, ScanCfg c,
-                     float* payload, cudaStream_t s) {
+                     const int32_t* meta, const int32_t* node, int f,
+                     int nbins, int w, ScanCfg c, float* payload,
+                     cudaStream_t s) {
   const ScanGeom g = scan_geom(f, nbins);
   const size_t pitch = (size_t)(kPayloadScalars + nbins) * sizeof(float);
   int err = 0;
@@ -739,7 +766,7 @@ int launch_scan_wide(const T* hist, const float* scale3, const float* stats,
   if (err != 0) return err;
   const dim3 grid((unsigned)(2 * w), (unsigned)g.blocks);
   wave_scan_wide_kernel<T><<<grid, 32 * kScanWideWarps, g.smem, s>>>(
-      hist, scale3, stats, meta, f, nbins, g.fpb, g.tile, c, payload);
+      hist, scale3, stats, meta, node, f, nbins, g.fpb, g.tile, c, payload);
   return (int)cudaGetLastError();
 }
 
@@ -758,11 +785,13 @@ inline bool wide_shape_ok(int f, int nbins, int w, int total_chunks) {
 // hist_common.cuh for the W smaller siblings; `partial` is scratch of
 // total_chunks * f * nbins * 3 floats.  `vals` is (N, 3) f32, or
 // __nv_bfloat16 with `bf16`; `bins` (N, F) uint8, or (N, ceil(F/2)) nibble
-// pairs with `packed4`; `f` the real F.
+// pairs with `packed4`; `f` the real F; `node` the (W, 2, F) int32 node
+// table or nullptr (every entry point takes it after `meta`).
 extern "C" int lgbt_wave(const void* bins, const void* vals, const void* perm,
                          int f, int nbins, const void* seg, int w,
                          int total_chunks, int chunk_rows, const void* parent,
-                         const void* stats, const void* meta, float l1,
+                         const void* stats, const void* meta,
+                         const void* node, float l1,
                          float l2, float min_count, float min_hess,
                          float gain_thr, float max_delta, float path_smooth,
                          int has_nan, int has_cat, int max_cat_onehot,
@@ -789,8 +818,8 @@ extern "C" int lgbt_wave(const void* bins, const void* vals, const void* perm,
   const ScanCfg c{l1, l2, min_count, min_hess, gain_thr, max_delta,
                   path_smooth, has_nan, has_cat, max_cat_onehot};
   return launch_scan((const float*)out_hist, nullptr, (const float*)stats,
-                     (const int32_t*)meta, f, nbins, w, c, (float*)payload,
-                     s);
+                     (const int32_t*)meta, (const int32_t*)node, f, nbins, w,
+                     c, (float*)payload, s);
 }
 
 // int8 mode: `vals` (N, 3) int8, `parent` (W, F, B, 3) int32, `scale3` 3
@@ -806,7 +835,8 @@ extern "C" int lgbt_wave_i8(const void* bins, const void* vals,
                             int chunk_rows, int fpb, int tile,
                             const void* parent,
                             const void* stats, const void* meta,
-                            const void* scale3, float l1, float l2,
+                            const void* node, const void* scale3, float l1,
+                            float l2,
                             float min_count, float min_hess, float gain_thr,
                             float max_delta, float path_smooth, int has_nan,
                             int has_cat, int max_cat_onehot, int packed4,
@@ -833,8 +863,9 @@ extern "C" int lgbt_wave_i8(const void* bins, const void* vals,
   const ScanCfg c{l1, l2, min_count, min_hess, gain_thr, max_delta,
                   path_smooth, has_nan, has_cat, max_cat_onehot};
   return launch_scan((const int32_t*)out_hist, (const float*)scale3,
-                     (const float*)stats, (const int32_t*)meta, f, nbins, w,
-                     c, (float*)payload, s);
+                     (const float*)stats, (const int32_t*)meta,
+                     (const int32_t*)node, f, nbins, w, c, (float*)payload,
+                     s);
 }
 
 // uint16 bins, f32 / bf16 values: lgbt_wave over (N, F) uint16 bins
@@ -845,8 +876,9 @@ extern "C" int lgbt_wave_u16(const void* bins, const void* vals,
                              const void* perm, int f, int nbins,
                              const void* seg, int w, int total_chunks,
                              int chunk_rows, const void* parent,
-                             const void* stats, const void* meta, float l1,
-                             float l2, float min_count, float min_hess,
+                             const void* stats, const void* meta,
+                             const void* node, float l1, float l2,
+                             float min_count, float min_hess,
                              float gain_thr, float max_delta,
                              float path_smooth, int has_nan, int has_cat,
                              int max_cat_onehot, int bf16, void* partial,
@@ -870,8 +902,9 @@ extern "C" int lgbt_wave_u16(const void* bins, const void* vals,
   const ScanCfg c{l1, l2, min_count, min_hess, gain_thr, max_delta,
                   path_smooth, has_nan, has_cat, max_cat_onehot};
   return launch_scan_wide((const float*)out_hist, nullptr,
-                          (const float*)stats, (const int32_t*)meta, f,
-                          nbins, w, c, (float*)payload, s);
+                          (const float*)stats, (const int32_t*)meta,
+                          (const int32_t*)node, f, nbins, w, c,
+                          (float*)payload, s);
 }
 
 // uint16 bins, int8 values: lgbt_wave_i8 over (N, F) uint16 bins, its
@@ -882,7 +915,8 @@ extern "C" int lgbt_wave_i8_u16(const void* bins, const void* vals,
                                 int chunk_rows, int fpb, int tile,
                                 const void* parent,
                                 const void* stats, const void* meta,
-                                const void* scale3, float l1, float l2,
+                                const void* node, const void* scale3,
+                                float l1, float l2,
                                 float min_count, float min_hess,
                                 float gain_thr, float max_delta,
                                 float path_smooth, int has_nan, int has_cat,
@@ -907,6 +941,11 @@ extern "C" int lgbt_wave_i8_u16(const void* bins, const void* vals,
   const ScanCfg c{l1, l2, min_count, min_hess, gain_thr, max_delta,
                   path_smooth, has_nan, has_cat, max_cat_onehot};
   return launch_scan_wide((const int32_t*)out_hist, (const float*)scale3,
-                          (const float*)stats, (const int32_t*)meta, f,
-                          nbins, w, c, (float*)payload, s);
+                          (const float*)stats, (const int32_t*)meta,
+                          (const int32_t*)node, f, nbins, w, c,
+                          (float*)payload, s);
 }
+
+// Marks a build whose wave entry points take the node table (another
+// build's library, in tools/torch_kernel_ab.py, may lack it).
+extern "C" int lgbt_wave_node_table(void) { return 1; }

@@ -39,7 +39,16 @@ are ``torch.cumsum`` (double accumulation on the CPU, a parallel scan on a
 CUDA device); where histogram sums are exactly representable (the
 exact-sum tests) any order gives the same bits.
 
-Not ported here: monotone constraints, CEGB penalties, extra_trees and
+Per-node inputs (``extra_trees``, ``feature_fraction_bynode``; the JAX
+package's ``_node_inputs``): every scan takes ``feature_mask`` (F,) or,
+one row a child, (K, F), and ``rand_bins`` None, (F,) or (K, F): only bin
+``rand_bins[f]`` is a candidate of feature f (extra_trees' random
+threshold; the sorted scan takes the position ``rand_bins % max_thr``),
+and a negative entry leaves every bin, as the wave kernel's node table
+encodes it (``ops/wave.py``).  With ``rand_bins`` None and an (F,) mask
+every result is what it was without them.
+
+Not ported here: monotone constraints, CEGB penalties and
 feature_contri (ROADMAP A8.7) — the trainer refuses those configs.
 """
 
@@ -190,13 +199,15 @@ def _bin_cumsums(G, H, C, value_mask):
 
 def scan_tables(G, H, C, parent_grad, parent_hess, parent_count, *,
                 num_bins_per_feature, nan_bins, is_categorical, feature_mask,
-                cfg: SplitConfig, parent_output=None,
+                cfg: SplitConfig, parent_output=None, rand_bins=None,
                 cums=None) -> ScanTables:
     """Evaluate every candidate of (..., F, B) histogram blocks into masked
     gain/stat tables (the JAX package's ``scan_tables`` without monotone,
-    CEGB, extra_trees and feature_contri).  ``parent_*`` are f32 tensors
-    of the blocks' leading shape (0-dim for one block) on the
-    histogram's device; every op but the cumulative sums
+    CEGB and feature_contri).  ``parent_*`` are f32 tensors of the
+    blocks' leading shape (0-dim for one block) on the histogram's
+    device; ``feature_mask`` (F,) or of the blocks' leading shape + (F,),
+    ``rand_bins`` None or so shaped (the module docstring); every op but
+    the cumulative sums
     (``cums``, :func:`_bin_cumsums` of the blocks, taken here where the
     caller did not) is elementwise.  The candidate directions (NaN right, NaN left, one-hot)
     are evaluated as one stacked batch."""
@@ -268,7 +279,12 @@ def scan_tables(G, H, C, parent_grad, parent_hess, parent_count, *,
         gain_fb = torch.where(sorted_eligible, neg_inf, gain_fb)
     else:
         gain_fb = num_gain
-    gain_fb = torch.where(feature_mask.reshape(f, 1), gain_fb, neg_inf)
+    if rand_bins is not None:
+        # extra_trees: one candidate bin a (child, feature)
+        rb = rand_bins.unsqueeze(-1)
+        gain_fb = torch.where((torch.arange(b, device=dev) == rb) | (rb < 0),
+                              gain_fb, neg_inf)
+    gain_fb = torch.where(feature_mask.unsqueeze(-1), gain_fb, neg_inf)
     return ScanTables(gain_fb=gain_fb, num_default_left=num_default_left,
                       parent_gain=parent_gain, parent_output=parent_output,
                       stats=stats, dirs=(0, i_ml, i_cat))
@@ -390,7 +406,8 @@ def best_split(hist, parent_grad, parent_hess, parent_count, *,
     """Every candidate of an (F, B, 3) leaf histogram, then the argmax,
     the sorted categorical scan merged; ``meta``: the per-feature
     ``num_bins_per_feature``, ``nan_bins``, ``is_categorical`` and
-    ``feature_mask``."""
+    ``feature_mask`` ((F,) or (1, F)), and ``rand_bins`` (None, (F,) or
+    (1, F))."""
     if parent_output is None:
         parent_output = leaf_output(parent_grad, parent_hess, cfg)
     one = lambda t: t.reshape(1)
@@ -402,17 +419,21 @@ def best_split(hist, parent_grad, parent_hess, parent_count, *,
 
 def best_split_batch(hists, pg, ph, pc, pout, *, num_bins_per_feature,
                      nan_bins, is_categorical, feature_mask,
-                     cfg: SplitConfig, sorted_features=None) -> BestSplit:
+                     cfg: SplitConfig, sorted_features=None,
+                     rand_bins=None) -> BestSplit:
     """:func:`best_split` for K leaves: (K, F, B, 3) histograms and (K,)
     parent stats -> a BestSplit of (K,) fields ((K, B) cat_mask), in one
     pass over the leading child axis; one sorted categorical merge serves
-    the K leaves.  ``sorted_features``: :func:`sorted_feature_index` of
-    the meta, where the caller holds it (None: found here).  Blocks of
-    :func:`block_width` features are scanned in turn."""
+    the K leaves.  ``feature_mask`` (F,) or (K, F), ``rand_bins`` None,
+    (F,) or (K, F) (the module docstring).  ``sorted_features``:
+    :func:`sorted_feature_index` of the meta, where the caller holds it
+    (None: found here).  Blocks of :func:`block_width` features are
+    scanned in turn, each with its columns of the per-node inputs."""
     if sorted_features is None:
         sorted_features = sorted_feature_index(num_bins_per_feature,
                                                is_categorical, cfg)
-    meta = (num_bins_per_feature, nan_bins, is_categorical, feature_mask)
+    meta = (num_bins_per_feature, nan_bins, is_categorical, feature_mask,
+            rand_bins)
     k, f, b = hists.shape[:3]
     t = block_width(cfg, k, f, b, hists.is_cuda)
     cums = _bin_cumsums(hists[..., 0], hists[..., 1], hists[..., 2],
@@ -426,8 +447,9 @@ def best_split_batch(hists, pg, ph, pc, pout, *, num_bins_per_feature,
     for lo in range(0, f, t):
         hi = min(lo + t, f)
         sf = sf_host[(sf_host >= lo) & (sf_host < hi)] - lo
-        blk, src = _scan_block(hists[:, lo:hi], pg, ph, pc, pout,
-                               tuple(m.reshape(-1)[lo:hi] for m in meta),
+        cols = tuple(m.reshape(-1)[lo:hi] for m in meta[:3]) + tuple(
+            None if m is None else m[..., lo:hi] for m in meta[3:])
+        blk, src = _scan_block(hists[:, lo:hi], pg, ph, pc, pout, cols,
                                cfg, sf.to(sorted_features.device),
                                tuple(c[:, lo:hi] for c in cums))
         blocks.append((blk._replace(feature=blk.feature + lo), src))
@@ -451,26 +473,27 @@ def _scan_block(hists, pg, ph, pc, pout, meta, cfg: SplitConfig,
                 sorted_features, cums):
     """The untiled scan of (K, F, B, 3) ``hists`` over their ``meta``
     (``num_bins_per_feature``, ``nan_bins``, ``is_categorical``,
-    ``feature_mask``) and their bins' cumulative sums ``cums`` with the
-    sorted categorical merge -> (BestSplit of (K,) fields, (K,) bool: the
-    winner is a sorted categorical one)."""
-    nbpf, nanb, iscat, fmask = meta
+    ``feature_mask``, ``rand_bins``) and their bins' cumulative sums
+    ``cums`` with the sorted categorical merge -> (BestSplit of (K,)
+    fields, (K,) bool: the winner is a sorted categorical one)."""
+    nbpf, nanb, iscat, fmask, rand = meta
     t = scan_tables(hists[..., 0], hists[..., 1], hists[..., 2], pg, ph, pc,
                     num_bins_per_feature=nbpf, nan_bins=nanb,
                     is_categorical=iscat, feature_mask=fmask, cfg=cfg,
-                    parent_output=pout, cums=cums)
+                    parent_output=pout, rand_bins=rand, cums=cums)
     best = _select_from_tables(t, iscat, cfg)
     if not sorted_features.numel():
         return best, torch.zeros_like(best.is_cat)
     return merge_sorted_categorical(
         best, hists.index_select(1, sorted_features), pg, ph, pc, pout,
         features=sorted_features, num_bins_per_feature=nbpf,
-        feature_mask=fmask, cfg=cfg)
+        feature_mask=fmask, rand_bins=rand, cfg=cfg)
 
 
 # ------------------------------------------------ sorted many-vs-many scan
 def sorted_categorical(hists, parent_grad, parent_hess, parent_count,
-                       parent_output, in_feature, cfg: SplitConfig):
+                       parent_output, in_feature, cfg: SplitConfig,
+                       rand_bins=None):
     """The sorted many-vs-many scan (reference
     ``FindBestThresholdCategoricalInner``'s sorted branch; the JAX
     package's ``_sorted_categorical``) over K leaves at once: ``hists``
@@ -479,7 +502,11 @@ def sorted_categorical(hists, parent_grad, parent_hess, parent_count,
     cat_smooth)`` (a stable sort, the rest after them); prefixes of at
     most ``max_cat_threshold`` bins are scanned from both ends, a
     candidate each time ``min_data_per_group`` rows have gathered since
-    the last; children use ``lambda_l2 + cat_l2``.  Returns per (leaf,
+    the last; children use ``lambda_l2 + cat_l2``.  ``rand_bins`` (F,)
+    or (K, F) (extra_trees): in both directions only the position
+    ``rand_bins % max_thr`` is a candidate, ``max_thr`` = ``max(min(
+    max_num_cat, used) - 1, 0) + 1`` (a negative entry: every position).
+    Returns per (leaf,
     feature) ``(gain, cat_mask (K, F, B), gl, hl, cl)``; gain is the
     children's sum (the caller subtracts the parent's).
 
@@ -542,6 +569,12 @@ def sorted_categorical(hists, parent_grad, parent_hess, parent_count,
             jump = torch.gather(jump, -1, jump)
     emit = torch.zeros_like(nxt).scatter_(
         -1, torch.where(seen > 0, nxt, K), 1)[..., :K] > 0
+    if rand_bins is not None:
+        rb = rand_bins.reshape(-1, f).expand(k_, f)[..., None]  # (K, F, 1)
+        max_thr = torch.clamp(torch.minimum(max_num_cat, used) - 1,
+                              min=0) + 1
+        pos = (rb % max_thr)[..., None]
+        emit = emit & ((iidx == pos) | (rb < 0)[..., None])
     gain = (child_gain(cg, ch, cc, po, cfg, cfg.cat_l2)
             + child_gain(pg - cg, ph - ch, pc - cc, po, cfg, cfg.cat_l2))
     gain = torch.where(emit, gain, _NEG_INF).reshape(k_, f, 2 * K)
@@ -568,22 +601,25 @@ def sorted_feature_index(num_bins_per_feature, is_categorical,
 
 def sorted_winner(hists, parent_grad, parent_hess, parent_count,
                   parent_output, *, features, num_bins_per_feature,
-                  feature_mask, cfg: SplitConfig):
+                  feature_mask, cfg: SplitConfig, rand_bins=None):
     """Each leaf's best sorted categorical split: ``hists`` (K, S, B, 3)
     f32 are the histograms of the S columns ``features``
     (:func:`sorted_feature_index`), the per-feature meta is the full
-    (F,) one.  Returns ``(gain, feature, cat_mask (K, B), gl, hl, cl)``,
+    (F,) one, ``feature_mask`` and ``rand_bins`` (None) (F,) or (K, F).
+    Returns ``(gain, feature, cat_mask (K, B), gl, hl, cl)``,
     gain net of the parent shift (plain ``lambda_l2``: the reference
     computes it before adding ``cat_l2``) and ``-inf`` below
     ``min_gain_to_split`` or outside ``feature_mask``; the lowest feature
     wins ties."""
-    nbpf, fmask = (t.reshape(-1).index_select(0, features)
-                   for t in (num_bins_per_feature, feature_mask))
+    nbpf = num_bins_per_feature.reshape(-1).index_select(0, features)
+    fmask = feature_mask.index_select(-1, features)
+    if rand_bins is not None:
+        rand_bins = rand_bins.index_select(-1, features)
     b = hists.shape[2]
     in_feature = torch.arange(b, device=hists.device) < nbpf[:, None]
     s_gain, s_mask, s_gl, s_hl, s_cl = sorted_categorical(
         hists, parent_grad, parent_hess, parent_count, parent_output,
-        in_feature, cfg)
+        in_feature, cfg, rand_bins)
     s_gain = s_gain - _parent_gain(parent_grad, parent_hess, parent_output,
                                    cfg)[:, None]
     s_gain = torch.where((s_gain > cfg.min_gain_to_split + _EPS) & fmask,
@@ -600,7 +636,7 @@ def merge_sorted_categorical(best: BestSplit, hists, parent_grad,
     """:func:`sorted_winner` on K leaves' (K, S, B, 3) histograms of the
     sorted columns, taken where it beats ``best`` (a BestSplit of (K,)
     fields) strictly: the JAX package's ``_merge_sorted_categorical``
-    without its CEGB, feature_contri and extra_trees branches.  Returns
+    without its CEGB and feature_contri branches.  Returns
     (the merged BestSplit, (K,) bool: where the sorted winner was
     taken)."""
     sg, sf, mask, gl, hl, cl = sorted_winner(

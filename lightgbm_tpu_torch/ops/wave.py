@@ -34,6 +34,15 @@ no candidate and the payload is not read: the grower takes the child
 histograms and scans them in feature space (``ops/bundle.py``); the
 unfused step builds the histograms alone (``wave_children``).
 
+Per-node inputs (``extra_trees``, ``feature_fraction_bynode``): the
+optional ``node`` table, (W, 2, F) int32, one row a child: ``NODE_OFF``
+(-2) the feature has no candidate in that child, ``NODE_ALL`` (-1) every
+threshold, b >= 0 only bin b (``ops/split.py``'s ``rand_bins``
+encoding, of which -2 is the feature mask).  Both of the kernel's scans
+read it, one entry a (child, feature); None is no table.  The TPU
+kernel takes one static feature mask a wave, so the JAX package runs
+these options unfused.
+
 The TPU kernel's VMEM layout (``wave_layout``), lane padding, the
 gathered ``(W, S, ct)`` row copy and the packed4 nibble-plane order with
 its original-order tie-break keys have no counterpart: the kernel reads
@@ -63,6 +72,10 @@ from .split import (BestSplit, SplitConfig, _EPS, scan_tables,
 PAYLOAD_SCALARS = 16
 #: per-child stat lanes: [pg, ph, pc, parent_out, small_left, active, 0, 0]
 STAT_LANES = 8
+#: node table entries: the feature has no candidate / every threshold
+#: (b >= 0: only bin b)
+NODE_OFF = -2
+NODE_ALL = -1
 
 #: kernel launches made by ``fused_wave_call`` (one per wave; plain
 #: ints), per mode
@@ -137,13 +150,26 @@ def merge_sorted_payload(pay: torch.Tensor, hists: torch.Tensor,
     return torch.where(better[:, None], cand, pay)
 
 
-def _child_payload(hist, st, meta, cfg: SplitConfig, num_bins: int):
+def node_table(feature_mask, rand_bins=None) -> torch.Tensor:
+    """(..., F) int32 node table rows from a child's (..., F) bool feature
+    mask and, under extra_trees, its random bins (else every threshold)."""
+    keep = (torch.full(feature_mask.shape, NODE_ALL, dtype=torch.int32,
+                       device=feature_mask.device)
+            if rand_bins is None else rand_bins.to(torch.int32))
+    return torch.where(feature_mask, keep, NODE_OFF)
+
+
+def _child_payload(hist, st, meta, cfg: SplitConfig, num_bins: int,
+                   node=None):
     G, H, C = hist[..., 0], hist[..., 1], hist[..., 2]
+    fmask = meta[:, 3] > 0
+    if node is not None:
+        fmask = fmask & (node != NODE_OFF)
     t = scan_tables(G, H, C, st[0], st[1], st[2],
                     num_bins_per_feature=meta[:, 0], nan_bins=meta[:, 1],
                     is_categorical=meta[:, 2] > 0,
-                    feature_mask=meta[:, 3] > 0, cfg=cfg,
-                    parent_output=st[3])
+                    feature_mask=fmask, cfg=cfg,
+                    parent_output=st[3], rand_bins=node)
     (gain, bf, bb, dl, ic, GL, HL, CL, GR, HR,
      CR) = select_payload(t, meta[:, 2] > 0, cfg)
     gain = torch.where(st[5] > 0.5, gain, float("-inf"))
@@ -185,9 +211,10 @@ def wave_children(bins, vals, perm, small_start: Sequence[int],
 def wave_plain(bins, vals, perm, small_start: Sequence[int],
                small_cnt: Sequence[int], parent, stats, meta,
                cfg: SplitConfig, num_bins: int, histogram=None,
-               scale3=None, packed4: bool = False):
+               scale3=None, packed4: bool = False, node=None):
     """The plain version: returns ``(child_hists (W, 2, F, B, 3),
-    payload (W, 2, PAYLOAD_SCALARS + B))``.  ``histogram(bins, vals)``
+    payload (W, 2, PAYLOAD_SCALARS + B))``; ``node`` the (W, 2, F) node
+    table or None.  ``histogram(bins, vals)``
     builds each smaller sibling from its rows of ``bins`` (default: the
     plain ``histogram_segment``, which unpacks ``packed4`` bins; the
     grower's unfused step passes its histogram impl, which knows its
@@ -200,7 +227,8 @@ def wave_plain(bins, vals, perm, small_start: Sequence[int],
     hists = wave_children(bins, vals, perm, small_start, small_cnt, parent,
                           stats, histogram)
     pays = [torch.stack([_child_payload(scale_hist(hists[w, c], scale3),
-                                        stats[w, c], meta, cfg, num_bins)
+                                        stats[w, c], meta, cfg, num_bins,
+                                        None if node is None else node[w, c])
                          for c in range(2)])
             for w in range(parent.shape[0])]
     return hists, torch.stack(pays)
@@ -249,7 +277,7 @@ def fused_wave_call(bins: torch.Tensor, vals: torch.Tensor,
                     small_cnt: Sequence[int], parent: torch.Tensor,
                     stats: torch.Tensor, meta: torch.Tensor,
                     cfg: SplitConfig, num_bins: int, scale3=None,
-                    packed4: bool = False, max_level: int = 127):
+                    packed4: bool = False, max_level: int = 127, node=None):
     """One wave of W leaves -> ``(child_hists, payload)``.
 
     ``bins`` (N, F) uint8 (at most 256 bins) or uint16 (at most 65,536),
@@ -259,13 +287,15 @@ def fused_wave_call(bins: torch.Tensor, vals: torch.Tensor,
     ``small_start``/``small_cnt`` host ints of each smaller sibling's perm
     range; ``parent`` (W, F, B, 3) f32 (int32 in int8 mode); ``stats``
     (W, 2, STAT_LANES) f32; ``meta`` (F, 4) int32 (``wave_meta``);
-    ``scale3`` (3,) f32 channel scales, int8 mode only."""
+    ``scale3`` (3,) f32 channel scales, int8 mode only; ``node`` None or
+    the (W, 2, F) int32 node table."""
     w = parent.shape[0]
     f = meta.shape[0]
     if (parent.shape != (w, f, num_bins, 3) or stats.shape != (w, 2, STAT_LANES)
             or meta.shape != (f, 4) or bins.dim() != 2
             or len(small_start) != w or len(small_cnt) != w
             or (scale3 is not None and scale3.shape != (3,))
+            or (node is not None and node.shape != (w, 2, f))
             or check_layout(bins, num_bins, packed4, f) != f):
         raise ValueError(
             f"wave shapes: bins {tuple(bins.shape)}, parent "
@@ -274,7 +304,8 @@ def fused_wave_call(bins: torch.Tensor, vals: torch.Tensor,
     int8 = vals.dtype == torch.int8
     if int8 != (scale3 is not None):
         raise ValueError("int8 values go with scale3, f32 values without")
-    for t in (vals, perm, parent, stats, meta) + ((scale3,) if int8 else ()):
+    for t in ((vals, perm, parent, stats, meta) + ((scale3,) if int8 else ())
+              + (() if node is None else (node,))):
         if t.device != bins.device:
             raise ValueError("wave operands must share one device")
     if int8:
@@ -282,15 +313,15 @@ def fused_wave_call(bins: torch.Tensor, vals: torch.Tensor,
     if bins.device.type == "cpu":
         return wave_plain(bins, vals, perm, small_start, small_cnt, parent,
                           stats, meta, cfg, num_bins, scale3=scale3,
-                          packed4=packed4)
+                          packed4=packed4, node=node)
     if bins.device.type != "cuda":
         raise ValueError(f"unsupported device {bins.device}")
     return _launch(bins, vals, perm, small_start, small_cnt, parent, stats,
-                   meta, cfg, num_bins, scale3, packed4)
+                   meta, cfg, num_bins, scale3, packed4, node)
 
 
 def _launch(bins, vals, perm, small_start, small_cnt, parent, stats, meta,
-            cfg: SplitConfig, num_bins: int, scale3, packed4: bool):
+            cfg: SplitConfig, num_bins: int, scale3, packed4: bool, node):
     from ._build import load_library
     int8 = scale3 is not None
     hist_t = torch.int32 if int8 else torch.float32
@@ -299,11 +330,12 @@ def _launch(bins, vals, perm, small_start, small_cnt, parent, stats, meta,
     if bins.dtype not in (torch.uint8, torch.uint16) or not val_ok \
             or perm.dtype != torch.int32 or parent.dtype != hist_t \
             or stats.dtype != torch.float32 or meta.dtype != torch.int32 \
-            or (int8 and scale3.dtype != torch.float32):
+            or (int8 and scale3.dtype != torch.float32) \
+            or (node is not None and node.dtype != torch.int32):
         raise ValueError("wave kernel dtypes: uint8 or uint16 bins, f32 or "
                          "bf16 vals with f32 parent (int8 vals, int32 parent "
                          "and f32 scale3 in int8 mode), f32 stats, int32 "
-                         "perm/meta")
+                         "perm/meta/node")
     lib = load_library()
     w = parent.shape[0]
     f = meta.shape[0]
@@ -328,15 +360,17 @@ def _launch(bins, vals, perm, small_start, small_cnt, parent, stats, meta,
             cfg.min_gain_to_split + _EPS, cfg.max_delta_step,
             cfg.path_smooth, int(cfg.has_nan), int(cfg.has_categorical),
             int(cfg.max_cat_to_onehot))
+    node = None if node is None else node.contiguous()
     head = (bins.data_ptr(), vals.data_ptr(), perm.data_ptr(), f, num_bins,
             seg.data_ptr(), w, total_chunks, chunk_rows, parent.data_ptr(),
-            stats.data_ptr(), meta.data_ptr())
+            stats.data_ptr(), meta.data_ptr(),
+            None if node is None else node.data_ptr())
     tail = (scratch.data_ptr(), out_hist.data_ptr(), payload.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     with torch.cuda.device(dev):
         if int8:
             fpb, _, tile, _ = int8_shape(f, num_bins, wide)
-            head = (*head[:9], fpb, tile, *head[9:])
+            head = (*head[:9], fpb, tile, *head[9:])   # node: argument 14
             scale3 = scale3.contiguous()
             mid = (scale3.data_ptr(), *scan)
             err = (lib.lgbt_wave_i8_u16(*head, *mid, *tail) if wide

@@ -16,6 +16,7 @@ import pytest
 from torch_port_util import higgs_like, messy_data
 
 from lightgbm_tpu_torch import binning as tb
+from torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _datasets():

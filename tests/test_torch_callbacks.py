@@ -39,6 +39,7 @@ from torch_port_util import higgs_like
 
 import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch import callback as PC
+from torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

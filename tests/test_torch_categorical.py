@@ -45,6 +45,7 @@ import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch.ops import split as S
 from torch_port_util import (assert_same_tree, exact_grads, jax_grow,
                              port_grow, pow2_scale_grads)
+from torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 
 # the reference; absent where the card runs (its cuda tests live in
 # files that do not import JAX)

@@ -22,6 +22,7 @@ import pytest
 from torch_port_util import higgs_like
 
 import lightgbm_tpu_torch as lgt
+from torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 
 MEAN_TOL, STDV_TOL = 1e-3, 2e-3
 

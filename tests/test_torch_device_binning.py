@@ -13,6 +13,7 @@ from torch_port_util import messy_data
 
 from lightgbm_tpu_torch import binning as tb
 from lightgbm_tpu_torch.serve import device_binning as tdb
+from torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 
 _EDGE_NUM = [0.0, -0.0, np.nan, 1e-36, -1e-36, 1e-35, -1e-35, 9.99e-36,
              5e-324, -5e-324, 1e300, -1e300, np.inf, -np.inf]

@@ -47,19 +47,9 @@ from lightgbm_tpu_torch import binning as PB
 from lightgbm_tpu_torch.metrics import auc
 from lightgbm_tpu_torch.ops import histogram_flat as HF
 from lightgbm_tpu_torch.ops import wave as WV
+from torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 
 P = {"objective": "binary", "num_leaves": 31}
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Each test runs torch on one host thread: a grower is thousands of
-    small ops, which several threads a process only slow down when the
-    suite's workers share the machine."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _onehot_data(n=6000, blocks=4, card=12, dense=6, seed=0):

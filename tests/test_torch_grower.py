@@ -58,6 +58,7 @@ from torch_port_util import (TREE_FIELDS, assert_same_tree,  # noqa: F401
 from lightgbm_tpu_torch.models import grower as PG
 from lightgbm_tpu_torch.ops import histogram_flat as HF
 from lightgbm_tpu_torch.ops import wave as WV
+from torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 
 P = {"objective": "binary", "num_leaves": 31}
 

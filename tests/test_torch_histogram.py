@@ -53,6 +53,7 @@ from lightgbm_tpu_torch.ops.histogram import (histogram_chunked,
                                               subtract_histogram,
                                               unpack_bins4)
 from lightgbm_tpu_torch.ops.quantize import max_level
+from torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 
 # (rows, features, bins): N not a multiple of any block, N = 1, F = 1
 SHAPES = [(1, 28, 255), (1, 1, 4), (777, 3, 17), (3001, 5, 64),

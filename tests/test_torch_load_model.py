@@ -42,6 +42,7 @@ from torch_port_util import cuda_device, higgs_like  # noqa: F401
 
 import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch.serialization import load_model_string
+from torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 
 FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 REF_MODEL = os.path.join(FIX, "ref_model.txt")

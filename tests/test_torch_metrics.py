@@ -17,6 +17,7 @@ import pytest
 
 from lightgbm_tpu_torch import metrics as PM
 from lightgbm_tpu_torch.config import Config as PConfig
+from torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

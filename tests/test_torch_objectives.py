@@ -47,6 +47,7 @@ from lightgbm_tpu_torch.config import Config as PConfig
 from lightgbm_tpu_torch.ops.quantize import (discretize_gradients,
                                              gradient_scales,
                                              quant_generator)
+from torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

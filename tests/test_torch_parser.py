@@ -30,6 +30,7 @@ import pytest
 
 import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch.io import parser as PP
+from torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 
 EXAMPLE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "examples", "binary_classification",

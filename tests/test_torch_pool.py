@@ -31,19 +31,10 @@ from torch_port_util import (assert_same_tree, cuda_device,  # noqa: F401
 import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch.models.grower import (GrowerConfig, make_grower,
                                               pool_active_for)
+from torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 
 P = {"objective": "binary", "num_leaves": 31}
 QUANT = dict(quantized=True, stochastic_rounding=False)
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Each test runs torch on one host thread (a grower is thousands of
-    small ops)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _pool_data(n=4 * 2560, f=12):

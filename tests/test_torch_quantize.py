@@ -21,6 +21,7 @@ import torch
 
 from lightgbm_tpu_torch.ops import histogram_flat as HF
 from lightgbm_tpu_torch.ops import quantize as PQ
+from torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _jax_q():

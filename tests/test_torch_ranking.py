@@ -40,6 +40,7 @@ from lightgbm_tpu_torch import metrics as PM
 from lightgbm_tpu_torch.config import Config as PConfig
 from lightgbm_tpu_torch.objectives import create_objective
 from lightgbm_tpu_torch.ranking import xendcg_grads
+from torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLE = os.path.join(ROOT, "examples", "lambdarank")

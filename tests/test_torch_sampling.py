@@ -40,6 +40,7 @@ from lightgbm_tpu_torch.config import Config as PConfig
 from lightgbm_tpu_torch.metrics import auc
 from lightgbm_tpu_torch.sampling import (FeatureSampler, SampleStrategy,
                                          goss_generator, goss_mask_device)
+from torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,7 @@ from torch_port_util import P, cuda_device, messy_data, state_from_booster  # no
 
 from lightgbm_tpu_torch import Predictor, model_from_arrays
 from lightgbm_tpu_torch.serve import cache_stats, clear_plan_cache
+from torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 
 SIZES = (1, 31, 33, 100, 512)
 

@@ -18,6 +18,7 @@ import torch
 
 from lightgbm_tpu_torch.ops import split as S
 from torch_port_util import cuda_device  # noqa: F401
+from torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 
 F, B = 6, 16
 NBPF = np.array([16, 12, 16, 12, 4, 9], np.int32)

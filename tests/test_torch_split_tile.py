@@ -32,19 +32,10 @@ from torch_port_util import (assert_same_tree, cuda_device,  # noqa: F401
 
 import lightgbm_tpu_torch as lgt
 import lightgbm_tpu_torch.ops.split as S
+from torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 
 F, B, K = 300, 32, 6
 
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Each test runs torch on one host thread: the suite's workers share
-    the machine, and a scan of many small ops only slows down with more
-    threads than cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 BASE = dict(min_data_in_leaf=1, min_data_per_group=5, cat_smooth=1.0,
             max_cat_to_onehot=8)
 CFGS = {"default": {}, "l1_path_smooth": {"lambda_l1": 0.5,

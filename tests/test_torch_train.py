@@ -85,6 +85,7 @@ from torch_port_util import (cuda_device, grown_data,  # noqa: F401
 
 import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch.metrics import auc, binary_logloss
+from torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")
@@ -473,16 +474,17 @@ NO_OP = {"num_threads": 8, "deterministic": True, "force_col_wise": True,
          "output_model": "out.txt", "precise_float_parser": True,
          "device_type": "gpu", "predict_raw_score": True,
          "pred_early_stop": True, "num_iteration_predict": 3,
-         "drop_rate": 0.2, "linear_lambda": 0.5, "extra_seed": 11,
+         "drop_rate": 0.2, "linear_lambda": 0.5,
          "tpu_hist_comm": "allreduce", "refit_decay_rate": 0.5}
 
 #: keys that were no-ops until slice 13 and are now read by sampling and
-#: ranking, and the sorted categorical keys read since slice 15: inert in
-#: a binary run without sampling or categorical features
+#: ranking, the sorted categorical keys read since slice 15 and
+#: extra_seed, read since slice 18 (by extra_trees): inert in a binary
+#: run without sampling, categorical features or per-node draws
 SORTED_CAT_KEYS = {"cat_l2": 3.0, "cat_smooth": 150.0, "max_cat_threshold": 3,
                    "min_data_per_group": 400}
 INERT_HERE = {"bagging_seed": 9, "top_rate": 0.3, "lambdarank_norm": False,
-              "tpu_device_goss": "on", "objective_seed": 2,
+              "tpu_device_goss": "on", "objective_seed": 2, "extra_seed": 11,
               **SORTED_CAT_KEYS}
 
 
@@ -637,12 +639,13 @@ def test_refused_values_name_their_item(extra, item):
         lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu")
 
 
-#: entries of UNSUPPORTED that train since slices 13 and 17 (ROADMAP
-#: A8.2, A8.3, A8.5)
+#: entries of UNSUPPORTED that train since slices 13, 17 and 18 (ROADMAP
+#: A8.2, A8.3, A8.5, A8.7a)
 PORTED = [{"objective": "lambdarank"},
           {"bagging_fraction": 0.5, "bagging_freq": 1},
           {"data_sample_strategy": "goss"}, {"feature_fraction": 0.5},
-          {"histogram_pool_size": 64}]
+          {"histogram_pool_size": 64}, {"feature_fraction_bynode": 0.5},
+          {"extra_trees": True}]
 
 
 @pytest.mark.parametrize("extra", UNSUPPORTED,
@@ -654,9 +657,10 @@ def test_unsupported_params_raise(extra):
     params = {"objective": "binary", "verbosity": -1, **extra}
     if extra in PORTED:
         # trains now: lambdarank over query groups, sampling over rows
-        # and features, the histogram pool (tests/test_torch_ranking.py,
-        # test_torch_sampling.py and test_torch_pool.py hold them to the
-        # JAX package)
+        # and features, the histogram pool, per-node draws
+        # (tests/test_torch_ranking.py, test_torch_sampling.py,
+        # test_torch_pool.py and test_torch_extra_trees.py hold them to
+        # the JAX package)
         group = np.full(30, 10) if extra.get("objective") else None
         label = np.clip(np.round(X[:, 0] + 1), 0, 3) if group is not None \
             else y

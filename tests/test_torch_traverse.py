@@ -29,6 +29,7 @@ from torch_port_util import P, cuda_device, messy_data, state_from_booster  # no
 from lightgbm_tpu_torch import model_from_arrays
 from lightgbm_tpu_torch.models import tree as tt
 from lightgbm_tpu_torch.ops import traverse
+from torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

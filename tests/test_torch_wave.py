@@ -50,6 +50,7 @@ from lightgbm_tpu_torch.ops import wave as WV
 from lightgbm_tpu_torch.ops.histogram import (histogram_segment, pack_bins4,
                                               unpack_bins4)
 from lightgbm_tpu_torch.ops.split import SplitConfig
+from torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 
 
 #: int8 mode channel scales: powers of two (every scaled sum exact), and

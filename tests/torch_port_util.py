@@ -31,6 +31,18 @@ def higgs_like(n, f, seed=0):
     return X, y
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Autouse in every tests/test_torch_*.py (imported there): each test
+    runs torch on one host thread.  A grower is thousands of small ops,
+    which several threads a process only slow down when the suite's
+    workers share the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 #: tests/test_serve_quantize.py's booster parameters
 P = {"objective": "binary", "num_leaves": 15, "min_data_in_leaf": 5,
      "verbosity": -1, "categorical_feature": "4"}

@@ -31,10 +31,18 @@ once with the JAX package on the CPU:
   tpu_leaf_batch 16) with metric ndcg at eval_at 1, 3, 5 on the holdout:
   lambdarank 15 iterations, rank_xendcg 10.
 
+Each seeded run also records its holdout AUC after every iteration
+(``holdout_auc_history_by_seed``), so the card may run fewer iterations
+and be held to the mean at the same iteration.  ``--seed-histories``
+adds those histories to an existing fixture: it reruns only the seeded
+runs, requires each run's last AUC to equal the stored one bit for bit,
+and leaves every other value as it is (~30 min on 8 CPU cores).
+
 chip_smoke.py carries copies of ``make_higgs_like`` and
 ``make_msltr_like``; keep them in step with this file.
 """
 
+import argparse
 import json
 import os
 import platform
@@ -125,7 +133,15 @@ def cpu_name():
     return platform.processor() or platform.machine()
 
 
+FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_sampling_ref.json")
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed-histories", action="store_true",
+                    help="add the seeded runs' per-iteration holdout AUCs "
+                         "to the existing fixture, every other value kept")
+    args = ap.parse_args()
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import lightgbm_tpu as lgb
     t_all = time.perf_counter()
@@ -144,6 +160,34 @@ def main():
         return (bst.num_trees(), [float(v) for v in hist["holdout"]["auc"]],
                 time.perf_counter() - t0)
 
+    def seeded(params):
+        """The runs at each of SAMPLING_SEEDS: (last AUCs, histories)."""
+        last, histories = [], []
+        for seed in SAMPLING_SEEDS:
+            _t, hs, sec = sampled_run(dict(
+                params, bagging_seed=seed, feature_fraction_seed=seed))
+            last.append(hs[-1])
+            histories.append(hs)
+            print(params.get("data_sample_strategy", "bagging"), "seed",
+                  seed, hs[-1], f"{sec:.1f}s", flush=True)
+        return last, histories
+
+    if args.seed_histories:
+        with open(FIXTURE) as fh:
+            out = json.load(fh)
+        for name in SEEDED_RUNS:
+            run = out["sampling"][name]
+            last, histories = seeded(run["params"])
+            if last != run["holdout_auc_by_seed"]:
+                raise SystemExit(f"{name}: the seeded runs' last AUCs {last} "
+                                 f"differ from the fixture's "
+                                 f"{run['holdout_auc_by_seed']}")
+            run["holdout_auc_history_by_seed"] = histories
+        with open(FIXTURE, "w") as fh:
+            json.dump(out, fh, indent=1)
+        print("->", FIXTURE, f"{time.perf_counter() - t_all:.1f}s")
+        return
+
     sampling = {}
     for name, extra in SAMPLING_RUNS:
         params = dict(base, **extra)
@@ -153,14 +197,10 @@ def main():
                           "history": history, "cpu_seconds": seconds}
         print(name, history[-1], f"{seconds:.1f}s", flush=True)
         if name in SEEDED_RUNS:
-            by_seed = []
-            for seed in SAMPLING_SEEDS:
-                _t, hs, sec = sampled_run(dict(
-                    params, bagging_seed=seed, feature_fraction_seed=seed))
-                by_seed.append(hs[-1])
-                print(name, "seed", seed, hs[-1], f"{sec:.1f}s", flush=True)
+            by_seed, histories = seeded(params)
             sampling[name].update(seeds=list(SAMPLING_SEEDS),
                                   holdout_auc_by_seed=by_seed,
+                                  holdout_auc_history_by_seed=histories,
                                   holdout_auc_mean=float(np.mean(by_seed)))
 
     t0 = time.perf_counter()
@@ -218,10 +258,9 @@ def main():
         "cv": cv,
         "ranking": ranking,
     }
-    path = os.path.join(ROOT, "tests", "fixtures", "torch_sampling_ref.json")
-    with open(path, "w") as fh:
+    with open(FIXTURE, "w") as fh:
         json.dump(out, fh, indent=1)
-    print("->", path, f"{out['cpu_seconds']:.1f}s")
+    print("->", FIXTURE, f"{out['cpu_seconds']:.1f}s")
 
 
 if __name__ == "__main__":

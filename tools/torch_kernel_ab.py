@@ -60,14 +60,44 @@ HIST_MODES = ("f32", "bf16", "int8", "f32_packed4", "bf16_packed4",
 ALL_MODES = HIST_MODES + cs.U16_MODES
 
 
-class FirstDesignInt8:
+class NoNodeTable:
+    """A library built before the wave kernel took a node table (slices
+    1-17) behind this tree's wave entry points: the node table argument
+    (``_build.NODE_ARG``) is dropped, and must be None (the default path,
+    the one this tool times)."""
+
+    def __init__(self, lib):
+        from lightgbm_tpu_torch.ops._build import NODE_ARG, SIGNATURES
+        self._lib = lib
+        self._name = lib._name
+        for name, i in NODE_ARG.items():
+            if hasattr(lib, name):
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = SIGNATURES[name][:i] + SIGNATURES[name][i + 1:]
+
+    def __getattr__(self, name):
+        from lightgbm_tpu_torch.ops._build import NODE_ARG
+        fn = getattr(self._lib, name)
+        if name not in NODE_ARG:
+            return fn
+        i = NODE_ARG[name]
+
+        def call(*args):
+            if args[i] is not None:
+                raise ValueError(f"{self._name} takes no node table")
+            return fn(*args[:i], *args[i + 1:])
+        return call
+
+
+class FirstDesignInt8(NoNodeTable):
     """A library of slices 1-9 behind this tree's int8 entry points: its
     kernels chose their own block layout (the ``fpb`` and ``tile``
     arguments are dropped) and added into a zeroed output with global
     atomics, so its histograms take no chunk-partial scratch (the
     ``partial`` argument is dropped) and its waves take W smaller-sibling
     histograms as scratch (allocated here); every other entry point is
-    the library's own."""
+    the library's own, its waves without the node table (NoNodeTable)."""
 
     @staticmethod
     def _hist(args):
@@ -77,22 +107,19 @@ class FirstDesignInt8:
 
     @staticmethod
     def _wave(args):
-        """A wave's arguments without fpb and tile (9, 10)."""
-        return (*args[:9], *args[11:])
+        """A wave's arguments without fpb and tile (9, 10) and the node
+        table (14)."""
+        return (*args[:9], *args[11:14], *args[15:])
 
     def __init__(self, lib):
         from lightgbm_tpu_torch.ops._build import SIGNATURES
-        self._lib = lib
-        self._name = lib._name
+        super().__init__(lib)
         for name in ("lgbt_histogram_i8", "lgbt_histogram_i8_u16",
                      "lgbt_wave_i8", "lgbt_wave_i8_u16"):
             drop = self._wave if "wave" in name else self._hist
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
             fn.argtypes = list(drop(SIGNATURES[name]))
-
-    def __getattr__(self, name):
-        return getattr(self._lib, name)
 
     def lgbt_histogram_i8(self, *args):
         return self._lib.lgbt_histogram_i8(*self._hist(args))
@@ -105,6 +132,8 @@ class FirstDesignInt8:
         (4th from the end) replaced by W * F * B * 3 int32 (f, nbins and w
         are arguments 3, 4 and 6), kept alive on the instance."""
         import torch
+        if args[14] is not None:
+            raise ValueError(f"{self._name} takes no node table")
         args = self._wave(args)
         f, nbins, w = args[3], args[4], args[6]
         self._small = torch.empty(w * f * nbins * 3, dtype=torch.int32,
@@ -122,7 +151,8 @@ def build_other(csrc, label):
     """The sources in ``csrc`` built into their own library, bound with
     the port's ctypes signatures (those of its entry points it has: an
     older build lacks the uint16 ones; one of the first traversal and
-    int8 design, slices 1-9, is wrapped in FirstDesignInt8)."""
+    int8 design, slices 1-9, is wrapped in FirstDesignInt8, one whose
+    wave takes no node table, slices 10-17, in NoNodeTable)."""
     from lightgbm_tpu_torch.ops import _build
     srcs = sorted(glob.glob(os.path.join(os.path.abspath(csrc), "*.cu")))
     if not srcs:
@@ -135,6 +165,8 @@ def build_other(csrc, label):
     _build._bind(lib, only_present=True)
     if hasattr(lib, "lgbt_traverse_sums"):
         return FirstDesignInt8(lib)
+    if not hasattr(lib, "lgbt_wave_node_table"):
+        return NoNodeTable(lib)
     return lib
 
 
